@@ -6,21 +6,32 @@
 Phases, each of which raises on failure (non-zero exit, no result line):
 
 1. require a CUDA device, pin TF32 off, print the card and its power limit;
-2. build kernel B1 (``lynx_tpu_torch/csrc/window_histogram.cu``) with nvcc;
+2. build kernels B1-B4 (``lynx_tpu_torch/csrc/*.cu``), one nvcc each, all
+   started together;
 3. hold B1 against its plain PyTorch version on the card at the flagship
    shapes and at the edge cases (count mode exactly equal, weighted mode
-   within 1e-5 relative of the plain version in float64);
-4. drive the main path, the ARES EA track of a 100k-particle beam and the
-   2448 x 2040 read of screen AREABSCR1, at B = 1 (``functional.track`` and
-   ``Segment.track`` + ``reading``) and B = 8; check the images, that B1
-   served every read and that no read fell back, and hold the images
+   within 1e-5 relative of the plain version in float64); hold B2, B3 and
+   B4 against theirs at the main paths' shapes and at the edge cases, in
+   double and in float (bounds below);
+4. drive the flagship path, the ARES EA track of a 100k-particle beam and
+   the 2448 x 2040 read of screen AREABSCR1, at B = 1 (``functional.track``
+   and ``Segment.track`` + ``reading``) and B = 8; check the images, that
+   B1 served every read and that no read fell back, and hold the images
    against the port's CPU path on the same particles;
 5. time the flagship read and B1 with CUDA events;
-6. print the kernels' JSON line and, last, the ``{"ok": true, ...}`` line.
+6. path S, serving: the ARES-EA environment's ``batched_reset`` and 10
+   ``batched_step``s at B = 100,000 settings through B3; path T, training:
+   ``tuning.tune`` of (100,000, 5) settings for 10 Adam steps through B3
+   and B4; path P, the particle push: ``Segment.track`` of 100 settings x
+   10,000 particles through B2 and its gradient.  Each path runs with the
+   launch counts set to 0 just before it, reads them just after, and checks
+   that no plain version ran on a CUDA tensor;
+7. print the kernels' JSON line and, last, the ``{"ok": true, ...}`` line.
 
 It imports neither JAX nor ``lynx_tpu``.
 """
 
+import contextlib
 import copy
 import json
 import subprocess
@@ -33,6 +44,36 @@ WINDOW = (952, 256)  # the flagship kernel window, after swap and rounding
 # f32 transfer-map products in other orders, so a particle within an ulp of
 # a bin edge may land one bin over (each move adds 2 to the L1 distance).
 MAX_MOVED = 20
+
+SWEEP_BATCH = 100_000  # settings in paths S and T (the JAX package's bench sweep)
+SWEEP_STEPS = 10
+PUSH_BATCH, PUSH_PARTICLES = 100, 10_000  # path P
+KERNEL_LIBRARIES = ("window_histogram", "particle_apply", "moment_sweep", "moment_sweep_bwd")
+
+# Bounds of B2-B4 against their plain versions.  Errors are relative to the
+# largest entry of the compared quantity: per setting for moments and
+# particles, over the batch for a parameter's cotangent.
+# Double against double differ only in rounding order (and FMA contraction).
+DOUBLE_RTOL = 1e-12
+# Float kernels against the double plain version on the same (rounded)
+# inputs: float rounding through ~10 composed maps with entries up to ~30.
+FLOAT_RTOL = {"B2": 1e-5, "B3": 1e-5, "B4 moments": 1e-4, "B4 values": 1e-3}
+# d/dk1 near k1 = 0: the reference formula's derivative cancels there
+# (L cos(kL) - sin(kL)/k, absolute error ~ eps L / |k1|; at k1 = 0 the
+# 1e-12 perturbation gives kL ~ 1e-7), so forward mode (B4) and reverse
+# mode (the plain version) agree only to a few per cent of the entry in
+# double at k1 = 0 (the cancelling difference, ~6e-16 L, carries ~2e-17 L of
+# rounding) and share no digit in float at |k1| < ~1e-2.  Entries with
+# |k1| < K1_SMALL are held apart: in double to K1_SMALL_RTOL of the entry,
+# in float only to being finite.
+K1_SMALL = 0.05  # 1/m^2
+K1_SMALL_RTOL = 0.1
+# Path S: observations of the GPU route (B3, float) against the CPU dense
+# route (float), relative to each observed column's largest |value|.
+OBS_RTOL = 1e-4
+# Path T: the first step's gradient through B3/B4 (float) against autograd
+# of the plain version in double, relative to each column's largest |value|.
+GRAD_RTOL = 1e-3
 
 
 def time_cuda(torch, fn, iters, warmup=3):
@@ -50,9 +91,10 @@ def time_cuda(torch, fn, iters, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def device_time_ms(torch, fn, iters):
-    """Milliseconds of device kernel time per call of ``fn`` (all kernels it
-    issues, summed), from ``torch.profiler``; raises if it traced none."""
+def device_time_ms(torch, fn, iters, kernel=None):
+    """Milliseconds of device time per call of ``fn`` (all kernels it issues,
+    summed), from ``torch.profiler``; raises if it traced none.  With
+    ``kernel``, also the time of the kernels whose name contains it."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -61,14 +103,17 @@ def device_time_ms(torch, fn, iters):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(
-        event.self_device_time_total
-        for event in prof.key_averages()
+    events = [
+        event for event in prof.key_averages()
         if event.device_type == torch.autograd.DeviceType.CUDA
-    )
+    ]
+    total_us = sum(event.self_device_time_total for event in events)
     if total_us <= 0:
         raise AssertionError("torch.profiler traced no device time")
-    return total_us / iters / 1e3
+    if kernel is None:
+        return total_us / iters / 1e3
+    own_us = sum(event.self_device_time_total for event in events if kernel in event.key)
+    return total_us / iters / 1e3, own_us / iters / 1e3
 
 
 def flagship(torch, ares, ParticleBeam, batch, device, seed):
@@ -143,6 +188,595 @@ def check_kernel_cases(torch, hist):
     return worst
 
 
+# -- the batched-settings sweep: kernels B2, B3, B4 -----------------------------
+
+
+def relative_error(torch, actual, expected, per_setting=True, exclude=None):
+    """Max |actual - expected| relative to the largest |expected|: per
+    setting (leading axis) or over the whole tensor; ``exclude`` masks
+    settings out."""
+    a, e = actual.detach().double(), expected.detach().double()
+    if exclude is not None and e.dim():
+        a, e = a[~exclude], e[~exclude]
+    if e.numel() == 0:
+        return 0.0
+    if per_setting and e.dim():
+        a, e = a.reshape(e.shape[0], -1), e.reshape(e.shape[0], -1)
+        scale = e.abs().amax(dim=1).clamp_min(1e-300)
+        return float(((a - e).abs().amax(dim=1) / scale).max())
+    return float((a - e).abs().max() / e.abs().max().clamp_min(1e-300))
+
+
+def sweep_lattice(torch, ltt, B, k1=None, static=False, seed=0):
+    """A run over every ported element type on the card, float64: a
+    quadrupole with per-setting k1 (default: |k1| from 0.5 to 5, alternating
+    sign), tilt and misalignment, correctors and drifts, static (hoisted)
+    neighbours, a marker and an inactive screen.  ``static`` makes every
+    element batch-invariant."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def u(low, high, *shape):
+        x = low + (high - low) * torch.rand(shape, generator=gen, dtype=torch.float64)
+        return x.cuda()
+
+    f64 = dict(dtype=torch.float64, device="cuda")
+    n = 1 if static else B
+    if k1 is None:
+        sign = 1.0 - 2.0 * (torch.arange(n, device="cuda") % 2)
+        k1 = torch.linspace(0.5, 5.0, n, **f64) * sign
+    return [
+        ltt.Marker(**f64),
+        ltt.Drift(torch.tensor([0.5], **f64), **f64),
+        ltt.Quadrupole(torch.full((n,), 0.23, **f64), k1=k1, tilt=u(-0.2, 0.2, n),
+                       misalignment=u(-2e-4, 2e-4, n, 2), **f64),
+        ltt.Drift(torch.tensor([0.3], **f64), **f64),
+        ltt.HorizontalCorrector(torch.full((n,), 0.1, **f64), angle=u(-1e-3, 1e-3, n), **f64),
+        ltt.VerticalCorrector(torch.tensor([0.1], **f64), angle=torch.tensor([2e-4], **f64), **f64),
+        ltt.Quadrupole(torch.tensor([0.2], **f64), k1=torch.tensor([3.0], **f64),
+                       tilt=torch.tensor([0.05], **f64), **f64),
+        ltt.Drift(u(0.1, 0.6, n), **f64),
+        ltt.Screen(**f64),
+    ]
+
+
+def random_moments(torch, B, gen):
+    mu = torch.cat(
+        [1e-4 * torch.randn((B, 6), generator=gen, dtype=torch.float64, device="cuda"),
+         torch.ones((B, 1), dtype=torch.float64, device="cuda")], dim=1)
+    a = 1e-4 * torch.randn((B, 7, 7), generator=gen, dtype=torch.float64, device="cuda")
+    a[:, 6, :] = 0.0
+    return mu, a @ a.transpose(1, 2)
+
+
+def sweep_cases(torch, ltt, fused, env):
+    """(label, entries, values, energy) of the B3/B4 checks, float64 on the
+    card."""
+    cases = []
+
+    def add(label, elements, B, energy):
+        plan = fused.plan_run(
+            [fused.element_map_builder(el) for el in elements], energy,
+            lambda x: torch.broadcast_to(x, (B,)).reshape(B),
+        )
+        entries = tuple((kind, meta, len(values)) for kind, meta, values in plan)
+        values = [v.double() for _, _, vs in plan for v in vs]
+        full = torch.broadcast_to(energy, (B,)).double().contiguous()
+        cases.append((label, entries, values, full))
+
+    f64 = dict(dtype=torch.float64, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    magnets = torch.rand((SWEEP_BATCH, 5), generator=gen, device="cuda") * 2 - 1
+    tuned = env._batched_tuned_segment(magnets)
+    add(f"path S/T plan, B={SWEEP_BATCH}", list(tuned.flattened().elements), SWEEP_BATCH,
+        torch.tensor([1.073e8], **f64))
+    add("ragged B=1037, tilt and misalignment", sweep_lattice(torch, ltt, 1037), 1037,
+        torch.tensor([1.073e8], **f64))
+    add("k1 = 0 on every setting", sweep_lattice(torch, ltt, 256, k1=torch.zeros(256, **f64)),
+        256, torch.tensor([1.073e8], **f64))
+    add("batched energy (every entry dynamic)", sweep_lattice(torch, ltt, 300), 300,
+        torch.linspace(0.9e8, 1.2e8, 300, **f64))
+    add("all-const plan", sweep_lattice(torch, ltt, 300, static=True), 300,
+        torch.tensor([1.073e8], **f64))
+    cases.append(("empty plan", (), [], torch.full((129,), 1.073e8, **f64)))
+    return cases
+
+
+def quad_k1_slots(ft, entries):
+    """Indices of the flat values that are a dynamic quadrupole's k1."""
+    slots, offset = set(), 0
+    for kind, meta, count in entries:
+        if kind == "dyn" and getattr(meta, "tape_kind", None) == ft.TAPE_QUAD:
+            slots.add(offset + 1)
+        offset += count
+    return slots
+
+
+def cotangent_errors(torch, ft, entries, values, kernel, plain, k1_rtol):
+    """Worst relative errors (values, moments, small-k1 entries) of B4's
+    cotangents against
+    the plain version's.  A dynamic parameter's cotangent is held relative
+    to the setting's largest parameter cotangent (units differ, as between
+    the moments' entries, and some, such as d/dtilt of a quadrupole at
+    k1 = 0, vanish); const-cell cotangents, summed over the batch, relative
+    to the largest of them.  d/dk1 entries with |k1| < K1_SMALL are held
+    apart: to ``k1_rtol`` of the entry, or, if that is None, to being
+    finite."""
+    k_values, *k_rest = kernel
+    p_values, *p_rest = plain
+    if not bool(all(torch.isfinite(t).all() for t in [*k_values, *k_rest])):
+        raise AssertionError("B4: a cotangent is not finite")
+    slots = quad_k1_slots(ft, entries)
+    kinds = [kind for kind, _, count in entries for _ in range(count)]
+    dyn_errors, dyn_scales, const_errors, const_scales = [], [], [], []
+    worst_small = 0.0
+    for index, (got, want) in enumerate(zip(k_values, p_values)):
+        want = want.reshape(got.shape).double()
+        error = (got.double() - want).abs()
+        if kinds[index] == "const":
+            const_errors.append(error.max())
+            const_scales.append(want.abs().max())
+            continue
+        if index in slots:
+            small = values[index].abs() < K1_SMALL
+            if bool(small.any()):
+                ratio = float((error[small] / want.abs()[small].clamp_min(1e-300)).max())
+                worst_small = max(worst_small, ratio)
+                if k1_rtol is not None and ratio > k1_rtol:
+                    raise AssertionError(
+                        f"B4: d/dk1 at |k1| < {K1_SMALL} is {ratio:.2e} of the entry off"
+                        f" (bound {k1_rtol})"
+                    )
+            error = torch.where(small, 0.0, error)
+        dyn_errors.append(error)
+        dyn_scales.append(want.abs())
+    worst_values = 0.0
+    if dyn_errors:
+        scale = torch.stack(dyn_scales, dim=1).amax(dim=1).clamp_min(1e-300)
+        worst_values = float((torch.stack(dyn_errors, dim=1).amax(dim=1) / scale).max())
+    if const_errors:
+        scale = float(torch.stack(const_scales).max().clamp_min(1e-300))
+        worst_values = max(worst_values, float(torch.stack(const_errors).max()) / scale)
+    worst_moments = max(relative_error(torch, g, w) for g, w in zip(k_rest, p_rest))
+    return worst_values, worst_moments, worst_small
+
+
+def check_sweep_kernels(torch, ltt, ft, fused, env):
+    """Phase 3: B3 and B4 against their plain versions on the card.  Returns
+    B3's and B4's max |error| in float at the paths' shape."""
+    worst_abs = {}
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    for label, entries, values, energy in sweep_cases(torch, ltt, fused, env):
+        B = energy.shape[0]
+        mu, cov = random_moments(torch, B, gen)
+        dmu = torch.randn((B, 7), generator=gen, dtype=torch.float64, device="cuda")
+        dcov = torch.randn((B, 7, 7), generator=gen, dtype=torch.float64, device="cuda")
+        args = (entries, values, energy, mu, cov)
+
+        # double against double
+        kernel, plain = ft.moment_sweep(*args), ft._table_reference_sweep(*args)
+        b3 = max(relative_error(torch, k, p) for k, p in zip(kernel, plain))
+        b4 = cotangent_errors(
+            torch, ft, entries, values, ft.moment_sweep_bwd(*args, dmu, dcov),
+            ft._reference_sweep_vjp(*args, dmu, dcov), K1_SMALL_RTOL,
+        )
+        torch.cuda.synchronize()
+        if b3 > DOUBLE_RTOL or max(b4[:2]) > DOUBLE_RTOL:
+            raise AssertionError(f"B3/B4 in double exceed {DOUBLE_RTOL}: {label}: {b3}, {b4}")
+
+        # float against double, on the same rounded inputs
+        f32 = [values, energy, mu, cov, dmu, dcov]
+        f32 = [[v.float() for v in f32[0]]] + [t.float() for t in f32[1:]]
+        f64 = [[v.double() for v in f32[0]]] + [t.double() for t in f32[1:]]
+        kernel = ft.moment_sweep(entries, *f32[:4])
+        plain = ft._table_reference_sweep(entries, *f64[:4])
+        b3f = max(relative_error(torch, k, p) for k, p in zip(kernel, plain))
+        kernel_bwd = ft.moment_sweep_bwd(entries, *f32)
+        plain_bwd = ft._reference_sweep_vjp(entries, *f64)
+        b4f = cotangent_errors(torch, ft, entries, f64[0], kernel_bwd, plain_bwd, None)
+        torch.cuda.synchronize()
+        if (b3f > FLOAT_RTOL["B3"] or b4f[0] > FLOAT_RTOL["B4 values"]
+                or b4f[1] > FLOAT_RTOL["B4 moments"]):
+            raise AssertionError(f"B3/B4 in float exceed their bounds: {label}: {b3f}, {b4f}")
+        if label.startswith("path S/T"):
+            worst_abs["B3"] = max(float((k.double() - p).abs().max()) for k, p in zip(kernel, plain))
+            # Over the cotangents the bounds hold (d/dk1 at |k1| < K1_SMALL apart).
+            slots = quad_k1_slots(ft, entries)
+            errors = []
+            for index, (k, w) in enumerate(zip(kernel_bwd[0], plain_bwd[0])):
+                error = (k.double().reshape(w.shape) - w).abs()
+                if index in slots:
+                    error = error[f64[0][index].abs() >= K1_SMALL]
+                errors.append(float(error.max()) if error.numel() else 0.0)
+            errors += [float((k.double() - w).abs().max())
+                       for k, w in zip(kernel_bwd[1:], plain_bwd[1:])]
+            worst_abs["B4"] = max(errors)
+        print(f"B3/B4 check {label}: B={B}, {len(entries)} entries; double: B3 {b3:.2e},"
+              f" B4 values {b4[0]:.2e} moments {b4[1]:.2e}; float vs double: B3 {b3f:.2e},"
+              f" B4 values {b4f[0]:.2e} moments {b4f[1]:.2e}"
+              + (f"; d/dk1 at |k1| < {K1_SMALL}: double {b4[2]:.2e} of the entry,"
+                 f" float {b4f[2]:.2e} (finite)" if b4[2] or b4f[2] else ""))
+    return worst_abs
+
+
+def push_inputs(torch, fused, tbl, ft, B, N, seed):
+    """The composed EA maps of B settings (spread k1) as B2 takes them, and
+    (B, N, 7) particles, float64 on the card."""
+    from lynx_tpu_torch.models import ares
+
+    f64 = dict(dtype=torch.float64, device="cuda")
+    segment = ares.ares_ea_segment(dtype=torch.float64, device="cuda").broadcast((B,))
+    spread = torch.linspace(0.8, 1.2, B, **f64)
+    for name, k1 in ares.FLAGSHIP_K1.items():
+        getattr(segment, name).k1 = k1 * spread
+    energy = torch.full((B,), 1.073e8, **f64)
+    total = None
+    for element in segment.flattened().elements:
+        params, build = fused.element_map_builder(element)
+        T = build([torch.broadcast_to(p, (B,)) for p in params], energy)
+        total = T if total is None else tbl.compose(T, total)
+    layout, _ = ft._split_table(total)
+    matrix = torch.stack([tbl.broadcast_cell(c, (B,), torch.float64, "cuda")
+                          for row in total for c in row], dim=-1).contiguous()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    particles = torch.cat(
+        [1e-4 * torch.randn((B, N, 6), generator=gen, **f64), torch.ones((B, N, 1), **f64)],
+        dim=-1)
+    return layout, matrix, particles
+
+
+def check_push_kernel(torch, ft, fused, tbl):
+    """Phase 3: B2 and its backward against the plain version (and its
+    autograd) on the card.  Returns B2's max |error| in float at path P's
+    shape."""
+    worst_abs = 0.0
+    for label, B, N in ((f"path P shape B={PUSH_BATCH}, N={PUSH_PARTICLES}", PUSH_BATCH,
+                         PUSH_PARTICLES), ("ragged B=17, N=1001", 17, 1001)):
+        layout, matrix, particles = push_inputs(torch, fused, tbl, ft, B, N, seed=B)
+        dynamic = torch.tensor([not isinstance(c, float) for row in layout for c in row],
+                               device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(13)
+        d_out = torch.randn(particles.shape, generator=gen, dtype=torch.float64, device="cuda")
+        errors = {}
+        for dtype in (torch.float64, torch.float32):
+            m = matrix.to(dtype).requires_grad_(True)
+            p = particles.to(dtype).requires_grad_(True)
+            out = ft._ParticleApply.apply(layout, m, p)
+            d_m, d_p = torch.autograd.grad(out, (m, p), d_out.to(dtype))
+            m64 = m.detach().double().requires_grad_(True)
+            p64 = p.detach().double().requires_grad_(True)
+            ref = ft.particle_apply_reference(layout, m64, p64)
+            r_m, r_p = torch.autograd.grad(ref, (m64, p64), d_out.to(dtype).double())
+            errors[dtype] = (
+                relative_error(torch, out, ref),
+                relative_error(torch, d_p, r_p),
+                relative_error(torch, d_m[:, dynamic], r_m[:, dynamic]),
+            )
+            if dtype == torch.float32 and B == PUSH_BATCH:
+                worst_abs = float((out.detach().double() - ref.detach()).abs().max())
+        torch.cuda.synchronize()
+        bound = {torch.float64: DOUBLE_RTOL, torch.float32: FLOAT_RTOL["B2"]}
+        for dtype, errs in errors.items():
+            # d_matrix sums N products; in float that sum carries ~sqrt(N) ulps.
+            limits = (bound[dtype], bound[dtype], 10 * bound[dtype])
+            if any(e > lim for e, lim in zip(errs, limits)):
+                raise AssertionError(f"B2 exceeds its bounds ({dtype}): {label}: {errs}")
+        print(f"B2 check {label}: double out/d_particles/d_matrix"
+              f" {'/'.join(f'{e:.2e}' for e in errors[torch.float64])};"
+              f" float vs double {'/'.join(f'{e:.2e}' for e in errors[torch.float32])}")
+    return worst_abs
+
+
+@contextlib.contextmanager
+def plain_on_cuda_guard(torch, ft):
+    """Count calls of the kernels' plain versions with a CUDA tensor among
+    their arguments while the block runs."""
+    names = ("_table_reference_sweep", "_reference_sweep_vjp", "particle_apply_reference")
+    originals = {name: getattr(ft, name) for name in names}
+    hits = {"count": 0}
+
+    def on_cuda(value):
+        if isinstance(value, torch.Tensor):
+            return value.is_cuda
+        if isinstance(value, (list, tuple)):
+            return any(on_cuda(v) for v in value)
+        return False
+
+    def guarded(function):
+        def wrapper(*args, **kwargs):
+            if on_cuda(args):
+                hits["count"] += 1
+            return function(*args, **kwargs)
+        return wrapper
+
+    for name in names:
+        setattr(ft, name, guarded(originals[name]))
+    try:
+        yield hits
+    finally:
+        for name, function in originals.items():
+            setattr(ft, name, function)
+
+
+def reset_counts(ft, hist):
+    for wrapper in (hist.window_histogram, ft.particle_apply, ft.moment_sweep, ft.moment_sweep_bwd):
+        wrapper.launches = 0
+
+
+def counts(ft):
+    return {"B2": ft.particle_apply.launches, "B3": ft.moment_sweep.launches,
+            "B4": ft.moment_sweep_bwd.launches}
+
+
+def sweep_params(torch, envs, B, device, seed):
+    """Per-setting targets and incoming beams for B instances."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def u(low, high, *shape):
+        return low + (high - low) * torch.rand(shape, generator=gen, device=device)
+
+    target = torch.stack([u(-2e-3, 2e-3, B), u(1e-5, 1e-3, B), u(-2e-3, 2e-3, B),
+                          u(1e-5, 1e-3, B)], dim=-1)
+    sigma = torch.tensor([1.75e-4, 2e-5, 1.75e-4, 2e-5], device=device).expand(B, 4)
+    return envs.EnvParams(target=target, incoming_mu=u(-1e-4, 1e-4, B, 4), incoming_sigma=sigma)
+
+
+def path_serving(torch, ft, hist, envs, env, card):
+    """Path S: batched_reset and SWEEP_STEPS batched_steps at SWEEP_BATCH
+    settings (float) through B3; observations held against the CPU path."""
+    B = SWEEP_BATCH
+    params = sweep_params(torch, envs, B, "cuda", seed=21)
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    actions = [torch.rand((B, 5), generator=gen, device="cuda") * 2 - 1 for _ in range(SWEEP_STEPS)]
+    actions[0][0] = 0.0  # one zero setting, as the bench's zero sweep
+    reset_counts(ft, hist)
+    with plain_on_cuda_guard(torch, ft) as plain:
+        obs0, states = env.batched_reset(gen, params)
+        observations = [obs0]
+        for action in actions:
+            obs, states, rewards, dones = env.batched_step(states, action, params)
+            observations.append(obs)
+        torch.cuda.synchronize()
+    launched = counts(ft)  # the path's own launches, before any timing
+    print(f"path S: {SWEEP_STEPS} batched_steps + reset at B={B}: launches {launched},"
+          f" plain versions on CUDA tensors {plain['count']}")
+    if launched["B3"] != SWEEP_STEPS + 1 or plain["count"] != 0:
+        raise AssertionError("path S did not run every sweep through kernel B3")
+    for obs in observations:
+        if obs.shape != (B, 13) or not bool(torch.isfinite(obs).all()):
+            raise AssertionError(f"path S: bad observation {tuple(obs.shape)}")
+    if not bool((rewards <= 0).all()) or int(states.step_count[0]) != SWEEP_STEPS:
+        raise AssertionError("path S: bad rewards or step counts")
+
+    env_cpu = envs.make_env()
+    params_cpu = envs.EnvParams(*(x.cpu() for x in params[:3]))
+    worst = 0.0
+    for obs in (observations[0], observations[-1]):
+        expected = env_cpu.batched_beam_parameters(obs[:, :5].cpu(), params_cpu) * 1e3
+        got = obs[:, 5:9].cpu()
+        error = float(((got - expected).abs() / expected.abs().amax(dim=0)).max())
+        worst = max(worst, error)
+    print(f"path S: observations against the CPU dense route, max error {worst:.2e}"
+          f" of each column's largest |value| (bound {OBS_RTOL})")
+    if worst > OBS_RTOL:
+        raise AssertionError("path S: GPU and CPU observations disagree")
+
+    state0 = states
+
+    def step():
+        env.batched_step(state0, actions[1], params)
+
+    ms = time_cuda(torch, step, iters=20)
+    device, sweep = device_time_ms(torch, step, iters=5, kernel="moment_sweep_kernel")
+    print(f"path S: batched_step at B={B}: {ms:.4f} ms/step, {B * 1000.0 / ms:.1f} env-steps/s"
+          f" (CUDA events, 20 steps after warm-up); device time {device:.4f} ms/step (busy"
+          f" share {device / ms:.4f}), of it B3 {sweep:.4f} ms (torch.profiler, 5 steps;"
+          f" card {card})")
+    return launched
+
+
+def path_training(torch, ft, hist, envs, env, tuning, card):
+    """Path T: tuning.tune of (SWEEP_BATCH, 5) settings for SWEEP_STEPS
+    Adam steps through B3 and B4; the loss must fall, and the first step's
+    gradient is held against autograd of the plain version in double."""
+    B = SWEEP_BATCH
+    params = sweep_params(torch, envs, B, "cuda", seed=31)
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    start = torch.rand((B, 5), generator=gen, device="cuda") - 0.5
+
+    def loss_fn(magnets, params):
+        observed = env.batched_beam_parameters(magnets, params)
+        return torch.mean(torch.abs(observed - params.target))
+
+    reset_counts(ft, hist)
+    with plain_on_cuda_guard(torch, ft) as plain:
+        tuned, losses = tuning.tune(loss_fn, start, params, steps=SWEEP_STEPS)
+        torch.cuda.synchronize()
+    launched = counts(ft)  # the path's own launches, before any timing
+    losses = losses.tolist()
+    print(f"path T: tune of ({B}, 5) settings, {SWEEP_STEPS} Adam steps: loss {losses[0]:.6e}"
+          f" -> {losses[-1]:.6e}; launches {launched}, plain versions on CUDA tensors"
+          f" {plain['count']}")
+    if launched["B3"] != SWEEP_STEPS or launched["B4"] != SWEEP_STEPS or plain["count"]:
+        raise AssertionError("path T did not run every step through kernels B3 and B4")
+    if not losses[-1] < losses[0] or not bool(torch.isfinite(tuned).all()):
+        raise AssertionError("path T: the loss did not fall")
+
+    magnets = start.clone().requires_grad_(True)
+    (grad,) = torch.autograd.grad(loss_fn(magnets, params), magnets)
+    env64 = envs.make_env(dtype=torch.float64, device="cuda")
+    params64 = envs.EnvParams(*(x.double() for x in params[:3]))
+
+    def plain_sweep(entries, energy, mu, cov, *values):
+        return ft._table_reference_sweep(entries, [v.to(mu.dtype) for v in values], energy, mu, cov)
+
+    function = ft._FusedMomentSweep
+    ft._FusedMomentSweep = type("PlainSweep", (), {"apply": staticmethod(plain_sweep)})
+    try:
+        magnets64 = start.double().requires_grad_(True)
+        observed = env64.batched_beam_parameters(magnets64, params64)
+        (grad64,) = torch.autograd.grad(
+            torch.mean(torch.abs(observed - params64.target)), magnets64
+        )
+    finally:
+        ft._FusedMomentSweep = function
+    # Settings with a quadrupole near k1 = 0 are held only to finite values
+    # (see K1_SMALL).
+    small = (start[:, :3] * env._limits[:3]).abs().lt(K1_SMALL).any(dim=1)
+    keep = ~small
+    error = float(
+        ((grad.double() - grad64).abs()[keep] / grad64[keep].abs().amax(dim=0)).max()
+    )
+    print(f"path T: first-step gradient (B3/B4, float) against autograd of the plain version"
+          f" (double): max error {error:.2e} of each column's largest |value| (bound {GRAD_RTOL};"
+          f" {int(small.sum())} settings with |k1| < {K1_SMALL} held to finite values)")
+    if error > GRAD_RTOL or not bool(torch.isfinite(grad).all()):
+        raise AssertionError("path T: the kernels' gradient disagrees with the plain version's")
+
+    def step():
+        m = start.clone().requires_grad_(True)
+        loss_fn(m, params).backward()
+
+    ms = time_cuda(torch, step, iters=10)
+    device, backward = device_time_ms(torch, step, iters=3, kernel="moment_sweep_bwd_kernel")
+    print(f"path T: value and gradient at B={B}: {ms:.4f} ms/step (CUDA events, 10 steps after"
+          f" warm-up); device time {device:.4f} ms/step (busy share {device / ms:.4f}), of it"
+          f" B4 {backward:.4f} ms (torch.profiler, 3 steps; card {card})")
+    return launched
+
+
+def push_path_beam(torch, ares, ParticleBeam, B, N, seed):
+    segment = ares.ares_ea_segment(device="cuda").broadcast((B,))
+    segment.AREABSCR1.is_active = False
+    spread = torch.linspace(0.8, 1.2, B, device="cuda")
+    k1 = {name: (value * spread).requires_grad_(True) for name, value in ares.FLAGSHIP_K1.items()}
+    for name, value in k1.items():
+        getattr(segment, name).k1 = value
+    shape = (B,)
+    beam = ParticleBeam.from_parameters(
+        num_particles=N,
+        sigma_x=torch.full(shape, 1.75e-4), sigma_y=torch.full(shape, 1.75e-4),
+        sigma_xp=torch.full(shape, 2e-5), sigma_yp=torch.full(shape, 2e-5),
+        sigma_s=torch.full(shape, 8e-6), sigma_p=torch.full(shape, 2e-3),
+        energy=torch.full(shape, 1.073e8),
+        generator=torch.Generator(device="cuda").manual_seed(seed), device="cuda",
+    )
+    return segment, beam, k1
+
+
+def path_particles(torch, ft, hist, segment_module, ares, ParticleBeam, card):
+    """Path P: Segment.track of PUSH_BATCH settings x PUSH_PARTICLES
+    particles through B2, with the gradient of a moment loss with respect
+    to the three k1; held against the dense route; pushes/s of both routes
+    at a few N for the crossover."""
+    B, N = PUSH_BATCH, PUSH_PARTICLES
+    segment, beam, k1 = push_path_beam(torch, ares, ParticleBeam, B, N, seed=41)
+
+    def moment_loss(outgoing):
+        return torch.mean(outgoing.sigma_x**2 + outgoing.sigma_y**2)
+
+    reset_counts(ft, hist)
+    with plain_on_cuda_guard(torch, ft) as plain:
+        outgoing = segment.track(beam)
+        grads = torch.autograd.grad(moment_loss(outgoing), list(k1.values()))
+        torch.cuda.synchronize()
+    launched = counts(ft)  # the path's own launches, before any timing
+    print(f"path P: Segment.track of {B} x {N} particles and d(loss)/dk1: launches {launched},"
+          f" plain versions on CUDA tensors {plain['count']}")
+    if launched["B2"] != 2 or plain["count"]:
+        raise AssertionError("path P did not push and back-propagate through kernel B2")
+    if outgoing.particles.shape != (B, N, 7) or not all(bool(torch.isfinite(g).all()) for g in grads):
+        raise AssertionError("path P: bad output or gradient")
+
+    segment_module.PARTICLE_SWEEP_PATH = False
+    try:
+        dense = segment.track(beam)
+        dense_grads = torch.autograd.grad(moment_loss(dense), list(k1.values()))
+    finally:
+        segment_module.PARTICLE_SWEEP_PATH = None
+    push_error = relative_error(torch, outgoing.particles.detach(), dense.particles.detach())
+    grad_error = max(relative_error(torch, g, d, per_setting=False)
+                     for g, d in zip(grads, dense_grads))
+    print(f"path P: against the dense route: particles {push_error:.2e} per setting,"
+          f" d/dk1 {grad_error:.2e} (bounds {FLOAT_RTOL['B2']}, {GRAD_RTOL})")
+    if push_error > FLOAT_RTOL["B2"] or grad_error > GRAD_RTOL:
+        raise AssertionError("path P: the B2 route and the dense route disagree")
+
+    for b, n in ((B, 1_000), (B, N), (32, 100_000)):
+        seg_b, beam_b, k1_b = push_path_beam(torch, ares, ParticleBeam, b, n, seed=42)
+        for route in (True, False):
+            segment_module.PARTICLE_SWEEP_PATH = route
+            try:
+                forward = time_cuda(torch, lambda: seg_b.track(beam_b), iters=20)
+
+                def both():
+                    out = seg_b.track(beam_b)
+                    torch.autograd.grad(moment_loss(out), list(k1_b.values()))
+
+                backward = time_cuda(torch, both, iters=10)
+                device, push = device_time_ms(
+                    torch, lambda: seg_b.track(beam_b), iters=5,
+                    kernel="particle_apply_kernel" if route else "gemm",
+                )
+            finally:
+                segment_module.PARTICLE_SWEEP_PATH = None
+            name = "B2" if route else "dense"
+            print(f"path P: {name} route at B={b}, N={n}: track {forward:.4f} ms"
+                  f" ({b * n * 1000.0 / forward:.4e} pushes/s), track + gradient {backward:.4f} ms"
+                  f" ({b * n * 1000.0 / backward:.4e} pushes/s) (CUDA events); device time of"
+                  f" the track {device:.4f} ms, of it the push ({'B2' if route else 'gemm'})"
+                  f" {push:.4f} ms (torch.profiler, 5 calls; card {card})")
+    return launched
+
+
+def time_kernels(torch, ft, fused, tbl, env, card):
+    """Kernel and plain times at the paths' shapes, float, CUDA events."""
+    gen = torch.Generator(device="cuda").manual_seed(51)
+    magnets = torch.rand((SWEEP_BATCH, 5), generator=gen, device="cuda") * 2 - 1
+    tuned = env._batched_tuned_segment(magnets)
+    energy = torch.tensor([1.073e8], device="cuda")
+    plan = fused.plan_run(
+        [fused.element_map_builder(el) for el in tuned.flattened().elements], energy,
+        lambda x: torch.broadcast_to(x, (SWEEP_BATCH,)).reshape(SWEEP_BATCH),
+    )
+    entries = tuple((kind, meta, len(values)) for kind, meta, values in plan)
+    values = [v.detach() for _, _, vs in plan for v in vs]
+    mu, cov = (t.float() for t in random_moments(torch, SWEEP_BATCH, gen))
+    full = energy.expand(SWEEP_BATCH).contiguous()
+    dmu, dcov = torch.randn_like(mu), torch.randn_like(cov)
+    args = (entries, values, full, mu, cov)
+    times = {
+        "B3": (time_cuda(torch, lambda: ft.moment_sweep(*args), iters=50),
+               time_cuda(torch, lambda: ft._table_reference_sweep(*args), iters=10)),
+        "B4": (time_cuda(torch, lambda: ft.moment_sweep_bwd(*args, dmu, dcov), iters=50),
+               time_cuda(torch, lambda: ft._reference_sweep_vjp(*args, dmu, dcov), iters=10)),
+    }
+    layout, matrix, particles = push_inputs(torch, fused, tbl, ft, PUSH_BATCH, PUSH_PARTICLES,
+                                            seed=52)
+    matrix, particles = matrix.float(), particles.float()
+    times["B2"] = (
+        time_cuda(torch, lambda: ft.particle_apply(layout, matrix, particles), iters=100),
+        time_cuda(torch, lambda: ft.particle_apply_reference(layout, matrix, particles), iters=20),
+    )
+    calls = {
+        "B3": (lambda: ft.moment_sweep(*args), lambda: ft._table_reference_sweep(*args),
+               "moment_sweep_kernel"),
+        "B4": (lambda: ft.moment_sweep_bwd(*args, dmu, dcov),
+               lambda: ft._reference_sweep_vjp(*args, dmu, dcov), "moment_sweep_bwd_kernel"),
+        "B2": (lambda: ft.particle_apply(layout, matrix, particles),
+               lambda: ft.particle_apply_reference(layout, matrix, particles),
+               "particle_apply_kernel"),
+    }
+    for name, (kernel_ms, plain_ms) in times.items():
+        kernel_call, plain_call, kernel_name = calls[name]
+        device, own = device_time_ms(torch, kernel_call, iters=5, kernel=kernel_name)
+        plain_device = device_time_ms(torch, plain_call, iters=2)
+        print(f"{name} at its path's shape (float): kernel {kernel_ms:.4f} ms, plain"
+              f" {plain_ms:.4f} ms per call (CUDA events, host launch cost included); device"
+              f" time per call: kernel {own:.5f} ms, all of the wrapper's GPU work"
+              f" {device:.5f} ms, plain {plain_device:.5f} ms (torch.profiler; card {card})")
+    return times
+
+
 def main():
     import torch
 
@@ -160,18 +794,30 @@ def main():
     print(card)  # name and power limit, as nvidia-smi gives them
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, cuda {torch.version.cuda}")
 
-    from lynx_tpu_torch import ParticleBeam, functional
+    import lynx_tpu_torch as ltt
+    from lynx_tpu_torch import ParticleBeam, _build, envs, functional, tuning
+    from lynx_tpu_torch.accelerator import fused
+    from lynx_tpu_torch.accelerator import segment as segment_module
     from lynx_tpu_torch.accelerator.screen import screen_histogram_args
     from lynx_tpu_torch.models import ares
+    from lynx_tpu_torch.ops import fused_track as ft
     from lynx_tpu_torch.ops import histogram as hist
+    from lynx_tpu_torch.ops import table as tbl
 
     # -- 2. build ----------------------------------------------------------
     start = time.perf_counter()
-    hist.window_histogram_library()
-    print(f"build: window_histogram in {time.perf_counter() - start:.2f} s")
+    _build.build_libraries(KERNEL_LIBRARIES)
+    for load in (hist.window_histogram_library, ft.particle_apply_library,
+                 ft.moment_sweep_library, ft.moment_sweep_bwd_library):
+        load()
+    print(f"build: {', '.join(KERNEL_LIBRARIES)} (one nvcc each, in parallel) in"
+          f" {time.perf_counter() - start:.2f} s")
 
-    # -- 3. kernel against its plain version --------------------------------
+    # -- 3. kernels against their plain versions ----------------------------
     max_abs_err = check_kernel_cases(torch, hist)
+    env = envs.make_env(device="cuda")
+    sweep_abs_err = check_sweep_kernels(torch, ltt, ft, fused, env)
+    push_abs_err = check_push_kernel(torch, ft, fused, tbl)
 
     # -- 4. the main path ---------------------------------------------------
     seg1, beam1 = flagship(torch, ares, ParticleBeam, 1, "cuda", seed=0)
@@ -264,8 +910,14 @@ def main():
           f" (output zeroing included): kernel {kernel_device:.5f} ms,"
           f" plain {plain_device:.5f} ms (torch.profiler, 50 calls; card {card})")
 
-    # -- 6. results ----------------------------------------------------------
-    print(json.dumps({"kernels": [{
+    # -- 6. the batched-settings paths ---------------------------------------
+    serving_launches = path_serving(torch, ft, hist, envs, env, card)
+    training_launches = path_training(torch, ft, hist, envs, env, tuning, card)
+    push_launches = path_particles(torch, ft, hist, segment_module, ares, ParticleBeam, card)
+    times = time_kernels(torch, ft, fused, tbl, env, card)
+
+    # -- 7. results ----------------------------------------------------------
+    kernels = [{
         "name": "window_histogram",
         "route": "cuda",
         "source": "lynx_tpu_torch/csrc/window_histogram.cu",
@@ -274,7 +926,25 @@ def main():
         "max_abs_err": max_abs_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
-    }]}))
+    }]
+    for name, label, source, replaces, launched, error in (
+        ("particle_apply", "B2", "particle_apply.cu", 1439, push_launches, push_abs_err),
+        ("moment_sweep", "B3", "moment_sweep.cu", 72, serving_launches,
+         sweep_abs_err["B3"]),
+        ("moment_sweep_bwd", "B4", "moment_sweep_bwd.cu", 249, training_launches,
+         sweep_abs_err["B4"]),
+    ):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"lynx_tpu_torch/csrc/{source}",
+            "replaces": f"lynx_tpu/ops/pallas_track.py:{replaces}",
+            "launches": launched[label],
+            "max_abs_err": error,
+            "ms": times[label][0],
+            "plain_ms": times[label][1],
+        })
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

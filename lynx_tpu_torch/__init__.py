@@ -1,9 +1,12 @@
 """lynx-tpu's PyTorch port, for NVIDIA Hopper GPUs.
 
-The first slice: the ARES Experimental Area track of a ParticleBeam and the
+Ported so far: the ARES Experimental Area track of a ParticleBeam and the
 screen read, with the windowed screen histogram as a hand-written CUDA
-kernel (``csrc/window_histogram.cu``).  ``lynx_tpu`` (JAX) is the reference
-the port is held against; this package never imports JAX.
+kernel (``csrc/window_histogram.cu``); and the batched-settings sweep: the
+ARES-EA environment (``envs``), the gradient tuner (``tuning``), the fused
+ParameterBeam sweep with its backward and the per-setting particle push,
+as hand-written CUDA kernels (``ops/fused_track.py``).  ``lynx_tpu`` (JAX)
+is the reference the port is held against; this package never imports JAX.
 """
 
 from lynx_tpu_torch import functional  # noqa: F401
@@ -19,3 +22,4 @@ from lynx_tpu_torch.accelerator import (  # noqa: F401
 )
 from lynx_tpu_torch.functional import track  # noqa: F401
 from lynx_tpu_torch.particles import Beam, ParameterBeam, ParticleBeam  # noqa: F401
+from lynx_tpu_torch.tuning import make_tuner, tune, tune_until  # noqa: F401

@@ -5,6 +5,7 @@ point.  It is compiled by ``nvcc`` for ``sm_90a`` (Hopper) at first use into
 ``build/lynx_tpu_torch/`` beside the package, keyed by a hash of its sources
 and flags, and loaded with ``ctypes``: no PyTorch headers are compiled, so a
 build takes seconds.  ``--use_fast_math`` is deliberately absent.
+:func:`build_libraries` starts one ``nvcc`` per kernel, all at once.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "lynx_tpu_torch"
@@ -33,6 +35,41 @@ def _nvcc() -> str:
     return nvcc
 
 
+def _target(name: str) -> Path:
+    """The library built from ``csrc/<name>.cu`` and the shared
+    ``csrc/*.cuh`` headers, in a directory named by their hash."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for source in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        digest.update(source.read_bytes())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}" / f"lib{name}.so"
+
+
+def build_libraries(names: Iterable[str]) -> None:
+    """Build every named library that has no build of its exact sources
+    yet: one ``nvcc`` per library, all started together."""
+    running = []
+    for name in names:
+        target = _target(name)
+        if target.exists():
+            continue
+        target.parent.mkdir(parents=True, exist_ok=True)
+        partial = target.with_suffix(f".{os.getpid()}.tmp")
+        command = [_nvcc(), *NVCC_FLAGS, "-o", str(partial), str(CSRC / f"{name}.cu")]
+        process = subprocess.Popen(
+            command, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
+        )
+        running.append((name, target, partial, command, process))
+    failures = []
+    for name, target, partial, command, process in running:
+        _, stderr = process.communicate()
+        if process.returncode != 0:
+            failures.append(f"nvcc failed to build {name}:\n{' '.join(command)}\n{stderr}")
+        else:
+            os.replace(partial, target)  # atomic: a concurrent build never sees half a file
+    if failures:
+        raise RuntimeError("\n".join(failures))
+
+
 def load_library(name: str, signatures: dict) -> ctypes.CDLL:
     """Load ``lib<name>.so`` built from ``csrc/<name>.cu`` (and the shared
     ``csrc/*.cuh`` headers), building it first if no build of these exact
@@ -43,22 +80,8 @@ def load_library(name: str, signatures: dict) -> ctypes.CDLL:
     a 32-bit int and cut it."""
     if name in _LIBRARIES:
         return _LIBRARIES[name]
-    sources = [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for source in sources:
-        digest.update(source.read_bytes())
-    target = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}" / f"lib{name}.so"
-    if not target.exists():
-        target.parent.mkdir(parents=True, exist_ok=True)
-        partial = target.with_suffix(f".{os.getpid()}.tmp")
-        command = [_nvcc(), *NVCC_FLAGS, "-o", str(partial), str(sources[0])]
-        result = subprocess.run(command, capture_output=True, text=True)
-        if result.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed to build {name}:\n{' '.join(command)}\n{result.stderr}"
-            )
-        os.replace(partial, target)  # atomic: a concurrent build never sees half a file
-    library = ctypes.CDLL(str(target))
+    build_libraries([name])
+    library = ctypes.CDLL(str(_target(name)))
     signatures = {"lynx_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int]), **signatures}
     for function, (restype, argtypes) in signatures.items():
         getattr(library, function).restype = restype

@@ -109,6 +109,33 @@ class Element(nn.Module):
             setattr(element, field, value)
         return element
 
+    def replace(self, **updates) -> "Element":
+        """Functional update: a new element with the named fields replaced
+        and every other buffer and attribute shared (no copy).  A buffer
+        takes any tensor, so a replaced field may carry a batch the others
+        do not; a number or list becomes a tensor of the field's type."""
+        cls = type(self)
+        buffers = self.__dict__["_buffers"]
+        unknown = sorted(
+            name for name in updates
+            if name not in buffers and not hasattr(self, name)
+        )
+        if unknown:
+            raise ValueError(f"Unknown fields for {cls.__name__}: {unknown}")
+        new = cls.__new__(cls)
+        new.__dict__.update(self.__dict__)
+        for name in ("_parameters", "_buffers", "_modules"):
+            new.__dict__[name] = type(self.__dict__[name])(self.__dict__[name])
+        for name, value in updates.items():
+            if name in buffers:
+                if not isinstance(value, torch.Tensor):
+                    old = buffers[name]
+                    value = as_field(value, old.dtype, old.device)
+                new._buffers[name] = value
+            else:
+                setattr(new, name, value)
+        return new
+
     # -- physics -----------------------------------------------------------
     def transfer_map(self, energy: torch.Tensor) -> torch.Tensor:
         r"""The element's ``(..., 7, 7)`` map over trace space

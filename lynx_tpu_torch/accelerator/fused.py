@@ -1,0 +1,156 @@
+"""Fused sweep path: adapters from elements to map builders (counterpart of
+``lynx_tpu.accelerator.fused``).
+
+Each supported element type contributes a list of parameter tensors and a
+pure builder ``f(params, energy) -> table`` over the sparse table algebra
+(``ops/table.py``).  The plain version of the sweep calls the builders in
+PyTorch; the CUDA kernels B3 and B4 carry a device function per builder
+that repeats it op for op, named by the builder's ``tape_kind``
+(``ops/fused_track.py``).
+
+Ported types: Drift, Quadrupole, the horizontal and vertical correctors,
+Marker, and Screen (the identity; only an inactive screen is skippable).
+The builders of the other element types come with their elements.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, List, Optional, Tuple
+
+import torch
+
+from lynx_tpu_torch.accelerator.correctors import HorizontalCorrector, VerticalCorrector
+from lynx_tpu_torch.accelerator.drift import Drift
+from lynx_tpu_torch.accelerator.marker import Marker
+from lynx_tpu_torch.accelerator.quadrupole import Quadrupole
+from lynx_tpu_torch.accelerator.screen import Screen
+from lynx_tpu_torch.ops import table as tbl
+from lynx_tpu_torch.ops.fused_track import (
+    TAPE_DRIFT,
+    TAPE_HCOR,
+    TAPE_IDENTITY,
+    TAPE_QUAD,
+    TAPE_VCOR,
+    _split_table,
+)
+from lynx_tpu_torch.ops.rmatrix import base_rmatrix_table, drift_rmatrix_entries
+
+Tensor = torch.Tensor
+
+#: A builder maps (params, energy) -> sparse table (see ``ops/table.py``).
+Builder = Tuple[List[Tensor], Callable[[List[Tensor], Tensor], tbl.Table]]
+
+
+def _build_drift(params, energy):
+    return tbl.entries_to_table(drift_rmatrix_entries(params[0], energy))
+
+
+def _build_quadrupole(params, energy):
+    length, k1, tilt, mx, my = params
+    T = base_rmatrix_table(length, k1, torch.zeros_like(length), tilt, energy)
+    entry = tbl.entries_to_table({(0, 6): -mx, (2, 6): -my})
+    exit_ = tbl.entries_to_table({(0, 6): mx, (2, 6): my})
+    return tbl.compose(exit_, tbl.compose(T, entry))
+
+
+def _build_corrector(kick_row, params, energy):
+    length, angle = params
+    entries = drift_rmatrix_entries(length, energy)
+    entries[(kick_row, 6)] = angle
+    return tbl.entries_to_table(entries)
+
+
+def _build_horizontal_corrector(params, energy):
+    return _build_corrector(1, params, energy)
+
+
+def _build_vertical_corrector(params, energy):
+    return _build_corrector(3, params, energy)
+
+
+def _build_identity(params, energy):
+    return tbl.identity_table()
+
+
+# The kernels' device function for each builder.
+_build_drift.tape_kind = TAPE_DRIFT
+_build_quadrupole.tape_kind = TAPE_QUAD
+_build_horizontal_corrector.tape_kind = TAPE_HCOR
+_build_vertical_corrector.tape_kind = TAPE_VCOR
+_build_identity.tape_kind = TAPE_IDENTITY
+
+
+def element_map_builder(element) -> Optional[Builder]:
+    """Return (param tensors, builder) for a supported element, or ``None``
+    if the element type has no fused builder (yet)."""
+    if type(element) is Drift:
+        return [element.length], _build_drift
+    if type(element) is Quadrupole:
+        return (
+            [
+                element.length,
+                element.k1,
+                element.tilt,
+                element.misalignment[..., 0],
+                element.misalignment[..., 1],
+            ],
+            _build_quadrupole,
+        )
+    if isinstance(element, HorizontalCorrector):
+        return [element.length, element.angle], _build_horizontal_corrector
+    if isinstance(element, VerticalCorrector):
+        return [element.length, element.angle], _build_vertical_corrector
+    if isinstance(element, (Marker, Screen)):
+        return [], _build_identity
+    return None
+
+
+def fused_flush_supported(run: list) -> bool:
+    return all(element_map_builder(el) is not None for el in run)
+
+
+def _flat_size(value) -> int:
+    return torch.as_tensor(value).numel()
+
+
+_IDENTITY_LAYOUT = [[1.0 if i == j else 0.0 for j in range(7)] for i in range(7)]
+
+
+def plan_run(
+    builders: List[Builder], energy: Tensor, vec: Callable[[Tensor], Tensor]
+) -> List[tuple]:
+    """Build a fused-sweep run plan: maximal groups of batch-invariant
+    elements (every parameter AND the energy of size 1) are pre-composed
+    once, in PyTorch at ``(1,)`` shape, and enter the sweep as
+    ``("const", layout, cells)`` entries; everything else stays a
+    ``("dyn", build_fn, vec'd params)`` entry.
+
+    The pre-composition runs through the same differentiable table algebra,
+    so gradients with respect to static elements' parameters flow through
+    the const cells (``ops/fused_track.fused_moment_sweep_plan``)."""
+    energy_static = _flat_size(energy) == 1
+    energy_1 = torch.reshape(energy, (-1,))[:1]
+    plan: List[tuple] = []
+    group: List[Builder] = []
+
+    def flush_group() -> None:
+        if not group:
+            return
+        total = None
+        for params, fn in group:
+            T = fn([torch.reshape(p, (-1,)) for p in params], energy_1)
+            total = T if total is None else tbl.compose(T, total)
+        group.clear()
+        layout, cells = _split_table(total)
+        if not cells and layout == _IDENTITY_LAYOUT:
+            return  # pure identity (markers / inactive screens): drop
+        plan.append(("const", layout, cells))
+
+    for params, fn in builders:
+        if energy_static and all(_flat_size(p) == 1 for p in params):
+            group.append((params, fn))
+        else:
+            flush_group()
+            plan.append(("dyn", fn, [vec(p) for p in params]))
+    flush_group()
+    return plan

@@ -2,11 +2,21 @@
 ``lynx_tpu.accelerator.segment``).
 
 Tracking partitions the flattened elements into maximal runs of skippable
-(purely linear) elements; each run's maps are folded into one matrix
-(``ops.folding``) and applied to the beam at once, with the non-skippable
-elements (an active screen) tracked between the runs.  The port folds dense
-``(..., 7, 7)`` maps at every batch size: the JAX package's batch-last,
-sparse-table and fused Pallas routes are TPU layout devices.
+(purely linear) elements, with the non-skippable elements (an active
+screen) tracked between the runs.  A run takes one of three routes
+(:meth:`Segment._flush_run`):
+
+* the fused moment sweep, kernels B3/B4 (``ops/fused_track.py``), for a
+  ``ParameterBeam`` over at least ``PALLAS_SWEEP_THRESHOLD`` settings;
+* the per-setting particle push, kernel B2, for a ``(B, N, 7)``
+  ``ParticleBeam`` with B >= 16 and N < ``PARTICLE_SWEEP_N_THRESHOLD``;
+* otherwise the dense route: the run's maps folded into one ``(..., 7, 7)``
+  matrix (``ops.folding``) and applied at once.
+
+The fused routes are taken for CUDA tensors; ``FUSED_SWEEP_PATH`` and
+``PARTICLE_SWEEP_PATH`` force them on or off whatever the device (on the
+CPU they run the kernels' plain versions).  The JAX package's batch-last
+and table routes are TPU layout devices and are not ported.
 """
 
 from __future__ import annotations
@@ -23,7 +33,26 @@ from lynx_tpu_torch.accelerator.element import (
     promoted_dtype,
 )
 from lynx_tpu_torch.ops.folding import fold_transfer_maps
-from lynx_tpu_torch.particles import Beam
+from lynx_tpu_torch.particles import Beam, ParameterBeam, ParticleBeam
+
+#: Flat batch size from which ParameterBeam runs take the fused moment sweep
+#: (kernels B3/B4).  The JAX package's value, tuned on a TPU; the H100's
+#: crossover is measured in PERF.md.
+PALLAS_SWEEP_THRESHOLD = 16384
+
+#: Routing override for the fused moment sweep: ``None`` = by device (CUDA
+#: tensors), ``True``/``False`` force it on/off whatever the device.
+FUSED_SWEEP_PATH = None
+
+#: Per-setting particle count below which (B, N, 7) ParticleBeam runs take
+#: the per-setting push (kernel B2).  The JAX package's value, tuned on a
+#: TPU; the H100's crossover is measured in PERF.md.
+PARTICLE_SWEEP_N_THRESHOLD = 16384
+
+#: Routing override for the particle push: ``None`` = by device (CUDA
+#: tensors, N < PARTICLE_SWEEP_N_THRESHOLD), ``True``/``False`` force it
+#: on/off whatever the device (still only for (B, N, 7) beams, B >= 16).
+PARTICLE_SWEEP_PATH = None
 
 
 def stacked_transfer_map(elements: List[Element], energy: torch.Tensor) -> torch.Tensor:
@@ -42,6 +71,102 @@ def flush_run(run: List[Element], beam: Beam) -> Beam:
     if not run or beam is Beam.empty:
         return beam
     return apply_transfer_map(stacked_transfer_map(run, beam.energy), beam)
+
+
+def _flat_batch_of(elements: List[Element], energy: torch.Tensor) -> tuple:
+    """The joint batch shape of the elements' lengths and the energy, and
+    its flat size."""
+    shapes = [energy.shape] + [element.length.shape for element in elements]
+    batch_shape = torch.broadcast_shapes(*shapes)
+    flat = 1
+    for dim in batch_shape:
+        flat *= dim
+    return batch_shape, flat
+
+
+def _fused_flush(run: List[Element], beam: Beam):
+    """Try the fused moment sweep (kernels B3/B4); ``None`` if it does not
+    apply."""
+    from lynx_tpu_torch.accelerator.fused import element_map_builder, plan_run
+    from lynx_tpu_torch.ops.fused_track import fused_moment_sweep_plan
+
+    if not isinstance(beam, ParameterBeam):
+        # ParticleBeam routing happens in Segment._flush_run through
+        # _route_particle_sweep.
+        return None
+    use_fused = FUSED_SWEEP_PATH
+    if use_fused is None:
+        use_fused = beam._mu.is_cuda
+    if not use_fused:
+        return None
+    energy = torch.as_tensor(beam.energy)
+    batch_shape, _ = _flat_batch_of(run, energy)
+    batch_shape = torch.broadcast_shapes(batch_shape, beam._mu.shape[:-1])
+    flat = 1
+    for dim in batch_shape:
+        flat *= dim
+    if flat < PALLAS_SWEEP_THRESHOLD:
+        return None
+    builders = [element_map_builder(el) for el in run]
+    if any(b is None for b in builders):
+        return None
+
+    def vec(x):
+        return torch.broadcast_to(x, batch_shape).reshape(flat)
+
+    plan = plan_run(builders, energy, vec)
+    mu = torch.broadcast_to(beam._mu, (*batch_shape, 7)).reshape(flat, 7)
+    cov = torch.broadcast_to(beam._cov, (*batch_shape, 7, 7)).reshape(flat, 7, 7)
+    out_mu, out_cov = fused_moment_sweep_plan(plan, vec(energy), mu, cov)
+    return ParameterBeam(
+        out_mu.reshape(*batch_shape, 7),
+        out_cov.reshape(*batch_shape, 7, 7),
+        beam.energy,
+        total_charge=beam.total_charge,
+    )
+
+
+def _route_particle_sweep(beam: Beam) -> bool:
+    """Whether a run of ``beam`` takes the per-setting particle push."""
+    if not isinstance(beam, ParticleBeam) or beam.particles.ndim != 3:
+        return False
+    if PARTICLE_SWEEP_PATH is not None:
+        return PARTICLE_SWEEP_PATH
+    return beam.particles.is_cuda and beam.particles.shape[-2] < PARTICLE_SWEEP_N_THRESHOLD
+
+
+def _fused_particle_flush(run: List[Element], beam: ParticleBeam):
+    """The per-setting particle push (kernel B2) for (B, N, 7) beams;
+    ``None`` if it does not apply."""
+    from lynx_tpu_torch.accelerator.fused import element_map_builder
+    from lynx_tpu_torch.ops.fused_track import fused_particle_sweep
+
+    if beam.particles.ndim != 3:
+        return None
+    B = beam.particles.shape[0]
+    if B < 16:  # too few settings for a per-setting launch to pay off
+        return None
+    energy = torch.as_tensor(beam.energy)
+    batch_shape, _ = _flat_batch_of(run, energy)
+    batch_shape = torch.broadcast_shapes(batch_shape, (B,))
+    if batch_shape != (B,):
+        return None
+    builders = [element_map_builder(el) for el in run]
+    if any(b is None for b in builders):
+        return None
+
+    def vec(x):
+        return torch.broadcast_to(x, (B,))
+
+    element_params = [[vec(p) for p in params] for params, _ in builders]
+    build_fns = [fn for _, fn in builders]
+    out_particles = fused_particle_sweep(build_fns, element_params, vec(energy), beam.particles)
+    return ParticleBeam(
+        out_particles,
+        beam.energy,
+        particle_charges=beam.particle_charges,
+        survival=beam.survival,
+    )
 
 
 class Segment(Element):
@@ -118,8 +243,9 @@ class Segment(Element):
         return sum(torch.broadcast_to(l, batch_shape) for l in lengths)
 
     def track(self, incoming: Beam) -> Beam:
-        """Track a beam through the segment: runs of skippable elements fold
-        into one map; the others (an active screen) track one by one."""
+        """Track a beam through the segment: runs of skippable elements go
+        through :meth:`_flush_run`; the others (an active screen) track one
+        by one."""
         if incoming is Beam.empty:
             return incoming
         beam = incoming
@@ -128,7 +254,22 @@ class Segment(Element):
             if element.is_skippable:
                 run.append(element)
                 continue
-            beam = flush_run(run, beam)
+            beam = self._flush_run(run, beam)
             run = []
             beam = element.track(beam)
+        return self._flush_run(run, beam)
+
+    @staticmethod
+    def _flush_run(run: List[Element], beam: Beam) -> Beam:
+        """One run of skippable elements: the fused moment sweep, else the
+        per-setting particle push, else the dense fold."""
+        if not run or beam is Beam.empty:
+            return beam
+        fused = _fused_flush(run, beam)
+        if fused is not None:
+            return fused
+        if _route_particle_sweep(beam):
+            fused = _fused_particle_flush(run, beam)
+            if fused is not None:
+                return fused
         return flush_run(run, beam)

@@ -1,0 +1,271 @@
+"""ARES-EA transverse beam-tuning environment (counterpart of
+``lynx_tpu.envs.ares_ea``).
+
+Tune the 3 quadrupoles and 2 correctors of the ARES Experimental Area so
+that the beam hits a target position and size on the AREABSCR1 screen.  The
+environment is functional (``reset`` / ``step`` over an explicit
+``EnvState``), and its batched methods track B settings at once: at large B
+a ParameterBeam run takes the fused moment sweep (kernel B3 on the card,
+B4 for its gradient).
+
+Action: 5 settings ``(k1_Q1, k1_Q2, k1_Q3, angle_CV, angle_CH)``, normalised
+to [-1, 1].  Observation: the settings, the beam ``(mu_x, sigma_x, mu_y,
+sigma_y)`` on the screen and the target, both in mm.  Reward: minus the
+L1 distance between beam and target, in mm.
+
+Randomness comes from ``torch.Generator``s where the JAX package splits
+PRNG keys: one generator serves a whole batch.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from lynx_tpu_torch.accelerator.segment import Segment
+from lynx_tpu_torch.functional import moment_sufficient, track
+from lynx_tpu_torch.models import ares_ea_segment
+from lynx_tpu_torch.particles import ParameterBeam, ParticleBeam
+
+Tensor = torch.Tensor
+
+#: Action scaling: max |k1| for quads (1/m^2), max |angle| for correctors
+#: (rad).  Float32, as in the JAX package, so that both scale alike.
+MAGNET_LIMITS = np.array([30.0, 30.0, 30.0, 6e-3, 6e-3], dtype=np.float32)
+
+
+class EnvParams(NamedTuple):
+    """Per-instance environment configuration (leading ``(B,)`` axis in
+    the batched methods).  The working-point energy lives on the
+    environment, not here: a per-instance energy would batch the energy
+    through every map builder and stop the fused sweep from hoisting the
+    static elements (``accelerator/fused.plan_run``)."""
+
+    target: Tensor  # (4,) target (mu_x, sigma_x, mu_y, sigma_y) on the screen
+    incoming_mu: Tensor  # (4,) incoming beam (mu_x, mu_xp, mu_y, mu_yp)
+    incoming_sigma: Tensor  # (4,) incoming (sigma_x, sigma_xp, sigma_y, sigma_yp)
+    max_steps: int = 50
+
+
+class EnvState(NamedTuple):
+    magnets: Tensor  # (5,) current settings, normalised to [-1, 1]
+    step_count: Tensor  # () int32
+    generator: torch.Generator
+
+
+def default_params(
+    generator: Optional[torch.Generator] = None,
+    dtype: torch.dtype = torch.float32,
+    device=None,
+) -> EnvParams:
+    """Randomised-target default parameters (the ARES-EA task): a target
+    position in [-2, 2] mm, a target size in [0.01, 1] mm and an incoming
+    offset in [-0.1, 0.1] mm, drawn from ``generator`` (seed 0 if None)."""
+    generator = generator if generator is not None else torch.Generator().manual_seed(0)
+
+    def uniform(shape, low, high):
+        u = torch.rand(shape, generator=generator, dtype=dtype, device=generator.device)
+        return (low + (high - low) * u).to(device)
+
+    target_pos = uniform((2,), -2e-3, 2e-3)
+    target_size = uniform((2,), 1e-5, 1e-3)
+    target = torch.stack([target_pos[0], target_size[0], target_pos[1], target_size[1]])
+    return EnvParams(
+        target=target,
+        incoming_mu=uniform((4,), -1e-4, 1e-4),
+        incoming_sigma=torch.tensor([1.75e-4, 2e-5, 1.75e-4, 2e-5], dtype=dtype, device=device),
+    )
+
+
+class AresEATransverseTuning:
+    """Functional ARES-EA tuning environment over ParameterBeam physics.
+
+    :param energy: working-point beam energy in eV, shared by all instances.
+    :param dtype, device: of the lattice and of the beams it builds.
+    """
+
+    num_actions = 5
+    obs_size = 5 + 4 + 4  # magnets + current beam params + target
+
+    def __init__(
+        self,
+        log_metrics: bool = False,
+        energy: float = 1.073e8,
+        dtype: torch.dtype = torch.float32,
+        device=None,
+    ) -> None:
+        if log_metrics:
+            raise NotImplementedError(
+                "log_metrics=True emits through lynx_tpu.metrics, which is not"
+                " ported to lynx_tpu_torch yet"
+            )
+        segment = ares_ea_segment(dtype=dtype, device=device)
+        segment.AREABSCR1.is_active = False
+        self._segment = segment
+        self.energy = float(energy)
+        self.log_metrics = log_metrics
+        self.dtype = dtype
+        self.device = torch.device(device) if device is not None else torch.device("cpu")
+        self._limits = torch.from_numpy(MAGNET_LIMITS).to(dtype=dtype, device=self.device)
+
+    # -- physics -----------------------------------------------------------
+    def _tuned_segment(self, settings: Tensor, batch: Optional[int]) -> Segment:
+        """The EA segment with the 5 tuned magnets set to ``settings``
+        (``(5,)``, or ``(B, 5)`` with ``batch = B``).  Batched, the tuned
+        elements' lengths broadcast to ``(B,)`` too, which is what makes the
+        run batched; the other elements stay at ``(1,)`` and hoist."""
+        fields = {
+            "AREAMQZM1": ("k1", 0),
+            "AREAMQZM2": ("k1", 1),
+            "AREAMQZM3": ("k1", 2),
+            "AREAMCVM1": ("angle", 3),
+            "AREAMCHM1": ("angle", 4),
+        }
+        elements = []
+        for element in self._segment.elements:
+            if element.name in fields:
+                field, column = fields[element.name]
+                if batch is None:
+                    element = element.replace(**{field: settings[column][None]})
+                else:
+                    element = element.replace(
+                        length=torch.broadcast_to(element.length, (batch,)),
+                        **{field: settings[:, column]},
+                    )
+            elements.append(element)
+        return Segment(elements, name=self._segment.name)
+
+    def _incoming(self, mu: Tensor, sigma: Tensor) -> ParameterBeam:
+        """The incoming beam, re-wrapped with the unbatched working-point
+        energy (``from_parameters`` broadcasts the energy to the batch, which
+        would stop the fused sweep from hoisting the static elements)."""
+        beam = ParameterBeam.from_parameters(
+            mu_x=mu[..., 0], mu_xp=mu[..., 1], mu_y=mu[..., 2], mu_yp=mu[..., 3],
+            sigma_x=sigma[..., 0], sigma_xp=sigma[..., 1],
+            sigma_y=sigma[..., 2], sigma_yp=sigma[..., 3],
+            dtype=self.dtype, device=self.device,
+        )
+        energy = torch.full((1,), self.energy, dtype=self.dtype, device=self.device)
+        return ParameterBeam(beam._mu, beam._cov, energy=energy)
+
+    def beam_parameters(self, magnets: Tensor, params: EnvParams) -> Tensor:
+        """Track the incoming beam for ``(5,)`` settings and return
+        ``(mu_x, sigma_x, mu_y, sigma_y)`` at the screen."""
+        tuned = self._tuned_segment(magnets * self._limits, batch=None)
+        beam = self._incoming(params.incoming_mu[None], params.incoming_sigma[None])
+        outgoing, _ = track(tuned, beam)
+        return torch.stack(
+            [outgoing.mu_x[0], outgoing.sigma_x[0], outgoing.mu_y[0], outgoing.sigma_y[0]]
+        )
+
+    def _batched_tuned_segment(self, magnets: Tensor) -> Segment:
+        """The EA segment with the 5 tuned magnets set from ``(B, 5)``
+        normalised settings."""
+        return self._tuned_segment(magnets * self._limits, batch=magnets.shape[0])
+
+    def batched_beam_parameters(self, magnets: Tensor, params: EnvParams) -> Tensor:
+        """:meth:`beam_parameters` for ``(B, 5)`` settings and batched
+        ``EnvParams``, tracked as one batch: ``(B, 4)``."""
+        tuned = self._batched_tuned_segment(magnets)
+        beam = self._incoming(params.incoming_mu, params.incoming_sigma)
+        outgoing, _ = track(tuned, beam)
+        return torch.stack(
+            [outgoing.mu_x, outgoing.sigma_x, outgoing.mu_y, outgoing.sigma_y], dim=-1
+        )
+
+    def batched_particle_beam_parameters(
+        self, magnets: Tensor, beam: ParticleBeam, method: str = "auto"
+    ) -> Tensor:
+        """Observation of a macro-particle beam: ``(B, 4)`` sample-moment
+        ``(mu_x, sigma_x, mu_y, sigma_y)`` at the screen for ``(B, 5)``
+        settings; the incoming beam broadcasts against the settings.
+
+        :param method: ``"moments"`` tracks the beam's sample moments
+            (``beam.as_parameter_beam()``), exact for a linear lattice;
+            ``"particles"`` pushes every particle for every setting;
+            ``"auto"`` takes ``"moments"`` when the lattice is moment
+            sufficient (the EA with its screen inactive is), else
+            ``"particles"``.  ``"kernel"``, the particle moment sweep with
+            interleaved apertures, needs kernels B5/B6 and is not ported.
+        """
+        tuned = self._batched_tuned_segment(magnets)
+        if method == "auto":
+            method = "moments" if moment_sufficient(tuned, beam) else "particles"
+        if method == "moments":
+            outgoing, _ = track(tuned, beam.as_parameter_beam())
+        elif method == "particles":
+            outgoing, _ = track(tuned, beam)
+        elif method == "kernel":
+            raise NotImplementedError(
+                "method='kernel' runs the particle moment sweep (kernels B5 and B6),"
+                " which is not ported to lynx_tpu_torch yet"
+            )
+        else:
+            raise ValueError(f"unknown method {method!r} (auto | moments | kernel | particles)")
+        return torch.stack(
+            [outgoing.mu_x, outgoing.sigma_x, outgoing.mu_y, outgoing.sigma_y], dim=-1
+        )
+
+    def _observe(self, magnets: Tensor, beam: Tensor, target: Tensor) -> Tensor:
+        return torch.cat([magnets, beam * 1e3, target * 1e3], dim=-1)
+
+    def batched_step(
+        self, states: EnvState, actions: Tensor, params: EnvParams
+    ) -> Tuple[Tensor, EnvState, Tensor, Tensor]:
+        """:meth:`step` over ``(B, ...)`` states, actions and params, tracked
+        as one batch."""
+        magnets = torch.clamp(actions, -1.0, 1.0)
+        next_states = EnvState(magnets, states.step_count + 1, states.generator)
+        beam = self.batched_beam_parameters(magnets, params)
+        rewards = -torch.sum(torch.abs(beam - params.target), dim=-1) * 1e3
+        dones = next_states.step_count >= params.max_steps
+        return self._observe(magnets, beam, params.target), next_states, rewards, dones
+
+    def batched_reset(
+        self, generator: torch.Generator, params: EnvParams
+    ) -> Tuple[Tensor, EnvState]:
+        """:meth:`reset` for the batch of ``params`` (leading ``(B,)``):
+        settings uniform in [-0.5, 0.5), drawn from ``generator``."""
+        B = params.target.shape[0]
+        magnets = self._uniform_magnets((B, self.num_actions), generator)
+        states = EnvState(
+            magnets, torch.zeros((B,), dtype=torch.int32, device=self.device), generator
+        )
+        beam = self.batched_beam_parameters(magnets, params)
+        return self._observe(magnets, beam, params.target), states
+
+    # -- env API -----------------------------------------------------------
+    def _uniform_magnets(self, shape, generator: torch.Generator) -> Tensor:
+        u = torch.rand(shape, generator=generator, dtype=self.dtype, device=generator.device)
+        return (u - 0.5).to(self.device)
+
+    def observation(self, state: EnvState, params: EnvParams) -> Tensor:
+        beam = self.beam_parameters(state.magnets, params)
+        return self._observe(state.magnets, beam, params.target)
+
+    def reset(self, generator: torch.Generator, params: EnvParams) -> Tuple[Tensor, EnvState]:
+        magnets = self._uniform_magnets((self.num_actions,), generator)
+        state = EnvState(
+            magnets, torch.zeros((), dtype=torch.int32, device=self.device), generator
+        )
+        return self.observation(state, params), state
+
+    def step(
+        self, state: EnvState, action: Tensor, params: EnvParams
+    ) -> Tuple[Tensor, EnvState, Tensor, Tensor]:
+        """Apply a (clipped) absolute magnet setting; return (obs,
+        next_state, reward, done)."""
+        magnets = torch.clamp(action, -1.0, 1.0)
+        next_state = EnvState(magnets, state.step_count + 1, state.generator)
+        beam = self.beam_parameters(magnets, params)
+        reward = -torch.sum(torch.abs(beam - params.target)) * 1e3
+        done = next_state.step_count >= params.max_steps
+        return self._observe(magnets, beam, params.target), next_state, reward, done
+
+
+def make_env(
+    log_metrics: bool = False, dtype: torch.dtype = torch.float32, device=None
+) -> AresEATransverseTuning:
+    return AresEATransverseTuning(log_metrics=log_metrics, dtype=dtype, device=device)

@@ -16,7 +16,7 @@ from lynx_tpu_torch.accelerator.screen import (
     screen_reading_parameter,
     screen_reading_particle,
 )
-from lynx_tpu_torch.accelerator.segment import Segment, flush_run
+from lynx_tpu_torch.accelerator.segment import Segment, _fused_flush, flush_run
 from lynx_tpu_torch.particles import Beam, ParameterBeam, ParticleBeam
 
 Diagnostics = Dict[str, Any]
@@ -31,15 +31,28 @@ def track(segment: Segment, incoming: Beam) -> Tuple[Optional[Beam], Diagnostics
 
     No element state is touched.  An element type that this port does not
     track yet raises ``NotImplementedError``; it is never skipped.
+
+    A run of linear elements tries the fused moment sweep first
+    (``segment._fused_flush``), then the dense fold.  Like the JAX
+    package's ``functional.track``, this never takes the per-setting
+    particle push: only ``Segment.track`` does.
     """
     diagnostics: Diagnostics = {}
     beam = incoming
     run: List[Element] = []
+
+    def flush(run: List[Element], beam: Beam) -> Beam:
+        if not run:
+            return beam
+        fused = _fused_flush(run, beam)
+        if fused is not None:
+            return fused
+        return flush_run(run, beam)
     for element in segment.flattened().elements:
         if element.is_skippable:
             run.append(element)
             continue
-        beam = flush_run(run, beam)
+        beam = flush(run, beam)
         run = []
         if isinstance(element, Screen):
             read_beam = element.misaligned_beam(beam)
@@ -61,4 +74,19 @@ def track(segment: Segment, incoming: Beam) -> Tuple[Optional[Beam], Diagnostics
             f"functional.track: {type(element).__name__} ({element.name!r}) is"
             " not ported to lynx_tpu_torch yet"
         )
-    return flush_run(run, beam), diagnostics
+    return flush(run, beam), diagnostics
+
+
+def moment_sufficient(segment: Segment, incoming: Beam) -> bool:
+    """True when tracking ``incoming`` through ``segment`` is *moment
+    sufficient*: every observable of the track depends on the beam only
+    through its first and second sample moments, so a ``ParticleBeam`` may
+    be replaced by ``incoming.as_parameter_beam()`` with exactly the same
+    downstream ``mu_*``/``sigma_*`` statistics (linear maps commute with
+    sample moments: ``mu' = R mu``, ``Sigma' = R Sigma R^T``).
+
+    That holds iff every flattened element is skippable, i.e. purely affine
+    with no per-particle side effect (an active screen makes it False)."""
+    if not isinstance(incoming, ParticleBeam):
+        return False
+    return all(element.is_skippable for element in segment.flattened().elements)

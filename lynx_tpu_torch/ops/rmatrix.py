@@ -131,6 +131,24 @@ def base_rmatrix(
     """Universal linear R-matrix for quadrupoles and bends: quad strength
     ``k1``, curvature ``hx``, tilt rotation and the energy-dependent ``r56``
     term (Ocelot's ``uni_matrix``)."""
+    entries, batch_shape, dtype, tilt = base_rmatrix_entries(length, k1, hx, tilt, energy)
+    R = build_rmatrix(entries, batch_shape, dtype, length.device)
+    # Rotate for skew / vertical magnets: R <- rot(-tilt) @ R @ rot(tilt).
+    # Applied unconditionally (exact for tilt == 0) to stay branch-free.
+    return sandwich(rotation_matrix(-tilt), R, rotation_matrix(tilt))
+
+
+def base_rmatrix_entries(
+    length: Tensor,
+    k1,
+    hx,
+    tilt=None,
+    energy=None,
+):
+    """Entry dict of the universal R-matrix, *before* the tilt rotation.
+
+    Returns ``(entries, batch_shape, dtype, tilt)``."""
+    length = torch.as_tensor(length)
     dtype, device = length.dtype, length.device
 
     def cast(value):
@@ -152,7 +170,9 @@ def base_rmatrix(
 
     # k1 == 0 is degenerate: perturb it additively to 1e-12 so that d/dk1
     # still flows there (a replacement would zero the gradient).
-    k1 = torch.where(k1 == 0, k1 + 1e-12, k1)
+    # (A mask times 1e-12, not torch.where of two Python floats: that would
+    # make a float32 tensor and round 1e-12.)
+    k1 = k1 + (k1 == 0).to(k1.dtype) * 1e-12
     kx2 = k1 + hx**2
     ky2 = -k1
 
@@ -179,10 +199,34 @@ def base_rmatrix(
         (4, 1): dx * inv_beta,
         (4, 5): r56,
     }
-    R = build_rmatrix(entries, batch_shape, dtype, device)
-    # Rotate for skew / vertical magnets: R <- rot(-tilt) @ R @ rot(tilt).
-    # Applied unconditionally (exact for tilt == 0) to stay branch-free.
-    return sandwich(rotation_matrix(-tilt), R, rotation_matrix(tilt))
+    return entries, batch_shape, dtype, tilt
+
+
+def rotation_entries(angle: Tensor) -> dict:
+    """Entry dict of :func:`rotation_matrix`."""
+    cs = torch.cos(angle)
+    sn = torch.sin(angle)
+    return {
+        (0, 0): cs,
+        (0, 2): sn,
+        (1, 1): cs,
+        (1, 3): sn,
+        (2, 0): -sn,
+        (2, 2): cs,
+        (3, 1): -sn,
+        (3, 3): cs,
+    }
+
+
+def base_rmatrix_table(length, k1, hx, tilt=None, energy=None):
+    """Sparse-table form of :func:`base_rmatrix` (see ``ops/table.py``)."""
+    from lynx_tpu_torch.ops import table as tbl
+
+    entries, _, _, tilt = base_rmatrix_entries(length, k1, hx, tilt, energy)
+    T = tbl.entries_to_table(entries)
+    rot_fwd = tbl.entries_to_table(rotation_entries(tilt))
+    rot_bwd = tbl.entries_to_table(rotation_entries(-tilt))
+    return tbl.compose(rot_bwd, tbl.compose(T, rot_fwd))
 
 
 def misalignment_matrix(misalignment: Tensor) -> Tuple[Tensor, Tensor]:
@@ -213,3 +257,12 @@ def drift_rmatrix(length: Tensor, energy: Tensor) -> Tensor:
         length.dtype,
         length.device,
     )
+
+
+def drift_rmatrix_entries(length: Tensor, energy) -> dict:
+    """Entry dict of the drift map (table form)."""
+    energy = torch.as_tensor(energy, dtype=length.dtype, device=length.device)
+    igamma2 = igamma2_from_energy(energy, zero_value=0.0)
+    beta2 = 1.0 - igamma2
+    r56 = -length * _safe_div(igamma2, beta2, fallback=0.0)
+    return {(0, 1): length, (2, 3): length, (4, 5): r56}

@@ -14,7 +14,7 @@ from typing import Optional
 import torch
 
 from lynx_tpu_torch.particles.beam import Beam, _common_shape, _resolve
-from lynx_tpu_torch.particles.parameter_beam import _block_covariance
+from lynx_tpu_torch.particles.parameter_beam import ParameterBeam, _block_covariance
 
 
 def _weighted_mean(values: torch.Tensor, weights: Optional[torch.Tensor]) -> torch.Tensor:
@@ -290,3 +290,34 @@ class ParticleBeam(Beam):
     @property
     def sigma_yyp(self) -> torch.Tensor:
         return _weighted_cov(self.ys, self.yps, self.survival)
+
+    def as_parameter_beam(self) -> ParameterBeam:
+        """The beam's survival-weighted *sample* moments as a
+        :class:`ParameterBeam`.
+
+        For a purely linear section, tracked sample moments obey the same
+        algebra as Gaussian moments (``mu' = R mu``, ``Sigma' = R Sigma
+        R^T``), so tracking the result gives the particle path's downstream
+        ``mu_*``/``sigma_*`` at moment cost (see
+        ``functional.moment_sufficient``).  The covariance carries the same
+        Bessel (ddof=1) scaling as :attr:`sigma_x` and the others, so the
+        ``sigma_*`` agree exactly; ``sigma_xxp``/``sigma_yyp`` use ddof=0
+        and differ by ``(sum w - 1) / sum w``."""
+        particles = self.particles
+        weights = self.survival
+        if weights is None:
+            total = torch.full(
+                particles.shape[:-2], self.num_particles,
+                dtype=particles.dtype, device=particles.device,
+            )
+            mu = particles.mean(dim=-2)
+        else:
+            total_raw = weights.sum(dim=-1)
+            total = torch.where(total_raw == 0, 1.0, total_raw)
+            mu = (particles * weights[..., None]).sum(dim=-2) / total[..., None]
+        centered = particles - mu[..., None, :]
+        denom = torch.clamp(total - 1.0, min=1.0)
+        left = centered if weights is None else centered * weights[..., None]
+        cov = torch.matmul(left.transpose(-2, -1), centered)
+        cov = cov / denom[..., None, None]
+        return ParameterBeam(mu, cov, energy=self.energy, total_charge=self.total_charge)

@@ -1,0 +1,225 @@
+"""The CUDA sources of kernels B2, B3 and B4, run on the CPU.
+
+There is no nvcc here, so each ``csrc/*.cu`` is compiled as host C++ by gcc
+against a stand-in ``cuda_runtime.h``: ``__device__`` and friends are
+dropped and a launch ``kernel<<<blocks, threads, ...>>>(args)`` becomes a
+loop over every (block, thread) index.  That runs the kernels' arithmetic
+(tape decoding, builders, dual numbers, indexing of the ragged batch) on
+the plain versions' inputs.  What it cannot check is the device itself
+(FMA contraction, memory, occupancy): ``chip_smoke.py`` does that on the
+card.
+
+Bounds, float64: B3 and B2 within 1e-12 of their plain versions relative to
+each setting's largest entry; B4 within 1e-12 relative to each cotangent's
+largest entry, except d/dk1 at settings where k1 is exactly 0.  There the
+reference formula's derivative is rounding-limited (``L cos(kL) -
+sin(kL)/k`` cancels at kL ~ 1e-7, after the 1e-12 perturbation), so the
+kernel's forward-mode chain rule and autograd's reverse mode agree only to
+1e-3 of that entry; both packages share the formula.
+"""
+
+import ctypes
+import re
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+import lynx_tpu_torch as ltt
+from lynx_tpu_torch import _build
+from lynx_tpu_torch.accelerator import fused as torch_fused
+from lynx_tpu_torch.constants import REST_ENERGY_EV
+from lynx_tpu_torch.ops import fused_track
+from lynx_tpu_torch.ops import table as tbl
+
+RTOL = 1e-12
+K1_ZERO_RTOL = 1e-3
+
+STAND_IN = r"""
+#pragma once
+#include <math.h>
+#include <cstdint>
+#define __device__
+#define __global__
+#define __host__
+#define __forceinline__ inline
+#define __restrict__
+struct HostDim3 { unsigned x, y, z; };
+static HostDim3 blockIdx, blockDim, threadIdx, gridDim;
+#define LYNX_HOST_GRID(blocks, threads, shared, stream)                       \
+  for (gridDim.x = (unsigned)(blocks), blockDim.x = (unsigned)(threads),      \
+      blockIdx.x = 0; blockIdx.x < gridDim.x; ++blockIdx.x)                    \
+    for (threadIdx.x = 0; threadIdx.x < blockDim.x; ++threadIdx.x)
+typedef void* cudaStream_t;
+typedef int cudaError_t;
+inline cudaError_t cudaGetLastError() { return 0; }
+inline const char* cudaGetErrorString(cudaError_t) { return "host"; }
+"""
+
+SIGNATURES = {
+    "moment_sweep": fused_track._B3_SIGNATURE,
+    "moment_sweep_bwd": fused_track._B4_SIGNATURE,
+    "particle_apply": fused_track._B2_SIGNATURE,
+}
+
+
+@pytest.fixture(scope="module")
+def host_kernels(tmp_path_factory):
+    compiler = shutil.which("g++")
+    assert compiler, "the host build of the kernels needs g++"
+    root = tmp_path_factory.mktemp("host_kernels")
+    (root / "cuda_runtime.h").write_text(STAND_IN)
+    for header in _build.CSRC.glob("*.cuh"):
+        shutil.copy(header, root / header.name)
+    libraries = {}
+    for name, signature in SIGNATURES.items():
+        source = (_build.CSRC / f"{name}.cu").read_text()
+        source = re.sub(r"(\w+<\w+>)<<<(.*?)>>>", r"LYNX_HOST_GRID(\2) \1", source, flags=re.S)
+        (root / f"{name}.cpp").write_text(source)
+        target = root / f"lib{name}.so"
+        subprocess.run(
+            [compiler, "-std=c++17", "-O1", "-shared", "-fPIC", "-Wno-unknown-pragmas",
+             f"-I{root}", "-o", str(target), str(root / f"{name}.cpp")],
+            check=True, capture_output=True, text=True,
+        )
+        library = ctypes.CDLL(str(target))
+        for function, (restype, argtypes) in signature.items():
+            getattr(library, function).restype = restype
+            getattr(library, function).argtypes = argtypes
+        libraries[name] = library
+    return libraries
+
+
+def run_and_inputs(B, dtype, seed=0):
+    """A plan over every ported element type (dynamic and hoisted, tilt and
+    misalignment non-zero, k1 = 0 on two settings) and random moments."""
+    rng = np.random.default_rng(seed)
+    k1 = np.linspace(-5.0, 5.0, B)
+    k1[B // 3] = 0.0
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x), dtype=dtype)
+
+    elements = [
+        ltt.Marker(dtype=dtype),
+        ltt.Drift(t([0.5]), dtype=dtype),
+        ltt.Quadrupole(t(np.full(B, 0.23)), k1=t(k1), tilt=t(rng.uniform(-0.2, 0.2, B)),
+                       misalignment=t(rng.uniform(-2e-4, 2e-4, (B, 2))), dtype=dtype),
+        ltt.Drift(t([0.3]), dtype=dtype),
+        ltt.HorizontalCorrector(t(np.full(B, 0.1)), angle=t(rng.uniform(-1e-3, 1e-3, B)),
+                                dtype=dtype),
+        ltt.VerticalCorrector(t(np.full(B, 0.1)), angle=t(rng.uniform(-1e-3, 1e-3, B)),
+                              dtype=dtype),
+        ltt.Quadrupole(t([0.2]), k1=t([3.0]), tilt=t([0.05]), dtype=dtype),
+        ltt.Drift(t(rng.uniform(0.1, 0.6, B)), dtype=dtype),
+        ltt.Screen(dtype=dtype),
+    ]
+    builders = [torch_fused.element_map_builder(el) for el in elements]
+    energy = torch.full((B,), 1.073e8, dtype=dtype)
+    mu = t(np.concatenate([rng.normal(scale=1e-4, size=(B, 6)), np.ones((B, 1))], axis=1))
+    a = rng.normal(scale=1e-4, size=(B, 7, 7))
+    a[:, 6, :] = 0.0
+    cov = t(a @ np.swapaxes(a, 1, 2))
+    return builders, energy, mu, cov, torch.from_numpy(k1 == 0.0)
+
+
+def per_setting_error(actual, expected):
+    B = expected.shape[0]
+    diff = (actual - expected).abs().reshape(B, -1).amax(dim=1)
+    return float((diff / expected.abs().reshape(B, -1).amax(dim=1)).max())
+
+
+@pytest.mark.parametrize("energy_batched", [False, True])
+def test_moment_sweep_and_backward_match_plain(host_kernels, energy_batched):
+    B = 37  # ragged: not a multiple of the 128-thread block
+    builders, energy, mu, cov, k1_zero = run_and_inputs(B, torch.float64)
+    if energy_batched:  # every element dynamic, markers and screens included
+        energy = energy * torch.linspace(0.9, 1.1, B, dtype=torch.float64)
+        plan = torch_fused.plan_run(builders, energy, lambda x: torch.broadcast_to(x, (B,)))
+        assert all(entry[0] == "dyn" for entry in plan)
+    else:
+        plan = torch_fused.plan_run(builders, energy[:1], lambda x: torch.broadcast_to(x, (B,)))
+    entries = tuple((kind, meta, len(values)) for kind, meta, values in plan)
+    values = [v for _, _, vs in plan for v in vs]
+    tape = fused_track._tape(entries, torch.device("cpu"))
+    params, consts = fused_track._tape_operands(entries, values, tape, torch.float64, B)
+
+    out_mu, out_cov = torch.empty_like(mu), torch.empty_like(cov)
+    code = host_kernels["moment_sweep"].lynx_moment_sweep(
+        1, tape.rows.data_ptr(), tape.rows.shape[0], params.data_ptr(), consts.data_ptr(),
+        energy.data_ptr(), mu.data_ptr(), cov.data_ptr(), out_mu.data_ptr(), out_cov.data_ptr(),
+        B, REST_ENERGY_EV, None,
+    )
+    assert code == 0
+    ref_mu, ref_cov = fused_track._table_reference_sweep(entries, values, energy, mu, cov)
+    assert per_setting_error(out_mu, ref_mu) <= RTOL
+    assert per_setting_error(out_cov, ref_cov) <= RTOL
+
+    rng = np.random.default_rng(1)
+    dmu = torch.from_numpy(rng.normal(size=(B, 7)))
+    dcov = torch.from_numpy(rng.normal(size=(B, 7, 7)))
+    outputs = {
+        "prefix": torch.empty((tape.rows.shape[0], 49, B), dtype=torch.float64),
+        "d_params": torch.empty((tape.n_params, B), dtype=torch.float64),
+        "d_consts": torch.empty((tape.cell_pos.shape[0], B), dtype=torch.float64),
+        "d_energy": torch.empty_like(energy),
+        "d_mu": torch.empty_like(mu),
+        "d_cov": torch.empty_like(cov),
+    }
+    code = host_kernels["moment_sweep_bwd"].lynx_moment_sweep_bwd(
+        1, tape.rows.data_ptr(), tape.rows.shape[0], tape.cell_pos.data_ptr(), params.data_ptr(),
+        consts.data_ptr(), energy.data_ptr(), mu.data_ptr(), cov.data_ptr(), dmu.data_ptr(),
+        dcov.data_ptr(), *(t.data_ptr() for t in outputs.values()), B, REST_ENERGY_EV, None,
+    )
+    assert code == 0
+    ref_values, ref_energy, ref_mu, ref_cov = fused_track._reference_sweep_vjp(
+        entries, values, energy, mu, cov, dmu, dcov
+    )
+    rows, sums = iter(outputs["d_params"]), iter(outputs["d_consts"].sum(dim=1))
+    offset = 0
+    for kind, meta, count in entries:
+        for k in range(count):
+            got = next(rows) if kind == "dyn" else next(sums)
+            want = ref_values[offset + k].reshape(got.shape)
+            scale = float(want.abs().max())
+            error = (got - want).abs()
+            if meta is torch_fused._build_quadrupole and k == 1 and want.dim():
+                # d/dk1 at k1 == 0 is rounding-limited (module docstring).
+                zero = k1_zero if want.shape[0] == B else torch.zeros_like(k1_zero)
+                assert bool((error[zero] <= K1_ZERO_RTOL * want[zero].abs()).all())
+                error = error[~zero]
+            assert float(error.max()) <= RTOL * scale, (kind, offset + k)
+        offset += count
+    for name, want in (("d_energy", ref_energy), ("d_mu", ref_mu), ("d_cov", ref_cov)):
+        got = outputs[name]
+        assert float((got - want).abs().max()) <= RTOL * float(want.abs().max()), name
+
+
+def test_particle_apply_matches_plain(host_kernels):
+    B, N = 19, 45
+    builders, energy, _, _, _ = run_and_inputs(B, torch.float64, seed=2)
+    total = None
+    for params, fn in builders:
+        T = fn([torch.broadcast_to(p, (B,)) for p in params], energy)
+        total = T if total is None else tbl.compose(T, total)
+    layout, _ = fused_track._split_table(total)
+    matrix = torch.stack(
+        [tbl.broadcast_cell(c, (B,), torch.float64) for row in total for c in row], dim=-1
+    ).contiguous()
+    rng = np.random.default_rng(3)
+    particles = torch.from_numpy(
+        np.concatenate([rng.normal(scale=1e-4, size=(B, N, 6)), np.ones((B, N, 1))], axis=-1)
+    )
+    for lay, mat in ((layout, matrix),
+                     (fused_track._transpose_layout(layout),
+                      matrix.reshape(B, 7, 7).transpose(1, 2).reshape(B, 49).contiguous())):
+        zeros, ones = fused_track._layout_masks(lay)
+        out = torch.empty_like(particles)
+        code = host_kernels["particle_apply"].lynx_particle_apply(
+            1, mat.data_ptr(), particles.data_ptr(), out.data_ptr(), B, N, zeros, ones, None
+        )
+        assert code == 0
+        expected = fused_track.particle_apply_reference(lay, mat, particles)
+        assert per_setting_error(out, expected) <= RTOL
