@@ -6,13 +6,16 @@
 Phases, each of which raises on failure (non-zero exit, no result line):
 
 1. require a CUDA device, pin TF32 off, print the card and its power limit;
-2. build kernels B1-B4 (``lynx_tpu_torch/csrc/*.cu``), one nvcc each, all
-   started together;
+2. build kernels B1-B6 (``lynx_tpu_torch/csrc/*.cu``), one nvcc each, all
+   started together, and print each build's seconds and ptxas registers;
 3. hold B1 against its plain PyTorch version on the card at the flagship
    shapes and at the edge cases (count mode exactly equal, weighted mode
-   within 1e-5 relative of the plain version in float64); hold B2, B3 and
-   B4 against theirs at the main paths' shapes and at the edge cases, in
-   double and in float (bounds below);
+   within 1e-5 relative of the plain version in float64); hold B2-B6
+   against theirs at the main paths' shapes and at the edge cases, in
+   double and in float (bounds below; B5 and B6 on a ragged B and N =
+   100,003, rectangular and elliptical apertures, two in one plan, x_max =
+   inf, a setting that loses every particle, no aperture, and an
+   identity-only plan with ``batch_size=``);
 4. drive the flagship path, the ARES EA track of a 100k-particle beam and
    the 2448 x 2040 read of screen AREABSCR1, at B = 1 (``functional.track``
    and ``Segment.track`` + ``reading``) and B = 8; check the images, that
@@ -26,7 +29,17 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    10,000 particles through B2 and its gradient.  Each path runs with the
    launch counts set to 0 just before it, reads them just after, and checks
    that no plain version ran on a CUDA tensor;
-7. print the kernels' JSON line and, last, the ``{"ok": true, ...}`` line.
+7. path K, the env's particle-fidelity observation ``method="kernel"``
+   with one shared 100,000-particle cloud at B = 256 (B6) and 8 (B5), held
+   against ``method="moments"``, and env-steps/s of the three methods; path
+   A, the aperture-interleaved sweep (``benchmarks/aperture_sweep_ab.py``'s
+   lattice) at B = 32 and 256 through B6 with the gradient of sum(sigma_x)
+   with respect to k1, held against dense ``functional.track`` and against
+   autograd of the plain walk in double; the B5/B6 crossover at B = 8, 16,
+   32 and 256; B5's and B6's times against their plain versions.  In the
+   forward no plain version runs on a CUDA tensor; the backward is autograd
+   of the plain walk, the JAX package's design, and is counted apart;
+8. print the kernels' JSON line and, last, the ``{"ok": true, ...}`` line.
 
 It imports neither JAX nor ``lynx_tpu``.
 """
@@ -48,7 +61,8 @@ MAX_MOVED = 20
 SWEEP_BATCH = 100_000  # settings in paths S and T (the JAX package's bench sweep)
 SWEEP_STEPS = 10
 PUSH_BATCH, PUSH_PARTICLES = 100, 10_000  # path P
-KERNEL_LIBRARIES = ("window_histogram", "particle_apply", "moment_sweep", "moment_sweep_bwd")
+KERNEL_LIBRARIES = ("window_histogram", "particle_apply", "moment_sweep", "moment_sweep_bwd",
+                    "particle_moment_sweep", "packed_gram")
 
 # Bounds of B2-B4 against their plain versions.  Errors are relative to the
 # largest entry of the compared quantity: per setting for moments and
@@ -75,6 +89,33 @@ OBS_RTOL = 1e-4
 # of the plain version in double, relative to each column's largest |value|.
 GRAD_RTOL = 1e-3
 
+# The particle moment sweep, kernels B5 and B6: one shared cloud of
+# MOMENT_PARTICLES (paths K and A), ODD_PARTICLES in the checks.
+MOMENT_PARTICLES = 100_000
+ODD_PARTICLES = 100_003
+ENV_KERNEL_BATCHES = (256, 8)  # path K: B6 at the JAX bench's PARTICLE_KERNEL_BATCH, B5
+APERTURE_BATCHES = (32, 256)  # path A: benchmarks/aperture_sweep_ab.py's B
+CROSSOVER_BATCHES = (8, 16, 32, 256)
+# Bounds of B5 and B6 against their plain versions: second-moment sums
+# relative to each setting's largest, first-moment sums relative to
+# sqrt(W max_r s2[r, r]), the size Cauchy-Schwarz gives a first-moment sum
+# (those of a centred cloud are themselves rounding noise).  In double the
+# weight sums are equal.
+MOMENT_DOUBLE_RTOL = 1e-12
+# In float against the double plain version on the same rounded inputs:
+# float sums of ~1e5 products, and mask flips: a particle within an ulp of
+# an aperture edge may land on the other side, which moves its setting's
+# weight sum by 1 and its second moments by ~1e-5 relative at these widths.
+# MAX_FLIPS bounds the net change of survivors per setting.
+MOMENT_FLOAT_RTOL = 1e-4
+MAX_FLIPS = 5
+# Path K: method="kernel" (float) against method="moments" (float, exact
+# algebra for the linear EA), relative to each column's largest |value|.
+KERNEL_OBS_RTOL = 1e-4
+# Path A: the sweep (float) against dense functional.track (float): mu and
+# sigma relative to the plane's largest sigma, survivors within MAX_FLIPS.
+APERTURE_RTOL = 1e-4
+
 
 def time_cuda(torch, fn, iters, warmup=3):
     """Milliseconds per call of ``fn`` on the device timeline, after warm-up."""
@@ -93,23 +134,27 @@ def time_cuda(torch, fn, iters, warmup=3):
 
 def device_time_ms(torch, fn, iters, kernel=None):
     """Milliseconds of device time per call of ``fn`` (all kernels it issues,
-    summed), from ``torch.profiler``; raises if it traced none.  With
-    ``kernel``, also the time of the kernels whose name contains it."""
+    summed), from ``torch.profiler``.  A profiling session now and then
+    comes back empty, so an empty one is repeated; three empty ones raise.
+    With ``kernel``, also the time of the kernels whose name contains it."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    events = [
-        event for event in prof.key_averages()
-        if event.device_type == torch.autograd.DeviceType.CUDA
-    ]
-    total_us = sum(event.self_device_time_total for event in events)
-    if total_us <= 0:
-        raise AssertionError("torch.profiler traced no device time")
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [
+            event for event in prof.key_averages()
+            if event.device_type == torch.autograd.DeviceType.CUDA
+        ]
+        total_us = sum(event.self_device_time_total for event in events)
+        if total_us > 0:
+            break
+    else:
+        raise AssertionError("torch.profiler traced no device time in three sessions")
     if kernel is None:
         return total_us / iters / 1e3
     own_us = sum(event.self_device_time_total for event in events if kernel in event.key)
@@ -469,10 +514,14 @@ def check_push_kernel(torch, ft, fused, tbl):
 @contextlib.contextmanager
 def plain_on_cuda_guard(torch, ft):
     """Count calls of the kernels' plain versions with a CUDA tensor among
-    their arguments while the block runs."""
-    names = ("_table_reference_sweep", "_reference_sweep_vjp", "particle_apply_reference")
-    originals = {name: getattr(ft, name) for name in names}
-    hits = {"count": 0}
+    their arguments while the block runs: ``count`` outside, ``backward``
+    inside the particle moment sweep's backward (``_moment_sweep_vjp``, the
+    JAX package's design: autograd of the plain walk)."""
+    names = ("_table_reference_sweep", "_reference_sweep_vjp", "particle_apply_reference",
+             "_moment_sweep_reference", "packed_gram_reference")
+    originals = {name: getattr(ft, name) for name in (*names, "_moment_sweep_vjp")}
+    hits = {"count": 0, "backward": 0}
+    in_backward = [False]
 
     def on_cuda(value):
         if isinstance(value, torch.Tensor):
@@ -484,12 +533,20 @@ def plain_on_cuda_guard(torch, ft):
     def guarded(function):
         def wrapper(*args, **kwargs):
             if on_cuda(args):
-                hits["count"] += 1
+                hits["backward" if in_backward[0] else "count"] += 1
             return function(*args, **kwargs)
         return wrapper
 
+    def backward_walk(*args, **kwargs):
+        in_backward[0] = True
+        try:
+            return originals["_moment_sweep_vjp"](*args, **kwargs)
+        finally:
+            in_backward[0] = False
+
     for name in names:
         setattr(ft, name, guarded(originals[name]))
+    ft._moment_sweep_vjp = backward_walk
     try:
         yield hits
     finally:
@@ -498,13 +555,15 @@ def plain_on_cuda_guard(torch, ft):
 
 
 def reset_counts(ft, hist):
-    for wrapper in (hist.window_histogram, ft.particle_apply, ft.moment_sweep, ft.moment_sweep_bwd):
+    for wrapper in (hist.window_histogram, ft.particle_apply, ft.moment_sweep, ft.moment_sweep_bwd,
+                    ft.particle_moment_sweep, ft.packed_gram):
         wrapper.launches = 0
 
 
 def counts(ft):
     return {"B2": ft.particle_apply.launches, "B3": ft.moment_sweep.launches,
-            "B4": ft.moment_sweep_bwd.launches}
+            "B4": ft.moment_sweep_bwd.launches, "B5": ft.particle_moment_sweep.launches,
+            "B6": ft.packed_gram.launches}
 
 
 def sweep_params(torch, envs, B, device, seed):
@@ -777,6 +836,364 @@ def time_kernels(torch, ft, fused, tbl, env, card):
     return times
 
 
+# -- the particle moment sweep: kernels B5 and B6 -------------------------------
+
+
+def sum_errors(torch, actual, expected):
+    """(first, second, max |weight change|) of moment sums ``(s1, s2, w)``
+    against the plain version's, on the bounds' scales (MOMENT_DOUBLE_RTOL)."""
+    s1, s2, w = (t.detach().double() for t in actual)
+    e1, e2, ew = (t.detach().double() for t in expected)
+    scale2 = e2.abs().amax(dim=(1, 2)).clamp_min(1e-300)
+    diag = e2.diagonal(dim1=1, dim2=2).abs().amax(dim=1)
+    scale1 = (ew.clamp_min(1.0) * diag).sqrt().clamp_min(1e-300)
+    first = float(((s1 - e1).abs().amax(dim=1) / scale1).max())
+    second = float(((s2 - e2).abs().amax(dim=(1, 2)) / scale2).max())
+    return first, second, float((w - ew).abs().max())
+
+
+def gram_sums(gram):
+    """A (B, 8, 8) joint Gram as the sums (s1, s2, w) of the augmented cloud."""
+    return gram[:, 7, :7], gram[:, :7, :7], gram[:, 7, 7]
+
+
+def aperture_lattice(torch, ltt, B, variant, dtype, k1=None):
+    """benchmarks/aperture_sweep_ab.py's lattice on the card: Drift 0.3 m,
+    Quadrupole 0.12 m with k1 = linspace(-8, 8, B), the ``variant``'s
+    apertures, Drift 0.4 m, Quadrupole 0.12 m with k1 = 3, Drift 0.2 m.
+    Variants: "rect" (the benchmark's 3e-4 x 4e-4 m rectangle), "two"
+    (a rectangle with x_max = inf, a drift, an ellipse), "lost" (the
+    rectangle with one setting closed to 1e-9 m), "none"."""
+    kw = dict(dtype=dtype, device="cuda")
+
+    def t(*values):
+        return torch.tensor(values, **kw)
+
+    if k1 is None:
+        k1 = torch.linspace(-8.0, 8.0, B, **kw)
+    apertures = {
+        "rect": [ltt.Aperture(x_max=t(3e-4), y_max=t(4e-4), **kw)],
+        "two": [ltt.Aperture(x_max=t(float("inf")), y_max=t(4e-4), **kw),
+                ltt.Drift(t(0.1), **kw),
+                ltt.Aperture(x_max=t(3e-4), y_max=t(5e-4), shape="elliptical", **kw)],
+        "lost": [ltt.Aperture(x_max=torch.where(torch.arange(B, device="cuda") == 1, 1e-9, 3e-4)
+                              .to(dtype), y_max=t(4e-4), **kw)],
+        "none": [],
+    }[variant]
+    return [ltt.Drift(t(0.3), **kw), ltt.Quadrupole(t(0.12), k1=k1, **kw), *apertures,
+            ltt.Drift(t(0.4), **kw), ltt.Quadrupole(t(0.12), k1=torch.full((B,), 3.0, **kw), **kw),
+            ltt.Drift(t(0.2), **kw)]
+
+
+def moment_cloud(torch, ParticleBeam, n, seed, dtype=None):
+    """The shared cloud of paths K and A (the JAX bench's beam: sigma_x =
+    sigma_y = 175 um, the other widths at their defaults, E = 107.3 MeV),
+    float32 unless ``dtype`` says otherwise."""
+    dtype = torch.float32 if dtype is None else dtype
+    return ParticleBeam.from_parameters(
+        num_particles=n, sigma_x=torch.tensor([1.75e-4]), sigma_y=torch.tensor([1.75e-4]),
+        energy=torch.tensor([1.073e8]), generator=torch.Generator(device="cuda").manual_seed(seed),
+        dtype=dtype, device="cuda",
+    )
+
+
+def plan_of(torch, fused, elements, B, dtype):
+    return fused.particle_moment_plan(
+        elements, torch.tensor(1.073e8, dtype=dtype, device="cuda"),
+        lambda x: torch.broadcast_to(torch.as_tensor(x).reshape(-1), (B,)),
+    )
+
+
+def kernel_operands(torch, ft, fused, elements, B, particles):
+    """What sweep_particle_moments hands the kernels for this lattice: the
+    6-field entries, the scalars, the deviation cloud and its weights."""
+    entries, scalars = plan_of(torch, fused, elements, B, particles.dtype)
+    weights = torch.ones(particles.shape[0], dtype=particles.dtype, device="cuda")
+    kernel_entries, extra, delta, _ = ft._centered_plan(entries, scalars, particles, weights)
+    return kernel_entries, extra, delta, weights
+
+
+def check_moment_kernels(torch, ltt, ft, fused, env, ParticleBeam):
+    """Phase 3: B5 and B6 against their plain versions on the card, double
+    and float.  Returns each kernel's max |error| in float at its path's
+    shape (B5: path K at B = 8; B6: path A at B = 256)."""
+    cloud = moment_cloud(torch, ParticleBeam, ODD_PARTICLES, seed=71, dtype=torch.float64).particles[0]
+    gen = torch.Generator(device="cuda").manual_seed(72)
+    cases = []  # (label, kernel, B, elements)
+    for kernel, B in (("B5", 13), ("B6", 17), ("B6", 33)):
+        for variant in ("rect", "two", "lost"):
+            cases.append((f"{variant}, B={B}", kernel, B,
+                          aperture_lattice(torch, ltt, B, variant, torch.float64)))
+    for kernel, B in (("B5", 8), ("B6", 256)):
+        magnets = torch.rand((B, 5), generator=gen, device="cuda") - 0.5
+        cases.append((f"path K plan (no aperture), B={B}", kernel, B,
+                      list(env._batched_tuned_segment(magnets).flattened().elements)))
+    cases.append(("path A plan, B=256", "B6", 256,
+                  aperture_lattice(torch, ltt, 256, "rect", torch.float64)))
+    worst_abs = {}
+    for label, kernel, B, elements in cases:
+        ops64 = kernel_operands(torch, ft, fused, elements, B, cloud)
+        ops32 = (ops64[0], tuple(v.float() for v in ops64[1]), ops64[2].float(), ops64[3].float())
+        rounded = (ops32[0], tuple(v.double() for v in ops32[1]), ops32[2].double(),
+                   ops32[3].double())
+        if kernel == "B5":
+            def run(ops):
+                return ft.particle_moment_sweep(*ops)
+
+            def plain(ops):
+                return ft._moment_sweep_reference(*ops)
+        else:
+            def run(ops):
+                return gram_sums(ft.packed_gram(*ft._packed_operands(*ops)[0]))
+
+            def plain(ops):
+                return gram_sums(ft.packed_gram_reference(*ft._packed_operands(*ops)[0]))
+        expected = plain(ops64)
+        double = sum_errors(torch, run(ops64), expected)
+        single_out = run(ops32)
+        single_ref = plain(rounded)
+        single = sum_errors(torch, single_out, single_ref)
+        torch.cuda.synchronize()
+        survivors = expected[2]
+        print(f"{kernel} check {label}, N={ODD_PARTICLES}: double first/second {double[0]:.2e}/"
+              f"{double[1]:.2e}, |dW| {double[2]:.0f}; float vs double first/second"
+              f" {single[0]:.2e}/{single[1]:.2e}, net flipped particles per setting <="
+              f" {single[2]:.0f}; survivors {survivors.min().item():.0f}-{survivors.max().item():.0f}")
+        if max(double[:2]) > MOMENT_DOUBLE_RTOL or double[2] != 0:
+            raise AssertionError(f"{kernel} in double exceeds {MOMENT_DOUBLE_RTOL}: {label}")
+        if max(single[:2]) > MOMENT_FLOAT_RTOL or single[2] > MAX_FLIPS:
+            raise AssertionError(f"{kernel} in float exceeds its bounds: {label}")
+        if ("lost" in label) != bool((survivors == 0).any()):
+            raise AssertionError(f"{kernel}: the all-lost setting is wrong: {label}")
+        if label in ("path K plan (no aperture), B=8", "path A plan, B=256"):
+            worst_abs[kernel] = max(float((a.double() - e).abs().max())
+                                    for a, e in zip(single_out, single_ref))
+
+    # An identity-only plan takes its settings axis from batch_size=.
+    identity = (("map", tuple(tuple(1.0 if i == j else 0.0 for j in range(7)) for i in range(7))),)
+    weights = torch.ones(cloud.shape[0], dtype=torch.float64, device="cuda")
+    expected = ft._moment_sweep_reference(identity, (torch.zeros(9, dtype=torch.float64,
+                                                                  device="cuda"),), cloud, weights)
+    for packed in (False, True):
+        ft.PACKED_MOMENT_SWEEP = packed
+        try:
+            actual = ft.fused_particle_moment_sweep(identity, (), cloud, weights, batch_size=9)
+        finally:
+            ft.PACKED_MOMENT_SWEEP = None
+        errors = sum_errors(torch, actual, expected)
+        print(f"{'B6' if packed else 'B5'} check identity-only plan with batch_size=9: double"
+              f" first/second {errors[0]:.2e}/{errors[1]:.2e}, |dW| {errors[2]:.0f}")
+        if max(errors[:2]) > MOMENT_DOUBLE_RTOL or errors[2] != 0 or actual[0].shape != (9, 7):
+            raise AssertionError("the identity-only plan disagrees with the plain walk")
+    return worst_abs
+
+
+def column_error(torch, actual, expected):
+    """Max error of each column relative to its largest |expected| value."""
+    return float(((actual.double() - expected.double()).abs()
+                  / expected.double().abs().amax(dim=0).clamp_min(1e-300)).max())
+
+
+def path_env_kernel(torch, ft, hist, env, ParticleBeam, card):
+    """Path K: the env's particle-fidelity observation, method="kernel",
+    with one shared MOMENT_PARTICLES cloud, at B = 256 (B6) and 8 (B5);
+    held against method="moments"; env-steps/s of the three methods at
+    B = 256."""
+    beam = moment_cloud(torch, ParticleBeam, MOMENT_PARTICLES, seed=81)
+    gen = torch.Generator(device="cuda").manual_seed(82)
+    launched = {}
+    for B in ENV_KERNEL_BATCHES:
+        magnets = torch.rand((B, 5), generator=gen, device="cuda") - 0.5
+        reset_counts(ft, hist)
+        with plain_on_cuda_guard(torch, ft) as plain:
+            kernel = env.batched_particle_beam_parameters(magnets, beam, method="kernel")
+            torch.cuda.synchronize()
+        launched[B] = counts(ft)
+        route = "B6" if B >= ft._PACK_SETTINGS else "B5"
+        other = "B5" if route == "B6" else "B6"
+        print(f"path K: method='kernel' at B={B}, N={MOMENT_PARTICLES}: launches {launched[B]},"
+              f" plain versions on CUDA tensors {plain['count']}")
+        if launched[B][route] != 1 or launched[B][other] != 0 or plain["count"] or plain["backward"]:
+            raise AssertionError(f"path K at B={B} did not go through kernel {route}")
+        moments = env.batched_particle_beam_parameters(magnets, beam, method="moments")
+        error = column_error(torch, kernel, moments)
+        print(f"path K: B={B} kernel against method='moments', max error {error:.2e} of each"
+              f" column's largest |value| (bound {KERNEL_OBS_RTOL})")
+        if kernel.shape != (B, 4) or not bool(torch.isfinite(kernel).all()) or error > KERNEL_OBS_RTOL:
+            raise AssertionError(f"path K at B={B}: method='kernel' disagrees with 'moments'")
+
+    B = ENV_KERNEL_BATCHES[0]
+    magnets = torch.rand((B, 5), generator=gen, device="cuda") - 0.5
+    rates = {}
+    for method, iters in (("kernel", 20), ("moments", 20), ("particles", 5)):
+        def call():
+            return env.batched_particle_beam_parameters(magnets, beam, method=method)
+
+        ms = time_cuda(torch, call, iters=iters)
+        rates[method] = B * 1000.0 / ms
+        device = device_time_ms(torch, call, iters=3)
+        print(f"path K: method='{method}' at B={B}, N={MOMENT_PARTICLES}: {ms:.4f} ms/call,"
+              f" {rates[method]:.1f} env-steps/s (CUDA events, {iters} calls after warm-up);"
+              f" device time {device:.4f} ms/call, busy share {device / ms:.4f} (torch.profiler,"
+              f" 3 calls; card {card})")
+    return launched[ENV_KERNEL_BATCHES[1]]["B5"], launched[ENV_KERNEL_BATCHES[0]]["B6"]
+
+
+def path_aperture_sweep(torch, ltt, ft, hist, fused, functional, ParticleBeam, card):
+    """Path A: the aperture-interleaved sweep through particle_moment_plan
+    and sweep_particle_moments at B = 32 and 256, float, with the gradient
+    of sum(sigma_x) with respect to the first quadrupole's k1; held against
+    dense functional.track and against autograd of the plain walk in
+    double; settings/s of both routes."""
+    beam = moment_cloud(torch, ParticleBeam, MOMENT_PARTICLES, seed=91)
+    particles = beam.particles[0]
+    weights = torch.ones(MOMENT_PARTICLES, device="cuda")
+    b6_launches = 0
+    for B in APERTURE_BATCHES:
+        k1 = torch.linspace(-8.0, 8.0, B, device="cuda").requires_grad_(True)
+        elements = aperture_lattice(torch, ltt, B, "rect", torch.float32, k1=k1)
+        reset_counts(ft, hist)
+        with plain_on_cuda_guard(torch, ft) as plain:
+            entries, scalars = plan_of(torch, fused, elements, B, torch.float32)
+            mu, cov, w_sum = ft.sweep_particle_moments(entries, scalars, particles, weights)
+            sigma_x = cov[:, 0, 0].sqrt()
+            (grad,) = torch.autograd.grad(sigma_x.sum(), k1)
+            torch.cuda.synchronize()
+        launched = counts(ft)
+        b6_launches += launched["B6"]
+        print(f"path A: sweep + d(sum sigma_x)/dk1 at B={B}, N={MOMENT_PARTICLES}: launches"
+              f" {launched}, plain versions on CUDA tensors: forward {plain['count']}, backward"
+              f" {plain['backward']} (autograd of the plain walk, the JAX package's design)")
+        if launched["B6"] != 1 or launched["B5"] or plain["count"] or not plain["backward"]:
+            raise AssertionError(f"path A at B={B} did not run its forward through kernel B6")
+
+        with torch.no_grad():
+            dense, _ = functional.track(ltt.Segment(elements), beam.broadcast((B,)))
+        w_sum = w_sum.detach()
+        flips = float((w_sum - dense.num_particles_survived).abs().max())
+        errors = {}
+        for stat, value, plane in (("mu_x", mu[:, 0], "sigma_x"), ("mu_y", mu[:, 2], "sigma_y"),
+                                   ("sigma_x", sigma_x, "sigma_x"),
+                                   ("sigma_y", cov[:, 2, 2].sqrt(), "sigma_y")):
+            scale = float(getattr(dense, plane).abs().max())
+            errors[stat] = float((value.detach() - getattr(dense, stat)).abs().max()) / scale
+        print(f"path A: B={B} against dense functional.track: survivors"
+              f" {int(w_sum.min())}-{int(w_sum.max())} of {MOMENT_PARTICLES}, net flipped"
+              f" particles per setting <= {flips:.0f} (bound {MAX_FLIPS}); errors relative to the"
+              f" plane's largest sigma: {', '.join(f'{k} {v:.2e}' for k, v in errors.items())}"
+              f" (bound {APERTURE_RTOL})")
+        if not 0 < float(w_sum.min()) < MOMENT_PARTICLES or flips > MAX_FLIPS:
+            raise AssertionError(f"path A at B={B}: survivors disagree with dense tracking")
+        if max(errors.values()) > APERTURE_RTOL:
+            raise AssertionError(f"path A at B={B}: moments disagree with dense tracking")
+
+        # The gradient against autograd of the plain walk in double.
+        k1_64 = k1.detach().double().requires_grad_(True)
+        elements64 = aperture_lattice(torch, ltt, B, "rect", torch.float64, k1=k1_64)
+        route, ft.PARTICLE_MOMENT_SWEEP_PATH = ft.PARTICLE_MOMENT_SWEEP_PATH, False
+        try:
+            entries64, scalars64 = plan_of(torch, fused, elements64, B, torch.float64)
+            _, cov64, _ = ft.sweep_particle_moments(entries64, scalars64, particles.double(),
+                                                    weights.double())
+            (grad64,) = torch.autograd.grad(cov64[:, 0, 0].sqrt().sum(), k1_64)
+        finally:
+            ft.PARTICLE_MOMENT_SWEEP_PATH = route
+        small = k1.detach().abs() < K1_SMALL
+        error = float((grad.double() - grad64).abs()[~small].max() / grad64.abs().max())
+        print(f"path A: B={B} d(sum sigma_x)/dk1 (B6 forward, chunked backward, float) against"
+              f" autograd of the plain walk (double): max error {error:.2e} of the largest"
+              f" |value| (bound {GRAD_RTOL}; {int(small.sum())} settings with |k1| < {K1_SMALL}"
+              f" held to finite values)")
+        if error > GRAD_RTOL or not bool(torch.isfinite(grad).all()):
+            raise AssertionError(f"path A at B={B}: the gradient disagrees with the plain walk's")
+
+        def kernel_route():
+            with torch.no_grad():
+                entries, scalars = plan_of(torch, fused, elements, B, torch.float32)
+                return ft.sweep_particle_moments(entries, scalars, particles, weights)
+
+        def dense_route():
+            with torch.no_grad():
+                out, _ = functional.track(ltt.Segment(elements), beam.broadcast((B,)))
+                return out.sigma_x, out.sigma_y, out.mu_x, out.mu_y
+
+        kernel_ms = time_cuda(torch, kernel_route, iters=20)
+        dense_ms = time_cuda(torch, dense_route, iters=5)
+        kernel_device, gram_device = device_time_ms(torch, kernel_route, iters=3,
+                                                    kernel="packed_gram_kernel")
+        dense_device = device_time_ms(torch, dense_route, iters=3)
+        print(f"path A: B={B}, N={MOMENT_PARTICLES}: kernel route {kernel_ms:.4f} ms"
+              f" ({B * 1000.0 / kernel_ms:.1f} settings/s), dense route {dense_ms:.4f} ms"
+              f" ({B * 1000.0 / dense_ms:.1f} settings/s) (CUDA events); device time: kernel"
+              f" route {kernel_device:.4f} ms (busy share {kernel_device / kernel_ms:.4f}, of it"
+              f" B6 stage 1 {gram_device:.4f} ms), dense route {dense_device:.4f} ms (busy share"
+              f" {dense_device / dense_ms:.4f}) (torch.profiler, 3 calls; card {card})")
+    return b6_launches
+
+
+def crossover(torch, ltt, ft, fused, ParticleBeam, card):
+    """B5 against B6 forced (PACKED_MOMENT_SWEEP) on path A's plan at
+    MOMENT_PARTICLES, forward only, float."""
+    particles = moment_cloud(torch, ParticleBeam, MOMENT_PARTICLES, seed=101).particles[0]
+    for B in CROSSOVER_BATCHES:
+        ops = kernel_operands(torch, ft, fused, aperture_lattice(torch, ltt, B, "rect", torch.float32),
+                              B, particles)
+        times, device = {}, {}
+        for packed in (False, True):
+            name = "B6" if packed else "B5"
+            ft.PACKED_MOMENT_SWEEP = packed
+            try:
+                times[name] = time_cuda(torch, lambda: ft.fused_particle_moment_sweep(*ops), iters=20)
+                device[name] = device_time_ms(torch, lambda: ft.fused_particle_moment_sweep(*ops),
+                                              iters=3)
+            finally:
+                ft.PACKED_MOMENT_SWEEP = None
+        print(f"crossover at B={B}, N={MOMENT_PARTICLES} (path A plan, forward): B5 route"
+              f" {times['B5']:.4f} ms, B6 route {times['B6']:.4f} ms per call (CUDA events,"
+              f" 20 calls); device time per call: B5 route {device['B5']:.4f} ms, B6 route"
+              f" {device['B6']:.4f} ms (torch.profiler, 3 calls; card {card})")
+
+
+def time_moment_kernels(torch, ltt, ft, fused, env, ParticleBeam, card):
+    """B5 at path K's B = 8 and B6 at path A's B = 256 against their plain
+    versions, float, N = MOMENT_PARTICLES."""
+    particles = moment_cloud(torch, ParticleBeam, MOMENT_PARTICLES, seed=111).particles[0]
+    gen = torch.Generator(device="cuda").manual_seed(112)
+    magnets = torch.rand((8, 5), generator=gen, device="cuda") - 0.5
+    walk = kernel_operands(torch, ft, fused, list(env._batched_tuned_segment(magnets)
+                                                  .flattened().elements), 8, particles)
+    gram = ft._packed_operands(*kernel_operands(
+        torch, ft, fused, aperture_lattice(torch, ltt, 256, "rect", torch.float32), 256, particles))[0]
+    calls = {
+        "B5": (lambda: ft.particle_moment_sweep(*walk), lambda: ft._moment_sweep_reference(*walk),
+               ("moment_walk_kernel", "reduce_partials_kernel"), "path K, B=8"),
+        "B6": (lambda: ft.packed_gram(*gram), lambda: ft.packed_gram_reference(*gram),
+               ("packed_gram_kernel", "reduce_partials_kernel"), "path A, B=256"),
+    }
+    times = {}
+    for name, (kernel_call, plain_call, kernels, shape) in calls.items():
+        times[name] = (time_cuda(torch, kernel_call, iters=50), time_cuda(torch, plain_call, iters=10))
+        device, own = device_time_ms(torch, kernel_call, iters=5, kernel=kernels[0])
+        _, reduce = device_time_ms(torch, kernel_call, iters=5, kernel=kernels[1])
+        plain_device = device_time_ms(torch, plain_call, iters=2)
+        print(f"{name} at {shape}, N={MOMENT_PARTICLES} (float): kernel {times[name][0]:.4f} ms,"
+              f" plain {times[name][1]:.4f} ms per call (CUDA events, host launch cost included);"
+              f" device time per call: stage 1 {own:.5f} ms, stage 2 {reduce:.5f} ms, all of the"
+              f" wrapper's GPU work {device:.5f} ms, plain {plain_device:.5f} ms (torch.profiler;"
+              f" card {card})")
+    return times
+
+
+def ptxas_registers(log):
+    """``kernel<type>: registers`` lines from an nvcc -Xptxas -v report."""
+    import re
+
+    found = re.findall(r"Compiling entry function '\w*?([a-z][a-z_]*_kernel)(?:I([fd])E)?\w*'.*?"
+                       r"Used (\d+) registers", log, flags=re.S)
+    types = {"f": "<float>", "d": "<double>", "": ""}
+    return ", ".join(f"{name}{types[t]} {regs}" for name, t, regs in found)
+
+
 def main():
     import torch
 
@@ -808,16 +1225,20 @@ def main():
     start = time.perf_counter()
     _build.build_libraries(KERNEL_LIBRARIES)
     for load in (hist.window_histogram_library, ft.particle_apply_library,
-                 ft.moment_sweep_library, ft.moment_sweep_bwd_library):
+                 ft.moment_sweep_library, ft.moment_sweep_bwd_library,
+                 ft.particle_moment_sweep_library, ft.packed_gram_library):
         load()
     print(f"build: {', '.join(KERNEL_LIBRARIES)} (one nvcc each, in parallel) in"
           f" {time.perf_counter() - start:.2f} s")
+    for name, (seconds, log) in _build.BUILD_LOG.items():
+        print(f"build {name}: {seconds:.2f} s; ptxas registers: {ptxas_registers(log)}")
 
     # -- 3. kernels against their plain versions ----------------------------
     max_abs_err = check_kernel_cases(torch, hist)
     env = envs.make_env(device="cuda")
     sweep_abs_err = check_sweep_kernels(torch, ltt, ft, fused, env)
     push_abs_err = check_push_kernel(torch, ft, fused, tbl)
+    moment_abs_err = check_moment_kernels(torch, ltt, ft, fused, env, ParticleBeam)
 
     # -- 4. the main path ---------------------------------------------------
     seg1, beam1 = flagship(torch, ares, ParticleBeam, 1, "cuda", seed=0)
@@ -916,7 +1337,14 @@ def main():
     push_launches = path_particles(torch, ft, hist, segment_module, ares, ParticleBeam, card)
     times = time_kernels(torch, ft, fused, tbl, env, card)
 
-    # -- 7. results ----------------------------------------------------------
+    # -- 7. the particle moment sweep ------------------------------------------
+    walk_launches, env_gram_launches = path_env_kernel(torch, ft, hist, env, ParticleBeam, card)
+    aperture_gram_launches = path_aperture_sweep(torch, ltt, ft, hist, fused, functional,
+                                                 ParticleBeam, card)
+    crossover(torch, ltt, ft, fused, ParticleBeam, card)
+    times.update(time_moment_kernels(torch, ltt, ft, fused, env, ParticleBeam, card))
+
+    # -- 8. results ----------------------------------------------------------
     kernels = [{
         "name": "window_histogram",
         "route": "cuda",
@@ -933,6 +1361,10 @@ def main():
          sweep_abs_err["B3"]),
         ("moment_sweep_bwd", "B4", "moment_sweep_bwd.cu", 249, training_launches,
          sweep_abs_err["B4"]),
+        ("particle_moment_sweep", "B5", "particle_moment_sweep.cu", 633,
+         {"B5": walk_launches}, moment_abs_err["B5"]),
+        ("packed_gram", "B6", "packed_gram.cu", 823,
+         {"B6": env_gram_launches + aperture_gram_launches}, moment_abs_err["B6"]),
     ):
         kernels.append({
             "name": name,

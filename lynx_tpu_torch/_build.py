@@ -5,7 +5,9 @@ point.  It is compiled by ``nvcc`` for ``sm_90a`` (Hopper) at first use into
 ``build/lynx_tpu_torch/`` beside the package, keyed by a hash of its sources
 and flags, and loaded with ``ctypes``: no PyTorch headers are compiled, so a
 build takes seconds.  ``--use_fast_math`` is deliberately absent.
-:func:`build_libraries` starts one ``nvcc`` per kernel, all at once.
+:func:`build_libraries` starts one ``nvcc`` per kernel, all at once, and
+keeps each build's seconds and ptxas report (registers, stack, spills per
+kernel) in :data:`BUILD_LOG`.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import Iterable
 
@@ -22,10 +25,13 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "lynx_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _LIBRARIES: dict = {}
+
+#: ``{name: (seconds, ptxas report)}`` of the builds this process ran.
+BUILD_LOG: dict = {}
 
 
 def _nvcc() -> str:
@@ -58,10 +64,11 @@ def build_libraries(names: Iterable[str]) -> None:
         process = subprocess.Popen(
             command, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
         )
-        running.append((name, target, partial, command, process))
+        running.append((name, target, partial, command, process, time.perf_counter()))
     failures = []
-    for name, target, partial, command, process in running:
+    for name, target, partial, command, process, start in running:
         _, stderr = process.communicate()
+        BUILD_LOG[name] = (time.perf_counter() - start, stderr)  # upper bound: collected in order
         if process.returncode != 0:
             failures.append(f"nvcc failed to build {name}:\n{' '.join(command)}\n{stderr}")
         else:

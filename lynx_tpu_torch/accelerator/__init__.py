@@ -1,3 +1,5 @@
+from lynx_tpu_torch.accelerator.aperture import Aperture  # noqa: F401
+from lynx_tpu_torch.accelerator.bpm import BPM  # noqa: F401
 from lynx_tpu_torch.accelerator.correctors import (  # noqa: F401
     HorizontalCorrector,
     VerticalCorrector,
@@ -13,5 +15,7 @@ from lynx_tpu_torch.accelerator.segment import Segment  # noqa: F401
 #: is not ported yet.
 ELEMENT_CLASSES = {
     cls.__name__: cls
-    for cls in (Drift, HorizontalCorrector, Marker, Quadrupole, Screen, VerticalCorrector)
+    for cls in (
+        Aperture, BPM, Drift, HorizontalCorrector, Marker, Quadrupole, Screen, VerticalCorrector
+    )
 }

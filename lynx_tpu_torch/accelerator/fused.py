@@ -9,8 +9,12 @@ that repeats it op for op, named by the builder's ``tape_kind``
 (``ops/fused_track.py``).
 
 Ported types: Drift, Quadrupole, the horizontal and vertical correctors,
-Marker, and Screen (the identity; only an inactive screen is skippable).
-The builders of the other element types come with their elements.
+and the identity of Marker, BPM, Screen and Aperture (only an inactive BPM,
+screen or aperture is skippable).  The builders of the other element types
+come with their elements.
+
+:func:`particle_moment_plan` builds the plan of the particle moment sweep
+(kernels B5 and B6, ``ops/fused_track.fused_particle_moment_sweep``).
 """
 
 from __future__ import annotations
@@ -19,6 +23,8 @@ from typing import Callable, List, Optional, Tuple
 
 import torch
 
+from lynx_tpu_torch.accelerator.aperture import Aperture
+from lynx_tpu_torch.accelerator.bpm import BPM
 from lynx_tpu_torch.accelerator.correctors import HorizontalCorrector, VerticalCorrector
 from lynx_tpu_torch.accelerator.drift import Drift
 from lynx_tpu_torch.accelerator.marker import Marker
@@ -100,7 +106,7 @@ def element_map_builder(element) -> Optional[Builder]:
         return [element.length, element.angle], _build_horizontal_corrector
     if isinstance(element, VerticalCorrector):
         return [element.length, element.angle], _build_vertical_corrector
-    if isinstance(element, (Marker, Screen)):
+    if isinstance(element, (Marker, BPM, Screen, Aperture)):
         return [], _build_identity
     return None
 
@@ -114,6 +120,68 @@ def _flat_size(value) -> int:
 
 
 _IDENTITY_LAYOUT = [[1.0 if i == j else 0.0 for j in range(7)] for i in range(7)]
+
+
+def particle_moment_plan(elements: list, energy: Tensor, vec: Callable[[Tensor], Tensor]):
+    """Build the plan of the particle moment sweep
+    (``ops/fused_track.fused_particle_moment_sweep``): maximal runs of affine
+    elements compose into ``("map", layout)`` entries whose dynamic cells are
+    ``(B,)`` per-setting scalars, and an active aperture, the one
+    per-particle, per-setting operation no moment algebra can absorb,
+    becomes an ``("aperture", x_idx, y_idx, shape)`` entry.  An active BPM
+    leaves the beam untouched and is passed over.
+
+    Returns ``(entries, scalars)``, or ``None`` when an element needs
+    anything else per particle (an active screen): such lattices take the
+    general tracking paths."""
+    vec_energy = vec(torch.as_tensor(energy))
+    # Compose in the energy's dtype: element parameters default to float32,
+    # and the dense path promotes them inside each map builder the same way.
+    dtype = vec_energy.dtype
+    entries: List[tuple] = []
+    scalars: List[Tensor] = []
+    group: List[Builder] = []
+
+    def flush_group() -> None:
+        if not group:
+            return
+        total = None
+        for params, fn in group:
+            T = fn([vec(p).to(dtype) for p in params], vec_energy)
+            total = T if total is None else tbl.compose(T, total)
+        group.clear()
+        layout, cells = _split_table(total)
+        if not cells and layout == _IDENTITY_LAYOUT:
+            return
+        offset = len(scalars)
+        scalars.extend(cells)
+        entries.append((
+            "map",
+            tuple(
+                tuple(c if isinstance(c, float) else c + offset for c in row)
+                for row in layout
+            ),
+        ))
+
+    for element in elements:
+        if element.is_skippable:
+            builder = element_map_builder(element)
+            if builder is None:
+                return None
+            group.append(builder)
+        elif isinstance(element, Aperture):
+            flush_group()
+            x_idx = len(scalars)
+            scalars.append(vec(element.x_max).to(dtype))
+            y_idx = len(scalars)
+            scalars.append(vec(element.y_max).to(dtype))
+            entries.append(("aperture", x_idx, y_idx, element.shape))
+        elif isinstance(element, BPM):
+            continue
+        else:
+            return None
+    flush_group()
+    return tuple(entries), tuple(scalars)
 
 
 def plan_run(

@@ -6,7 +6,8 @@ that the beam hits a target position and size on the AREABSCR1 screen.  The
 environment is functional (``reset`` / ``step`` over an explicit
 ``EnvState``), and its batched methods track B settings at once: at large B
 a ParameterBeam run takes the fused moment sweep (kernel B3 on the card,
-B4 for its gradient).
+B4 for its gradient), and the particle observation's ``method="kernel"``
+the particle moment sweep (kernels B5 and B6).
 
 Action: 5 settings ``(k1_Q1, k1_Q2, k1_Q3, angle_CV, angle_CH)``, normalised
 to [-1, 1].  Observation: the settings, the beam ``(mu_x, sigma_x, mu_y,
@@ -24,9 +25,11 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from lynx_tpu_torch.accelerator.fused import particle_moment_plan
 from lynx_tpu_torch.accelerator.segment import Segment
 from lynx_tpu_torch.functional import moment_sufficient, track
 from lynx_tpu_torch.models import ares_ea_segment
+from lynx_tpu_torch.ops.fused_track import sweep_particle_moments
 from lynx_tpu_torch.particles import ParameterBeam, ParticleBeam
 
 Tensor = torch.Tensor
@@ -187,8 +190,9 @@ class AresEATransverseTuning:
             ``"particles"`` pushes every particle for every setting;
             ``"auto"`` takes ``"moments"`` when the lattice is moment
             sufficient (the EA with its screen inactive is), else
-            ``"particles"``.  ``"kernel"``, the particle moment sweep with
-            interleaved apertures, needs kernels B5/B6 and is not ported.
+            ``"particles"``; ``"kernel"`` runs the particle moment sweep of
+            the shared cloud (kernels B5/B6 on the card), which also serves
+            lattices with interleaved active apertures.
         """
         tuned = self._batched_tuned_segment(magnets)
         if method == "auto":
@@ -198,14 +202,45 @@ class AresEATransverseTuning:
         elif method == "particles":
             outgoing, _ = track(tuned, beam)
         elif method == "kernel":
-            raise NotImplementedError(
-                "method='kernel' runs the particle moment sweep (kernels B5 and B6),"
-                " which is not ported to lynx_tpu_torch yet"
-            )
+            return self._kernel_particle_beam_parameters(magnets, tuned, beam)
         else:
             raise ValueError(f"unknown method {method!r} (auto | moments | kernel | particles)")
         return torch.stack(
             [outgoing.mu_x, outgoing.sigma_x, outgoing.mu_y, outgoing.sigma_y], dim=-1
+        )
+
+    def _kernel_particle_beam_parameters(
+        self, magnets: Tensor, tuned: Segment, beam: ParticleBeam
+    ) -> Tensor:
+        """Particle-fidelity observation through the settings-amortized
+        moment sweep (``ops/fused_track.sweep_particle_moments``): the B
+        settings walk one shared cloud, and interleaved active apertures
+        (per-particle survival that no moment algebra expresses) are
+        supported."""
+        B = magnets.shape[0]
+        particles = beam.particles
+        plan = particle_moment_plan(
+            tuned.flattened().elements,
+            # Pin the energy to the particles' dtype: self.energy is a Python
+            # float and would otherwise promote the plan to float64.
+            torch.tensor(self.energy, dtype=particles.dtype, device=particles.device),
+            lambda x: torch.broadcast_to(torch.as_tensor(x).reshape(-1), (B,)),
+        )
+        if plan is None:
+            raise ValueError("kernel method requires an affine-plus-apertures lattice")
+        if particles.ndim == 3 and particles.shape[0] == 1:
+            particles = particles[0]
+        if particles.ndim != 2:
+            raise ValueError("kernel method requires one shared (unbatched) beam")
+        weights = (
+            torch.ones(particles.shape[:1], dtype=particles.dtype, device=particles.device)
+            if beam.survival is None
+            else beam.survival.reshape(particles.shape[:1])
+        )
+        entries, scalars = plan
+        mu, cov, _ = sweep_particle_moments(entries, scalars, particles, weights, batch_size=B)
+        return torch.stack(
+            [mu[:, 0], torch.sqrt(cov[:, 0, 0]), mu[:, 2], torch.sqrt(cov[:, 2, 2])], dim=-1
         )
 
     def _observe(self, magnets: Tensor, beam: Tensor, target: Tensor) -> Tensor:

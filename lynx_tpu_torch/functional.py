@@ -10,6 +10,8 @@ from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Tuple
 
+from lynx_tpu_torch.accelerator.aperture import Aperture
+from lynx_tpu_torch.accelerator.bpm import BPM, bpm_reading
 from lynx_tpu_torch.accelerator.element import Element
 from lynx_tpu_torch.accelerator.screen import (
     Screen,
@@ -27,7 +29,9 @@ def track(segment: Segment, incoming: Beam) -> Tuple[Optional[Beam], Diagnostics
 
     * ``outgoing`` is the beam leaving the segment, or ``None`` if an active
       screen absorbed it.
-    * ``diagnostics`` maps a screen's name to its ``(..., H, W)`` image.
+    * ``diagnostics`` maps an element's name to its reading: BPM ->
+      ``(2, ...)`` position, Screen -> ``(..., H, W)`` image, Aperture ->
+      ``(..., N)`` survival mask after the aperture.
 
     No element state is touched.  An element type that this port does not
     track yet raises ``NotImplementedError``; it is never skipped.
@@ -54,6 +58,14 @@ def track(segment: Segment, incoming: Beam) -> Tuple[Optional[Beam], Diagnostics
             continue
         beam = flush(run, beam)
         run = []
+        if isinstance(element, BPM):
+            diagnostics[element.name] = bpm_reading(beam)
+            continue
+        if isinstance(element, Aperture):
+            if isinstance(beam, ParticleBeam):
+                beam = element.masked(beam)
+                diagnostics[element.name] = beam.survival
+            continue
         if isinstance(element, Screen):
             read_beam = element.misaligned_beam(beam)
             if isinstance(read_beam, ParticleBeam):

@@ -1,8 +1,8 @@
 """Fused batched-settings tracking (counterpart of ``lynx_tpu.ops.pallas_track``):
-the ParameterBeam settings sweep with its gradient, and the per-setting
-particle push.
+the ParameterBeam settings sweep with its gradient, the per-setting particle
+push, and the particle moment sweep of one shared cloud.
 
-Three hand-written CUDA kernels carry it on the card, each beside its plain
+Five hand-written CUDA kernels carry it on the card, each beside its plain
 PyTorch version:
 
 * **B3** (``csrc/moment_sweep.cu``, wrapper :func:`moment_sweep`): for B
@@ -17,8 +17,18 @@ PyTorch version:
   composed 7x7 map per setting applied to ``(B, N, 7)`` particles; its
   backward is the same kernel on the transposed map.  Plain version:
   :func:`particle_apply_reference`.
+* **B5** (``csrc/particle_moment_sweep.cu``, wrapper
+  :func:`particle_moment_sweep`): the 36 weighted moment sums of one shared
+  ``(N, 7)`` cloud after a plan of sparse maps and aperture masks, walked
+  per setting.  Plain version: :func:`_moment_sweep_reference`.
+* **B6** (``csrc/packed_gram.cu``, wrapper :func:`packed_gram`): the same
+  sums for many settings as the survival-weighted joint Gram of the
+  augmented cloud, the maps applied afterwards as one exact sandwich.
+  Plain version: :func:`packed_gram_reference`.
+:func:`fused_particle_moment_sweep` routes between B5 and B6; its backward
+is autograd of the plain walk, as in the JAX package.
 
-A plan (``accelerator/fused.plan_run``) reaches the kernels as a small op
+A plan (``accelerator/fused.plan_run``) reaches B3 and B4 as a small op
 tape: one entry per plan entry, ``(kind, offset, cell_start, cell_count)``
 (:func:`_tape`).  A wrapper takes the plain version for CPU tensors and
 launches its kernel (or raises) for CUDA tensors; it never synchronises the
@@ -28,7 +38,7 @@ host, and ``<wrapper>.launches`` counts its kernel launches.
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, List, NamedTuple, Tuple
+from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -576,3 +586,696 @@ def fused_particle_sweep(
         [tbl.broadcast_cell(c, (B,), dtype, device) for row in total for c in row], dim=-1
     )
     return _ParticleApply.apply(layout, matrix, particles.contiguous())
+
+
+# -- The particle moment sweep: kernels B5 and B6 ------------------------------
+#
+# One shared particle cloud observed under B settings of a plan of sparse
+# affine maps and active apertures (``accelerator/fused.particle_moment_plan``).
+# Plan entries are ``("map", layout)``, whose dynamic cells index a flat tuple
+# of ``(B,)`` per-setting scalars, and ``("aperture", x_idx, y_idx, cx_idx,
+# cy_idx, shape)``, which multiplies the survival weights by the aperture's
+# mask at the current coordinates offset by the plane centre ``(cx, cy)``.
+
+#: Upper-triangle order of the 28 second-moment sums.
+_S2_POSITIONS = tuple((r, c) for r in range(7) for c in range(r, 7))
+
+#: Routing override: ``None`` = by device (the kernels for CUDA tensors, the
+#: plain walk on the CPU), ``True``/``False`` force the kernel route (on the
+#: CPU, the kernels' plain versions) or the plain walk whatever the device.
+PARTICLE_MOMENT_SWEEP_PATH = None
+
+#: Packed-Gram route (kernel B6) of the kernel route: ``None`` = for
+#: B >= _PACK_SETTINGS settings, ``True``/``False`` force it on or off.
+PACKED_MOMENT_SWEEP = None
+
+#: Fewest settings that take B6 by default; fewer take the walk (B5).  The
+#: JAX package's value, tuned on a TPU; the H100's crossover is in PERF.md.
+_PACK_SETTINGS = 16
+
+#: Settings per slice of the backward: autograd of the plain walk keeps
+#: (slice, 7, N) coordinates per map entry, so the backward runs in slices to
+#: bound its memory at any B.
+_BWD_SETTING_CHUNK = 64
+
+
+def _apply_layout_rows(layout, coords, cell_of):
+    """Push 7 coordinate tensors through a sparse 7x7 layout; ``cell_of(k)``
+    is the value of dynamic cell ``k``.  Structural zeros are skipped and
+    structural ones add the coordinate itself."""
+    pushed = []
+    for r in range(7):
+        acc = None
+        for j in range(7):
+            cell = layout[r][j]
+            if isinstance(cell, float):
+                if cell == 0.0:
+                    continue
+                term = coords[j] if cell == 1.0 else cell * coords[j]
+            else:
+                term = cell_of(cell) * coords[j]
+            acc = term if acc is None else acc + term
+        pushed.append(acc if acc is not None else torch.zeros_like(coords[0]))
+    return pushed
+
+
+def _aperture_mask(xs, ys, x_max, y_max, shape):
+    """Survival mask matching ``accelerator.aperture.aperture_survival_mask``
+    (rectangular strict, elliptical inclusive)."""
+    if shape == "rectangular":
+        return (xs > -x_max) & (xs < x_max) & (ys > -y_max) & (ys < y_max)
+    return (xs**2 / x_max**2 + ys**2 / y_max**2) <= 1.0
+
+
+def _moment_sweep_reference(entries, scalars, particles, weights):
+    """Plain version of kernel B5: the walk over dense ``(B, N)`` coordinate
+    tensors, returning ``(s1 (B, 7), s2 (B, 7, 7), w_sum (B,))``, the
+    weighted moment sums after the plan.  Differentiable: the sweep's
+    backward is autograd of this function."""
+    B, N = scalars[0].shape[0], particles.shape[0]
+    coords = [particles[:, j].expand(B, N) for j in range(7)]
+    w = weights.expand(B, N)
+    for entry in entries:
+        if entry[0] == "map":
+            coords = _apply_layout_rows(entry[1], coords, lambda k: scalars[k][:, None])
+        else:
+            _, x_idx, y_idx, cx_idx, cy_idx, shape = entry
+            mask = _aperture_mask(
+                coords[0] + scalars[cx_idx][:, None],
+                coords[2] + scalars[cy_idx][:, None],
+                scalars[x_idx][:, None],
+                scalars[y_idx][:, None],
+                shape,
+            )
+            w = w * mask.to(w.dtype)
+    coords = torch.stack(coords, dim=1)
+    weighted = w[:, None, :] * coords
+    s1 = weighted.sum(dim=-1)
+    s2 = torch.einsum("bin,bjn->bij", weighted, coords)
+    return s1, s2, w.sum(dim=-1)
+
+
+def particle_moments_from_sums(s1: Tensor, s2: Tensor, w_sum: Tensor) -> Tuple[Tensor, Tensor]:
+    """``(mu, cov)`` from weighted moment sums, with the package's statistics
+    conventions: weight-sum normalisation for the mean, Bessel ``max(W - 1,
+    1)`` for the covariance, so that ``sqrt(cov[r, r])`` is ``sigma_*``.  A
+    setting that lost every particle gives zeros, not NaN."""
+    total = torch.where(w_sum == 0, torch.ones_like(w_sum), w_sum)
+    mu = s1 / total[..., None]
+    centered = s2 - w_sum[..., None, None] * (mu[..., :, None] * mu[..., None, :])
+    denom = torch.clamp(w_sum - 1.0, min=1.0)
+    return mu, centered / denom[..., None, None]
+
+
+def _apply_layout_vector(layout, vector, scalars):
+    """A sparse layout applied to a per-setting ``(B, 7)`` vector (dynamic
+    cells index the ``(B,)`` ``scalars``)."""
+    rows = _apply_layout_rows(layout, [vector[:, j] for j in range(7)], lambda k: scalars[k])
+    return torch.stack(rows, dim=-1)
+
+
+def _apply_layout_matrix_left(layout, mat, scalars):
+    """``out[b, i, k] = sum_j layout[i][j] mat[b, j, k]`` with structural
+    zeros skipped (dynamic cells are ``(B,)`` scalars)."""
+    rows = _apply_layout_rows(
+        layout, [mat[:, j, :] for j in range(7)], lambda k: scalars[k][:, None]
+    )
+    return torch.stack(rows, dim=1)
+
+
+def _moment_slots(B: int, N: int) -> int:
+    """Particle slots per setting of B5's and B6's first stage: each thread
+    sums at least 32 particles, and the launch aims at one full card of
+    resident threads (132 SMs x 2048)."""
+    return max(1, min(-(-N // 32), -(-(132 * 2048) // B)))
+
+
+def _moment_workspace(B: int, N: int, dtype, device):
+    """``(slots, partials, scratch, out)`` of a B5 or B6 launch
+    (``csrc/moment_sums.cuh``)."""
+    slots = _moment_slots(B, N)
+    partials = torch.empty((B, slots, 36), dtype=dtype, device=device)
+    scratch = torch.empty((B, -(-slots // 64), 36), dtype=dtype, device=device)
+    out = torch.empty((B, 36), dtype=dtype, device=device)
+    return slots, partials, scratch, out
+
+
+#: Index tensors by (name, device): the gathers that unpack the kernels' 36
+#: sums, built once per device.
+_INDICES: dict = {}
+
+
+def _index(name: str, values, device) -> Tensor:
+    key = (name, str(device))
+    if key not in _INDICES:
+        _INDICES[key] = torch.tensor(values, dtype=torch.int64, device=device)
+    return _INDICES[key]
+
+
+def _upper(r: int, c: int, n: int) -> int:
+    """Position of cell (min, max) of an n x n symmetric matrix in its
+    row-major upper triangle."""
+    r, c = min(r, c), max(r, c)
+    return r * n - r * (r - 1) // 2 + (c - r)
+
+
+def _check_cloud(what, particles, weights, *more):
+    if particles.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"{what}: particles must be float32 or float64, got {particles.dtype}")
+    for t in (particles, weights, *more):
+        if not t.is_cuda or t.device != particles.device:
+            raise ValueError(f"{what}: operands must share one CUDA device")
+        if t.dtype != particles.dtype or not t.is_contiguous():
+            raise ValueError(f"{what}: operands must be contiguous {particles.dtype}")
+
+
+# -- Kernel B5: the per-setting walk -------------------------------------------
+
+#: B5's tape: one record of ``_WALK_RECORD`` int32 per plan entry, laid out as
+#: ``csrc/particle_moment_sweep.cu`` reads it.  A map record holds its kind
+#: and, from ``_WALK_CODES``, its 49 cell codes: ``_CODE_ZERO``,
+#: ``_CODE_ONE``, ``-3 - i`` for literal ``i`` or the index of a scalar.  An
+#: aperture record holds ``(kind, x_idx, y_idx, cx_idx, cy_idx, shape)``
+#: with shape 0 for rectangular.
+_WALK_MAP, _WALK_APERTURE = 0, 1
+_WALK_RECORD, _WALK_CODES = 64, 8
+_CODE_ZERO, _CODE_ONE = -1, -2
+
+
+class WalkTape(NamedTuple):
+    """B5's tape of a plan, on the kernel's device: ``records`` (E, 64)
+    int32, the literal cells as ``literals`` (L,) float64, and the number
+    of scalars the records index."""
+
+    records: Tensor
+    literals: Tensor
+    n_scalars: int
+
+
+_WALK_TAPES: dict = {}
+
+
+def _walk_tape(entries, device) -> WalkTape:
+    """B5's tape of a plan (see :class:`WalkTape`), built once per plan and
+    device."""
+    key = (entries, str(device))
+    if key in _WALK_TAPES:
+        return _WALK_TAPES[key]
+    records, literals, indices = [], [], [0]
+    for entry in entries:
+        record = [0] * _WALK_RECORD
+        if entry[0] == "map":
+            record[0] = _WALK_MAP
+            for r in range(7):
+                for j in range(7):
+                    cell = entry[1][r][j]
+                    if not isinstance(cell, float):
+                        code = cell
+                        indices.append(cell)
+                    elif cell == 0.0:
+                        code = _CODE_ZERO
+                    elif cell == 1.0:
+                        code = _CODE_ONE
+                    else:
+                        code = -3 - len(literals)
+                        literals.append(cell)
+                    record[_WALK_CODES + 7 * r + j] = code
+        else:
+            _, x_idx, y_idx, cx_idx, cy_idx, shape = entry
+            shape_code = 0 if shape == "rectangular" else 1
+            record[:6] = [_WALK_APERTURE, x_idx, y_idx, cx_idx, cy_idx, shape_code]
+            indices += [x_idx, y_idx, cx_idx, cy_idx]
+        records.append(record)
+    tape = WalkTape(
+        records=torch.tensor(records, dtype=torch.int32).reshape(-1, _WALK_RECORD).to(device),
+        literals=torch.tensor(literals, dtype=torch.float64).to(device),
+        n_scalars=max(indices) + 1,
+    )
+    _WALK_TAPES[key] = tape
+    return tape
+
+
+#: C signature of B5's entry point: is_double, tape, n_entries, literals,
+#: scalars, cloud, weights, partials, scratch, out, batch, n, slots, stream.
+_B5_SIGNATURE = {
+    "lynx_particle_moment_sweep": (
+        ctypes.c_int,
+        [ctypes.c_int, _P, ctypes.c_int] + [_P] * 7 + [ctypes.c_longlong] * 3 + [_P],
+    )
+}
+
+
+def particle_moment_sweep_library() -> ctypes.CDLL:
+    """Kernel B5's library, built with nvcc at first use."""
+    return load_library("particle_moment_sweep", _B5_SIGNATURE)
+
+
+def _walk_sums(out: Tensor):
+    """``(s1, s2, w_sum)`` from B5's ``(B, 36)`` sums."""
+    B = out.shape[0]
+    index = _index("s2", [7 + _upper(r, c, 7) for r in range(7) for c in range(7)], out.device)
+    return out[:, :7], out[:, index].reshape(B, 7, 7), out[:, 35]
+
+
+def _particle_moment_sweep_cuda(entries, scalars, particles, weights):
+    """Launch kernel B5 on the current stream (no synchronisation)."""
+    dtype, device = particles.dtype, particles.device
+    if particles.ndim != 2 or particles.shape[1] != 7:
+        raise ValueError(f"particle_moment_sweep: particles must be (N, 7), got {tuple(particles.shape)}")
+    N, B = particles.shape[0], scalars[0].shape[0]
+    stacked = torch.stack([torch.broadcast_to(s.to(dtype), (B,)) for s in scalars])
+    cloud = particles.t().contiguous()
+    weights = weights.to(dtype).contiguous()
+    if weights.shape != (N,):
+        raise ValueError(f"particle_moment_sweep: weights must be ({N},), got {tuple(weights.shape)}")
+    _check_cloud("particle_moment_sweep", cloud, weights, stacked)
+    tape = _walk_tape(entries, device)
+    if len(scalars) < tape.n_scalars:
+        raise ValueError(
+            f"particle_moment_sweep: the plan indexes {tape.n_scalars} scalars, got {len(scalars)}"
+        )
+    literals = tape.literals.to(dtype)
+    slots, partials, scratch, out = _moment_workspace(B, N, dtype, device)
+    library = particle_moment_sweep_library()
+    with torch.cuda.device(device):
+        code = library.lynx_particle_moment_sweep(
+            int(dtype == torch.float64), tape.records.data_ptr(), tape.records.shape[0],
+            literals.data_ptr(), stacked.data_ptr(), cloud.data_ptr(), weights.data_ptr(),
+            partials.data_ptr(), scratch.data_ptr(), out.data_ptr(), B, N, slots,
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    check(library, code, "particle_moment_sweep")
+    particle_moment_sweep.launches += 1
+    return _walk_sums(out)
+
+
+def particle_moment_sweep(entries, scalars, particles: Tensor, weights: Tensor):
+    """Kernel B5: ``(s1 (B, 7), s2 (B, 7, 7), w_sum (B,))``, the weighted
+    moment sums of the ``(N, 7)`` cloud with ``(N,)`` initial weights after
+    the plan, one setting at a time.
+
+    A CUDA tensor launches the kernel (or raises), in the cloud's dtype, to
+    which the scalars and weights are cast; a CPU tensor takes the plain
+    version, :func:`_moment_sweep_reference`."""
+    if particles.device.type == "cpu":
+        return _moment_sweep_reference(entries, scalars, particles, weights)
+    return _particle_moment_sweep_cuda(entries, scalars, particles, weights)
+
+
+particle_moment_sweep.launches = 0
+
+
+# -- Kernel B6: the packed Gram ------------------------------------------------
+
+
+def _packed_prefix_rows(entries, scalars):
+    """The plan as B6 takes it: for each aperture, rows 0 and 2 of the map
+    prefix composed up to it (its x and y planes), encoded like map layouts
+    (a float literal or an index into the extended scalars); and the total
+    map's layout.
+
+    Returns ``(aperture_specs, total_layout, extended_scalars)``, each spec
+    ``(x_row, y_row, x_idx, y_idx, cx_idx, cy_idx, shape)`` with 7-tuple
+    rows."""
+    extended = list(scalars)
+    prefix = tbl.identity_table()
+    aperture_specs = []
+    for entry in entries:
+        if entry[0] == "map":
+            prefix = tbl.compose(_table_from_layout(entry[1], scalars), prefix)
+            continue
+        _, x_idx, y_idx, cx_idx, cy_idx, shape = entry
+
+        def encode_row(r):
+            spec = []
+            for j in range(7):
+                cell = prefix[r][j]
+                if tbl._is_literal(cell):
+                    spec.append(float(cell))
+                else:
+                    spec.append(len(extended))
+                    extended.append(cell)
+            return tuple(spec)
+
+        aperture_specs.append((encode_row(0), encode_row(2), x_idx, y_idx, cx_idx, cy_idx, shape))
+    layout, cells = _split_table(prefix)
+    offset = len(extended)
+    extended.extend(cells)
+    total_layout = tuple(
+        tuple(c if isinstance(c, float) else c + offset for c in row) for row in layout
+    )
+    return tuple(aperture_specs), total_layout, tuple(extended)
+
+
+def packed_gram_reference(apertures, planes: Tensor, bounds: Tensor, aug: Tensor, w0: Tensor) -> Tensor:
+    """Plain version of kernel B6: the ``(B, 8, 8)`` joint Gram ``sum_n W
+    aug_j aug_k`` of the augmented cloud ``aug`` (8, N) under B settings.
+
+    ``apertures`` is static, one ``(shape, x_rows, y_rows)`` per aperture,
+    the rows naming the aug row of each of its plane rows; ``planes`` (R, B)
+    holds the plane rows of all apertures in that order (x then y), and
+    ``bounds`` (A, 4, B) each aperture's ``[x_max, y_max, 1/x_max^2,
+    1/y_max^2]``.  ``W = w0 * prod_a mask_a`` with the TPU kernel's mask
+    formulas; then one einsum for the Gram."""
+    B, N = planes.shape[1], aug.shape[1]
+    W = w0.expand(B, N)
+    row = 0
+
+    def plane(aug_rows):
+        nonlocal row
+        acc = None
+        for j in aug_rows:
+            term = planes[row][:, None] * aug[j][None, :]
+            acc = term if acc is None else acc + term
+            row += 1
+        return acc
+
+    for a, (shape, x_rows, y_rows) in enumerate(apertures):
+        px = plane(x_rows)
+        if shape == "rectangular":
+            x_max = bounds[a, 0][:, None]
+            W = W * ((px > -x_max) & (px < x_max)).to(W.dtype)
+            py = plane(y_rows)
+            y_max = bounds[a, 1][:, None]
+            W = W * ((py > -y_max) & (py < y_max)).to(W.dtype)
+        else:
+            t = px * px * bounds[a, 2][:, None]
+            py = plane(y_rows)
+            W = W * ((t + py * py * bounds[a, 3][:, None]) <= 1.0).to(W.dtype)
+    pairs = aug[:, None, :] * aug[None, :, :]
+    return torch.einsum("bn,jkn->bjk", W, pairs)
+
+
+#: B6's aperture records, as ``csrc/packed_gram.cu`` reads them: (shape, first
+#: x plane row, x row count, first y plane row, y row count, 3 unused).
+_GRAM_RECORD = 8
+
+
+class GramTape(NamedTuple):
+    """B6's tape of an aperture layout, on the kernel's device: ``records``
+    (A, 8) int32 and ``row_index`` (R,) int32, the aug row of each plane
+    row."""
+
+    records: Tensor
+    row_index: Tensor
+
+
+_GRAM_TAPES: dict = {}
+
+
+def _gram_tape(apertures, device) -> GramTape:
+    key = (apertures, str(device))
+    if key in _GRAM_TAPES:
+        return _GRAM_TAPES[key]
+    records, row_index = [], []
+    for shape, x_rows, y_rows in apertures:
+        x_start = len(row_index)
+        row_index.extend(x_rows)
+        y_start = len(row_index)
+        row_index.extend(y_rows)
+        records.append([0 if shape == "rectangular" else 1, x_start, len(x_rows), y_start,
+                        len(y_rows), 0, 0, 0])
+    tape = GramTape(
+        records=torch.tensor(records, dtype=torch.int32).reshape(-1, _GRAM_RECORD).to(device),
+        row_index=torch.tensor(row_index, dtype=torch.int32).to(device),
+    )
+    _GRAM_TAPES[key] = tape
+    return tape
+
+
+#: C signature of B6's entry point: is_double, apertures, n_apertures,
+#: row_index, planes, bounds, aug, w0, partials, scratch, out, batch, n,
+#: slots, stream.
+_B6_SIGNATURE = {
+    "lynx_packed_gram": (
+        ctypes.c_int,
+        [ctypes.c_int, _P, ctypes.c_int] + [_P] * 8 + [ctypes.c_longlong] * 3 + [_P],
+    )
+}
+
+
+def packed_gram_library() -> ctypes.CDLL:
+    """Kernel B6's library, built with nvcc at first use."""
+    return load_library("packed_gram", _B6_SIGNATURE)
+
+
+def _packed_gram_cuda(apertures, planes, bounds, aug, w0):
+    """Launch kernel B6 on the current stream (no synchronisation)."""
+    _check_cloud("packed_gram", aug, w0, planes, bounds)
+    dtype, device = aug.dtype, aug.device
+    tape = _gram_tape(apertures, device)
+    B, N = planes.shape[1], aug.shape[1]
+    if (aug.shape[0] != 8 or w0.shape != (N,) or planes.shape[0] != tape.row_index.shape[0]
+            or bounds.shape != (len(apertures), 4, B)):
+        raise ValueError(
+            "packed_gram: expected aug (8, N), w0 (N,), planes (R, B) and bounds (A, 4, B), got"
+            f" {tuple(aug.shape)}, {tuple(w0.shape)}, {tuple(planes.shape)}, {tuple(bounds.shape)}"
+        )
+    slots, partials, scratch, out = _moment_workspace(B, N, dtype, device)
+    library = packed_gram_library()
+    with torch.cuda.device(device):
+        code = library.lynx_packed_gram(
+            int(dtype == torch.float64), tape.records.data_ptr(), len(apertures),
+            tape.row_index.data_ptr(), planes.data_ptr(), bounds.data_ptr(), aug.data_ptr(),
+            w0.data_ptr(), partials.data_ptr(), scratch.data_ptr(), out.data_ptr(), B, N, slots,
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    check(library, code, "packed_gram")
+    packed_gram.launches += 1
+    index = _index("gram", [_upper(j, k, 8) for j in range(8) for k in range(8)], device)
+    return out[:, index].reshape(B, 8, 8)
+
+
+def packed_gram(apertures, planes: Tensor, bounds: Tensor, aug: Tensor, w0: Tensor) -> Tensor:
+    """Kernel B6: the ``(B, 8, 8)`` joint Gram of :func:`packed_gram_reference`.
+
+    A CUDA tensor launches the kernel (or raises); a CPU tensor takes the
+    plain version."""
+    if aug.device.type == "cpu":
+        return packed_gram_reference(apertures, planes, bounds, aug, w0)
+    return _packed_gram_cuda(apertures, planes, bounds, aug, w0)
+
+
+packed_gram.launches = 0
+
+
+def _packed_operands(entries, scalars, particles, weights):
+    """B6's operands from a plan: ``(apertures, planes, bounds, aug, w0)``
+    as :func:`packed_gram` takes them, and the total map as ``(layout,
+    extended scalars)``."""
+    N, B = particles.shape[0], scalars[0].shape[0]
+    dtype, device = particles.dtype, particles.device
+    specs, total_layout, extended = _packed_prefix_rows(entries, scalars)
+    extended = tuple(torch.broadcast_to(v.to(dtype), (B,)) for v in extended)
+
+    def row_columns(row_spec, center_idx):
+        # The statically nonzero prefix-row cells, plus the plane centre,
+        # which pairs with aug's valid row (7).
+        columns, aug_rows = [], []
+        for j, cell in enumerate(row_spec):
+            if isinstance(cell, float):
+                if cell == 0.0:
+                    continue
+                columns.append(torch.full((B,), cell, dtype=dtype, device=device))
+            else:
+                columns.append(extended[cell])
+            aug_rows.append(j)
+        columns.append(extended[center_idx])
+        aug_rows.append(7)
+        return columns, tuple(aug_rows)
+
+    apertures, rows, bounds = [], [], []
+    for x_row, y_row, x_idx, y_idx, cx_idx, cy_idx, shape in specs:
+        x_columns, x_rows = row_columns(x_row, cx_idx)
+        y_columns, y_rows = row_columns(y_row, cy_idx)
+        rows += x_columns + y_columns
+        apertures.append((shape, x_rows, y_rows))
+        x_max, y_max = extended[x_idx], extended[y_idx]
+        bounds.append(torch.stack([x_max, y_max, 1.0 / (x_max * x_max), 1.0 / (y_max * y_max)]))
+    planes = torch.stack(rows) if rows else torch.empty((0, B), dtype=dtype, device=device)
+    bounds = torch.stack(bounds) if bounds else torch.empty((0, 4, B), dtype=dtype, device=device)
+    aug = torch.cat([particles.t(), torch.ones((1, N), dtype=dtype, device=device)]).contiguous()
+    operands = (tuple(apertures), planes, bounds, aug, weights.to(dtype).contiguous())
+    return operands, (total_layout, extended)
+
+
+def _moment_sweep_packed(entries, scalars, particles, weights):
+    """B6's route: the aperture planes, bounds and augmented cloud from the
+    plan, kernel B6 for the joint Gram, then the exact affine sandwich
+    ``s2 = T G T^T`` and ``s1 = T g`` in PyTorch, as the JAX package does
+    outside its kernel."""
+    operands, (total_layout, extended) = _packed_operands(entries, scalars, particles, weights)
+    gram = packed_gram(*operands)
+    s1_delta, s2_delta, w_sum = gram[:, 7, :7], gram[:, :7, :7], gram[:, 7, 7]
+    s1 = _apply_layout_vector(total_layout, s1_delta, extended)
+    left = _apply_layout_matrix_left(total_layout, s2_delta, extended)
+    s2 = _apply_layout_matrix_left(total_layout, left.transpose(-1, -2), extended).transpose(-1, -2)
+    return s1, s2, w_sum
+
+
+# -- The sweep: routing and backward -------------------------------------------
+
+
+def _moment_sweep_vjp(entries, scalars, particles, weights, cotangents):
+    """Autograd of :func:`_moment_sweep_reference` for one slice of
+    settings: ``(d_scalars, d_particles, d_weights)``."""
+    with torch.enable_grad():
+        inputs = [t.detach().requires_grad_(True) for t in (*scalars, particles, weights)]
+        n = len(scalars)
+        out = _moment_sweep_reference(entries, inputs[:n], inputs[n], inputs[n + 1])
+        grads = torch.autograd.grad(out, inputs, cotangents, allow_unused=True)
+    grads = [torch.zeros_like(x) if g is None else g for g, x in zip(grads, inputs)]
+    return grads[:n], grads[n], grads[n + 1]
+
+
+class _ParticleMomentSweep(torch.autograd.Function):
+    """Forward: kernel B5 for fewer than ``_PACK_SETTINGS`` settings, B6's
+    route for more (``PACKED_MOMENT_SWEEP`` forces either).  Backward: the
+    JAX package's design, autograd of the plain walk over slices of
+    ``_BWD_SETTING_CHUNK`` settings, scalar cotangents concatenated and the
+    particles' and weights' summed."""
+
+    @staticmethod
+    def forward(ctx, entries, particles, weights, *scalars):
+        ctx.entries = entries
+        ctx.save_for_backward(particles, weights, *scalars)
+        packed = PACKED_MOMENT_SWEEP
+        if packed is None:
+            packed = scalars[0].shape[0] >= _PACK_SETTINGS
+        sweep = _moment_sweep_packed if packed else particle_moment_sweep
+        return sweep(entries, scalars, particles, weights)
+
+    @staticmethod
+    def backward(ctx, d_s1, d_s2, d_w):
+        particles, weights, *scalars = ctx.saved_tensors
+        B = scalars[0].shape[0]
+        d_scalars = [[] for _ in scalars]
+        d_particles = torch.zeros_like(particles)
+        d_weights = torch.zeros_like(weights)
+        for lo in range(0, B, _BWD_SETTING_CHUNK):
+            hi = min(lo + _BWD_SETTING_CHUNK, B)
+            ds, dp, dw = _moment_sweep_vjp(
+                ctx.entries, [s[lo:hi] for s in scalars], particles, weights,
+                (d_s1[lo:hi], d_s2[lo:hi], d_w[lo:hi]),
+            )
+            for pieces, d in zip(d_scalars, ds):
+                pieces.append(d)
+            d_particles = d_particles + dp
+            d_weights = d_weights + dw
+        return (None, d_particles, d_weights, *(torch.cat(p) for p in d_scalars))
+
+
+def _settings_axis(scalars, batch_size, particles):
+    """The plan's scalars, or for a plan with none (an identity-only
+    lattice carries no settings axis) one zero scalar of ``batch_size``
+    settings."""
+    if scalars:
+        return scalars
+    if batch_size is None:
+        raise ValueError(
+            "the plan has no per-setting scalars (identity-only lattice);"
+            " pass batch_size= to define the settings axis"
+        )
+    return (torch.zeros((batch_size,), dtype=particles.dtype, device=particles.device),)
+
+
+def fused_particle_moment_sweep(
+    entries: tuple,
+    scalars: tuple,
+    particles: Tensor,
+    weights: Tensor,
+    batch_size: Optional[int] = None,
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """Survival-weighted moment sums of ONE shared particle cloud observed
+    under B settings (counterpart of
+    ``lynx_tpu.ops.pallas_track.fused_particle_moment_sweep``).
+
+    :param entries: static plan: ``("map", layout)`` applies a composed
+        sparse affine map whose dynamic cells index ``scalars``;
+        ``("aperture", x_idx, y_idx, cx_idx, cy_idx, shape)`` multiplies the
+        weights by the aperture's mask at the current coordinates offset by
+        the plane centre ``(cx, cy)``.
+    :param scalars: flat tuple of ``(B,)`` per-setting scalars.
+    :param particles: ``(N, 7)`` shared cloud.
+    :param weights: ``(N,)`` initial survival weights.
+    :param batch_size: B, required when the plan has no scalars (an
+        identity-only lattice carries no settings axis).
+    :return: ``(s1 (B, 7), s2 (B, 7, 7), w_sum (B,))`` after the plan;
+        :func:`particle_moments_from_sums` converts them.
+
+    CUDA tensors take kernel B5 (B < 16) or B6 (B >= 16); CPU tensors the
+    plain walk; ``PARTICLE_MOMENT_SWEEP_PATH`` and ``PACKED_MOMENT_SWEEP``
+    force the routes.  The kernel route runs in the cloud's dtype.
+    Differentiable: the backward is autograd of the plain walk, in slices of
+    64 settings.
+    """
+    scalars = _settings_axis(scalars, batch_size, particles)
+    use_kernels = PARTICLE_MOMENT_SWEEP_PATH
+    if use_kernels is None:
+        use_kernels = particles.is_cuda
+    if not use_kernels:
+        return _moment_sweep_reference(entries, scalars, particles, weights)
+    dtype = particles.dtype
+    return _ParticleMomentSweep.apply(
+        entries, particles, weights.to(dtype), *(s.to(dtype) for s in scalars)
+    )
+
+
+def _centered_plan(entries, scalars, particles, weights):
+    """The kernels' operands of :func:`sweep_particle_moments`:
+    ``(kernel_entries, scalars, delta, image)`` with the deviation cloud
+    ``delta`` about the weighted centre (``delta[:, 6] = 0``), each
+    aperture's plane centre appended to the scalars, and the centre's
+    ``(B, 7)`` image through the whole plan."""
+    B, dtype = scalars[0].shape[0], particles.dtype
+    total_w = weights.sum()
+    total_w = torch.where(total_w == 0, torch.ones_like(total_w), total_w)
+    center = (particles * weights[:, None]).sum(dim=0) / total_w
+    center = torch.cat([center[:6], torch.ones_like(center[6:])])
+    delta = particles - center
+
+    # Walk the plan once in PyTorch, tracking the centre's per-setting image
+    # for the apertures' offsets and the final mean.
+    image = center.to(dtype).expand(B, 7)
+    scalars = tuple(s.to(dtype) for s in scalars)
+    kernel_entries = []
+    extra = list(scalars)
+    for entry in entries:
+        if entry[0] == "map":
+            kernel_entries.append(entry)
+            image = _apply_layout_vector(entry[1], image, scalars)
+        else:
+            _, x_idx, y_idx, shape = entry
+            cx_idx = len(extra)
+            extra.append(image[:, 0])
+            cy_idx = len(extra)
+            extra.append(image[:, 2])
+            kernel_entries.append(("aperture", x_idx, y_idx, cx_idx, cy_idx, shape))
+    return tuple(kernel_entries), tuple(extra), delta, image
+
+
+def sweep_particle_moments(
+    entries: tuple,
+    scalars: tuple,
+    particles: Tensor,
+    weights: Tensor,
+    batch_size: Optional[int] = None,
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """Per-setting ``(mu (B, 7), cov (B, 7, 7), w_sum (B,))`` of the shared
+    cloud after a ``particle_moment_plan`` plan (4-field ``("aperture",
+    x_idx, y_idx, shape)`` entries), free of cancellation.
+
+    Raw second moments lose ~|mu|/sigma digits in float32 when the
+    covariance is formed from them.  So the sweep runs on the deviation
+    cloud ``delta = x - c`` about the weighted centre ``c`` with ``c[6] =
+    1``: delta's homogeneous component is 0, which switches every affine
+    column off.  The centre's per-setting image through the maps gives each
+    aperture its plane centre ``(cx, cy)`` (affine maps commute with ``x = c
+    + delta``), and the result is ``mu = image + s1/W`` with the covariance
+    from the deviation sums."""
+    scalars = _settings_axis(scalars, batch_size, particles)
+    kernel_entries, extra, delta, image = _centered_plan(entries, scalars, particles, weights)
+    s1, s2, w_sum = fused_particle_moment_sweep(kernel_entries, extra, delta, weights)
+    # The deviation cloud's mean is the shift from the tracked image.
+    shift, cov = particle_moments_from_sums(s1, s2, w_sum)
+    return image + shift, cov, w_sum

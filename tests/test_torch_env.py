@@ -111,7 +111,7 @@ def test_batched_reset_and_step_match_jax(envs):
     assert fused_track.moment_sweep.launches == launches  # plain versions on the CPU
 
 
-@pytest.mark.parametrize("method", ["auto", "moments", "particles"])
+@pytest.mark.parametrize("method", ["auto", "moments", "particles", "kernel"])
 def test_batched_particle_beam_parameters_match_jax(envs, method, monkeypatch):
     jax_env, torch_env = envs
     rng = np.random.default_rng(4)
@@ -153,19 +153,41 @@ def test_single_instance_api_matches_jax(envs):
     assert_close(torch_env.observation(t_state, tparams), j_obs, OBS_RTOL)
 
 
-def test_default_params_and_parts_not_ported():
+def test_default_params_and_parts_not_ported(envs, monkeypatch):
     params = torch_env_module.default_params(torch.Generator().manual_seed(0))
     assert params.target.shape == params.incoming_mu.shape == (4,)
     assert -2e-3 <= float(params.target[0]) <= 2e-3 and 1e-5 <= float(params.target[1]) <= 1e-3
     assert bool((params.incoming_mu.abs() <= 1e-4).all())
     with pytest.raises(NotImplementedError, match="metrics"):
         torch_env_module.make_env(log_metrics=True)
-    env = torch_env_module.make_env()
-    beam = ltt.ParticleBeam.from_parameters(num_particles=10)
-    with pytest.raises(NotImplementedError, match="B5 and B6"):
-        env.batched_particle_beam_parameters(torch.zeros(2, 5), beam, method="kernel")
+
+    # method="kernel", through B5's (8 settings) and B6's (48) plain versions,
+    # agrees with method="moments" (exact for the linear EA) and with JAX's
+    # env method="kernel".
+    jax_env, torch_env = envs
+    rng = np.random.default_rng(10)
+    p = np.ones((1500, 7))
+    p[:, :6] = rng.normal(size=(1500, 6)) * np.array([1.75e-4, 2e-5, 1.75e-4, 2e-5, 8e-6, 2e-3])
+    jbeam = lt.ParticleBeam(jnp.asarray(p)[None], jnp.asarray([1.073e8]))
+    tbeam = ltt.ParticleBeam(torch.from_numpy(p)[None], torch.tensor([1.073e8], dtype=torch.float64))
+    monkeypatch.setattr(fused_track, "PARTICLE_MOMENT_SWEEP_PATH", True)
+    for batch in (8, B):
+        m = magnets(seed=11)[:batch]
+        calls = {"walk": fused_track.particle_moment_sweep.launches,
+                 "gram": fused_track.packed_gram.launches}
+        kernel = torch_env.batched_particle_beam_parameters(torch.from_numpy(m), tbeam, method="kernel")
+        moments = torch_env.batched_particle_beam_parameters(torch.from_numpy(m), tbeam, method="moments")
+        assert kernel.shape == (batch, 4)
+        assert_close(kernel, moments, OBS_RTOL)
+        assert_close(kernel, jax_env.batched_particle_beam_parameters(jnp.asarray(m), jbeam, method="kernel"),
+                     OBS_RTOL)
+        assert calls == {"walk": fused_track.particle_moment_sweep.launches,
+                         "gram": fused_track.packed_gram.launches}  # plain versions on the CPU
+    with pytest.raises(ValueError, match="one shared"):
+        torch_env.batched_particle_beam_parameters(
+            torch.zeros(2, 5, dtype=torch.float64), tbeam.broadcast((2,)), method="kernel")
     with pytest.raises(ValueError, match="unknown method"):
-        env.batched_particle_beam_parameters(torch.zeros(2, 5), beam, method="nope")
+        torch_env.batched_particle_beam_parameters(torch.zeros(2, 5), tbeam, method="nope")
 
 
 def test_tuner_gradient_matches_jax_and_lowers_the_loss(envs):
@@ -200,8 +222,8 @@ def test_tuner_gradient_matches_jax_and_lowers_the_loss(envs):
 
 
 def test_slice_modules_import_no_jax():
-    """The environment, the tuner and the fused-sweep modules never import
-    JAX (the GPU machine has none)."""
+    """The environment (its kernel method included), the tuner and the
+    fused-sweep modules never import JAX (the GPU machine has none)."""
     import subprocess
     import sys
     from pathlib import Path
@@ -212,6 +234,9 @@ def test_slice_modules_import_no_jax():
         "import lynx_tpu_torch.accelerator.fused, lynx_tpu_torch.ops.fused_track\n"
         "import lynx_tpu_torch.ops.table\n"
         "env = lynx_tpu_torch.envs.make_env()\n"
+        "import torch, lynx_tpu_torch as ltt\n"
+        "beam = ltt.ParticleBeam.from_parameters(num_particles=50)\n"
+        "env.batched_particle_beam_parameters(torch.zeros(2, 5), beam, method='kernel')\n"
         "assert 'jax' not in sys.modules and 'lynx_tpu' not in sys.modules\n"
     )
     result = subprocess.run(

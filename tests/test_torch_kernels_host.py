@@ -1,4 +1,4 @@
-"""The CUDA sources of kernels B2, B3 and B4, run on the CPU.
+"""The CUDA sources of kernels B2-B6, run on the CPU.
 
 There is no nvcc here, so each ``csrc/*.cu`` is compiled as host C++ by gcc
 against a stand-in ``cuda_runtime.h``: ``__device__`` and friends are
@@ -10,7 +10,9 @@ the plain versions' inputs.  What it cannot check is the device itself
 card.
 
 Bounds, float64: B3 and B2 within 1e-12 of their plain versions relative to
-each setting's largest entry; B4 within 1e-12 relative to each cotangent's
+each setting's largest entry; B5 and B6 within 1e-12, second moments
+relative to each setting's largest, first moments to ``sqrt(W max s2[r,
+r])``, weight sums exactly equal (``tests/test_torch_particle_moments.py``); B4 within 1e-12 relative to each cotangent's
 largest entry, except d/dk1 at settings where k1 is exactly 0.  There the
 reference formula's derivative is rounding-limited (``L cos(kL) -
 sin(kL)/k`` cancels at kL ~ 1e-7, after the 1e-12 perturbation), so the
@@ -33,6 +35,15 @@ from lynx_tpu_torch.accelerator import fused as torch_fused
 from lynx_tpu_torch.constants import REST_ENERGY_EV
 from lynx_tpu_torch.ops import fused_track
 from lynx_tpu_torch.ops import table as tbl
+
+from test_torch_particle_moments import (
+    SPECS,
+    cloud,
+    kernel_entries,
+    spec_list,
+    sums_errors,
+    torch_element,
+)
 
 RTOL = 1e-12
 K1_ZERO_RTOL = 1e-3
@@ -62,7 +73,10 @@ SIGNATURES = {
     "moment_sweep": fused_track._B3_SIGNATURE,
     "moment_sweep_bwd": fused_track._B4_SIGNATURE,
     "particle_apply": fused_track._B2_SIGNATURE,
+    "particle_moment_sweep": fused_track._B5_SIGNATURE,
+    "packed_gram": fused_track._B6_SIGNATURE,
 }
+LAUNCH = re.compile(r"(\w+<\w+>)<<<(.*?)>>>", flags=re.S)
 
 
 @pytest.fixture(scope="module")
@@ -72,11 +86,11 @@ def host_kernels(tmp_path_factory):
     root = tmp_path_factory.mktemp("host_kernels")
     (root / "cuda_runtime.h").write_text(STAND_IN)
     for header in _build.CSRC.glob("*.cuh"):
-        shutil.copy(header, root / header.name)
+        (root / header.name).write_text(LAUNCH.sub(r"LYNX_HOST_GRID(\2) \1", header.read_text()))
     libraries = {}
     for name, signature in SIGNATURES.items():
         source = (_build.CSRC / f"{name}.cu").read_text()
-        source = re.sub(r"(\w+<\w+>)<<<(.*?)>>>", r"LYNX_HOST_GRID(\2) \1", source, flags=re.S)
+        source = LAUNCH.sub(r"LYNX_HOST_GRID(\2) \1", source)
         (root / f"{name}.cpp").write_text(source)
         target = root / f"lib{name}.so"
         subprocess.run(
@@ -223,3 +237,60 @@ def test_particle_apply_matches_plain(host_kernels):
         assert code == 0
         expected = fused_track.particle_apply_reference(lay, mat, particles)
         assert per_setting_error(out, expected) <= RTOL
+
+
+def moment_inputs(B, n):
+    """A two-aperture plan (rectangular, elliptical with x_max = inf) as the
+    kernels take it, with plane centres, a cloud and 0/1 weights, float64."""
+    specs = spec_list(B, SPECS["two apertures"] + SPECS["x_max = inf"])
+    elements = [torch_element(s) for s in specs]
+    plan = torch_fused.particle_moment_plan(
+        elements, torch.tensor([1.073e8], dtype=torch.float64),
+        lambda x: torch.broadcast_to(torch.as_tensor(x).reshape(-1), (B,)),
+    )
+    entries, extra = kernel_entries(*plan, B)
+    scalars = tuple(torch.as_tensor(np.ascontiguousarray(s)) for s in extra)
+    weights = (np.random.default_rng(5).uniform(size=n) > 0.05).astype(np.float64)
+    return entries, scalars, torch.from_numpy(cloud(n)), torch.from_numpy(weights)
+
+
+def test_particle_moment_sweep_matches_plain(host_kernels):
+    B, n = 13, 1001  # ragged: neither a multiple of the block nor of the slots
+    entries, scalars, particles, weights = moment_inputs(B, n)
+    assert sum(e[0] == "aperture" for e in entries) == 4
+    tape = fused_track._walk_tape(entries, torch.device("cpu"))
+    stacked = torch.stack(scalars).contiguous()
+    cloud_t = particles.t().contiguous()
+    slots, partials, scratch, out = fused_track._moment_workspace(B, n, torch.float64, "cpu")
+    code = host_kernels["particle_moment_sweep"].lynx_particle_moment_sweep(
+        1, tape.records.data_ptr(), tape.records.shape[0], tape.literals.data_ptr(),
+        stacked.data_ptr(), cloud_t.data_ptr(), weights.data_ptr(), partials.data_ptr(),
+        scratch.data_ptr(), out.data_ptr(), B, n, slots, None,
+    )
+    assert code == 0
+    expected = fused_track._moment_sweep_reference(entries, scalars, particles, weights)
+    assert 0 < float(expected[2].min()) < float(weights.sum())  # the apertures cut
+    assert max(sums_errors(fused_track._walk_sums(out), expected)) <= RTOL
+
+
+@pytest.mark.parametrize("B", [17, 33])
+def test_packed_gram_matches_plain(host_kernels, B):
+    n = 1001
+    entries, scalars, particles, weights = moment_inputs(B, n)
+    (apertures, planes, bounds, aug, w0), _ = fused_track._packed_operands(
+        entries, scalars, particles, weights
+    )
+    tape = fused_track._gram_tape(apertures, torch.device("cpu"))
+    slots, partials, scratch, out = fused_track._moment_workspace(B, n, torch.float64, "cpu")
+    code = host_kernels["packed_gram"].lynx_packed_gram(
+        1, tape.records.data_ptr(), len(apertures), tape.row_index.data_ptr(), planes.data_ptr(),
+        bounds.data_ptr(), aug.data_ptr(), w0.data_ptr(), partials.data_ptr(), scratch.data_ptr(),
+        out.data_ptr(), B, n, slots, None,
+    )
+    assert code == 0
+    index = [fused_track._upper(j, k, 8) for j in range(8) for k in range(8)]
+    gram = out[:, index].reshape(B, 8, 8)
+    expected = fused_track.packed_gram_reference(apertures, planes, bounds, aug, w0)
+    as_sums = [(g[:, 7, :7], g[:, :7, :7], g[:, 7, 7]) for g in (gram, expected)]
+    assert 0 < float(as_sums[1][2].min()) < float(weights.sum())
+    assert max(sums_errors(*as_sums)) <= RTOL
