@@ -5,9 +5,11 @@
 
 Phases, each of which raises on failure (non-zero exit, no result line):
 
-1. require a CUDA device, pin TF32 off, print the card and its power limit;
+1. require a CUDA device, pin TF32 off (and say so), print the card and its
+   power limit;
 2. build kernels B1-B6 (``lynx_tpu_torch/csrc/*.cu``), one nvcc each, all
-   started together, and print each build's seconds and ptxas registers;
+   started together, and print each build's seconds and, for each kernel,
+   its ptxas registers and spill-store/spill-load bytes;
 3. hold B1 against its plain PyTorch version on the card at the flagship
    shapes and at the edge cases (count mode exactly equal, weighted mode
    within 1e-5 relative of the plain version in float64); hold B2-B6
@@ -40,6 +42,13 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    forward no plain version runs on a CUDA tensor; the backward is autograd
    of the plain walk, the JAX package's design, and is counted apart;
 8. print the kernels' JSON line and, last, the ``{"ok": true, ...}`` line.
+
+Each kernel is timed at its path's shape beside its plain version and its
+bound (``bound``: the larger of its bytes over the card's memory rate and
+its float32 operations over the card's peak outside the tensor cores); B2
+also beside ``torch.bmm`` of the same operands, the one PyTorch call that
+computes its function, timed here as a yardstick and never called by the
+port.
 
 It imports neither JAX nor ``lynx_tpu``.
 """
@@ -88,6 +97,12 @@ OBS_RTOL = 1e-4
 # Path T: the first step's gradient through B3/B4 (float) against autograd
 # of the plain version in double, relative to each column's largest |value|.
 GRAD_RTOL = 1e-3
+
+# The card's peaks for the kernels' bounds (NVIDIA's data sheet of the H100
+# SXM at its 700 W limit): device memory, and float32 outside the tensor
+# cores.
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS_PER_S = 67e12
 
 # The particle moment sweep, kernels B5 and B6: one shared cloud of
 # MOMENT_PARTICLES (paths K and A), ODD_PARTICLES in the checks.
@@ -606,7 +621,7 @@ def path_serving(torch, ft, hist, envs, env, card):
     if not bool((rewards <= 0).all()) or int(states.step_count[0]) != SWEEP_STEPS:
         raise AssertionError("path S: bad rewards or step counts")
 
-    env_cpu = envs.make_env()
+    env_cpu = envs.make_env(device="cpu")
     params_cpu = envs.EnvParams(*(x.cpu() for x in params[:3]))
     worst = 0.0
     for obs in (observations[0], observations[-1]):
@@ -787,8 +802,153 @@ def path_particles(torch, ft, hist, segment_module, ares, ParticleBeam, card):
     return launched
 
 
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes, flops):
+    """(bound_ms, bound_by): the least time the card could take to move
+    ``n_bytes`` (each input read once, each output written once) and to do
+    ``flops`` of float32 arithmetic, at HBM_BYTES_PER_S and
+    FP32_FLOPS_PER_S."""
+    memory_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    compute_ms = flops / FP32_FLOPS_PER_S * 1e3
+    return (memory_ms, "bytes") if memory_ms >= compute_ms else (compute_ms, "operations")
+
+
+# Structural supports of 7x7 maps, as masks: bit 7 i + j is cell (i, j).
+# A support holds the cells that may be non-zero, its ones the cells that
+# are exactly 1.
+def mask_of(pairs):
+    return sum(1 << (7 * i + j) for i, j in pairs)
+
+
+IDENTITY = mask_of((i, i) for i in range(7))
+DENSE = (1 << 49) - 1
+COLUMN = mask_of((j, 0) for j in range(7))  # a vector, as a map's first column
+
+
+def has(mask, i, j):
+    return mask >> (7 * i + j) & 1
+
+
+def transposed(mask):
+    return mask_of((j, i) for i in range(7) for j in range(7) if has(mask, i, j))
+
+
+def product(a, a_ones, b, b_ones):
+    """(support, ones, flops) of A @ B for supports a, b with ones a_ones,
+    b_ones: per output cell, the terms whose factors may both be non-zero,
+    a multiply for each term without a structural one and an add between
+    terms (fused_builders.cuh's product_support and product_ones)."""
+    support = ones = flops = 0
+    for i in range(7):
+        for k in range(7):
+            terms = [j for j in range(7) if has(a, i, j) and has(b, j, k)]
+            if not terms:
+                continue
+            plain = [j for j in terms if not (has(a_ones, i, j) or has(b_ones, j, k))]
+            flops += len(plain) + len(terms) - 1
+            support |= 1 << (7 * i + k)
+            j = terms[0]
+            if len(terms) == 1 and has(a_ones, i, j) and has(b_ones, j, k):
+                ones |= 1 << (7 * i + k)
+    return support, ones, flops
+
+
+def dynamic_support(ft, code):
+    """Support and ones of a dynamic tape entry's map (fused_builders.cuh's
+    builders): a drift, a corrector (a drift and its kick cell), or a
+    quadrupole, exit @ rot(-tilt) @ base @ rot(tilt) @ entry."""
+    drift = IDENTITY | mask_of([(0, 1), (2, 3), (4, 5)])
+    if code == ft.TAPE_DRIFT:
+        return drift, IDENTITY
+    if code in (ft.TAPE_HCOR, ft.TAPE_VCOR):
+        return drift | mask_of([(1, 6) if code == ft.TAPE_HCOR else (3, 6)]), IDENTITY
+    assert code == ft.TAPE_QUAD, code
+    tail = mask_of([(4, 4), (5, 5), (6, 6)])
+    base = IDENTITY | mask_of(
+        [(0, 1), (0, 5), (1, 0), (1, 5), (2, 3), (3, 2), (4, 0), (4, 1), (4, 5)])
+    rot = IDENTITY | mask_of([(0, 2), (1, 3), (2, 0), (3, 1)])
+    shift = IDENTITY | mask_of([(0, 6), (2, 6)])
+    s, o, _ = product(base, tail, rot, tail)
+    s, o, _ = product(rot, tail, s, o)
+    s, o, _ = product(s, o, shift, IDENTITY)
+    s, o, _ = product(shift, IDENTITY, s, o)
+    return s, o
+
+
+def sweep_flops(ft, entries):
+    """Flops per setting that B3 and B4 need on one plan, counted on the
+    structural supports of its maps (dynamic: the builders'; const: the
+    cells that are not literal zeros), with dense moments and cotangents.
+    B3: the chain T = R_{E-1} .. R_0, T mu and T C T^T.  B4: the chain; T^T
+    dmu and T^T dcov T; dT = dmu mu^T + dcov T C^T + dcov^T T C; per entry
+    in reverse, the cells of dR_i = A M_i^T that its inputs reach, their
+    contraction with dR_i/dp for each dynamic input, and A <- R_i^T A; the
+    batch sum of the const cells' cotangents.  The builders' own arithmetic
+    is not counted."""
+    maps = []  # (support, ones, cells of dR, dynamic inputs) per entry
+    for kind, meta, count in entries:
+        if kind == "dyn":
+            code = meta.tape_kind
+            if code == ft.TAPE_IDENTITY:
+                continue
+            support, ones = dynamic_support(ft, code)
+            maps.append((support, ones, support & ~ones, count + 1))
+        else:
+            literal = [[isinstance(c, float) for c in row] for row in meta]
+            support = mask_of((i, j) for i in range(7) for j in range(7)
+                            if not (literal[i][j] and meta[i][j] == 0.0))
+            ones = mask_of((i, j) for i in range(7) for j in range(7)
+                         if literal[i][j] and meta[i][j] == 1.0)
+            free = mask_of((i, j) for i in range(7) for j in range(7) if not literal[i][j])
+            maps.append((support, ones, free, 0))
+    chain, prefixes = 0, []
+    m, m_ones = IDENTITY, IDENTITY
+    for support, ones, _, _ in maps:
+        prefixes.append((m, m_ones))
+        m, m_ones, flops = product(support, ones, m, m_ones)
+        chain += flops
+    t, t_ones = m, m_ones
+    tt, tt_ones = transposed(t), transposed(t_ones)
+    tc, _, tc_flops = product(t, t_ones, DENSE, 0)  # T C, and T C^T alike
+    b3 = chain + product(t, t_ones, COLUMN, 0)[2] + tc_flops + product(tc, 0, tt, tt_ones)[2]
+    x, _, x_flops = product(DENSE, 0, t, t_ones)  # dcov T
+    b4 = (chain + product(tt, tt_ones, COLUMN, 0)[2] + x_flops + product(tt, tt_ones, x, 0)[2]
+          + 2 * tc_flops + 2 * product(DENSE, 0, tc, 0)[2] + 49 + 2 * 49)
+    for e in reversed(range(len(maps))):
+        support, ones, reached, inputs = maps[e]
+        m, m_ones = prefixes[e]
+        for c in range(7):  # dR_i[r, c] = sum_k A[r, k] M_i[c, k], A dense
+            row = [k for k in range(7) if has(m, c, k)]
+            plain = [k for k in row if not has(m_ones, c, k)]
+            n_cells = sum(has(reached, r, c) for r in range(7))
+            b4 += n_cells * (len(plain) + len(row) - 1)
+        n = bin(reached).count("1")
+        b4 += inputs * (2 * n - 1) if inputs else n  # contractions, or the batch sum
+        if e:
+            b4 += product(transposed(support), transposed(ones), DENSE, 0)[2]
+    return b3, b4
+
+
+def sweep_bounds(ft, entries, values, full, mu, cov):
+    """Bounds of B3 and B4 on one plan: their operands as the wrappers pass
+    them, and the flops of :func:`sweep_flops`."""
+    B = mu.shape[0]
+    tape = ft._tape(entries, mu.device)
+    params, consts = ft._tape_operands(entries, values, tape, mu.dtype, B)
+    b3_flops, b4_flops = sweep_flops(ft, entries)
+    b3 = bound(nbytes(params, consts, full, mu, cov) + nbytes(mu, cov), B * b3_flops)
+    d_consts = tape.cell_pos.shape[0] * B * mu.element_size()
+    b4 = bound(nbytes(params, consts, full, mu, cov, mu, cov)
+               + nbytes(params, full, mu, cov) + d_consts, B * b4_flops)
+    return b3, b4
+
+
 def time_kernels(torch, ft, fused, tbl, env, card):
-    """Kernel and plain times at the paths' shapes, float, CUDA events."""
+    """Kernel and plain times at the paths' shapes, float, CUDA events; the
+    bounds; for B2, torch.bmm of the same operands as the yardstick."""
     gen = torch.Generator(device="cuda").manual_seed(51)
     magnets = torch.rand((SWEEP_BATCH, 5), generator=gen, device="cuda") * 2 - 1
     tuned = env._batched_tuned_segment(magnets)
@@ -803,37 +963,63 @@ def time_kernels(torch, ft, fused, tbl, env, card):
     full = energy.expand(SWEEP_BATCH).contiguous()
     dmu, dcov = torch.randn_like(mu), torch.randn_like(cov)
     args = (entries, values, full, mu, cov)
-    times = {
-        "B3": (time_cuda(torch, lambda: ft.moment_sweep(*args), iters=50),
-               time_cuda(torch, lambda: ft._table_reference_sweep(*args), iters=10)),
-        "B4": (time_cuda(torch, lambda: ft.moment_sweep_bwd(*args, dmu, dcov), iters=50),
-               time_cuda(torch, lambda: ft._reference_sweep_vjp(*args, dmu, dcov), iters=10)),
+    b3_bound, b4_bound = sweep_bounds(ft, entries, [v.float() for v in values], full, mu, cov)
+    shape = f"B={SWEEP_BATCH}, {len(entries)} entries"
+    timing = {
+        "B3": dict(ms=time_cuda(torch, lambda: ft.moment_sweep(*args), iters=50),
+                   plain_ms=time_cuda(torch, lambda: ft._table_reference_sweep(*args), iters=10),
+                   bound=b3_bound, library_ms=None, shape=shape),
+        "B4": dict(ms=time_cuda(torch, lambda: ft.moment_sweep_bwd(*args, dmu, dcov), iters=50),
+                   plain_ms=time_cuda(torch, lambda: ft._reference_sweep_vjp(*args, dmu, dcov),
+                                      iters=10),
+                   bound=b4_bound, library_ms=None, shape=shape),
     }
-    layout, matrix, particles = push_inputs(torch, fused, tbl, ft, PUSH_BATCH, PUSH_PARTICLES,
-                                            seed=52)
-    matrix, particles = matrix.float(), particles.float()
-    times["B2"] = (
-        time_cuda(torch, lambda: ft.particle_apply(layout, matrix, particles), iters=100),
-        time_cuda(torch, lambda: ft.particle_apply_reference(layout, matrix, particles), iters=20),
-    )
     calls = {
         "B3": (lambda: ft.moment_sweep(*args), lambda: ft._table_reference_sweep(*args),
                "moment_sweep_kernel"),
         "B4": (lambda: ft.moment_sweep_bwd(*args, dmu, dcov),
                lambda: ft._reference_sweep_vjp(*args, dmu, dcov), "moment_sweep_bwd_kernel"),
-        "B2": (lambda: ft.particle_apply(layout, matrix, particles),
-               lambda: ft.particle_apply_reference(layout, matrix, particles),
-               "particle_apply_kernel"),
     }
-    for name, (kernel_ms, plain_ms) in times.items():
-        kernel_call, plain_call, kernel_name = calls[name]
+    # B2 at path P's shape (the JSON line's) and at the crossover's largest
+    # N; the library call is one batched product of the same float operands
+    # (TF32 off, phase 1).
+    for label, (B, N) in (("B2", (PUSH_BATCH, PUSH_PARTICLES)), ("B2, N=100,000", (32, 100_000))):
+        layout, matrix, particles = push_inputs(torch, fused, tbl, ft, B, N, seed=52)
+        matrix, particles = matrix.float(), particles.float()
+        maps = matrix.view(B, 7, 7).transpose(1, 2)
+        zeros, _ = ft._layout_masks(layout)
+        cells = 49 - bin(zeros).count("1")
+
+        def kernel(layout=layout, matrix=matrix, particles=particles):
+            return ft.particle_apply(layout, matrix, particles)
+
+        def plain(layout=layout, matrix=matrix, particles=particles):
+            return ft.particle_apply_reference(layout, matrix, particles)
+
+        def library(particles=particles, maps=maps):
+            return torch.bmm(particles, maps)
+
+        timing[label] = dict(
+            ms=time_cuda(torch, kernel, iters=100), plain_ms=time_cuda(torch, plain, iters=20),
+            bound=bound(nbytes(matrix, particles, particles), 2 * cells * B * N),
+            library_ms=time_cuda(torch, library, iters=100), shape=f"B={B}, N={N}",
+        )
+        calls[label] = (kernel, plain, "particle_apply_kernel", library)
+    for name, t in timing.items():
+        kernel_call, plain_call, kernel_name, *library_call = calls[name]
         device, own = device_time_ms(torch, kernel_call, iters=5, kernel=kernel_name)
         plain_device = device_time_ms(torch, plain_call, iters=2)
-        print(f"{name} at its path's shape (float): kernel {kernel_ms:.4f} ms, plain"
-              f" {plain_ms:.4f} ms per call (CUDA events, host launch cost included); device"
+        library = ""
+        if library_call:
+            library_device = device_time_ms(torch, library_call[0], iters=5)
+            library = (f"; library call torch.bmm {t['library_ms']:.5f} ms per call, device"
+                       f" {library_device:.5f} ms")
+        print(f"{name} at {t['shape']} (float): kernel {t['ms']:.5f} ms, plain"
+              f" {t['plain_ms']:.4f} ms per call (CUDA events, host launch cost included); device"
               f" time per call: kernel {own:.5f} ms, all of the wrapper's GPU work"
-              f" {device:.5f} ms, plain {plain_device:.5f} ms (torch.profiler; card {card})")
-    return times
+              f" {device:.5f} ms, plain {plain_device:.5f} ms (torch.profiler){library}; bound"
+              f" {t['bound'][0]:.5f} ms ({t['bound'][1]}); card {card}")
+    return timing
 
 
 # -- the particle moment sweep: kernels B5 and B6 -------------------------------
@@ -1156,42 +1342,67 @@ def crossover(torch, ltt, ft, fused, ParticleBeam, card):
 
 def time_moment_kernels(torch, ltt, ft, fused, env, ParticleBeam, card):
     """B5 at path K's B = 8 and B6 at path A's B = 256 against their plain
-    versions, float, N = MOMENT_PARTICLES."""
+    versions, float, N = MOMENT_PARTICLES, with their bounds: the cloud, its
+    weights, the per-setting scalars and the (B, 36) sums once each; per
+    (setting, particle) 2 flops per non-zero map cell and 4 per aperture
+    (B5) or 2 per plane row (B6), and 72 for the 36 weighted sums."""
     particles = moment_cloud(torch, ParticleBeam, MOMENT_PARTICLES, seed=111).particles[0]
     gen = torch.Generator(device="cuda").manual_seed(112)
     magnets = torch.rand((8, 5), generator=gen, device="cuda") - 0.5
     walk = kernel_operands(torch, ft, fused, list(env._batched_tuned_segment(magnets)
                                                   .flattened().elements), 8, particles)
     gram = ft._packed_operands(*kernel_operands(
-        torch, ft, fused, aperture_lattice(torch, ltt, 256, "rect", torch.float32), 256, particles))[0]
+        torch, ft, fused, aperture_lattice(torch, ltt, 256, "rect", torch.float32), 256,
+        particles))[0]
+    entries, scalars, cloud, weights = walk
+    n = cloud.shape[0]
+    per_particle = 72 + sum(
+        2 * sum(not (isinstance(c, float) and c == 0.0) for row in e[1] for c in row)
+        if e[0] == "map" else 4 for e in entries)
+    sums_bytes = 36 * 8 * cloud.element_size()
+    walk_bound = bound(nbytes(cloud, weights, *scalars) + sums_bytes, 8 * n * per_particle)
+    _, planes, bounds_, aug, w0 = gram
+    gram_bound = bound(nbytes(planes, bounds_, aug, w0) + 36 * planes.shape[1] * aug.element_size(),
+                       planes.shape[1] * aug.shape[1] * (72 + 2 * planes.shape[0]))
     calls = {
         "B5": (lambda: ft.particle_moment_sweep(*walk), lambda: ft._moment_sweep_reference(*walk),
-               ("moment_walk_kernel", "reduce_partials_kernel"), "path K, B=8"),
+               ("moment_walk_kernel", "reduce_partials_kernel"), "path K, B=8", walk_bound),
         "B6": (lambda: ft.packed_gram(*gram), lambda: ft.packed_gram_reference(*gram),
-               ("packed_gram_kernel", "reduce_partials_kernel"), "path A, B=256"),
+               ("packed_gram_kernel", "reduce_partials_kernel"), "path A, B=256", gram_bound),
     }
-    times = {}
-    for name, (kernel_call, plain_call, kernels, shape) in calls.items():
-        times[name] = (time_cuda(torch, kernel_call, iters=50), time_cuda(torch, plain_call, iters=10))
+    timing = {}
+    for name, (kernel_call, plain_call, kernels, shape, limit) in calls.items():
+        timing[name] = dict(ms=time_cuda(torch, kernel_call, iters=50),
+                            plain_ms=time_cuda(torch, plain_call, iters=10), bound=limit,
+                            library_ms=None)
         device, own = device_time_ms(torch, kernel_call, iters=5, kernel=kernels[0])
         _, reduce = device_time_ms(torch, kernel_call, iters=5, kernel=kernels[1])
         plain_device = device_time_ms(torch, plain_call, iters=2)
-        print(f"{name} at {shape}, N={MOMENT_PARTICLES} (float): kernel {times[name][0]:.4f} ms,"
-              f" plain {times[name][1]:.4f} ms per call (CUDA events, host launch cost included);"
-              f" device time per call: stage 1 {own:.5f} ms, stage 2 {reduce:.5f} ms, all of the"
-              f" wrapper's GPU work {device:.5f} ms, plain {plain_device:.5f} ms (torch.profiler;"
-              f" card {card})")
-    return times
+        t = timing[name]
+        print(f"{name} at {shape}, N={MOMENT_PARTICLES} (float): kernel {t['ms']:.4f} ms,"
+              f" plain {t['plain_ms']:.4f} ms per call (CUDA events, host launch cost"
+              f" included); device time per call: stage 1 {own:.5f} ms, stage 2 {reduce:.5f} ms,"
+              f" all of the wrapper's GPU work {device:.5f} ms, plain {plain_device:.5f} ms"
+              f" (torch.profiler); bound {limit[0]:.5f} ms ({limit[1]}); card {card}")
+    return timing
 
 
-def ptxas_registers(log):
-    """``kernel<type>: registers`` lines from an nvcc -Xptxas -v report."""
+def ptxas_report(log):
+    """``kernel<type> R registers, S/L bytes spilled`` for each kernel of an
+    nvcc -Xptxas -v report (spill stores / spill loads)."""
     import re
 
-    found = re.findall(r"Compiling entry function '\w*?([a-z][a-z_]*_kernel)(?:I([fd])E)?\w*'.*?"
-                       r"Used (\d+) registers", log, flags=re.S)
-    types = {"f": "<float>", "d": "<double>", "": ""}
-    return ", ".join(f"{name}{types[t]} {regs}" for name, t, regs in found)
+    types = {"f": "<float>", "d": "<double>", None: ""}
+    found = []
+    for chunk in log.split("Compiling entry function")[1:]:
+        name = re.match(r" '\w*?([a-z][a-z_]*_kernel)(?:I([fd])E)?", chunk)
+        registers = re.search(r"Used (\d+) registers", chunk)
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", chunk)
+        if name and registers:
+            spilled = (f"{spills[1]}/{spills[2]} bytes spilled" if spills
+                       else "spills not reported")
+            found.append(f"{name[1]}{types[name[2]]} {registers[1]} registers, {spilled}")
+    return "; ".join(found)
 
 
 def main():
@@ -1231,7 +1442,7 @@ def main():
     print(f"build: {', '.join(KERNEL_LIBRARIES)} (one nvcc each, in parallel) in"
           f" {time.perf_counter() - start:.2f} s")
     for name, (seconds, log) in _build.BUILD_LOG.items():
-        print(f"build {name}: {seconds:.2f} s; ptxas registers: {ptxas_registers(log)}")
+        print(f"build {name}: {seconds:.2f} s; ptxas: {ptxas_report(log)}")
 
     # -- 3. kernels against their plain versions ----------------------------
     max_abs_err = check_kernel_cases(torch, hist)
@@ -1317,10 +1528,13 @@ def main():
         ),
         iters=200,
     )
+    # Bound: the two index arrays read and the int32 window written once.
+    hist_bound = bound(nbytes(lx, ly) + window[0] * window[1] * 4, lx.numel())
     print(f"B1 at the flagship read (B=1, N={N_PARTICLES}, window {window}, count mode):"
           f" kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms,"
           f" full-image scatter {scatter_ms:.4f} ms per call (CUDA events, 200 calls"
-          f" back to back, host launch cost included; card {card})")
+          f" back to back, host launch cost included); bound {hist_bound[0]:.5f} ms"
+          f" ({hist_bound[1]}); card {card}")
     kernel_device = device_time_ms(
         torch, lambda: hist.window_histogram(lx, ly, None, *window), iters=50
     )
@@ -1335,46 +1549,45 @@ def main():
     serving_launches = path_serving(torch, ft, hist, envs, env, card)
     training_launches = path_training(torch, ft, hist, envs, env, tuning, card)
     push_launches = path_particles(torch, ft, hist, segment_module, ares, ParticleBeam, card)
-    times = time_kernels(torch, ft, fused, tbl, env, card)
+    timing = time_kernels(torch, ft, fused, tbl, env, card)
 
     # -- 7. the particle moment sweep ------------------------------------------
     walk_launches, env_gram_launches = path_env_kernel(torch, ft, hist, env, ParticleBeam, card)
     aperture_gram_launches = path_aperture_sweep(torch, ltt, ft, hist, fused, functional,
                                                  ParticleBeam, card)
     crossover(torch, ltt, ft, fused, ParticleBeam, card)
-    times.update(time_moment_kernels(torch, ltt, ft, fused, env, ParticleBeam, card))
+    timing.update(time_moment_kernels(torch, ltt, ft, fused, env, ParticleBeam, card))
 
     # -- 8. results ----------------------------------------------------------
-    kernels = [{
-        "name": "window_histogram",
-        "route": "cuda",
-        "source": "lynx_tpu_torch/csrc/window_histogram.cu",
-        "replaces": "lynx_tpu/ops/histogram.py:250",
-        "launches": launches,
-        "max_abs_err": max_abs_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-    }]
+    timing["B1"] = dict(ms=kernel_ms, plain_ms=plain_ms, bound=hist_bound, library_ms=None)
+    kernels = []
     for name, label, source, replaces, launched, error in (
-        ("particle_apply", "B2", "particle_apply.cu", 1439, push_launches, push_abs_err),
-        ("moment_sweep", "B3", "moment_sweep.cu", 72, serving_launches,
-         sweep_abs_err["B3"]),
-        ("moment_sweep_bwd", "B4", "moment_sweep_bwd.cu", 249, training_launches,
-         sweep_abs_err["B4"]),
-        ("particle_moment_sweep", "B5", "particle_moment_sweep.cu", 633,
-         {"B5": walk_launches}, moment_abs_err["B5"]),
-        ("packed_gram", "B6", "packed_gram.cu", 823,
-         {"B6": env_gram_launches + aperture_gram_launches}, moment_abs_err["B6"]),
+        ("window_histogram", "B1", "window_histogram.cu", "lynx_tpu/ops/histogram.py:250",
+         launches, max_abs_err),
+        ("particle_apply", "B2", "particle_apply.cu", "lynx_tpu/ops/pallas_track.py:1439",
+         push_launches["B2"], push_abs_err),
+        ("moment_sweep", "B3", "moment_sweep.cu", "lynx_tpu/ops/pallas_track.py:72",
+         serving_launches["B3"], sweep_abs_err["B3"]),
+        ("moment_sweep_bwd", "B4", "moment_sweep_bwd.cu", "lynx_tpu/ops/pallas_track.py:249",
+         training_launches["B4"], sweep_abs_err["B4"]),
+        ("particle_moment_sweep", "B5", "particle_moment_sweep.cu",
+         "lynx_tpu/ops/pallas_track.py:633", walk_launches, moment_abs_err["B5"]),
+        ("packed_gram", "B6", "packed_gram.cu", "lynx_tpu/ops/pallas_track.py:823",
+         env_gram_launches + aperture_gram_launches, moment_abs_err["B6"]),
     ):
+        t = timing[label]
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": f"lynx_tpu_torch/csrc/{source}",
-            "replaces": f"lynx_tpu/ops/pallas_track.py:{replaces}",
-            "launches": launched[label],
+            "replaces": replaces,
+            "launches": launched,
             "max_abs_err": error,
-            "ms": times[label][0],
-            "plain_ms": times[label][1],
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound"][0],
+            "bound_by": t["bound"][1],
+            "library_ms": t["library_ms"],
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -16,6 +16,7 @@ import torch
 
 from lynx_tpu_torch.accelerator.element import Element, as_field
 from lynx_tpu_torch.particles import Beam, ParticleBeam
+from lynx_tpu_torch.utils import resolve_device
 
 
 def aperture_survival_mask(xs, ys, x_max, y_max, shape: str) -> torch.Tensor:
@@ -59,6 +60,7 @@ class Aperture(Element):
         dtype: torch.dtype = torch.float32,
         device=None,
     ) -> None:
+        device = resolve_device(device, x_max, y_max)
         super().__init__(name=name, dtype=dtype, device=device)
         self.register_buffer("x_max", as_field(x_max if x_max is not None else math.inf, dtype, device))
         self.register_buffer("y_max", as_field(y_max if y_max is not None else math.inf, dtype, device))

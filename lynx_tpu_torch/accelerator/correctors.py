@@ -10,6 +10,7 @@ import torch
 
 from lynx_tpu_torch.accelerator.element import Element, as_field
 from lynx_tpu_torch.ops.rmatrix import _safe_div, build_rmatrix, igamma2_from_energy
+from lynx_tpu_torch.utils import resolve_device
 
 
 class _Corrector(Element):
@@ -25,6 +26,7 @@ class _Corrector(Element):
         dtype: torch.dtype = torch.float32,
         device=None,
     ) -> None:
+        device = resolve_device(device, length, angle)
         super().__init__(name=name, length=length, dtype=dtype, device=device)
         self.register_buffer(
             "angle",

@@ -16,7 +16,7 @@ import torch
 from torch import nn
 
 from lynx_tpu_torch.particles import Beam, ParameterBeam, ParticleBeam
-from lynx_tpu_torch.utils import UniqueNameGenerator
+from lynx_tpu_torch.utils import UniqueNameGenerator, resolve_device
 
 generate_unique_name = UniqueNameGenerator(prefix="unnamed_element")
 
@@ -66,6 +66,8 @@ class Element(nn.Module):
 
     :param name: Unique identifier of the element.
     :param length: Length in meters.
+    :param device: Where the fields live: ``device`` if given, else the
+        device of a tensor argument, else the card (``cuda``).
     """
 
     def __init__(
@@ -76,6 +78,7 @@ class Element(nn.Module):
         device=None,
     ) -> None:
         super().__init__()
+        device = resolve_device(device, length)
         self.name = name if name is not None else generate_unique_name()
         self.register_buffer(
             "length", as_field(length if length is not None else [0.0], dtype, device)

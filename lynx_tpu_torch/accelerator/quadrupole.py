@@ -8,6 +8,7 @@ import torch
 
 from lynx_tpu_torch.accelerator.element import Element, as_field
 from lynx_tpu_torch.ops.rmatrix import base_rmatrix, misalignment_matrix, sandwich
+from lynx_tpu_torch.utils import resolve_device
 
 
 class Quadrupole(Element):
@@ -30,6 +31,7 @@ class Quadrupole(Element):
         dtype: torch.dtype = torch.float32,
         device=None,
     ) -> None:
+        device = resolve_device(device, length, k1, misalignment, tilt)
         super().__init__(name=name, length=length, dtype=dtype, device=device)
         length = self.length
         self.register_buffer(

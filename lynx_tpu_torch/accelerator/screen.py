@@ -20,6 +20,7 @@ import torch
 from lynx_tpu_torch.accelerator.element import Element, as_field
 from lynx_tpu_torch.ops.histogram import screen_histogram_2d
 from lynx_tpu_torch.particles import Beam, ParameterBeam, ParticleBeam
+from lynx_tpu_torch.utils import resolve_device
 
 
 def _as_int_tuple(value) -> Tuple[int, ...]:
@@ -151,6 +152,7 @@ class Screen(Element):
         dtype: torch.dtype = torch.float32,
         device=None,
     ) -> None:
+        device = resolve_device(device, pixel_size, misalignment)
         super().__init__(name=name, dtype=dtype, device=device)
         self._resolution = (
             _as_int_tuple(resolution) if resolution is not None else (1024, 1024)

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from lynx_tpu_torch.accelerator import ELEMENT_CLASSES, Element, Segment
+from lynx_tpu_torch.utils import resolve_device
 
 #: Parameters that are configuration (plain Python values), not tensors.
 _HOST_KEYS = frozenset({"resolution", "binning", "shape", "is_active"})
@@ -42,13 +43,15 @@ def parse_element(
 
     Numbers are read through float32, as the JAX loader reads them, so that
     a lattice cast to float64 afterwards holds the same values in both
-    packages."""
+    packages.  The element lives on the card unless ``device`` says
+    otherwise."""
+    device = resolve_device(device)
     class_name, params = lattice_dict["elements"][name]
     _check_ported([class_name])
     converted = {
         key: value
         if isinstance(value, (str, bool)) or key in _HOST_KEYS
-        else torch.as_tensor(np.asarray(value, dtype=np.float32))
+        else torch.as_tensor(np.asarray(value, dtype=np.float32), device=device)
         for key, value in params.items()
     }
     return ELEMENT_CLASSES[class_name](name=name, **converted, dtype=dtype, device=device)
@@ -70,11 +73,12 @@ def parse_segment(
 def load_cheetah_model(
     filename: str, dtype: torch.dtype = torch.float32, device=None
 ) -> Segment:
-    """Load a lattice from a LatticeJSON file; raise ``NotImplementedError``
-    naming every element type of the file that is not ported yet."""
+    """Load a lattice from a LatticeJSON file onto the card, unless
+    ``device`` says otherwise; raise ``NotImplementedError`` naming every
+    element type of the file that is not ported yet."""
     lattice_dict = read_lattice_dict(filename)
     _check_ported(class_name for class_name, _ in lattice_dict["elements"].values())
-    return parse_segment(lattice_dict["root"], lattice_dict, dtype, device)
+    return parse_segment(lattice_dict["root"], lattice_dict, dtype, resolve_device(device))
 
 
 def from_jax_arrays(element, device=None, dtype: Optional[torch.dtype] = None) -> Element:
@@ -84,8 +88,10 @@ def from_jax_arrays(element, device=None, dtype: Optional[torch.dtype] = None) -
     object's class name, ``name``, its data fields (``_all_data_fields``,
     each converted with ``numpy.asarray``) and its static fields
     (``_all_static_fields``).  Names, classes and every data field carry
-    over; ``dtype`` casts the floating fields if given.
+    over; ``dtype`` casts the floating fields if given.  The result lives
+    on the card unless ``device`` says otherwise.
     """
+    device = resolve_device(device)
     class_name = type(element).__name__
     if class_name == "Segment":
         return Segment(

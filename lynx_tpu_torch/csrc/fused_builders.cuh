@@ -6,9 +6,11 @@
 // formulas as the JAX package's lynx_tpu/accelerator/fused.py): the
 // additive k1 + 1e-12 at k1 == 0, _cos_sinc's small-argument series below
 // 0.1 and exp forms above, the tilt sandwich, the misalignment entry/exit
-// and the corrector's kick row.  Maps are composed densely: a structural
-// zero contributes an exact 0 and a structural one an exact product, so the
-// values are those of the sparse table algebra up to rounding order.
+// and the corrector's kick row.  A builder's products skip its factors'
+// structural zeros and ones (matmul7_support); the kernels compose the
+// entries' maps densely, where a structural zero contributes an exact 0 and
+// a structural one an exact product, so the values are those of the sparse
+// table algebra up to rounding order.
 //
 // Builders are templates over their scalar type S, either the value type T
 // (float or double) or Dual<T>, a forward-mode dual number.  B4 evaluates
@@ -162,15 +164,6 @@ __device__ __forceinline__ void left_multiply(const S* L, S* R) {
   for (int c = 0; c < 49; ++c) R[c] = tmp[c];
 }
 
-// R <- R @ Rt, through a temporary.
-template <typename S>
-__device__ __forceinline__ void right_multiply(S* R, const S* Rt) {
-  S tmp[49];
-  matmul7(R, Rt, tmp);
-#pragma unroll
-  for (int c = 0; c < 49; ++c) R[c] = tmp[c];
-}
-
 // -- builders (ops/rmatrix.py, accelerator/fused.py) -----------------------
 
 // igamma2_from_energy: 1/gamma^2, zero_value where E == 0.
@@ -235,11 +228,11 @@ __device__ __forceinline__ void rotation(S cs, S sn, S* R) {
   R[3 * 7 + 3] = cs;
 }
 
-// _build_quadrupole: exit @ (rot(-tilt) @ (base @ rot(tilt))) @ entry, with
-// base = base_rmatrix_entries(length, k1, hx = 0, tilt, energy).
+// base_rmatrix_entries(length, k1, hx = 0, tilt, energy) of a quadrupole
+// with parameters p = (length, k1, tilt, mx, my), into R.
 template <typename T, typename S>
-__device__ void build_quadrupole(const S* p, S energy, T rest, S* R) {
-  const S length = p[0], tilt = p[2], mx = p[3], my = p[4];
+__device__ __forceinline__ void quadrupole_base(const S* p, S energy, T rest, S* R) {
+  const S length = p[0];
   S k1 = p[1];
   const S hx = S(T(0));
 
@@ -271,44 +264,130 @@ __device__ void build_quadrupole(const S* p, S energy, T rest, S* R) {
   R[4 * 7 + 0] = sx * hx * inv_beta;
   R[4 * 7 + 1] = dx * inv_beta;
   R[4 * 7 + 5] = r56;
+}
 
-  S M[49];
-  rotation<T>(cos_(tilt), sin_(tilt), M);  // rot(tilt)
-  right_multiply(R, M);                    // base @ rot(tilt)
-  const S minus_tilt = -tilt;
-  rotation<T>(cos_(minus_tilt), sin_(minus_tilt), M);
-  left_multiply(M, R);  // rot(-tilt) @ (base @ rot(tilt))
-  set_identity(M);      // entry: x -= mx, y -= my
+// -- products over structural supports -----------------------------------
+//
+// A dense product spends most of its multiplies on cells that are zero by
+// construction (x * 0.0 is not folded away: it is not 0 for every x).  The
+// builders below skip them: a product takes the support of each factor (the
+// cells that may be non-zero) and its ones (the cells that are exactly 1) as
+// compile-time masks, keeps matmul7's terms in matmul7's order, drops the
+// terms with a structural zero and the multiply by a structural one.  For
+// finite values that gives the dense product's numbers: a dropped term adds
+// an exact zero, a skipped multiply is by an exact one.
+
+// Bit 7 i + j is cell (i, j).
+__host__ __device__ constexpr uint64_t cell(int i, int j) { return 1ull << (i * 7 + j); }
+constexpr uint64_t kIdentityCells = cell(0, 0) | cell(1, 1) | cell(2, 2) | cell(3, 3) |
+                                    cell(4, 4) | cell(5, 5) | cell(6, 6);
+__host__ __device__ constexpr bool has(uint64_t mask, int i, int j) {
+  return (mask >> (i * 7 + j)) & 1ull;
+}
+
+// The support of A @ B.
+__host__ __device__ constexpr uint64_t product_support(uint64_t sa, uint64_t sb) {
+  uint64_t out = 0;
+  for (int i = 0; i < 7; ++i)
+    for (int k = 0; k < 7; ++k)
+      for (int j = 0; j < 7; ++j)
+        if (has(sa, i, j) && has(sb, j, k)) out |= cell(i, k);
+  return out;
+}
+
+// The cells of A @ B that are exactly 1: a single term, of two ones.
+__host__ __device__ constexpr uint64_t product_ones(uint64_t sa, uint64_t oa, uint64_t sb,
+                                                   uint64_t ob) {
+  uint64_t out = 0;
+  for (int i = 0; i < 7; ++i)
+    for (int k = 0; k < 7; ++k) {
+      int terms = 0;
+      bool ones = true;
+      for (int j = 0; j < 7; ++j)
+        if (has(sa, i, j) && has(sb, j, k)) {
+          ++terms;
+          ones = ones && has(oa, i, j) && has(ob, j, k);
+        }
+      if (terms == 1 && ones) out |= cell(i, k);
+    }
+  return out;
+}
+
+// out = A @ B over the supports SA, SB with ones OA, OB (out must not alias
+// A or B); cells outside the product's support are exact zeros.
+template <uint64_t SA, uint64_t OA, uint64_t SB, uint64_t OB, typename S>
+__device__ __forceinline__ void matmul7_support(const S* A, const S* B, S* out) {
+#pragma unroll
+  for (int i = 0; i < 7; ++i) {
+#pragma unroll
+    for (int k = 0; k < 7; ++k) {
+      S acc = S(0);
+      bool started = false;
+#pragma unroll
+      for (int j = 0; j < 7; ++j) {
+        if (!has(SA, i, j) || !has(SB, j, k)) continue;
+        const S term = has(OA, i, j)   ? B[j * 7 + k]
+                       : has(OB, j, k) ? A[i * 7 + j]
+                                       : A[i * 7 + j] * B[j * 7 + k];
+        acc = started ? acc + term : term;
+        started = true;
+      }
+      out[i * 7 + k] = acc;
+    }
+  }
+}
+
+// _build_quadrupole: exit @ (rot(-tilt) @ (base @ rot(tilt))) @ entry, with
+// base = base_rmatrix_entries(length, k1, hx = 0, tilt, energy), through the
+// products above; rot(-tilt) from the cosine and sine of tilt.
+template <typename T, typename S>
+__device__ __forceinline__ void build_quadrupole(const S* p, S energy, T rest, S* R) {
+  constexpr uint64_t kBase = kIdentityCells | cell(0, 1) | cell(0, 5) | cell(1, 0) | cell(1, 5) |
+                             cell(2, 3) | cell(3, 2) | cell(4, 0) | cell(4, 1) | cell(4, 5);
+  constexpr uint64_t kBaseOnes = cell(4, 4) | cell(5, 5) | cell(6, 6);
+  constexpr uint64_t kRot = kIdentityCells | cell(0, 2) | cell(1, 3) | cell(2, 0) | cell(3, 1);
+  constexpr uint64_t kRotOnes = cell(4, 4) | cell(5, 5) | cell(6, 6);
+  constexpr uint64_t kShift = kIdentityCells | cell(0, 6) | cell(2, 6);  // entry and exit
+  constexpr uint64_t kShiftOnes = kIdentityCells;
+  constexpr uint64_t kTilted = product_support(kBase, kRot);
+  constexpr uint64_t kTiltedOnes = product_ones(kBase, kBaseOnes, kRot, kRotOnes);
+  constexpr uint64_t kTurned = product_support(kRot, kTilted);
+  constexpr uint64_t kTurnedOnes = product_ones(kRot, kRotOnes, kTilted, kTiltedOnes);
+  constexpr uint64_t kEntered = product_support(kTurned, kShift);
+  constexpr uint64_t kEnteredOnes = product_ones(kTurned, kTurnedOnes, kShift, kShiftOnes);
+
+  const S tilt = p[2], mx = p[3], my = p[4];
+  S base[49], M[49], tmp[49];
+  quadrupole_base<T>(p, energy, rest, base);
+  const S cs = cos_(tilt), sn = sin_(tilt);
+  rotation<T>(cs, sn, M);
+  matmul7_support<kBase, kBaseOnes, kRot, kRotOnes>(base, M, tmp);  // base @ rot(tilt)
+  rotation<T>(cs, -sn, M);  // rot(-tilt): cos and sin are even and odd to the bit
+  matmul7_support<kRot, kRotOnes, kTilted, kTiltedOnes>(M, tmp, base);  // rot(-tilt) @ ..
+  set_identity(M);  // entry: x -= mx, y -= my
   M[0 * 7 + 6] = -mx;
   M[2 * 7 + 6] = -my;
-  right_multiply(R, M);
+  matmul7_support<kTurned, kTurnedOnes, kShift, kShiftOnes>(base, M, tmp);
   set_identity(M);  // exit
   M[0 * 7 + 6] = mx;
   M[2 * 7 + 6] = my;
-  left_multiply(M, R);
+  matmul7_support<kShift, kShiftOnes, kEntered, kEnteredOnes>(M, tmp, R);
 }
 
-// The dense map of a dynamic entry: p holds tape_params(kind) parameters.
+// The map of a dynamic entry: p holds tape_params(kind) parameters.  Inlined
+// into the caller, so that the maps stay in registers.
 template <typename T, typename S>
-__device__ void build_dynamic(int kind, const S* p, S energy, T rest, S* R) {
-  switch (kind) {
-    case kDrift:
-      set_identity(R);
-      drift_entries<T>(p[0], energy, rest, R);
-      break;
-    case kQuad:
-      build_quadrupole<T>(p, energy, rest, R);
-      break;
-    case kHCor:
-    case kVCor:
-      set_identity(R);
-      drift_entries<T>(p[0], energy, rest, R);
-      R[(kind == kHCor ? 1 : 3) * 7 + 6] = p[1];
-      break;
-    default:  // kIdentity
-      set_identity(R);
-      break;
+__device__ __forceinline__ void build_dynamic(int kind, const S* p, S energy, T rest, S* R) {
+  if (kind == kQuad) {
+    build_quadrupole<T>(p, energy, rest, R);
+    return;
   }
+  set_identity(R);
+  if (kind == kIdentity) return;
+  drift_entries<T>(p[0], energy, rest, R);  // drift, and the correctors' drift
+  // Indices known at compile time, so that R stays in registers.
+  if (kind == kHCor) R[1 * 7 + 6] = p[1];
+  if (kind == kVCor) R[3 * 7 + 6] = p[1];
 }
 
 // The value of entry e's map for setting b.

@@ -16,8 +16,8 @@
 //
 // Design: one thread per setting, maps dense in registers and local
 // memory, no shared memory: the settings are independent and the 7x7
-// algebra is too small for the tensor cores.  Not specialised for the
-// lattice's sparsity (a later step).  Templated on float and double: the
+// algebra is too small for the tensor cores.  The builders skip their
+// structural zeros; the compose of the entries is dense.  Templated on float and double: the
 // kernel computes in the beam's dtype, as the TPU kernel does.
 
 #include "fused_builders.cuh"

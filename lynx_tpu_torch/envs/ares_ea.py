@@ -31,6 +31,7 @@ from lynx_tpu_torch.functional import moment_sufficient, track
 from lynx_tpu_torch.models import ares_ea_segment
 from lynx_tpu_torch.ops.fused_track import sweep_particle_moments
 from lynx_tpu_torch.particles import ParameterBeam, ParticleBeam
+from lynx_tpu_torch.utils import resolve_device
 
 Tensor = torch.Tensor
 
@@ -65,7 +66,12 @@ def default_params(
 ) -> EnvParams:
     """Randomised-target default parameters (the ARES-EA task): a target
     position in [-2, 2] mm, a target size in [0.01, 1] mm and an incoming
-    offset in [-0.1, 0.1] mm, drawn from ``generator`` (seed 0 if None)."""
+    offset in [-0.1, 0.1] mm, drawn from ``generator`` (seed 0 on the CPU if
+    None).  They live on ``device``; without it, on the generator's device
+    if one is given, else on the card."""
+    if device is None and generator is not None:
+        device = generator.device
+    device = resolve_device(device)
     generator = generator if generator is not None else torch.Generator().manual_seed(0)
 
     def uniform(shape, low, high):
@@ -86,7 +92,8 @@ class AresEATransverseTuning:
     """Functional ARES-EA tuning environment over ParameterBeam physics.
 
     :param energy: working-point beam energy in eV, shared by all instances.
-    :param dtype, device: of the lattice and of the beams it builds.
+    :param dtype, device: of the lattice and of the beams it builds; the
+        device is the card unless given.
     """
 
     num_actions = 5
@@ -104,13 +111,13 @@ class AresEATransverseTuning:
                 "log_metrics=True emits through lynx_tpu.metrics, which is not"
                 " ported to lynx_tpu_torch yet"
             )
-        segment = ares_ea_segment(dtype=dtype, device=device)
+        self.device = resolve_device(device)
+        segment = ares_ea_segment(dtype=dtype, device=self.device)
         segment.AREABSCR1.is_active = False
         self._segment = segment
         self.energy = float(energy)
         self.log_metrics = log_metrics
         self.dtype = dtype
-        self.device = torch.device(device) if device is not None else torch.device("cpu")
         self._limits = torch.from_numpy(MAGNET_LIMITS).to(dtype=dtype, device=self.device)
 
     # -- physics -----------------------------------------------------------
@@ -303,4 +310,5 @@ class AresEATransverseTuning:
 def make_env(
     log_metrics: bool = False, dtype: torch.dtype = torch.float32, device=None
 ) -> AresEATransverseTuning:
+    """The ARES-EA environment, on the card unless ``device`` says otherwise."""
     return AresEATransverseTuning(log_metrics=log_metrics, dtype=dtype, device=device)

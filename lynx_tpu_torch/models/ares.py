@@ -19,6 +19,7 @@ from lynx_tpu_torch.converters.latticejson import (
 )
 from lynx_tpu_torch.functional import track
 from lynx_tpu_torch.particles import ParameterBeam
+from lynx_tpu_torch.utils import resolve_device
 
 ARES_LATTICE_JSON = (
     Path(__file__).resolve().parents[2]
@@ -30,8 +31,9 @@ FLAGSHIP_K1 = {"AREAMQZM1": 4.2, "AREAMQZM2": -4.2, "AREAMQZM3": 2.1}
 
 
 def ares_lattice(dtype: torch.dtype = torch.float32, device=None) -> Segment:
-    """The full ARES lattice (195 elements).  Raises ``NotImplementedError``
-    naming the element types that are not ported yet."""
+    """The full ARES lattice (195 elements), on the card unless ``device``
+    says otherwise.  Raises ``NotImplementedError`` naming the element types
+    that are not ported yet."""
     return load_cheetah_model(str(ARES_LATTICE_JSON), dtype=dtype, device=device)
 
 
@@ -60,6 +62,7 @@ def _derived_ea_window(segment: Segment, k_sigma: float):
         sigma_s=torch.tensor([8e-6]),
         sigma_p=torch.tensor([2e-3]),
         energy=torch.tensor([1.073e8]),
+        device="cpu",
     )
     at_screen, _ = track(probe, nominal)
     window = probe.AREABSCR1.derive_histogram_window(at_screen, k_sigma=k_sigma)
@@ -74,7 +77,8 @@ def ares_ea_segment(
     quadrupoles, two correctors and the diagnostic screen AREABSCR1.
 
     Only the subcell's elements are built from the lattice file, since the
-    full lattice holds element types that are not ported yet.
+    full lattice holds element types that are not ported yet.  The segment
+    lives on the card unless ``device`` says otherwise.
 
     :param histogram_window: window of the screen's windowed histogram:
         ``"auto"`` derives it from the flagship working-point beam at the
@@ -84,8 +88,9 @@ def ares_ea_segment(
     lattice_dict = read_lattice_dict(str(ARES_LATTICE_JSON))
     cell = lattice_dict["lattices"][lattice_dict["root"]]
     names = cell[cell.index("AREASOLA1") : cell.index("AREABSCR1") + 1]
-    segment = Segment([parse_element(name, lattice_dict) for name in names])
+    # Built on the CPU, where the window is derived, then moved.
+    segment = Segment([parse_element(name, lattice_dict, device="cpu") for name in names])
     if histogram_window == "auto":
         histogram_window = _derived_ea_window(segment, k_sigma=5.0)
     segment.AREABSCR1.histogram_window = histogram_window
-    return segment.to(device=device, dtype=dtype)
+    return segment.to(device=resolve_device(device), dtype=dtype)

@@ -306,15 +306,22 @@ moment_sweep.launches = 0
 
 # -- Kernel B4: the sweep's backward -----------------------------------------
 
-#: C signature of B4's entry point: is_double, tape, n_entries, cell_pos,
-#: params, consts, energy, mu, cov, dmu, dcov, prefix workspace, d_params,
-#: d_consts, d_energy, d_mu, d_cov, batch, rest energy, stream.
+#: C signatures of B4's entry points.  ``lynx_moment_sweep_bwd``: is_double,
+#: tape, n_entries, cell_pos, params, consts, energy, mu, cov, dmu, dcov,
+#: d_params, d_consts, d_energy, d_mu, d_cov, batch, rest energy, stream;
+#: it returns a CUDA error code, or ``_B4_DOES_NOT_FIT``.
+#: ``lynx_moment_sweep_bwd_tile``: is_double, n_entries -> settings per
+#: block on the current device (0: one setting does not fit).
 _B4_SIGNATURE = {
     "lynx_moment_sweep_bwd": (
         ctypes.c_int,
-        [ctypes.c_int, _P, ctypes.c_int] + [_P] * 14 + [ctypes.c_longlong, ctypes.c_double, _P],
-    )
+        [ctypes.c_int, _P, ctypes.c_int] + [_P] * 13 + [ctypes.c_longlong, ctypes.c_double, _P],
+    ),
+    "lynx_moment_sweep_bwd_tile": (ctypes.c_int, [ctypes.c_int, ctypes.c_int]),
 }
+#: B4's return code when one setting's prefix products exceed the device's
+#: shared memory per block (CUDA's own codes are not negative).
+_B4_DOES_NOT_FIT = -1
 
 
 def moment_sweep_bwd_library() -> ctypes.CDLL:
@@ -329,10 +336,8 @@ def _moment_sweep_bwd_cuda(entries, flat_values, energy, mu, cov, dmu, dcov):
         raise ValueError("moment_sweep_bwd: cotangents must have the moments' shapes")
     B, dtype, device = mu.shape[0], mu.dtype, mu.device
     tape = _tape(entries, device)
+    n_entries = tape.rows.shape[0]
     params, consts = _tape_operands(entries, flat_values, tape, dtype, B)
-    # Workspace: each entry's prefix product M_i, laid out (E, 49, B) so that
-    # the threads of a warp touch neighbouring addresses.
-    prefix = torch.empty((tape.rows.shape[0], 49, B), dtype=dtype, device=device)
     d_params = torch.empty((tape.n_params, B), dtype=dtype, device=device)
     d_consts = torch.empty((tape.cell_pos.shape[0], B), dtype=dtype, device=device)
     d_energy = torch.empty_like(energy)
@@ -341,12 +346,16 @@ def _moment_sweep_bwd_cuda(entries, flat_values, energy, mu, cov, dmu, dcov):
     library = moment_sweep_bwd_library()
     with torch.cuda.device(device):
         code = library.lynx_moment_sweep_bwd(
-            int(dtype == torch.float64), tape.rows.data_ptr(), tape.rows.shape[0],
-            tape.cell_pos.data_ptr(),
+            int(dtype == torch.float64), tape.rows.data_ptr(), n_entries, tape.cell_pos.data_ptr(),
             params.data_ptr(), consts.data_ptr(), energy.data_ptr(), mu.data_ptr(),
-            cov.data_ptr(), dmu.data_ptr(), dcov.data_ptr(), prefix.data_ptr(),
-            d_params.data_ptr(), d_consts.data_ptr(), d_energy.data_ptr(), d_mu.data_ptr(),
-            d_cov.data_ptr(), B, REST_ENERGY_EV, torch.cuda.current_stream(device).cuda_stream,
+            cov.data_ptr(), dmu.data_ptr(), dcov.data_ptr(), d_params.data_ptr(),
+            d_consts.data_ptr(), d_energy.data_ptr(), d_mu.data_ptr(), d_cov.data_ptr(), B,
+            REST_ENERGY_EV, torch.cuda.current_stream(device).cuda_stream,
+        )
+    if code == _B4_DOES_NOT_FIT:
+        raise ValueError(
+            f"moment_sweep_bwd: the prefix products of one setting's {n_entries} entries"
+            f" do not fit in the device's shared memory per block ({dtype})"
         )
     check(library, code, "moment_sweep_bwd")
     moment_sweep_bwd.launches += 1

@@ -12,6 +12,7 @@ from typing import Optional
 import torch
 
 from lynx_tpu_torch.particles.beam import Beam, _common_shape, _resolve
+from lynx_tpu_torch.utils import resolve_device
 
 
 class ParameterBeam(Beam):
@@ -21,6 +22,8 @@ class ParameterBeam(Beam):
     :param cov: ``(..., 7, 7)`` covariance of the distribution.
     :param energy: ``(...)`` reference energy in eV.
     :param total_charge: ``(...)`` total bunch charge in C.
+    :param device: ``device`` if given, else that of a tensor argument,
+        else the card (``cuda``).
     """
 
     def __init__(
@@ -32,6 +35,7 @@ class ParameterBeam(Beam):
         dtype: Optional[torch.dtype] = None,
         device=None,
     ) -> None:
+        device = resolve_device(device, mu, cov, energy, total_charge)
         self._mu = torch.as_tensor(mu, dtype=dtype, device=device)
         dtype, device = self._mu.dtype, self._mu.device
         self._cov = torch.as_tensor(cov, dtype=dtype, device=device)
@@ -64,7 +68,8 @@ class ParameterBeam(Beam):
         device=None,
     ) -> "ParameterBeam":
         """Assemble moments from the 15 scalar beam parameters (the JAX
-        package's defaults)."""
+        package's defaults), on the card unless ``device`` says otherwise."""
+        device = resolve_device(device)
         shape = _common_shape(
             [mu_x, mu_xp, mu_y, mu_yp, sigma_x, sigma_xp, sigma_y, sigma_yp,
              sigma_s, sigma_p, cor_x, cor_y, cor_s, energy, total_charge]

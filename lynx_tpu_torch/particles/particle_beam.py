@@ -15,6 +15,7 @@ import torch
 
 from lynx_tpu_torch.particles.beam import Beam, _common_shape, _resolve
 from lynx_tpu_torch.particles.parameter_beam import ParameterBeam, _block_covariance
+from lynx_tpu_torch.utils import resolve_device
 
 
 def _weighted_mean(values: torch.Tensor, weights: Optional[torch.Tensor]) -> torch.Tensor:
@@ -55,6 +56,8 @@ class ParticleBeam(Beam):
     :param particle_charges: ``(..., N)`` per-particle charge in C.
     :param survival: optional ``(..., N)`` survival weights in [0, 1];
         ``None`` means all particles are alive.
+    :param device: ``device`` if given, else that of a tensor argument,
+        else the card (``cuda``).
     """
 
     def __init__(
@@ -66,6 +69,7 @@ class ParticleBeam(Beam):
         dtype: Optional[torch.dtype] = None,
         device=None,
     ) -> None:
+        device = resolve_device(device, particles, energy, particle_charges, survival)
         particles = torch.as_tensor(particles, dtype=dtype, device=device)
         if particles.ndim < 2 or particles.shape[-2] == 0 or particles.shape[-1] != 7:
             raise ValueError(
@@ -113,8 +117,13 @@ class ParticleBeam(Beam):
 
         ``generator`` takes the place of JAX's ``key``; it must live on
         ``device``.  The two frameworks draw different numbers from the same
-        seed, so only the sample statistics agree between them.
+        seed, so only the sample statistics agree between them.  Without
+        ``device`` the beam lives on the generator's device if one is given,
+        else on the card.
         """
+        if device is None and generator is not None:
+            device = generator.device
+        device = resolve_device(device)
         shape = _common_shape(
             [mu_x, mu_xp, mu_y, mu_yp, sigma_x, sigma_xp, sigma_y, sigma_yp,
              sigma_s, sigma_p, cor_x, cor_y, cor_s, energy, total_charge]

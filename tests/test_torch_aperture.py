@@ -97,9 +97,9 @@ def test_aperture_loses_everything_or_nothing():
 
     inactive = ltt.Aperture(x_max=torch.tensor([1e-12]), is_active=False)
     assert inactive.track(tb) is tb and inactive.is_skippable and inactive.lost_mask is None
-    default = ltt.Aperture()
+    default = ltt.Aperture(device="cpu")
     assert default.track(tb).num_particles_survived.item() == N  # inf by default
-    parameter_beam = ltt.ParameterBeam.from_parameters(sigma_x=torch.tensor([1e-4]))
+    parameter_beam = ltt.ParameterBeam.from_parameters(sigma_x=torch.tensor([1e-4]), device="cpu")
     assert t_ap.track(parameter_beam) is parameter_beam  # only particles are culled
     assert torch.equal(t_ap.transfer_map(torch.tensor([1e8, 2e8])),
                        torch.eye(7, dtype=torch.float64).expand(2, 7, 7))
@@ -110,8 +110,9 @@ def test_aperture_loses_everything_or_nothing():
 
 def test_bpm_reading_matches_jax():
     jb, tb = beams(particles((2,)))
-    j_bpm, t_bpm = lt.BPM(is_active=True), ltt.BPM(is_active=True, dtype=torch.float64)
-    assert t_bpm.track(tb) is tb and not t_bpm.is_skippable and ltt.BPM().is_skippable
+    j_bpm = lt.BPM(is_active=True)
+    t_bpm = ltt.BPM(is_active=True, dtype=torch.float64, device="cpu")
+    assert t_bpm.track(tb) is tb and not t_bpm.is_skippable and ltt.BPM(device="cpu").is_skippable
     j_bpm.track(jb)
     np.testing.assert_allclose(t_bpm.reading.numpy(), np.asarray(j_bpm.reading), rtol=RTOL)
     assert t_bpm.reading.shape == (2, 2)
@@ -137,7 +138,7 @@ def test_functional_track_diagnostics_match_jax():
         lt.BPM(is_active=True, name="bpm2"),
         lt.Aperture(x_max=jnp.asarray([3e-4]), name="slit2", dtype=jnp.float64),
     ])
-    t_segment = from_jax_arrays(j_segment)
+    t_segment = from_jax_arrays(j_segment, device="cpu")
     assert [type(e).__name__ for e in t_segment.elements] == [
         "Drift", "BPM", "Quadrupole", "Aperture", "Drift", "BPM", "Aperture"]
     assert t_segment.slit.shape == "elliptical" and t_segment.slit.is_active
@@ -162,7 +163,7 @@ def test_lattice_json_and_from_jax_arrays_build_aperture_and_bpm():
     lattice_dict = read_lattice_dict(str(torch_ares.ARES_LATTICE_JSON))
     j_lattice = jax_ares.ares_lattice()
     for name, cls in (("ARLISLHG1", "Aperture"), ("ARLIBPMG1", "BPM")):
-        element = parse_element(name, lattice_dict)
+        element = parse_element(name, lattice_dict, device="cpu")
         assert type(element) is ELEMENT_CLASSES[cls] and element.name == name
         if cls == "Aperture":
             assert element.shape == "rectangular" and element.is_active
@@ -170,7 +171,7 @@ def test_lattice_json_and_from_jax_arrays_build_aperture_and_bpm():
         else:
             assert not element.is_active and element.is_skippable
         jax_element = getattr(j_lattice, name)
-        carried = from_jax_arrays(jax_element)
+        carried = from_jax_arrays(jax_element, device="cpu")
         assert type(carried) is type(element)
         for field in type(jax_element)._all_data_fields:
             expected = np.asarray(getattr(jax_element, field))
@@ -178,6 +179,6 @@ def test_lattice_json_and_from_jax_arrays_build_aperture_and_bpm():
             np.testing.assert_array_equal(getattr(carried, field).numpy(), expected)
         for field in type(jax_element)._all_static_fields:
             assert getattr(carried, field) == getattr(element, field) == getattr(jax_element, field)
-    for element in (ltt.Aperture(is_active=False), ltt.BPM()):
+    for element in (ltt.Aperture(is_active=False, device="cpu"), ltt.BPM(device="cpu")):
         params, build = torch_fused.element_map_builder(element)
         assert params == [] and build is torch_fused._build_identity

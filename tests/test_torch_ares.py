@@ -60,7 +60,7 @@ def jax_flagship(segment, batch, dtype, active):
 
 
 def torch_flagship(batch, dtype, active):
-    segment = torch_ares.ares_ea_segment()
+    segment = torch_ares.ares_ea_segment(device="cpu")
     if batch > 1:
         segment = segment.broadcast((batch,))
     segment = segment.to(dtype)
@@ -80,7 +80,7 @@ def beams(batch, jdtype, tdtype):
 
 def test_derived_window_matches_jax(jax_segment):
     torch_ares._EA_WINDOW_CACHE.clear()
-    assert torch_ares.ares_ea_segment().AREABSCR1.histogram_window == (244, 950)
+    assert torch_ares.ares_ea_segment(device="cpu").AREABSCR1.histogram_window == (244, 950)
     assert jax_segment.AREABSCR1.histogram_window == (244, 950)
     window = torch_hist._window_shape((950, 244), 2040, 2448)
     assert window == (952, 256)
@@ -89,8 +89,8 @@ def test_derived_window_matches_jax(jax_segment):
 def test_loader_matches_jax_lattice(jax_segment):
     """LatticeJSON load and the from_jax_arrays route build the same
     segment as JAX: names, classes and every data field."""
-    loaded = torch_ares.ares_ea_segment()
-    carried = from_jax_arrays(jax_segment)
+    loaded = torch_ares.ares_ea_segment(device="cpu")
+    carried = from_jax_arrays(jax_segment, device="cpu")
     assert isinstance(carried, Segment)
     assert len(loaded.elements) == len(carried.elements) == len(jax_segment.elements) == 13
     for mine, theirs, jaxs in zip(loaded.elements, carried.elements, jax_segment.elements):
@@ -106,7 +106,7 @@ def test_loader_matches_jax_lattice(jax_segment):
 
 def test_full_lattice_names_the_missing_element_types():
     with pytest.raises(NotImplementedError, match="ported to lynx_tpu_torch yet: Cavity, Dipole, Solenoid$"):
-        torch_ares.ares_lattice()
+        torch_ares.ares_lattice(device="cpu")
 
 
 @pytest.mark.parametrize("batch", [1, 8])

@@ -76,7 +76,7 @@ def test_parameter_beam_from_parameters_matches_jax():
     )
     tb = ltt.ParameterBeam.from_parameters(
         **{k: torch.tensor(v, dtype=torch.float64) for k, v in kwargs.items()},
-        dtype=torch.float64,
+        dtype=torch.float64, device="cpu",
     )
     assert_close(tb._mu, jb._mu)
     assert_close(tb._cov, jb._cov)
@@ -88,7 +88,7 @@ def test_parameter_beam_from_parameters_matches_jax():
 
 def test_parameter_beam_defaults_and_broadcast_match_jax():
     jb = lt.ParameterBeam.from_parameters(dtype=jnp.float64).broadcast((3,))
-    tb = ltt.ParameterBeam.from_parameters(dtype=torch.float64).broadcast((3,))
+    tb = ltt.ParameterBeam.from_parameters(dtype=torch.float64, device="cpu").broadcast((3,))
     assert_close(tb._cov, jb._cov)
     assert_close(tb._mu, jb._mu)
     assert_close(tb.sigma_x, jb.sigma_x)
@@ -104,6 +104,7 @@ def test_particle_beam_from_parameters_sample_moments():
                   cor_x=[1e-9], energy=[1.073e8], total_charge=[1e-12])
     tb = ltt.ParticleBeam.from_parameters(
         num_particles=n, generator=torch.Generator().manual_seed(0), dtype=torch.float64,
+        device="cpu",
         **{k: torch.tensor(v, dtype=torch.float64) for k, v in params.items()},
     )
     jb = lt.ParticleBeam.from_parameters(
@@ -127,8 +128,12 @@ def test_particle_beam_from_parameters_sample_moments():
 
 
 def test_from_parameters_is_reproducible_from_a_seeded_generator():
-    a = ltt.ParticleBeam.from_parameters(num_particles=100, generator=torch.Generator().manual_seed(5))
-    b = ltt.ParticleBeam.from_parameters(num_particles=100, generator=torch.Generator().manual_seed(5))
+    a = ltt.ParticleBeam.from_parameters(
+        num_particles=100, generator=torch.Generator().manual_seed(5), device="cpu"
+    )
+    b = ltt.ParticleBeam.from_parameters(
+        num_particles=100, generator=torch.Generator().manual_seed(5), device="cpu"
+    )
     assert torch.equal(a.particles, b.particles)
     assert a.particles.dtype == torch.float32
 

@@ -43,7 +43,7 @@ def envs():
     jax_env._segment = jax.tree_util.tree_map(
         lambda a: a.astype(jnp.float64), jax_env._segment
     )
-    return jax_env, torch_env_module.make_env(dtype=torch.float64)
+    return jax_env, torch_env_module.make_env(dtype=torch.float64, device="cpu")
 
 
 @pytest.fixture(autouse=True)
@@ -154,12 +154,12 @@ def test_single_instance_api_matches_jax(envs):
 
 
 def test_default_params_and_parts_not_ported(envs, monkeypatch):
-    params = torch_env_module.default_params(torch.Generator().manual_seed(0))
+    params = torch_env_module.default_params(torch.Generator().manual_seed(0), device="cpu")
     assert params.target.shape == params.incoming_mu.shape == (4,)
     assert -2e-3 <= float(params.target[0]) <= 2e-3 and 1e-5 <= float(params.target[1]) <= 1e-3
     assert bool((params.incoming_mu.abs() <= 1e-4).all())
     with pytest.raises(NotImplementedError, match="metrics"):
-        torch_env_module.make_env(log_metrics=True)
+        torch_env_module.make_env(log_metrics=True, device="cpu")
 
     # method="kernel", through B5's (8 settings) and B6's (48) plain versions,
     # agrees with method="moments" (exact for the linear EA) and with JAX's
@@ -233,9 +233,9 @@ def test_slice_modules_import_no_jax():
         "import lynx_tpu_torch.envs, lynx_tpu_torch.tuning\n"
         "import lynx_tpu_torch.accelerator.fused, lynx_tpu_torch.ops.fused_track\n"
         "import lynx_tpu_torch.ops.table\n"
-        "env = lynx_tpu_torch.envs.make_env()\n"
+        "env = lynx_tpu_torch.envs.make_env(device='cpu')\n"
         "import torch, lynx_tpu_torch as ltt\n"
-        "beam = ltt.ParticleBeam.from_parameters(num_particles=50)\n"
+        "beam = ltt.ParticleBeam.from_parameters(num_particles=50, device='cpu')\n"
         "env.batched_particle_beam_parameters(torch.zeros(2, 5), beam, method='kernel')\n"
         "assert 'jax' not in sys.modules and 'lynx_tpu' not in sys.modules\n"
     )

@@ -97,7 +97,7 @@ def torch_run(a, B):
         return torch.as_tensor(np.asarray(x), dtype=f64)
 
     return [
-        ltt.Marker(name="m0", dtype=f64),
+        ltt.Marker(name="m0", dtype=f64, device="cpu"),
         ltt.Drift(t([0.5]), dtype=f64),
         ltt.Quadrupole(
             t(np.full(B, 0.23)), k1=t(a["q1_k1"]), tilt=t(a["q1_tilt"]),
@@ -108,7 +108,7 @@ def torch_run(a, B):
         ltt.VerticalCorrector(t([0.1]), angle=t([2e-4]), dtype=f64),
         ltt.Quadrupole(t([0.2]), k1=t(a["q2_k1"]), tilt=t([0.05]), dtype=f64),
         ltt.Drift(t(a["d3_length"]), dtype=f64),
-        ltt.Screen(dtype=f64),
+        ltt.Screen(dtype=f64, device="cpu"),
     ]
 
 

@@ -2,12 +2,17 @@
 
 There is no nvcc here, so each ``csrc/*.cu`` is compiled as host C++ by gcc
 against a stand-in ``cuda_runtime.h``: ``__device__`` and friends are
-dropped and a launch ``kernel<<<blocks, threads, ...>>>(args)`` becomes a
-loop over every (block, thread) index.  That runs the kernels' arithmetic
-(tape decoding, builders, dual numbers, indexing of the ragged batch) on
-the plain versions' inputs.  What it cannot check is the device itself
-(FMA contraction, memory, occupancy): ``chip_smoke.py`` does that on the
-card.
+dropped and a launch ``kernel<<<blocks, threads, shared, stream>>>(args)``
+runs the blocks one after another, each block's threads as ``std::thread``s.
+``__syncthreads()`` and ``__syncwarp()`` are a ``std::barrier`` over the
+block (so a kernel must reach them in the same order on every thread, as
+the kernels here do), a ``__shared__`` array is one per kernel and serves
+each block in turn, and ``extern __shared__`` memory is a buffer of the
+launch's size.  That runs the kernels' arithmetic and their cooperation
+(tape decoding, builders, dual numbers, shared-memory tiles, the ragged
+batch) on the plain versions' inputs.  What it cannot check is the device
+itself (FMA contraction, memory, occupancy, registers): ``chip_smoke.py``
+does that on the card.
 
 Bounds, float64: B3 and B2 within 1e-12 of their plain versions relative to
 each setting's largest entry; B5 and B6 within 1e-12, second moments
@@ -51,22 +56,64 @@ K1_ZERO_RTOL = 1e-3
 STAND_IN = r"""
 #pragma once
 #include <math.h>
+#include <barrier>
+#include <cstddef>
 #include <cstdint>
+#include <new>
+#include <thread>
+#include <vector>
 #define __device__
 #define __global__
 #define __host__
 #define __forceinline__ inline
 #define __restrict__
+#define __launch_bounds__(...)
+#define __align__(n) __attribute__((aligned(n)))
+#define __shared__ static
 struct HostDim3 { unsigned x, y, z; };
-static HostDim3 blockIdx, blockDim, threadIdx, gridDim;
-#define LYNX_HOST_GRID(blocks, threads, shared, stream)                       \
-  for (gridDim.x = (unsigned)(blocks), blockDim.x = (unsigned)(threads),      \
-      blockIdx.x = 0; blockIdx.x < gridDim.x; ++blockIdx.x)                    \
-    for (threadIdx.x = 0; threadIdx.x < blockDim.x; ++threadIdx.x)
+static thread_local HostDim3 threadIdx;
+static HostDim3 blockIdx, blockDim, gridDim;
+struct alignas(16) float4 { float x, y, z, w; };
+struct alignas(16) double2 { double x, y; };
+inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
+inline double2 make_double2(double x, double y) { return {x, y}; }
+static std::barrier<>* lynx_host_barrier = nullptr;
+static unsigned char* lynx_host_shared = nullptr;
+inline void __syncthreads() { lynx_host_barrier->arrive_and_wait(); }
+inline void __syncwarp(unsigned = 0xffffffffu) { lynx_host_barrier->arrive_and_wait(); }
 typedef void* cudaStream_t;
 typedef int cudaError_t;
+enum { cudaErrorInvalidValue = 1 };
+enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum { cudaDevAttrMaxSharedMemoryPerBlockOptin = 97 };
+constexpr int kHostSharedOptin = 232448;  // an H100's 227 KB
 inline cudaError_t cudaGetLastError() { return 0; }
 inline const char* cudaGetErrorString(cudaError_t) { return "host"; }
+inline cudaError_t cudaGetDevice(int* device) { *device = 0; return 0; }
+inline cudaError_t cudaDeviceGetAttribute(int* value, int, int) {
+  *value = kHostSharedOptin;
+  return 0;
+}
+template <typename F> cudaError_t cudaFuncSetAttribute(F, int, int) { return 0; }
+template <typename F>
+void lynx_host_launch(F body, unsigned blocks, unsigned threads, size_t shared = 0,
+                      cudaStream_t = nullptr) {
+  void* memory = ::operator new(shared + 16, std::align_val_t(16));
+  lynx_host_shared = static_cast<unsigned char*>(memory);
+  gridDim = {blocks, 1, 1};
+  blockDim = {threads, 1, 1};
+  for (unsigned b = 0; b < blocks; ++b) {
+    blockIdx = {b, 0, 0};
+    std::barrier<> barrier(threads);
+    lynx_host_barrier = &barrier;
+    std::vector<std::thread> pool;
+    for (unsigned t = 0; t < threads; ++t) {
+      pool.emplace_back([&body, t] { threadIdx = {t, 0, 0}; body(); });
+    }
+    for (auto& thread : pool) thread.join();
+  }
+  ::operator delete(memory, std::align_val_t(16));
+}
 """
 
 SIGNATURES = {
@@ -76,7 +123,18 @@ SIGNATURES = {
     "particle_moment_sweep": fused_track._B5_SIGNATURE,
     "packed_gram": fused_track._B6_SIGNATURE,
 }
-LAUNCH = re.compile(r"(\w+<\w+>)<<<(.*?)>>>", flags=re.S)
+# kernel<T, ...><<<grid>>>(args); -> lynx_host_launch([&] { kernel<T, ...>(args); }, grid);
+LAUNCH = re.compile(r"(\w+<[^<>;]*>)<<<(.*?)>>>\((.*?)\);", flags=re.S)
+# extern __shared__ __align__(16) unsigned char name[]; -> a pointer to the launch's buffer.
+DYNAMIC_SHARED = re.compile(
+    r"extern\s+__shared__\s+(?:__align__\(\d+\)\s+)?(\w[\w ]*?)\s+(\w+)\[\];"
+)
+
+
+def host_source(text):
+    """A ``.cu`` or ``.cuh`` source as host C++ for the stand-in."""
+    text = LAUNCH.sub(r"lynx_host_launch([&] { \1(\3); }, \2);", text)
+    return DYNAMIC_SHARED.sub(r"\1* \2 = reinterpret_cast<\1*>(lynx_host_shared);", text)
 
 
 @pytest.fixture(scope="module")
@@ -86,15 +144,14 @@ def host_kernels(tmp_path_factory):
     root = tmp_path_factory.mktemp("host_kernels")
     (root / "cuda_runtime.h").write_text(STAND_IN)
     for header in _build.CSRC.glob("*.cuh"):
-        (root / header.name).write_text(LAUNCH.sub(r"LYNX_HOST_GRID(\2) \1", header.read_text()))
+        (root / header.name).write_text(host_source(header.read_text()))
     libraries = {}
     for name, signature in SIGNATURES.items():
-        source = (_build.CSRC / f"{name}.cu").read_text()
-        source = LAUNCH.sub(r"LYNX_HOST_GRID(\2) \1", source)
+        source = host_source((_build.CSRC / f"{name}.cu").read_text())
         (root / f"{name}.cpp").write_text(source)
         target = root / f"lib{name}.so"
         subprocess.run(
-            [compiler, "-std=c++17", "-O1", "-shared", "-fPIC", "-Wno-unknown-pragmas",
+            [compiler, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", "-Wno-unknown-pragmas",
              f"-I{root}", "-o", str(target), str(root / f"{name}.cpp")],
             check=True, capture_output=True, text=True,
         )
@@ -117,7 +174,7 @@ def run_and_inputs(B, dtype, seed=0):
         return torch.as_tensor(np.asarray(x), dtype=dtype)
 
     elements = [
-        ltt.Marker(dtype=dtype),
+        ltt.Marker(dtype=dtype, device="cpu"),
         ltt.Drift(t([0.5]), dtype=dtype),
         ltt.Quadrupole(t(np.full(B, 0.23)), k1=t(k1), tilt=t(rng.uniform(-0.2, 0.2, B)),
                        misalignment=t(rng.uniform(-2e-4, 2e-4, (B, 2))), dtype=dtype),
@@ -128,7 +185,7 @@ def run_and_inputs(B, dtype, seed=0):
                               dtype=dtype),
         ltt.Quadrupole(t([0.2]), k1=t([3.0]), tilt=t([0.05]), dtype=dtype),
         ltt.Drift(t(rng.uniform(0.1, 0.6, B)), dtype=dtype),
-        ltt.Screen(dtype=dtype),
+        ltt.Screen(dtype=dtype, device="cpu"),
     ]
     builders = [torch_fused.element_map_builder(el) for el in elements]
     energy = torch.full((B,), 1.073e8, dtype=dtype)
@@ -145,10 +202,12 @@ def per_setting_error(actual, expected):
     return float((diff / expected.abs().reshape(B, -1).amax(dim=1)).max())
 
 
-@pytest.mark.parametrize("energy_batched", [False, True])
-def test_moment_sweep_and_backward_match_plain(host_kernels, energy_batched):
-    B = 37  # ragged: not a multiple of the 128-thread block
+def sweep_plan(B, energy_batched, repeat=1):
+    """The plan of :func:`run_and_inputs`'s run (its elements ``repeat``
+    times over) as B3 and B4 take it: ``(entries, values, tape, params,
+    consts, energy, mu, cov, k1_zero)``, float64."""
     builders, energy, mu, cov, k1_zero = run_and_inputs(B, torch.float64)
+    builders = builders * repeat
     if energy_batched:  # every element dynamic, markers and screens included
         energy = energy * torch.linspace(0.9, 1.1, B, dtype=torch.float64)
         plan = torch_fused.plan_run(builders, energy, lambda x: torch.broadcast_to(x, (B,)))
@@ -159,23 +218,16 @@ def test_moment_sweep_and_backward_match_plain(host_kernels, energy_batched):
     values = [v for _, _, vs in plan for v in vs]
     tape = fused_track._tape(entries, torch.device("cpu"))
     params, consts = fused_track._tape_operands(entries, values, tape, torch.float64, B)
+    return entries, values, tape, params, consts, energy, mu, cov, k1_zero
 
-    out_mu, out_cov = torch.empty_like(mu), torch.empty_like(cov)
-    code = host_kernels["moment_sweep"].lynx_moment_sweep(
-        1, tape.rows.data_ptr(), tape.rows.shape[0], params.data_ptr(), consts.data_ptr(),
-        energy.data_ptr(), mu.data_ptr(), cov.data_ptr(), out_mu.data_ptr(), out_cov.data_ptr(),
-        B, REST_ENERGY_EV, None,
-    )
-    assert code == 0
-    ref_mu, ref_cov = fused_track._table_reference_sweep(entries, values, energy, mu, cov)
-    assert per_setting_error(out_mu, ref_mu) <= RTOL
-    assert per_setting_error(out_cov, ref_cov) <= RTOL
 
+def check_backward(host_kernels, B, entries, values, tape, params, consts, energy, mu, cov,
+                   k1_zero):
+    """B4 against autograd of the plain sweep, at the module's bounds."""
     rng = np.random.default_rng(1)
     dmu = torch.from_numpy(rng.normal(size=(B, 7)))
     dcov = torch.from_numpy(rng.normal(size=(B, 7, 7)))
     outputs = {
-        "prefix": torch.empty((tape.rows.shape[0], 49, B), dtype=torch.float64),
         "d_params": torch.empty((tape.n_params, B), dtype=torch.float64),
         "d_consts": torch.empty((tape.cell_pos.shape[0], B), dtype=torch.float64),
         "d_energy": torch.empty_like(energy),
@@ -211,8 +263,61 @@ def test_moment_sweep_and_backward_match_plain(host_kernels, energy_batched):
         assert float((got - want).abs().max()) <= RTOL * float(want.abs().max()), name
 
 
-def test_particle_apply_matches_plain(host_kernels):
-    B, N = 19, 45
+@pytest.mark.parametrize("energy_batched", [False, True])
+def test_moment_sweep_and_backward_match_plain(host_kernels, energy_batched):
+    B = 37  # ragged: neither a multiple of B3's 128-thread block nor of B4's tile
+    plan = sweep_plan(B, energy_batched)
+    entries, values, tape, params, consts, energy, mu, cov, _ = plan
+    assert B % host_kernels["moment_sweep_bwd"].lynx_moment_sweep_bwd_tile(1, len(entries))
+
+    out_mu, out_cov = torch.empty_like(mu), torch.empty_like(cov)
+    code = host_kernels["moment_sweep"].lynx_moment_sweep(
+        1, tape.rows.data_ptr(), tape.rows.shape[0], params.data_ptr(), consts.data_ptr(),
+        energy.data_ptr(), mu.data_ptr(), cov.data_ptr(), out_mu.data_ptr(), out_cov.data_ptr(),
+        B, REST_ENERGY_EV, None,
+    )
+    assert code == 0
+    ref_mu, ref_cov = fused_track._table_reference_sweep(entries, values, energy, mu, cov)
+    assert per_setting_error(out_mu, ref_mu) <= RTOL
+    assert per_setting_error(out_cov, ref_cov) <= RTOL
+    check_backward(host_kernels, B, *plan)
+
+
+def test_backward_tile_follows_the_tape_and_the_dtype(host_kernels):
+    """B4 keeps each setting's prefix products in shared memory: the
+    settings per block (at most 32, whole warps from 4 on) shrink as the
+    tape grows and in float64, and are 0 where one setting cannot fit in
+    the 227 KB of an H100 block."""
+    tile = host_kernels["moment_sweep_bwd"].lynx_moment_sweep_bwd_tile
+    assert tile(0, 11) == tile(1, 11) == 32  # path T's plan: 3.4 / 6.8 KB a setting
+    assert tile(0, 36) == 24 and tile(1, 36) == 12 and tile(1, 60) == 8
+    assert tile(1, 200) == 2 and tile(0, 700) == 1
+    assert tile(1, 700) == 0
+    # Such a launch returns the code that the wrapper raises on, before it
+    # reads any operand.
+    launch = host_kernels["moment_sweep_bwd"].lynx_moment_sweep_bwd
+    assert launch(1, None, 700, *[None] * 13, 1, REST_ENERGY_EV, None) == (
+        fused_track._B4_DOES_NOT_FIT
+    )
+
+
+@pytest.mark.parametrize("B, repeat, tile", [(5, 4, 12), (37, 4, 12), (5, 25, 2)])
+def test_backward_on_a_tape_that_shrinks_the_tile(host_kernels, B, repeat, tile):
+    """The run ``repeat`` times over, every entry dynamic: 36 entries give 12
+    settings a block in float64, so B = 37 fills three blocks and one setting
+    of a fourth and B = 5 one block in part; 225 entries give 2 settings a
+    block, a block of 16 threads that fills half a warp."""
+    plan = sweep_plan(B, energy_batched=True, repeat=repeat)
+    entries = plan[0]
+    assert len(entries) == 9 * repeat
+    assert host_kernels["moment_sweep_bwd"].lynx_moment_sweep_bwd_tile(1, len(entries)) == tile
+    check_backward(host_kernels, B, *plan)
+
+
+def push_inputs(B, N, dtype, shift=0):
+    """The run's composed maps as B2 takes them (layout, (B, 49) matrix) and
+    (B, N, 7) particles; ``shift`` starts the particles that many particles
+    into their buffer, off the 16-byte alignment of B2's vector path."""
     builders, energy, _, _, _ = run_and_inputs(B, torch.float64, seed=2)
     total = None
     for params, fn in builders:
@@ -221,22 +326,77 @@ def test_particle_apply_matches_plain(host_kernels):
     layout, _ = fused_track._split_table(total)
     matrix = torch.stack(
         [tbl.broadcast_cell(c, (B,), torch.float64) for row in total for c in row], dim=-1
-    ).contiguous()
+    ).to(dtype).contiguous()
     rng = np.random.default_rng(3)
-    particles = torch.from_numpy(
-        np.concatenate([rng.normal(scale=1e-4, size=(B, N, 6)), np.ones((B, N, 1))], axis=-1)
+    cloud = np.concatenate(
+        [rng.normal(scale=1e-4, size=(B * N + shift, 6)), np.ones((B * N + shift, 1))], axis=-1
     )
+    particles = torch.from_numpy(cloud).to(dtype).reshape(-1)[7 * shift:].reshape(B, N, 7)
+    return layout, matrix, particles
+
+
+def check_push(host_kernels, layout, matrix, particles, rtol):
+    """B2 on the maps and on their transposes (its use in the backward)
+    against the plain version."""
+    B, N, _ = particles.shape
     for lay, mat in ((layout, matrix),
                      (fused_track._transpose_layout(layout),
                       matrix.reshape(B, 7, 7).transpose(1, 2).reshape(B, 49).contiguous())):
         zeros, ones = fused_track._layout_masks(lay)
         out = torch.empty_like(particles)
         code = host_kernels["particle_apply"].lynx_particle_apply(
-            1, mat.data_ptr(), particles.data_ptr(), out.data_ptr(), B, N, zeros, ones, None
+            int(particles.dtype == torch.float64), mat.data_ptr(), particles.data_ptr(),
+            out.data_ptr(), B, N, zeros, ones, None,
         )
         assert code == 0
         expected = fused_track.particle_apply_reference(lay, mat, particles)
-        assert per_setting_error(out, expected) <= RTOL
+        assert per_setting_error(out, expected) <= rtol
+
+
+def test_particle_apply_matches_plain(host_kernels):
+    check_push(host_kernels, *push_inputs(19, 45, torch.float64), RTOL)
+
+
+@pytest.mark.parametrize(
+    "B, N, dtype, shift",
+    [
+        (2, 700, torch.float64, 0),  # spans inside one setting, one straddling, a short tail
+        (3, 300, torch.float64, 1),  # off 16 bytes: every span value by value
+        (4, 1000, torch.float32, 0),  # float: 512-particle spans of float4 vectors
+    ],
+)
+def test_particle_apply_spans(host_kernels, B, N, dtype, shift):
+    """B2 moves 14 KB spans of the (B, N, 7) array through shared memory:
+    spans that straddle settings, a ragged last span, tensors off the 16-byte
+    alignment of its vectors, and float."""
+    layout, matrix, particles = push_inputs(B, N, dtype, shift)
+    assert (particles.data_ptr() % 16 != 0) == bool(shift)
+    check_push(host_kernels, layout, matrix, particles, RTOL if dtype == torch.float64 else 1e-6)
+
+
+def test_particle_apply_skips_structural_zeros(host_kernels):
+    """A structural zero adds nothing, where 0 * x would add a NaN: an
+    infinite coordinate in a column that a row does not use leaves that row
+    finite, as in the plain version."""
+    B, N = 3, 50
+    layout, matrix, particles = push_inputs(B, N, torch.float64)
+    zeros, ones = fused_track._layout_masks(layout)
+    row, column = next((i, j) for j in range(7) for i in range(7) if zeros >> (7 * i + j) & 1)
+    particles = particles.clone()
+    particles[1, 7, column] = float("inf")
+    out = torch.empty_like(particles)
+    code = host_kernels["particle_apply"].lynx_particle_apply(
+        1, matrix.data_ptr(), particles.data_ptr(), out.data_ptr(), B, N, zeros, ones, None,
+    )
+    assert code == 0
+    expected = fused_track.particle_apply_reference(layout, matrix, particles)
+    finite = torch.isfinite(expected)
+    assert bool(finite[1, 7, row]) and not bool(finite.all())
+    assert torch.equal(torch.isfinite(out), finite)
+    assert torch.equal(torch.isnan(out), torch.isnan(expected))
+    zero = torch.zeros_like(out)
+    kept = (torch.where(finite, out, zero), torch.where(finite, expected, zero))
+    assert per_setting_error(*kept) <= RTOL
 
 
 def moment_inputs(B, n):

@@ -20,9 +20,9 @@ def test_port_imports_no_jax():
         "import lynx_tpu_torch, lynx_tpu_torch.models, lynx_tpu_torch.converters\n"
         "import chip_smoke\n"
         "from lynx_tpu_torch.models import ares_ea_segment\n"
-        "segment = ares_ea_segment()\n"
+        "segment = ares_ea_segment(device='cpu')\n"
         "segment.AREABSCR1.is_active = True\n"
-        "beam = lynx_tpu_torch.ParticleBeam.from_parameters(num_particles=100)\n"
+        "beam = lynx_tpu_torch.ParticleBeam.from_parameters(num_particles=100, device='cpu')\n"
         "lynx_tpu_torch.functional.track(segment, beam)\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "assert 'lynx_tpu' not in sys.modules\n"

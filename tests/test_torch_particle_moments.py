@@ -169,12 +169,12 @@ def test_plan_matches_jax(name):
 
 def test_plan_passes_over_bpms_and_rejects_active_screens():
     B = 3
-    elements = [ltt.Drift(torch.tensor([0.3])), ltt.BPM(is_active=True),
-                ltt.Aperture(is_active=False), ltt.Drift(torch.tensor([0.2]))]
+    elements = [ltt.Drift(torch.tensor([0.3])), ltt.BPM(is_active=True, device="cpu"),
+                ltt.Aperture(is_active=False, device="cpu"), ltt.Drift(torch.tensor([0.2]))]
     vec = lambda x: torch.broadcast_to(torch.as_tensor(x).reshape(-1), (B,))  # noqa: E731
     entries, scalars = torch_fused.particle_moment_plan(elements, torch.tensor([ENERGY]), vec)
     assert [e[0] for e in entries] == ["map"] and scalars[0].dtype == torch.float32
-    screen = [ltt.Drift(torch.tensor([0.3])), ltt.Screen(is_active=True)]
+    screen = [ltt.Drift(torch.tensor([0.3])), ltt.Screen(is_active=True, device="cpu")]
     assert torch_fused.particle_moment_plan(screen, torch.tensor([ENERGY]), vec) is None
 
 

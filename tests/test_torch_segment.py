@@ -15,12 +15,13 @@ from lynx_tpu_torch.accelerator.element import Element
 def small_segment():
     return ltt.Segment(
         [
-            ltt.Marker(name="start"),
+            ltt.Marker(name="start", device="cpu"),
             ltt.Drift(torch.tensor([0.5]), name="d1"),
             ltt.Quadrupole(torch.tensor([0.2]), k1=torch.tensor([3.0]), name="q1"),
             ltt.Drift(torch.tensor([0.5]), name="dup"),
             ltt.Drift(torch.tensor([0.25]), name="dup"),
-            ltt.Screen(resolution=(64, 48), pixel_size=(1e-5, 1e-5), is_active=True, name="scr"),
+            ltt.Screen(resolution=(64, 48), pixel_size=(1e-5, 1e-5), is_active=True, name="scr",
+                       device="cpu"),
         ],
         name="cell",
     )
@@ -58,7 +59,7 @@ def test_track_and_reading_agree_with_functional_track():
     segment = small_segment()
     beam = ltt.ParticleBeam.from_parameters(
         num_particles=2000, sigma_x=torch.tensor([5e-5]), sigma_y=torch.tensor([5e-5]),
-        generator=torch.Generator().manual_seed(0),
+        generator=torch.Generator().manual_seed(0), device="cpu",
     )
     outgoing, diagnostics = functional.track(segment, beam)
     assert outgoing is None
@@ -96,7 +97,7 @@ def test_survival_weights_count_unless_fractional_is_declared(monkeypatch, windo
     survival[0, :10] = 0.0  # lost particles never count
     beam = ltt.ParticleBeam(particles, torch.tensor([1e8]), survival=survival)
     screen = ltt.Screen(resolution=(640, 480), pixel_size=(1e-6, 1e-6), is_active=True,
-                        name="scr")
+                        name="scr", device="cpu")
     screen.histogram_window = (256, 16)
     _, diagnostics = functional.track(ltt.Segment([screen]), beam)
     assert float(diagnostics["scr"].sum()) == (90.0 if windowed else 45.0)
@@ -111,16 +112,18 @@ def test_unported_element_type_raises_by_name():
         def is_skippable(self):
             return False
 
-    segment = ltt.Segment([ltt.Drift(torch.tensor([1.0])), Kicker(name="k")])
+    segment = ltt.Segment([ltt.Drift(torch.tensor([1.0])), Kicker(name="k", device="cpu")])
     beam = ltt.ParticleBeam(torch.ones(1, 3, 7), torch.tensor([1e8]))
     with pytest.raises(NotImplementedError, match="Kicker"):
         functional.track(segment, beam)
 
 
 def test_screen_reading_of_a_parameter_beam_is_a_normalised_density():
-    screen = ltt.Screen(resolution=(200, 100), pixel_size=(1e-5, 1e-5), is_active=True)
+    screen = ltt.Screen(resolution=(200, 100), pixel_size=(1e-5, 1e-5), is_active=True,
+                        device="cpu")
     beam = ltt.ParameterBeam.from_parameters(
-        sigma_x=torch.tensor([1e-4]), sigma_y=torch.tensor([5e-5]), dtype=torch.float64
+        sigma_x=torch.tensor([1e-4]), sigma_y=torch.tensor([5e-5]), dtype=torch.float64,
+        device="cpu",
     )
     screen.track(beam)
     image = screen.reading
