@@ -45,10 +45,12 @@ Phases, each of which raises on failure (non-zero exit, no result line):
 
 Each kernel is timed at its path's shape beside its plain version and its
 bound (``bound``: the larger of its bytes over the card's memory rate and
-its float32 operations over the card's peak outside the tensor cores); B2
-also beside ``torch.bmm`` of the same operands, the one PyTorch call that
-computes its function, timed here as a yardstick and never called by the
-port.
+its float32 operations over the card's peak outside the tensor cores; for
+B6, whose float Gram runs on the tensor cores in three bf16 parts, the
+Gram's operations at the bf16 tensor-core peak times three, plus its
+planes' at the float32 peak: ``gram_bound``); B2 also beside ``torch.bmm``
+of the same operands, the one PyTorch call that computes its function, timed
+here as a yardstick and never called by the port.
 
 It imports neither JAX nor ``lynx_tpu``.
 """
@@ -103,6 +105,8 @@ GRAD_RTOL = 1e-3
 # cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+BF16_TENSOR_FLOPS_PER_S = 989e12  # dense, FP32 accumulation
+GRAM_PARTS = 3  # B6's float Gram: q in three bf16 parts, each a tensor-core product
 
 # The particle moment sweep, kernels B5 and B6: one shared cloud of
 # MOMENT_PARTICLES (paths K and A), ODD_PARTICLES in the checks.
@@ -1340,12 +1344,26 @@ def crossover(torch, ltt, ft, fused, ParticleBeam, card):
               f" {device['B6']:.4f} ms (torch.profiler, 3 calls; card {card})")
 
 
+def gram_bound(planes, bounds_, aug, w0):
+    """(bound_ms, bound_by) of B6 in float on its operands: bytes, the
+    operands and the (B, 36) sums once each; operations, per (setting,
+    particle) 2 flops per plane row at FP32_FLOPS_PER_S, plus the Gram's 72
+    flops (a multiply and an add for each of the 36 sums) in each of its
+    GRAM_PARTS bf16 parts at BF16_TENSOR_FLOPS_PER_S; the two times add."""
+    pairs = planes.shape[1] * aug.shape[1]
+    memory_ms = (nbytes(planes, bounds_, aug, w0) + 36 * planes.shape[1] * aug.element_size()
+                 ) / HBM_BYTES_PER_S * 1e3
+    compute_ms = (pairs * 2 * planes.shape[0] / FP32_FLOPS_PER_S
+                  + pairs * 72 * GRAM_PARTS / BF16_TENSOR_FLOPS_PER_S) * 1e3
+    return (memory_ms, "bytes") if memory_ms >= compute_ms else (compute_ms, "operations")
+
+
 def time_moment_kernels(torch, ltt, ft, fused, env, ParticleBeam, card):
     """B5 at path K's B = 8 and B6 at path A's B = 256 against their plain
-    versions, float, N = MOMENT_PARTICLES, with their bounds: the cloud, its
-    weights, the per-setting scalars and the (B, 36) sums once each; per
-    (setting, particle) 2 flops per non-zero map cell and 4 per aperture
-    (B5) or 2 per plane row (B6), and 72 for the 36 weighted sums."""
+    versions, float, N = MOMENT_PARTICLES, with their bounds.  B5's: the
+    cloud, its weights, the per-setting scalars and the (B, 36) sums once
+    each; per (setting, particle) 2 flops per non-zero map cell, 4 per
+    aperture and 72 for the 36 weighted sums.  B6's: ``gram_bound``."""
     particles = moment_cloud(torch, ParticleBeam, MOMENT_PARTICLES, seed=111).particles[0]
     gen = torch.Generator(device="cuda").manual_seed(112)
     magnets = torch.rand((8, 5), generator=gen, device="cuda") - 0.5
@@ -1361,14 +1379,12 @@ def time_moment_kernels(torch, ltt, ft, fused, env, ParticleBeam, card):
         if e[0] == "map" else 4 for e in entries)
     sums_bytes = 36 * 8 * cloud.element_size()
     walk_bound = bound(nbytes(cloud, weights, *scalars) + sums_bytes, 8 * n * per_particle)
-    _, planes, bounds_, aug, w0 = gram
-    gram_bound = bound(nbytes(planes, bounds_, aug, w0) + 36 * planes.shape[1] * aug.element_size(),
-                       planes.shape[1] * aug.shape[1] * (72 + 2 * planes.shape[0]))
     calls = {
         "B5": (lambda: ft.particle_moment_sweep(*walk), lambda: ft._moment_sweep_reference(*walk),
                ("moment_walk_kernel", "reduce_partials_kernel"), "path K, B=8", walk_bound),
         "B6": (lambda: ft.packed_gram(*gram), lambda: ft.packed_gram_reference(*gram),
-               ("packed_gram_kernel", "reduce_partials_kernel"), "path A, B=256", gram_bound),
+               ("packed_gram_kernel", "reduce_partials_kernel"), "path A, B=256",
+               gram_bound(*gram[1:])),
     }
     timing = {}
     for name, (kernel_call, plain_call, kernels, shape, limit) in calls.items():

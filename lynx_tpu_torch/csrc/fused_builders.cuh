@@ -1,5 +1,6 @@
 // Shared device code of the fused moment sweep (kernels B3 and B4): the op
-// tape, dense 7x7 algebra, and one device builder per element type.
+// tape, one device builder per element type, and the products over
+// structural supports that the builders and B3's chain use.
 //
 // Each builder repeats its PyTorch counterpart op for op
 // (lynx_tpu_torch/accelerator/fused.py over ops/rmatrix.py, the same
@@ -7,10 +8,11 @@
 // additive k1 + 1e-12 at k1 == 0, _cos_sinc's small-argument series below
 // 0.1 and exp forms above, the tilt sandwich, the misalignment entry/exit
 // and the corrector's kick row.  A builder's products skip its factors'
-// structural zeros and ones (matmul7_support); the kernels compose the
-// entries' maps densely, where a structural zero contributes an exact 0 and
-// a structural one an exact product, so the values are those of the sparse
-// table algebra up to rounding order.
+// structural zeros and ones (matmul7_support), and so does B3's chain
+// (compose_support) over each entry's support (a dynamic entry's from its
+// builder, a const entry's from its support class): a structural zero would
+// contribute an exact 0 and a structural one an exact product, so the values
+// are those of the sparse table algebra up to rounding order.
 //
 // Builders are templates over their scalar type S, either the value type T
 // (float or double) or Dual<T>, a forward-mode dual number.  B4 evaluates
@@ -37,15 +39,25 @@ enum TapeKind : int {
   kIdentity = 5,
 };
 
+// Support classes of a const entry's map; lynx_tpu_torch/ops/fused_track.py
+// has the same codes and masks (_CONST_SUPPORTS).
+enum ConstSupport : int {
+  kDenseConst = 0,        // any map
+  kDriftConst = 1,        // a drift's cells, ones on the diagonal
+  kKickedDriftConst = 2,  // and column 6 of rows 0-4 (static correctors among drifts)
+};
+
 // One plan entry: a dynamic entry's parameters are rows offset.. of the
 // (P, B) parameter tensor; a const entry's dense 49 cells are row offset of
-// the (n_consts, 49) const tensor, and its cell_count non-literal cells sit
-// at cell_pos[cell_start ..] of the 49.
+// the (n_consts, 49) const tensor, its cell_count non-literal cells sit at
+// cell_pos[cell_start ..] of the 49, and support is its ConstSupport (0 for
+// a dynamic entry).
 struct TapeEntry {
   int kind;
   int offset;
   int cell_start;
   int cell_count;
+  int support;
 };
 
 __host__ __device__ constexpr int tape_params(int kind) {
@@ -132,7 +144,7 @@ __device__ __forceinline__ Dual<T> cos_(Dual<T> a) { return {cos_(a.v), -sin_(a.
 template <typename T>
 __device__ __forceinline__ Dual<T> sin_(Dual<T> a) { return {sin_(a.v), cos_(a.v) * a.d}; }
 
-// -- dense 7x7 algebra (row-major, 49 cells) -------------------------------
+// -- 7x7 maps (row-major, 49 cells) -----------------------------------------
 
 template <typename S>
 __device__ __forceinline__ void set_identity(S* R) {
@@ -140,29 +152,128 @@ __device__ __forceinline__ void set_identity(S* R) {
   for (int c = 0; c < 49; ++c) R[c] = S(c % 8 == 0 ? 1 : 0);
 }
 
-// out = A @ B (out must not alias A or B).
-template <typename S>
-__device__ __forceinline__ void matmul7(const S* A, const S* B, S* out) {
+// -- products over structural supports -----------------------------------
+//
+// A dense product spends most of its multiplies on cells that are zero by
+// construction (x * 0.0 is not folded away: it is not 0 for every x).  The
+// products below skip them: a product takes the support of each factor (the
+// cells that may be non-zero) and its ones (the cells that are exactly 1) as
+// compile-time masks, keeps a dense product's terms in its order (j
+// ascending in out[i, k] = sum_j A[i, j] B[j, k]), drops the terms with a
+// structural zero and the multiply by a structural one.  For finite values
+// that gives the dense product's numbers: a dropped term adds an exact zero,
+// a skipped multiply is by an exact one.
+
+// Bit 7 i + j is cell (i, j).
+__host__ __device__ constexpr uint64_t cell(int i, int j) { return 1ull << (i * 7 + j); }
+constexpr uint64_t kIdentityCells = cell(0, 0) | cell(1, 1) | cell(2, 2) | cell(3, 3) |
+                                    cell(4, 4) | cell(5, 5) | cell(6, 6);
+__host__ __device__ constexpr bool has(uint64_t mask, int i, int j) {
+  return (mask >> (i * 7 + j)) & 1ull;
+}
+
+// The support of A @ B.
+__host__ __device__ constexpr uint64_t product_support(uint64_t sa, uint64_t sb) {
+  uint64_t out = 0;
+  for (int i = 0; i < 7; ++i)
+    for (int k = 0; k < 7; ++k)
+      for (int j = 0; j < 7; ++j)
+        if (has(sa, i, j) && has(sb, j, k)) out |= cell(i, k);
+  return out;
+}
+
+// The cells of A @ B that are exactly 1: a single term, of two ones.
+__host__ __device__ constexpr uint64_t product_ones(uint64_t sa, uint64_t oa, uint64_t sb,
+                                                   uint64_t ob) {
+  uint64_t out = 0;
+  for (int i = 0; i < 7; ++i)
+    for (int k = 0; k < 7; ++k) {
+      int terms = 0;
+      bool ones = true;
+      for (int j = 0; j < 7; ++j)
+        if (has(sa, i, j) && has(sb, j, k)) {
+          ++terms;
+          ones = ones && has(oa, i, j) && has(ob, j, k);
+        }
+      if (terms == 1 && ones) out |= cell(i, k);
+    }
+  return out;
+}
+
+// out = A @ B over the supports SA, SB with ones OA, OB (out must not alias
+// A or B); cells outside the product's support are exact zeros.
+template <uint64_t SA, uint64_t OA, uint64_t SB, uint64_t OB, typename S>
+__device__ __forceinline__ void matmul7_support(const S* A, const S* B, S* out) {
 #pragma unroll
   for (int i = 0; i < 7; ++i) {
 #pragma unroll
     for (int k = 0; k < 7; ++k) {
-      S acc = A[i * 7] * B[k];
+      S acc = S(0);
+      bool started = false;
 #pragma unroll
-      for (int j = 1; j < 7; ++j) acc = acc + A[i * 7 + j] * B[j * 7 + k];
+      for (int j = 0; j < 7; ++j) {
+        if (!has(SA, i, j) || !has(SB, j, k)) continue;
+        const S term = has(OA, i, j)   ? B[j * 7 + k]
+                       : has(OB, j, k) ? A[i * 7 + j]
+                                       : A[i * 7 + j] * B[j * 7 + k];
+        acc = started ? acc + term : term;
+        started = true;
+      }
       out[i * 7 + k] = acc;
     }
   }
 }
 
-// R <- L @ R, through a temporary.
-template <typename S>
-__device__ __forceinline__ void left_multiply(const S* L, S* R) {
-  S tmp[49];
-  matmul7(L, R, tmp);
+// R <- A @ R for a dense R, over A's support SA with ones OA, column by
+// column in place (a new column needs only its old self); rows of A that are
+// the identity's are skipped.
+template <uint64_t SA, uint64_t OA, typename S>
+__device__ __forceinline__ void compose_support(const S* A, S* R) {
 #pragma unroll
-  for (int c = 0; c < 49; ++c) R[c] = tmp[c];
+  for (int k = 0; k < 7; ++k) {
+    S column[7];
+#pragma unroll
+    for (int j = 0; j < 7; ++j) column[j] = R[j * 7 + k];
+#pragma unroll
+    for (int i = 0; i < 7; ++i) {
+      if (((SA >> (i * 7)) & 0x7full) == (1ull << i) && has(OA, i, i)) continue;
+      S acc = S(0);
+      bool started = false;
+#pragma unroll
+      for (int j = 0; j < 7; ++j) {
+        if (!has(SA, i, j)) continue;
+        const S term = has(OA, i, j) ? column[j] : A[i * 7 + j] * column[j];
+        acc = started ? acc + term : term;
+        started = true;
+      }
+      R[i * 7 + k] = acc;
+    }
+  }
 }
+
+// The structural supports and ones of the builders' maps and of the const
+// support classes.
+constexpr uint64_t kDriftCells = kIdentityCells | cell(0, 1) | cell(2, 3) | cell(4, 5);
+constexpr uint64_t kHCorCells = kDriftCells | cell(1, 6);
+constexpr uint64_t kVCorCells = kDriftCells | cell(3, 6);
+constexpr uint64_t kKickCells = cell(0, 6) | cell(1, 6) | cell(2, 6) | cell(3, 6) | cell(4, 6);
+constexpr uint64_t kAllCells = (1ull << 49) - 1;
+constexpr uint64_t kQuadBase = kIdentityCells | cell(0, 1) | cell(0, 5) | cell(1, 0) |
+                               cell(1, 5) | cell(2, 3) | cell(3, 2) | cell(4, 0) | cell(4, 1) |
+                               cell(4, 5);
+constexpr uint64_t kQuadBaseOnes = cell(4, 4) | cell(5, 5) | cell(6, 6);
+constexpr uint64_t kRot = kIdentityCells | cell(0, 2) | cell(1, 3) | cell(2, 0) | cell(3, 1);
+constexpr uint64_t kRotOnes = cell(4, 4) | cell(5, 5) | cell(6, 6);
+constexpr uint64_t kShift = kIdentityCells | cell(0, 6) | cell(2, 6);  // entry and exit
+constexpr uint64_t kShiftOnes = kIdentityCells;
+constexpr uint64_t kTilted = product_support(kQuadBase, kRot);
+constexpr uint64_t kTiltedOnes = product_ones(kQuadBase, kQuadBaseOnes, kRot, kRotOnes);
+constexpr uint64_t kTurned = product_support(kRot, kTilted);
+constexpr uint64_t kTurnedOnes = product_ones(kRot, kRotOnes, kTilted, kTiltedOnes);
+constexpr uint64_t kEntered = product_support(kTurned, kShift);
+constexpr uint64_t kEnteredOnes = product_ones(kTurned, kTurnedOnes, kShift, kShiftOnes);
+constexpr uint64_t kQuadCells = product_support(kShift, kEntered);
+constexpr uint64_t kQuadOnes = product_ones(kShift, kShiftOnes, kEntered, kEnteredOnes);
 
 // -- builders (ops/rmatrix.py, accelerator/fused.py) -----------------------
 
@@ -266,102 +377,17 @@ __device__ __forceinline__ void quadrupole_base(const S* p, S energy, T rest, S*
   R[4 * 7 + 5] = r56;
 }
 
-// -- products over structural supports -----------------------------------
-//
-// A dense product spends most of its multiplies on cells that are zero by
-// construction (x * 0.0 is not folded away: it is not 0 for every x).  The
-// builders below skip them: a product takes the support of each factor (the
-// cells that may be non-zero) and its ones (the cells that are exactly 1) as
-// compile-time masks, keeps matmul7's terms in matmul7's order, drops the
-// terms with a structural zero and the multiply by a structural one.  For
-// finite values that gives the dense product's numbers: a dropped term adds
-// an exact zero, a skipped multiply is by an exact one.
-
-// Bit 7 i + j is cell (i, j).
-__host__ __device__ constexpr uint64_t cell(int i, int j) { return 1ull << (i * 7 + j); }
-constexpr uint64_t kIdentityCells = cell(0, 0) | cell(1, 1) | cell(2, 2) | cell(3, 3) |
-                                    cell(4, 4) | cell(5, 5) | cell(6, 6);
-__host__ __device__ constexpr bool has(uint64_t mask, int i, int j) {
-  return (mask >> (i * 7 + j)) & 1ull;
-}
-
-// The support of A @ B.
-__host__ __device__ constexpr uint64_t product_support(uint64_t sa, uint64_t sb) {
-  uint64_t out = 0;
-  for (int i = 0; i < 7; ++i)
-    for (int k = 0; k < 7; ++k)
-      for (int j = 0; j < 7; ++j)
-        if (has(sa, i, j) && has(sb, j, k)) out |= cell(i, k);
-  return out;
-}
-
-// The cells of A @ B that are exactly 1: a single term, of two ones.
-__host__ __device__ constexpr uint64_t product_ones(uint64_t sa, uint64_t oa, uint64_t sb,
-                                                   uint64_t ob) {
-  uint64_t out = 0;
-  for (int i = 0; i < 7; ++i)
-    for (int k = 0; k < 7; ++k) {
-      int terms = 0;
-      bool ones = true;
-      for (int j = 0; j < 7; ++j)
-        if (has(sa, i, j) && has(sb, j, k)) {
-          ++terms;
-          ones = ones && has(oa, i, j) && has(ob, j, k);
-        }
-      if (terms == 1 && ones) out |= cell(i, k);
-    }
-  return out;
-}
-
-// out = A @ B over the supports SA, SB with ones OA, OB (out must not alias
-// A or B); cells outside the product's support are exact zeros.
-template <uint64_t SA, uint64_t OA, uint64_t SB, uint64_t OB, typename S>
-__device__ __forceinline__ void matmul7_support(const S* A, const S* B, S* out) {
-#pragma unroll
-  for (int i = 0; i < 7; ++i) {
-#pragma unroll
-    for (int k = 0; k < 7; ++k) {
-      S acc = S(0);
-      bool started = false;
-#pragma unroll
-      for (int j = 0; j < 7; ++j) {
-        if (!has(SA, i, j) || !has(SB, j, k)) continue;
-        const S term = has(OA, i, j)   ? B[j * 7 + k]
-                       : has(OB, j, k) ? A[i * 7 + j]
-                                       : A[i * 7 + j] * B[j * 7 + k];
-        acc = started ? acc + term : term;
-        started = true;
-      }
-      out[i * 7 + k] = acc;
-    }
-  }
-}
-
 // _build_quadrupole: exit @ (rot(-tilt) @ (base @ rot(tilt))) @ entry, with
 // base = base_rmatrix_entries(length, k1, hx = 0, tilt, energy), through the
 // products above; rot(-tilt) from the cosine and sine of tilt.
 template <typename T, typename S>
 __device__ __forceinline__ void build_quadrupole(const S* p, S energy, T rest, S* R) {
-  constexpr uint64_t kBase = kIdentityCells | cell(0, 1) | cell(0, 5) | cell(1, 0) | cell(1, 5) |
-                             cell(2, 3) | cell(3, 2) | cell(4, 0) | cell(4, 1) | cell(4, 5);
-  constexpr uint64_t kBaseOnes = cell(4, 4) | cell(5, 5) | cell(6, 6);
-  constexpr uint64_t kRot = kIdentityCells | cell(0, 2) | cell(1, 3) | cell(2, 0) | cell(3, 1);
-  constexpr uint64_t kRotOnes = cell(4, 4) | cell(5, 5) | cell(6, 6);
-  constexpr uint64_t kShift = kIdentityCells | cell(0, 6) | cell(2, 6);  // entry and exit
-  constexpr uint64_t kShiftOnes = kIdentityCells;
-  constexpr uint64_t kTilted = product_support(kBase, kRot);
-  constexpr uint64_t kTiltedOnes = product_ones(kBase, kBaseOnes, kRot, kRotOnes);
-  constexpr uint64_t kTurned = product_support(kRot, kTilted);
-  constexpr uint64_t kTurnedOnes = product_ones(kRot, kRotOnes, kTilted, kTiltedOnes);
-  constexpr uint64_t kEntered = product_support(kTurned, kShift);
-  constexpr uint64_t kEnteredOnes = product_ones(kTurned, kTurnedOnes, kShift, kShiftOnes);
-
   const S tilt = p[2], mx = p[3], my = p[4];
   S base[49], M[49], tmp[49];
   quadrupole_base<T>(p, energy, rest, base);
   const S cs = cos_(tilt), sn = sin_(tilt);
   rotation<T>(cs, sn, M);
-  matmul7_support<kBase, kBaseOnes, kRot, kRotOnes>(base, M, tmp);  // base @ rot(tilt)
+  matmul7_support<kQuadBase, kQuadBaseOnes, kRot, kRotOnes>(base, M, tmp);  // base @ rot(tilt)
   rotation<T>(cs, -sn, M);  // rot(-tilt): cos and sin are even and odd to the bit
   matmul7_support<kRot, kRotOnes, kTilted, kTiltedOnes>(M, tmp, base);  // rot(-tilt) @ ..
   set_identity(M);  // entry: x -= mx, y -= my
@@ -388,23 +414,6 @@ __device__ __forceinline__ void build_dynamic(int kind, const S* p, S energy, T 
   // Indices known at compile time, so that R stays in registers.
   if (kind == kHCor) R[1 * 7 + 6] = p[1];
   if (kind == kVCor) R[3 * 7 + 6] = p[1];
-}
-
-// The value of entry e's map for setting b.
-template <typename T>
-__device__ __forceinline__ void build_entry(const TapeEntry& entry, const T* __restrict__ params,
-                                            const T* __restrict__ consts, int64_t batch,
-                                            int64_t b, T energy, T rest, T* R) {
-  if (entry.kind == kConst) {
-    const T* cells = consts + static_cast<int64_t>(entry.offset) * 49;
-#pragma unroll
-    for (int c = 0; c < 49; ++c) R[c] = cells[c];
-    return;
-  }
-  T p[5];
-  const int n = tape_params(entry.kind);
-  for (int k = 0; k < n; ++k) p[k] = params[(entry.offset + k) * batch + b];
-  build_dynamic<T, T>(entry.kind, p, energy, rest, R);
 }
 
 }  // namespace lynx

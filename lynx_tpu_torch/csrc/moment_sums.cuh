@@ -1,9 +1,9 @@
 // Shared device code of the particle moment sweep (kernels B5 and B6): the
 // second stage of their two-stage reduction.
 //
-// Stage 1 (each kernel's own .cu) runs one thread per (setting, particle
-// slot); a thread sums the 36 moments of its particles in registers and
-// writes them to a (batch, slots, 36) partial buffer.  Stage 2, here, sums
+// Stage 1 (each kernel's own .cu) sums the 36 moments of each setting over
+// a slot of the particles (B5: a thread's particles; B6: a split of the
+// cloud) and writes them to a (batch, slots, 36) partial buffer.  Stage 2, here, sums
 // the partials of each setting in a fixed order: levels that each add
 // kReduceGroup consecutive slots, until one slot is left.  No shared memory
 // and no atomics, so the result is deterministic and the code runs under the

@@ -99,7 +99,8 @@ __device__ __forceinline__ void store_row(double* p, const double (&x)[7]) {
   reinterpret_cast<double2*>(p)[3] = make_double2(x[6], 0.0);
 }
 
-// out = l @ R for a row l and a padded 7x7 R: the order of lynx::matmul7.
+// out = l @ R for a row l and a padded 7x7 R, in the order of a dense
+// product (j ascending).
 template <typename T>
 __device__ __forceinline__ void row_times(const T (&l)[7], const T* R, T (&out)[7]) {
   T rows[7][7];

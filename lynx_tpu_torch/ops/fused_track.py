@@ -54,6 +54,14 @@ Tensor = torch.Tensor
 TAPE_CONST, TAPE_DRIFT, TAPE_QUAD, TAPE_HCOR, TAPE_VCOR, TAPE_IDENTITY = range(6)
 _TAPE_PARAMS = {TAPE_DRIFT: 1, TAPE_QUAD: 5, TAPE_HCOR: 2, TAPE_VCOR: 2, TAPE_IDENTITY: 0}
 
+#: Support classes of a const entry's map, as ``csrc/fused_builders.cuh``'s
+#: ``ConstSupport`` codes: B3 composes such an entry over the class's cells
+#: only.  A class takes a layout whose literal zeros cover every cell outside
+#: it and whose diagonal is literal ones; any other layout is dense (code 0).
+_DRIFT_CELLS = frozenset([(i, i) for i in range(7)] + [(0, 1), (2, 3), (4, 5)])
+_KICK_CELLS = frozenset((i, 6) for i in range(5))
+_CONST_SUPPORTS = ((1, _DRIFT_CELLS), (2, _DRIFT_CELLS | _KICK_CELLS))
+
 
 def _table_from_layout(layout, cells):
     """Rehydrate a sparse table from a ``_split_table`` layout: float entries
@@ -144,6 +152,17 @@ def _reference_sweep_vjp(entries, flat_values, energy, mu, cov, dmu, dcov):
 _TAPES: dict = {}
 
 
+def _const_support(layout) -> int:
+    """The support class of a const entry's layout (see ``_CONST_SUPPORTS``)."""
+    if not all(isinstance(layout[i][i], float) and layout[i][i] == 1.0 for i in range(7)):
+        return 0
+    cells = {
+        (r, c) for r in range(7) for c in range(7)
+        if not (isinstance(layout[r][c], float) and layout[r][c] == 0.0)
+    }
+    return next((code for code, support in _CONST_SUPPORTS if cells <= support), 0)
+
+
 def _tape_key(entries, device):
     key = []
     for kind, meta, count in entries:
@@ -163,12 +182,14 @@ def _tape_key(entries, device):
 class Tape(NamedTuple):
     """The op tape of a plan, on the kernels' device.
 
-    ``rows`` is ``(E, 4)`` int32, one ``(kind, offset, cell_start,
-    cell_count)`` per entry: a dynamic entry's parameters are rows
+    ``rows`` is ``(E, 5)`` int32, one ``(kind, offset, cell_start,
+    cell_count, support)`` per entry: a dynamic entry's parameters are rows
     ``offset ...`` of the ``(P, B)`` parameter tensor; a const entry's dense
-    49 cells are row ``offset`` of the ``(n_consts, 49)`` const tensor, and
-    its ``cell_count`` non-literal cells, at positions ``cell_pos[cell_start
-    ...]`` of the 49, are the ones whose cotangents B4 writes out.
+    49 cells are row ``offset`` of the ``(n_consts, 49)`` const tensor, its
+    ``cell_count`` non-literal cells, at positions ``cell_pos[cell_start
+    ...]`` of the 49, are the ones whose cotangents B4 writes out, and
+    ``support`` is its support class (``_const_support``; 0 for a dynamic
+    entry).
     ``literals`` is the const tensor with the literal cells filled in and
     zeros elsewhere; ``cell_index`` places the non-literal cells into its
     flattened view."""
@@ -190,16 +211,16 @@ def _tape(entries, device) -> Tape:
     n_params = 0
     for code, (kind, meta, count) in zip(key[0], entries):
         if kind == "dyn":
-            rows.append((code, n_params, 0, 0))
+            rows.append((code, n_params, 0, 0, 0))
             n_params += count
             continue
         pos = [7 * r + c for r in range(7) for c in range(7) if not isinstance(meta[r][c], float)]
-        rows.append((TAPE_CONST, len(literals), len(positions), len(pos)))
+        rows.append((TAPE_CONST, len(literals), len(positions), len(pos), _const_support(meta)))
         index.extend(49 * len(literals) + q for q in pos)
         positions.extend(pos)
         literals.append([cell if isinstance(cell, float) else 0.0 for row in meta for cell in row])
     tape = Tape(
-        rows=torch.tensor(rows, dtype=torch.int32).reshape(-1, 4).to(device),
+        rows=torch.tensor(rows, dtype=torch.int32).reshape(-1, 5).to(device),
         cell_pos=torch.tensor(positions, dtype=torch.int32).to(device),
         cell_index=torch.tensor(index, dtype=torch.int64).to(device),
         literals=torch.tensor(literals, dtype=torch.float64).reshape(-1, 49).to(device),
@@ -713,20 +734,19 @@ def _apply_layout_matrix_left(layout, mat, scalars):
 
 
 def _moment_slots(B: int, N: int) -> int:
-    """Particle slots per setting of B5's and B6's first stage: each thread
+    """Particle slots per setting of B5's first stage: each thread
     sums at least 32 particles, and the launch aims at one full card of
     resident threads (132 SMs x 2048)."""
     return max(1, min(-(-N // 32), -(-(132 * 2048) // B)))
 
 
-def _moment_workspace(B: int, N: int, dtype, device):
-    """``(slots, partials, scratch, out)`` of a B5 or B6 launch
-    (``csrc/moment_sums.cuh``)."""
-    slots = _moment_slots(B, N)
+def _moment_workspace(B: int, slots: int, dtype, device):
+    """``(partials, scratch, out)`` of a B5 or B6 launch with ``slots``
+    partial sums per setting (``csrc/moment_sums.cuh``)."""
     partials = torch.empty((B, slots, 36), dtype=dtype, device=device)
     scratch = torch.empty((B, -(-slots // 64), 36), dtype=dtype, device=device)
     out = torch.empty((B, 36), dtype=dtype, device=device)
-    return slots, partials, scratch, out
+    return partials, scratch, out
 
 
 #: Index tensors by (name, device): the gathers that unpack the kernels' 36
@@ -864,7 +884,8 @@ def _particle_moment_sweep_cuda(entries, scalars, particles, weights):
             f"particle_moment_sweep: the plan indexes {tape.n_scalars} scalars, got {len(scalars)}"
         )
     literals = tape.literals.to(dtype)
-    slots, partials, scratch, out = _moment_workspace(B, N, dtype, device)
+    slots = _moment_slots(B, N)
+    partials, scratch, out = _moment_workspace(B, slots, dtype, device)
     library = particle_moment_sweep_library()
     with torch.cuda.device(device):
         code = library.lynx_particle_moment_sweep(
@@ -998,6 +1019,12 @@ def _gram_tape(apertures, device) -> GramTape:
         return _GRAM_TAPES[key]
     records, row_index = [], []
     for shape, x_rows, y_rows in apertures:
+        for rows in (x_rows, y_rows):
+            if list(rows) != sorted(set(rows)) or not all(0 <= j < 8 for j in rows):
+                raise ValueError(
+                    f"packed_gram: a plane's rows must be distinct aug rows in ascending"
+                    f" order, got {rows}"
+                )
         x_start = len(row_index)
         row_index.extend(x_rows)
         y_start = len(row_index)
@@ -1012,15 +1039,25 @@ def _gram_tape(apertures, device) -> GramTape:
     return tape
 
 
-#: C signature of B6's entry point: is_double, apertures, n_apertures,
-#: row_index, planes, bounds, aug, w0, partials, scratch, out, batch, n,
-#: slots, stream.
+#: C signatures of B6's entry points.  ``lynx_packed_gram``: is_double,
+#: apertures, n_apertures, row_index, n_rows, planes, bounds, aug, w0,
+#: partials, scratch, out, batch, n, splits, stream; it returns a CUDA error
+#: code, or ``_B6_DOES_NOT_FIT``.  ``lynx_packed_gram_splits``: is_double,
+#: batch, n -> the particle splits of a launch (its partial sums per
+#: setting).
 _B6_SIGNATURE = {
     "lynx_packed_gram": (
         ctypes.c_int,
-        [ctypes.c_int, _P, ctypes.c_int] + [_P] * 8 + [ctypes.c_longlong] * 3 + [_P],
-    )
+        [ctypes.c_int, _P, ctypes.c_int, _P, ctypes.c_int] + [_P] * 7
+        + [ctypes.c_longlong] * 3 + [_P],
+    ),
+    "lynx_packed_gram_splits": (
+        ctypes.c_longlong, [ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong]
+    ),
 }
+#: B6's return code when a block's plane coefficients and bounds exceed the
+#: device's shared memory per block.
+_B6_DOES_NOT_FIT = -1
 
 
 def packed_gram_library() -> ctypes.CDLL:
@@ -1040,14 +1077,22 @@ def _packed_gram_cuda(apertures, planes, bounds, aug, w0):
             "packed_gram: expected aug (8, N), w0 (N,), planes (R, B) and bounds (A, 4, B), got"
             f" {tuple(aug.shape)}, {tuple(w0.shape)}, {tuple(planes.shape)}, {tuple(bounds.shape)}"
         )
-    slots, partials, scratch, out = _moment_workspace(B, N, dtype, device)
     library = packed_gram_library()
+    is_double = int(dtype == torch.float64)
+    splits = library.lynx_packed_gram_splits(is_double, B, N)
+    partials, scratch, out = _moment_workspace(B, splits, dtype, device)
     with torch.cuda.device(device):
         code = library.lynx_packed_gram(
-            int(dtype == torch.float64), tape.records.data_ptr(), len(apertures),
-            tape.row_index.data_ptr(), planes.data_ptr(), bounds.data_ptr(), aug.data_ptr(),
-            w0.data_ptr(), partials.data_ptr(), scratch.data_ptr(), out.data_ptr(), B, N, slots,
+            is_double, tape.records.data_ptr(), len(apertures),
+            tape.row_index.data_ptr(), tape.row_index.shape[0], planes.data_ptr(),
+            bounds.data_ptr(), aug.data_ptr(), w0.data_ptr(), partials.data_ptr(),
+            scratch.data_ptr(), out.data_ptr(), B, N, splits,
             torch.cuda.current_stream(device).cuda_stream,
+        )
+    if code == _B6_DOES_NOT_FIT:
+        raise ValueError(
+            f"packed_gram: the plane coefficients and bounds of {len(apertures)} apertures do"
+            f" not fit in the device's shared memory per block ({dtype})"
         )
     check(library, code, "packed_gram")
     packed_gram.launches += 1

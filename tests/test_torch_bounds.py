@@ -66,3 +66,27 @@ def test_path_t_plan_counts_far_below_its_dense_count():
     b3, b4 = chip_smoke.sweep_flops(ft, entries)
     assert 0 < b3 < (E + 2) * DENSE_PRODUCT / 4
     assert b3 < b4 < (3 * E + 6) * DENSE_PRODUCT / 3
+
+
+def test_packed_gram_bound_by_hand():
+    """B6's bound: the planes' 2 flops per row and (setting, particle) at the
+    float32 peak plus the Gram's 72 flops in each of its 3 bf16 parts at the
+    bf16 tensor-core peak, against the operands' bytes and the (B, 36) sums."""
+    planes, bounds_ = torch.empty((3, 2)), torch.empty((1, 4, 2))
+    aug, w0 = torch.empty((8, 5)), torch.empty(5)
+    ms, by = chip_smoke.gram_bound(planes, bounds_, aug, w0)
+    pairs = 2 * 5
+    operations = pairs * 2 * 3 / 67e12 + pairs * 72 * 3 / 989e12
+    n_bytes = (3 * 2 + 4 * 2 + 8 * 5 + 5 + 36 * 2) * 4
+    assert n_bytes / 3.35e12 > operations  # a tiny launch is bound by its bytes
+    assert (ms, by) == pytest.approx((n_bytes / 3.35e12 * 1e3, "bytes"))
+
+    # Path A's shape (B = 256, N = 100,000, 14 plane rows): operations, the
+    # planes twice the Gram's tensor-core time.
+    planes, bounds_ = torch.empty((14, 256)), torch.empty((1, 4, 256))
+    aug, w0 = torch.empty((8, 100_000)), torch.empty(100_000)
+    ms, by = chip_smoke.gram_bound(planes, bounds_, aug, w0)
+    pairs = 256 * 100_000
+    plane_ms, gram_ms = pairs * 28 / 67e12 * 1e3, pairs * 216 / 989e12 * 1e3
+    assert by == "operations" and ms == pytest.approx(plane_ms + gram_ms)
+    assert 1.5 < plane_ms / gram_ms < 2.5 and 0.015 < ms < 0.018

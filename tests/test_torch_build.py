@@ -80,3 +80,21 @@ def test_check_raises_with_the_cuda_message(fake_toolchain):
     _build.check(library, 0, "window_histogram")
     with pytest.raises(RuntimeError, match="CUDA error 2 \\(stub error\\)"):
         _build.check(library, 2, "window_histogram")
+
+
+def test_kernel_variants_edit_the_tree_sources():
+    """``tools/kernel_variants.py`` times edits of the kernels' sources: each
+    variant's text is in its kernel's source exactly once, so that each
+    builds the edit it names."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent.parent / "tools" / "kernel_variants.py"
+    spec = importlib.util.spec_from_file_location("kernel_variants", path)
+    variants = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(variants)
+    assert variants.VARIANTS
+    for name, (library, old, new, _) in variants.VARIANTS.items():
+        text = variants.edited_source(name)
+        assert new in text and old not in text, name
+        assert text.replace(new, old) == (_build.CSRC / f"{library}.cu").read_text()

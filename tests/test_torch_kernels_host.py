@@ -8,7 +8,11 @@ runs the blocks one after another, each block's threads as ``std::thread``s.
 block (so a kernel must reach them in the same order on every thread, as
 the kernels here do), a ``__shared__`` array is one per kernel and serves
 each block in turn, and ``extern __shared__`` memory is a buffer of the
-launch's size.  That runs the kernels' arithmetic and their cooperation
+launch's size.  A device intrinsic goes through a small helper that the
+stand-in replaces (``LYNX_HOST_STAND_IN``): B6's ``cp.async`` copies are
+plain copies there, done at once, and their commit and wait do nothing, so
+that the double-buffered stages still run through the kernel's buffer
+indexing and barriers.  That runs the kernels' arithmetic and their cooperation
 (tape decoding, builders, dual numbers, shared-memory tiles, the ragged
 batch) on the plain versions' inputs.  What it cannot check is the device
 itself (FMA contraction, memory, occupancy, registers): ``chip_smoke.py``
@@ -58,6 +62,7 @@ STAND_IN = r"""
 #include <math.h>
 #include <barrier>
 #include <cstddef>
+#include <cstring>
 #include <cstdint>
 #include <new>
 #include <thread>
@@ -70,9 +75,12 @@ STAND_IN = r"""
 #define __launch_bounds__(...)
 #define __align__(n) __attribute__((aligned(n)))
 #define __shared__ static
+#define LYNX_HOST_STAND_IN 1
 struct HostDim3 { unsigned x, y, z; };
 static thread_local HostDim3 threadIdx;
 static HostDim3 blockIdx, blockDim, gridDim;
+struct alignas(8) float2 { float x, y; };
+struct alignas(8) uint2 { unsigned x, y; };
 struct alignas(16) float4 { float x, y, z, w; };
 struct alignas(16) double2 { double x, y; };
 inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
@@ -95,6 +103,54 @@ inline cudaError_t cudaDeviceGetAttribute(int* value, int, int) {
   return 0;
 }
 template <typename F> cudaError_t cudaFuncSetAttribute(F, int, int) { return 0; }
+// cp.async: the copy is done at once, so commit and wait have nothing to do.
+template <typename T> inline void lynx_cp_async(T* shared_dst, const T* src) { *shared_dst = *src; }
+inline void lynx_cp_async_commit() {}
+inline void lynx_cp_async_wait_prior() {}
+inline void lynx_cp_async_wait_all() {}
+// cvt.rn.bf16x2.f32: each to nearest, ties to even, on the bits (finite
+// values), lo in the low half.
+inline unsigned lynx_host_bf16(float x) {
+  unsigned u;
+  std::memcpy(&u, &x, 4);
+  return (u + 0x7fffu + ((u >> 16) & 1u)) >> 16;
+}
+inline unsigned lynx_bf16x2(float lo, float hi) {
+  return lynx_host_bf16(lo) | (lynx_host_bf16(hi) << 16);
+}
+inline float lynx_float_of(unsigned bits) {
+  float out;
+  std::memcpy(&out, &bits, 4);
+  return out;
+}
+// mma.sync m16n8k16 bf16 -> f32: each lane leaves its fragments in its
+// warp's slot; after a barrier every lane forms its four outputs from the
+// whole tiles (the PTX ISA's fragment layouts), then a second barrier frees
+// the slots.
+struct LynxHostMma { unsigned a[32][4]; unsigned b[32][2]; };
+static LynxHostMma lynx_host_mma[32];
+inline float lynx_host_bf16_value(unsigned word, int half) {
+  return lynx_float_of(((word >> (16 * half)) & 0xffffu) << 16);
+}
+inline void lynx_mma_bf16(float (&d)[4], const unsigned (&a)[4], const unsigned (&b)[2]) {
+  LynxHostMma& slot = lynx_host_mma[threadIdx.x / 32];
+  const unsigned lane = threadIdx.x % 32;
+  for (int r = 0; r < 4; ++r) slot.a[lane][r] = a[r];
+  for (int r = 0; r < 2; ++r) slot.b[lane][r] = b[r];
+  lynx_host_barrier->arrive_and_wait();
+  for (int c = 0; c < 4; ++c) {
+    const int row = lane / 4 + 8 * (c / 2);
+    const int col = 2 * (lane % 4) + c % 2;
+    float acc = d[c];
+    for (int k = 0; k < 16; ++k) {
+      const float x = lynx_host_bf16_value(slot.a[4 * (row % 8) + (k % 8) / 2][row / 8 + 2 * (k / 8)], k % 2);
+      const float y = lynx_host_bf16_value(slot.b[4 * col + (k % 8) / 2][k / 8], k % 2);
+      acc += x * y;
+    }
+    d[c] = acc;
+  }
+  lynx_host_barrier->arrive_and_wait();
+}
 template <typename F>
 void lynx_host_launch(F body, unsigned blocks, unsigned threads, size_t shared = 0,
                       cudaStream_t = nullptr) {
@@ -283,6 +339,100 @@ def test_moment_sweep_and_backward_match_plain(host_kernels, energy_batched):
     check_backward(host_kernels, B, *plan)
 
 
+def run_sweep(host_kernels, entries, values, energy, mu, cov):
+    """B3 on the host: ``(out_mu, out_cov)`` of a plan, float64."""
+    B = mu.shape[0]
+    tape = fused_track._tape(entries, torch.device("cpu"))
+    params, consts = fused_track._tape_operands(entries, values, tape, torch.float64, B)
+    out_mu, out_cov = torch.empty_like(mu), torch.empty_like(cov)
+    code = host_kernels["moment_sweep"].lynx_moment_sweep(
+        1, tape.rows.data_ptr(), tape.rows.shape[0], params.data_ptr(), consts.data_ptr(),
+        energy.data_ptr(), mu.data_ptr(), cov.data_ptr(), out_mu.data_ptr(), out_cov.data_ptr(),
+        B, REST_ENERGY_EV, None,
+    )
+    assert code == 0
+    return out_mu, out_cov
+
+
+def support_plan(B, static):
+    """A run whose const groups take each support class: drifts (class 1),
+    a static corrector between drifts (class 2), a static tilted,
+    misaligned quadrupole (dense); between them a quadrupole with
+    per-setting k1, tilt and misalignment.  ``static`` makes every element
+    batch-invariant: one dense const entry."""
+    rng = np.random.default_rng(7)
+    n = 1 if static else B
+    f64 = dict(dtype=torch.float64)
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x, dtype=np.float64))
+
+    elements = [
+        ltt.Drift(t([0.4]), **f64),
+        ltt.Drift(t([0.2]), **f64),
+        ltt.Quadrupole(t(np.full(n, 0.2)), k1=t(rng.uniform(-4, 4, n)),
+                       tilt=t(rng.uniform(-0.3, 0.3, n)),
+                       misalignment=t(rng.uniform(-3e-4, 3e-4, (n, 2))), **f64),
+        ltt.Drift(t([0.3]), **f64),
+        ltt.HorizontalCorrector(t([0.1]), angle=t([5e-4]), **f64),
+        ltt.Drift(t([0.25]), **f64),
+        ltt.Quadrupole(t(np.full(n, 0.2)), k1=t(rng.uniform(-4, 4, n)), **f64),
+        ltt.Quadrupole(t([0.15]), k1=t([2.5]), tilt=t([0.1]), misalignment=t([[1e-4, -2e-4]]),
+                       **f64),
+        ltt.Drift(t([0.5]), **f64),
+    ]
+    builders = [torch_fused.element_map_builder(el) for el in elements]
+    energy = torch.full((B,), 1.073e8, **f64)
+    plan = torch_fused.plan_run(builders, energy[:1], lambda x: torch.broadcast_to(x, (B,)))
+    entries = tuple((kind, meta, len(values)) for kind, meta, values in plan)
+    values = [v for _, _, vs in plan for v in vs]
+    mu = t(np.concatenate([rng.normal(scale=1e-4, size=(B, 6)), np.ones((B, 1))], axis=1))
+    a = rng.normal(scale=1e-4, size=(B, 7, 7))
+    a[:, 6, :] = 0.0
+    return entries, values, energy, mu, t(a @ np.swapaxes(a, 1, 2))
+
+
+@pytest.mark.parametrize("B, static", [(2, False), (70, False), (1, True), (65, True)])
+def test_moment_sweep_on_const_support_classes(host_kernels, B, static):
+    """B3's chain runs each const entry over its support class; every class,
+    and a plan of const entries only, against the plain version (ragged B
+    across the 64-setting block)."""
+    entries, values, energy, mu, cov = support_plan(B, static)
+    tape = fused_track._tape(entries, torch.device("cpu"))
+    kinds = [(row[0], row[4]) for row in tape.rows.tolist()]
+    const = fused_track.TAPE_CONST
+    if static:
+        assert kinds == [(const, 0)]
+    else:
+        assert kinds == [(const, 1), (fused_track.TAPE_QUAD, 0), (const, 2),
+                         (fused_track.TAPE_QUAD, 0), (const, 0)]
+    out_mu, out_cov = run_sweep(host_kernels, entries, values, energy, mu, cov)
+    ref_mu, ref_cov = fused_track._table_reference_sweep(entries, values, energy, mu, cov)
+    assert per_setting_error(out_mu, ref_mu) <= RTOL
+    assert per_setting_error(out_cov, ref_cov) <= RTOL
+
+
+def test_const_support_classes():
+    """A layout takes the smallest class that holds its non-zero cells, and
+    only with literal ones on its diagonal."""
+    identity = [[1.0 if i == j else 0.0 for j in range(7)] for i in range(7)]
+
+    def layout(cells):
+        out = [row[:] for row in identity]
+        for (i, j), value in cells.items():
+            out[i][j] = value
+        return out
+
+    support = fused_track._const_support
+    assert support(identity) == 1
+    assert support(layout({(0, 1): 0, (2, 3): 0.3, (4, 5): 1})) == 1
+    assert support(layout({(0, 1): 0, (1, 6): 1, (4, 6): 2})) == 2
+    assert support(layout({(1, 0): 0})) == 0  # a focusing cell
+    assert support(layout({(5, 6): 0})) == 0  # column 6 below row 4
+    assert support(layout({(3, 3): 0})) == 0  # a diagonal cell that is not a literal 1
+    assert support(layout({(2, 2): 0.5})) == 0
+
+
 def test_backward_tile_follows_the_tape_and_the_dtype(host_kernels):
     """B4 keeps each setting's prefix products in shared memory: the
     settings per block (at most 32, whole warps from 4 on) shrink as the
@@ -421,7 +571,8 @@ def test_particle_moment_sweep_matches_plain(host_kernels):
     tape = fused_track._walk_tape(entries, torch.device("cpu"))
     stacked = torch.stack(scalars).contiguous()
     cloud_t = particles.t().contiguous()
-    slots, partials, scratch, out = fused_track._moment_workspace(B, n, torch.float64, "cpu")
+    slots = fused_track._moment_slots(B, n)
+    partials, scratch, out = fused_track._moment_workspace(B, slots, torch.float64, "cpu")
     code = host_kernels["particle_moment_sweep"].lynx_particle_moment_sweep(
         1, tape.records.data_ptr(), tape.records.shape[0], tape.literals.data_ptr(),
         stacked.data_ptr(), cloud_t.data_ptr(), weights.data_ptr(), partials.data_ptr(),
@@ -433,24 +584,129 @@ def test_particle_moment_sweep_matches_plain(host_kernels):
     assert max(sums_errors(fused_track._walk_sums(out), expected)) <= RTOL
 
 
-@pytest.mark.parametrize("B", [17, 33])
-def test_packed_gram_matches_plain(host_kernels, B):
-    n = 1001
-    entries, scalars, particles, weights = moment_inputs(B, n)
-    (apertures, planes, bounds, aug, w0), _ = fused_track._packed_operands(
-        entries, scalars, particles, weights
-    )
+def packed_gram(host_kernels, operands, splits=None, dtype=torch.float64):
+    """B6 on the host, as its wrapper launches it: ``(gram (B, 8, 8),
+    splits)``, with the wrapper's splits unless ``splits`` is given."""
+    apertures, planes, bounds, aug, w0 = operands
+    B, n = planes.shape[1], aug.shape[1]
+    library = host_kernels["packed_gram"]
+    if splits is None:
+        splits = library.lynx_packed_gram_splits(int(dtype == torch.float64), B, n)
     tape = fused_track._gram_tape(apertures, torch.device("cpu"))
-    slots, partials, scratch, out = fused_track._moment_workspace(B, n, torch.float64, "cpu")
-    code = host_kernels["packed_gram"].lynx_packed_gram(
-        1, tape.records.data_ptr(), len(apertures), tape.row_index.data_ptr(), planes.data_ptr(),
-        bounds.data_ptr(), aug.data_ptr(), w0.data_ptr(), partials.data_ptr(), scratch.data_ptr(),
-        out.data_ptr(), B, n, slots, None,
+    partials, scratch, out = fused_track._moment_workspace(B, splits, dtype, "cpu")
+    code = library.lynx_packed_gram(
+        int(dtype == torch.float64), tape.records.data_ptr(), len(apertures),
+        tape.row_index.data_ptr(), tape.row_index.shape[0], planes.data_ptr(), bounds.data_ptr(),
+        aug.data_ptr(), w0.data_ptr(), partials.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+        B, n, splits, None,
     )
     assert code == 0
     index = [fused_track._upper(j, k, 8) for j in range(8) for k in range(8)]
-    gram = out[:, index].reshape(B, 8, 8)
-    expected = fused_track.packed_gram_reference(apertures, planes, bounds, aug, w0)
-    as_sums = [(g[:, 7, :7], g[:, :7, :7], g[:, 7, 7]) for g in (gram, expected)]
-    assert 0 < float(as_sums[1][2].min()) < float(weights.sum())
-    assert max(sums_errors(*as_sums)) <= RTOL
+    return out[:, index].reshape(B, 8, 8), splits
+
+
+def gram_errors(gram, expected):
+    """B6's (first, second) sums against the plain version's on the scales
+    of :func:`sums_errors`, which asserts the weight sums equal."""
+    return sums_errors(*[(g[:, 7, :7], g[:, :7, :7], g[:, 7, 7]) for g in (gram, expected)])
+
+
+@pytest.mark.parametrize(
+    "B, n, splits",
+    [
+        (17, 1001, None),  # the wrapper's splits: one 128-particle chunk each, the last ragged
+        (33, 1001, 1),  # one split: eight chunks through the two stage buffers
+        (1, 777, 2),  # one setting in a warp of 32; splits of 3 chunks, the last ragged
+        (65, 1030, 3),  # settings in three warps; a ragged chunk of 6 particles
+        (129, 300, 2),  # two tiles of settings, the second of one setting
+    ],
+)
+def test_packed_gram_matches_plain(host_kernels, B, n, splits):
+    """Two apertures, one with x_max = inf, an elliptical one, 0/1 weights;
+    ragged B across the settings tile and ragged N across the chunks and
+    the splits."""
+    entries, scalars, particles, weights = moment_inputs(B, n)
+    operands, _ = fused_track._packed_operands(entries, scalars, particles, weights)
+    gram, used = packed_gram(host_kernels, operands, splits)
+    assert splits is None or used == splits
+    expected = fused_track.packed_gram_reference(*operands)
+    assert 0 < float(expected[:, 7, 7].min()) < float(weights.sum())
+    assert max(gram_errors(gram, expected)) <= RTOL
+
+
+def test_packed_gram_all_lost_setting_and_no_aperture(host_kernels):
+    """A setting whose aperture is closed loses every particle (its sums are
+    exact zeros); a plan without apertures sums the whole cloud."""
+    B, n = 20, 500
+    entries, scalars, particles, weights = moment_inputs(B, n)
+    operands, _ = fused_track._packed_operands(entries, scalars, particles, weights)
+    apertures, planes, bounds, aug, w0 = operands
+    bounds = bounds.clone()
+    bounds[0, :, 4] = torch.tensor([1e-12, 1e-12, 1e24, 1e24], dtype=torch.float64)
+    operands = (apertures, planes, bounds, aug, w0)
+    gram, _ = packed_gram(host_kernels, operands, splits=2)
+    expected = fused_track.packed_gram_reference(*operands)
+    assert float(expected[4, 7, 7]) == 0 and bool((gram[4] == 0).all())
+    assert max(gram_errors(gram, expected)) <= RTOL
+
+    none = ((), planes[:0].contiguous(), bounds[:0].contiguous(), aug, w0)
+    gram, _ = packed_gram(host_kernels, none)
+    expected = fused_track.packed_gram_reference(*none)
+    assert torch.equal(gram[:, 7, 7], expected[:, 7, 7])
+    assert max(gram_errors(gram, expected)) <= RTOL
+
+
+def test_gram_tape_takes_ascending_plane_rows():
+    """B6 sums a plane over its aug rows in ascending order, as the plain
+    version sums them in the order given: the tape refuses any other."""
+    for rows in ((1, 0, 7), (0, 0, 7), (0, 8)):
+        with pytest.raises(ValueError, match="ascending"):
+            fused_track._gram_tape((("rectangular", rows, (2, 7)),), torch.device("cpu"))
+
+
+def test_packed_gram_refuses_operands_past_the_shared_memory(host_kernels):
+    """A block stages its settings' plane coefficients and bounds, 20 values
+    a setting and aperture: a plan whose apertures exceed the 227 KB of an
+    H100 block returns the code that the wrapper raises on, before the
+    kernel reads any operand."""
+    launch = host_kernels["packed_gram"].lynx_packed_gram
+    for is_double, apertures in ((0, 30), (1, 15)):
+        assert launch(is_double, None, apertures, None, 0, *[None] * 7, 256, 1000, 1, None) == (
+            fused_track._B6_DOES_NOT_FIT
+        )
+
+
+@pytest.mark.parametrize("B, n, splits", [(40, 600, 3), (1, 300, 1), (129, 200, None)])
+def test_packed_gram_float_tiles(host_kernels, B, n, splits):
+    """The float build, the Gram on the tensor cores (the host stand-in of
+    mma.sync forms each fragment's tile products from the warp's lanes):
+    within float rounding of the plain version in float64 on the same
+    rounded inputs, and no net flip of survivors on this cloud; warps of 16
+    settings, ragged, one or three splits."""
+    entries, scalars, particles, weights = moment_inputs(B, n)
+    operands, _ = fused_track._packed_operands(entries, scalars, particles, weights)
+    single = tuple(x.float().contiguous() if isinstance(x, torch.Tensor) else x for x in operands)
+    gram, _ = packed_gram(host_kernels, single, splits, dtype=torch.float32)
+    rounded = tuple(x.double() if isinstance(x, torch.Tensor) else x for x in single)
+    expected = fused_track.packed_gram_reference(*rounded)
+    assert max(gram_errors(gram.double(), expected)) <= 1e-5
+
+
+@pytest.mark.parametrize("is_double", [0, 1])
+def test_gram_splits_fill_the_card(host_kernels, is_double):
+    """B6's launch shape: tiles of 16 settings a warp (float) or 32 (double),
+    at most 128; splits of whole 128-particle chunks, none empty, enough for
+    16 warps on each of 132 SMs where the cloud allows (at least half of
+    that: a split takes whole chunks)."""
+    splits_of = host_kernels["packed_gram"].lynx_packed_gram_splits
+    unit = 32 if is_double else 16  # settings a warp
+    for B, N in ((16, 100_000), (256, 100_000), (17, 1001), (1000, 100_003), (3, 5)):
+        tile = min(128, -(-B // unit) * unit)
+        splits = splits_of(is_double, B, N)
+        chunks = -(-N // 128)
+        per_split = -(-chunks // splits)
+        assert (splits - 1) * per_split < chunks <= splits * per_split
+        warps = -(-B // tile) * (tile // unit)
+        assert 2 * warps * splits >= 132 * 16 or splits == chunks
+    # Path A's launch: 2 tiles of 8 warps (float), 131 splits of 6 chunks.
+    assert splits_of(0, 256, 100_000) == 131
