@@ -7,9 +7,9 @@ Phases, each of which raises on failure (non-zero exit, no result line):
 
 1. require a CUDA device, pin TF32 off (and say so), print the card and its
    power limit;
-2. build kernels B1-B6 (``lynx_tpu_torch/csrc/*.cu``), one nvcc each, all
-   started together, and print each build's seconds and, for each kernel,
-   its ptxas registers and spill-store/spill-load bytes;
+2. build kernels B1-B7 (``lynx_tpu_torch/csrc/*.cu``), one nvcc each, all
+   started together, and print each build's seconds and, for each kernel
+   and instantiation, its ptxas registers and spill-store/spill-load bytes;
 3. hold B1 against its plain PyTorch version on the card at the flagship
    shapes and at the edge cases (count mode exactly equal, weighted mode
    within 1e-5 relative of the plain version in float64); hold B2-B6
@@ -17,7 +17,10 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    double and in float (bounds below; B5 and B6 on a ragged B and N =
    100,003, rectangular and elliptical apertures, two in one plan, x_max =
    inf, a setting that loses every particle, no aperture, and an
-   identity-only plan with ``batch_size=``);
+   identity-only plan with ``batch_size=``; B3 and B4 also on one batched
+   element of each kind of the full lattice and on the full lattice's
+   plan); fault C1: B4 on ``fodo_lattice(150)``'s 901 entries at 16,384
+   settings in double, past the prefix products that fit in shared memory;
 4. drive the flagship path, the ARES EA track of a 100k-particle beam and
    the 2448 x 2040 read of screen AREABSCR1, at B = 1 (``functional.track``
    and ``Segment.track`` + ``reading``) and B = 8; check the images, that
@@ -41,16 +44,29 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    32 and 256; B5's and B6's times against their plain versions.  In the
    forward no plain version runs on a CUDA tensor; the backward is autograd
    of the plain walk, the JAX package's design, and is counted apart;
-8. print the kernels' JSON line and, last, the ``{"ok": true, ...}`` line.
+8. path L, the full ARES lattice (195 elements): the read of AREABSCR1
+   by a 100k-particle beam from the lattice's start through B1, held
+   against the CPU path's image; a ParameterBeam sweep at 100,000 settings
+   (every quadrupole, corrector, solenoid and dipole per setting) through B3
+   and its gradient through B4, held against the dense route in double;
+   kernel B7, the count-histogram A/B (``lynx_tpu_torch.benchmarks.hist_ab``):
+   every variant exactly against its plain version and B1's count mode,
+   then the harness with its yardsticks (B1, ``torch.bincount``);
+9. print the kernels' JSON line and, last, the ``{"ok": true, ...}`` line.
 
 Each kernel is timed at its path's shape beside its plain version and its
 bound (``bound``: the larger of its bytes over the card's memory rate and
 its float32 operations over the card's peak outside the tensor cores; for
 B6, whose float Gram runs on the tensor cores in three bf16 parts, the
 Gram's operations at the bf16 tensor-core peak times three, plus its
-planes' at the float32 peak: ``gram_bound``); B2 also beside ``torch.bmm``
-of the same operands, the one PyTorch call that computes its function, timed
-here as a yardstick and never called by the port.
+planes' at the float32 peak: ``gram_bound``; for both B7 kernels the
+bytes of a count histogram, ``hist_bound``, with the one-hot contraction's
+int8 operations at the dense int8 tensor-core peak printed beside it as
+that formulation's own floor, ``onehot_floor``); B2
+also beside ``torch.bmm`` of the same operands, B1 and B7 beside
+``torch.bincount`` of the in-window pairs, the one PyTorch call that
+computes their function, timed here as a yardstick and never called by the
+port.
 
 It imports neither JAX nor ``lynx_tpu``.
 """
@@ -62,6 +78,8 @@ import subprocess
 import sys
 import time
 
+from lynx_tpu_torch.benchmarks.timing import cuda_ms, device_ms
+
 N_PARTICLES = 100_000
 WINDOW = (952, 256)  # the flagship kernel window, after swap and rounding
 # Moved particles allowed between the GPU and CPU images: the two sum the
@@ -71,9 +89,12 @@ MAX_MOVED = 20
 
 SWEEP_BATCH = 100_000  # settings in paths S and T (the JAX package's bench sweep)
 SWEEP_STEPS = 10
+LATTICE_BATCH = 100_000  # path L's sweep of the full ARES lattice
+LATTICE_CHECK_BATCH = 2048  # the full lattice's plan in the B3/B4 checks
+FODO_CELLS, FODO_BATCH = 150, 16_384  # fault C1: B4 on 901 entries in double
 PUSH_BATCH, PUSH_PARTICLES = 100, 10_000  # path P
 KERNEL_LIBRARIES = ("window_histogram", "particle_apply", "moment_sweep", "moment_sweep_bwd",
-                    "particle_moment_sweep", "packed_gram")
+                    "particle_moment_sweep", "packed_gram", "hist_ab")
 
 # Bounds of B2-B4 against their plain versions.  Errors are relative to the
 # largest entry of the compared quantity: per setting for moments and
@@ -83,6 +104,10 @@ DOUBLE_RTOL = 1e-12
 # Float kernels against the double plain version on the same (rounded)
 # inputs: float rounding through ~10 composed maps with entries up to ~30.
 FLOAT_RTOL = {"B2": 1e-5, "B3": 1e-5, "B4 moments": 1e-4, "B4 values": 1e-3}
+# The full ARES lattice's plan composes 96 maps over 42 m (|k1| up to 3):
+# ten times path S's maps, and ten times the float rounding (the plain
+# version's own float error on it is printed beside the kernels').
+FLOAT_RTOL_LATTICE = {"B3": 1e-4, "B4 moments": 1e-3, "B4 values": 1e-3}
 # d/dk1 near k1 = 0: the reference formula's derivative cancels there
 # (L cos(kL) - sin(kL)/k, absolute error ~ eps L / |k1|; at k1 = 0 the
 # 1e-12 perturbation gives kL ~ 1e-7), so forward mode (B4) and reverse
@@ -93,6 +118,24 @@ FLOAT_RTOL = {"B2": 1e-5, "B3": 1e-5, "B4 moments": 1e-4, "B4 values": 1e-3}
 # in float only to being finite.
 K1_SMALL = 0.05  # 1/m^2
 K1_SMALL_RTOL = 0.1
+# The energy cotangent is held per setting to the moments' bound of its own
+# value.  On a tape with a kind of the full lattice that bound gains
+# SPREAD_FACTOR times the plain version's own spread: an inactive cavity's
+# map depends on the energy only through r56, and its other cells'
+# derivatives are differences of terms that cancel exactly (Ei / Ef at
+# Ef = Ei), whose rounding can outweigh the true value.  The plain
+# version's forward and reverse modes then differ per setting by as much
+# as B4 (dual numbers, a forward mode) differs from the reverse mode (host
+# build, 1,037 settings: 2.7e-7 of the value both, B4 against the forward
+# mode 5.9e-13).  The spread is the largest |difference| over the batch
+# between the plain version's reverse mode and its forward mode (double)
+# or the plain version run in float (float); it is printed beside B4's.
+# C1's chain of 901 maps of an unstable lattice (|T| up to ~1e34) carries the
+# same kind of spread: the plain version's moments' cotangents from maps
+# built on the host and on the card differ by 6.1e-11 per setting (an
+# H100), so B4 there is held to SPREAD_FACTOR times that spread, measured
+# in the run.
+SPREAD_FACTOR = 10
 # Path S: observations of the GPU route (B3, float) against the CPU dense
 # route (float), relative to each observed column's largest |value|.
 OBS_RTOL = 1e-4
@@ -106,6 +149,7 @@ GRAD_RTOL = 1e-3
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 BF16_TENSOR_FLOPS_PER_S = 989e12  # dense, FP32 accumulation
+INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core operations
 GRAM_PARTS = 3  # B6's float Gram: q in three bf16 parts, each a tensor-core product
 
 # The particle moment sweep, kernels B5 and B6: one shared cloud of
@@ -134,50 +178,6 @@ KERNEL_OBS_RTOL = 1e-4
 # Path A: the sweep (float) against dense functional.track (float): mu and
 # sigma relative to the plane's largest sigma, survivors within MAX_FLIPS.
 APERTURE_RTOL = 1e-4
-
-
-def time_cuda(torch, fn, iters, warmup=3):
-    """Milliseconds per call of ``fn`` on the device timeline, after warm-up."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def device_time_ms(torch, fn, iters, kernel=None):
-    """Milliseconds of device time per call of ``fn`` (all kernels it issues,
-    summed), from ``torch.profiler``.  A profiling session now and then
-    comes back empty, so an empty one is repeated; three empty ones raise.
-    With ``kernel``, also the time of the kernels whose name contains it."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        events = [
-            event for event in prof.key_averages()
-            if event.device_type == torch.autograd.DeviceType.CUDA
-        ]
-        total_us = sum(event.self_device_time_total for event in events)
-        if total_us > 0:
-            break
-    else:
-        raise AssertionError("torch.profiler traced no device time in three sessions")
-    if kernel is None:
-        return total_us / iters / 1e3
-    own_us = sum(event.self_device_time_total for event in events if kernel in event.key)
-    return total_us / iters / 1e3, own_us / iters / 1e3
 
 
 def flagship(torch, ares, ParticleBeam, batch, device, seed):
@@ -303,6 +303,70 @@ def sweep_lattice(torch, ltt, B, k1=None, static=False, seed=0):
     ]
 
 
+def new_kind_lattice(torch, ltt, B, seed=3):
+    """One batched element of each kind of the full lattice between static
+    drifts, float64 on the card: a dipole with non-zero e1, e2, tilt, fint
+    and gap and one at length 0, an RBend, a misaligned solenoid and one at
+    k = 0, an inactive cavity with batched length, phase and frequency, an
+    undulator and a custom map."""
+    gen = torch.Generator().manual_seed(seed)
+    f64 = dict(dtype=torch.float64, device="cuda")
+
+    def u(low, high, *shape):
+        x = low + (high - low) * torch.rand(shape or (B,), generator=gen, dtype=torch.float64)
+        return x.cuda()
+
+    kinds = [
+        ltt.Dipole(u(0.2, 0.5), angle=u(-0.2, 0.2), e1=u(-0.05, 0.05), e2=u(-0.05, 0.05),
+                   tilt=u(-0.1, 0.1), fringe_integral=u(0.3, 0.6),
+                   fringe_integral_exit=u(0.3, 0.6), gap=u(0.01, 0.05), **f64),
+        ltt.Dipole(torch.zeros(B, **f64), angle=u(-1e-3, 1e-3), tilt=u(-0.1, 0.1), **f64),
+        ltt.RBend(u(0.2, 0.4), angle=u(-0.2, 0.2), gap=u(0.01, 0.03),
+                  fringe_integral=u(0.3, 0.6), **f64),
+        ltt.Solenoid(u(0.1, 0.3), k=u(-3.0, 3.0), misalignment=u(-2e-4, 2e-4, B, 2), **f64),
+        ltt.Solenoid(u(0.1, 0.3), k=torch.zeros(B, **f64), **f64),
+        ltt.Cavity(u(0.5, 1.5), voltage=torch.zeros(1, **f64), phase=u(-30.0, 30.0),
+                   frequency=u(1e9, 3e9), **f64),
+        ltt.Undulator(u(0.5, 2.0), **f64),
+        ltt.CustomTransferMap(torch.eye(7, **f64) + 0.05 * u(-1.0, 1.0, B, 7, 7), **f64),
+    ]
+    elements = []
+    for element in kinds:
+        elements += [ltt.Drift(torch.tensor([0.3], **f64), **f64), element]
+    return elements
+
+
+def tune_lattice(torch, lattice, B, seed, requires_grad=False):
+    """Per-setting values, in the lattice's dtype and on its device, of
+    every quadrupole's k1 (|k1| from 0.5 to 3 1/m^2, either sign), every
+    corrector's angle, both solenoids' k and every dipole's angle (its
+    file value +-0.05 rad); returns the new tensors."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def u(low, high):
+        return low + (high - low) * torch.rand(B, generator=gen, dtype=torch.float64)
+
+    tuned = []
+    for element in lattice.elements:
+        kind = type(element).__name__
+        if kind == "Quadrupole":
+            sign = torch.where(torch.rand(B, generator=gen) < 0.5, -1.0, 1.0).double()
+            field, value = "k1", sign * u(0.5, 3.0)
+        elif kind in ("HorizontalCorrector", "VerticalCorrector"):
+            field, value = "angle", u(-1e-3, 1e-3)
+        elif kind == "Solenoid":
+            field, value = "k", u(-2.0, 2.0)
+        elif kind == "Dipole":
+            field, value = "angle", element.angle.double().cpu() + u(-0.05, 0.05)
+        else:
+            continue
+        old = getattr(element, field)
+        value = value.to(old.dtype).to(old.device).requires_grad_(requires_grad)
+        setattr(element, field, value)
+        tuned.append(value)
+    return tuned
+
+
 def random_moments(torch, B, gen):
     mu = torch.cat(
         [1e-4 * torch.randn((B, 6), generator=gen, dtype=torch.float64, device="cuda"),
@@ -341,6 +405,16 @@ def sweep_cases(torch, ltt, fused, env):
         torch.linspace(0.9e8, 1.2e8, 300, **f64))
     add("all-const plan", sweep_lattice(torch, ltt, 300, static=True), 300,
         torch.tensor([1.073e8], **f64))
+    add("one batched element of each new kind", new_kind_lattice(torch, ltt, 1037), 1037,
+        torch.tensor([1.073e8], **f64))
+    add("one of each new kind, batched energy (every entry dynamic)",
+        new_kind_lattice(torch, ltt, 300), 300, torch.linspace(0.9e8, 1.2e8, 300, **f64))
+    from lynx_tpu_torch.models import ares
+
+    lattice = ares.ares_lattice(dtype=torch.float64, device="cuda")
+    tune_lattice(torch, lattice, LATTICE_CHECK_BATCH, seed=13)
+    add(f"full ARES lattice (path L's plan), B={LATTICE_CHECK_BATCH}", list(lattice.elements),
+        LATTICE_CHECK_BATCH, torch.tensor([1.073e8], **f64))
     cases.append(("empty plan", (), [], torch.full((129,), 1.073e8, **f64)))
     return cases
 
@@ -356,9 +430,10 @@ def quad_k1_slots(ft, entries):
 
 
 def cotangent_errors(torch, ft, entries, values, kernel, plain, k1_rtol):
-    """Worst relative errors (values, moments, small-k1 entries) of B4's
-    cotangents against
-    the plain version's.  A dynamic parameter's cotangent is held relative
+    """Worst relative errors (values, moments, small-k1 entries, energy) of
+    B4's cotangents against the plain version's: the moments' (d_mu, d_cov)
+    and the energy's per setting (the energy's bound: ``energy_ratio``).  A
+    dynamic parameter's cotangent is held relative
     to the setting's largest parameter cotangent (units differ, as between
     the moments' entries, and some, such as d/dtilt of a quadrupole at
     k1 = 0, vanish); const-cell cotangents, summed over the batch, relative
@@ -400,8 +475,45 @@ def cotangent_errors(torch, ft, entries, values, kernel, plain, k1_rtol):
     if const_errors:
         scale = float(torch.stack(const_scales).max().clamp_min(1e-300))
         worst_values = max(worst_values, float(torch.stack(const_errors).max()) / scale)
-    worst_moments = max(relative_error(torch, g, w) for g, w in zip(k_rest, p_rest))
-    return worst_values, worst_moments, worst_small
+    worst_energy = relative_error(torch, k_rest[0], p_rest[0])
+    worst_moments = max(relative_error(torch, g, w) for g, w in zip(k_rest[1:], p_rest[1:]))
+    return worst_values, worst_moments, worst_small, worst_energy
+
+
+def plain_energy_forward(torch, ft, entries, values, energy, mu, cov, dmu, dcov):
+    """The plain version's energy cotangent in forward mode: the moments'
+    derivatives along the energy, contracted with their cotangents per
+    setting (each setting's energy moves only its own moments)."""
+    import torch.autograd.forward_ad as fwAD
+
+    B = energy.shape[0]
+    with fwAD.dual_level():
+        dual = fwAD.make_dual(energy, torch.ones_like(energy))
+        outputs = ft._table_reference_sweep(entries, [v.detach() for v in values], dual, mu, cov)
+        tmu, tcov = (fwAD.unpack_dual(t).tangent for t in outputs)
+    total = torch.zeros_like(energy)
+    if tmu is not None:
+        total = total + (dmu * tmu).sum(dim=1)
+    if tcov is not None:
+        total = total + (dcov * tcov).reshape(B, -1).sum(dim=1)
+    return total
+
+
+def energy_ratio(torch, got, want, rtol, other=None):
+    """The energy cotangent's worst error per setting in units of its bound:
+    ``rtol`` of the setting's |value|, plus, where ``other`` (the plain
+    version computed another way) is given, SPREAD_FACTOR times the plain
+    version's own spread, max |other - want| over the batch.  Returns (the
+    ratio, the spread relative to the batch's largest |value|)."""
+    got, want = got.detach().double(), want.detach().double()
+    if want.numel() == 0:
+        return 0.0, 0.0
+    spread = 0.0
+    if other is not None:
+        spread = float((other.detach().double() - want).abs().max())
+    error = (got - want).abs()
+    bound = (rtol * want.abs() + SPREAD_FACTOR * spread).clamp_min(1e-300)
+    return float((error / bound).max()), spread / float(want.abs().max().clamp_min(1e-300))
 
 
 def check_sweep_kernels(torch, ltt, ft, fused, env):
@@ -417,15 +529,20 @@ def check_sweep_kernels(torch, ltt, ft, fused, env):
         args = (entries, values, energy, mu, cov)
 
         # double against double
+        # A tape with a kind of the full lattice: the energy's bound gains
+        # the plain version's own spread (SPREAD_FACTOR).
+        full = bool(entries) and ft._tape(entries, energy.device).full
         kernel, plain = ft.moment_sweep(*args), ft._table_reference_sweep(*args)
         b3 = max(relative_error(torch, k, p) for k, p in zip(kernel, plain))
-        b4 = cotangent_errors(
-            torch, ft, entries, values, ft.moment_sweep_bwd(*args, dmu, dcov),
-            ft._reference_sweep_vjp(*args, dmu, dcov), K1_SMALL_RTOL,
-        )
+        kernel_bwd = ft.moment_sweep_bwd(*args, dmu, dcov)
+        plain_bwd = ft._reference_sweep_vjp(*args, dmu, dcov)
+        b4 = cotangent_errors(torch, ft, entries, values, kernel_bwd, plain_bwd, K1_SMALL_RTOL)
+        forward = plain_energy_forward(torch, ft, *args, dmu, dcov) if full else None
+        energy64 = energy_ratio(torch, kernel_bwd[1], plain_bwd[1], DOUBLE_RTOL, forward)
         torch.cuda.synchronize()
-        if b3 > DOUBLE_RTOL or max(b4[:2]) > DOUBLE_RTOL:
-            raise AssertionError(f"B3/B4 in double exceed {DOUBLE_RTOL}: {label}: {b3}, {b4}")
+        if b3 > DOUBLE_RTOL or max(b4[:2]) > DOUBLE_RTOL or energy64[0] > 1:
+            raise AssertionError(f"B3/B4 in double exceed {DOUBLE_RTOL}: {label}: {b3}, {b4},"
+                                 f" energy {energy64}")
 
         # float against double, on the same rounded inputs
         f32 = [values, energy, mu, cov, dmu, dcov]
@@ -434,13 +551,20 @@ def check_sweep_kernels(torch, ltt, ft, fused, env):
         kernel = ft.moment_sweep(entries, *f32[:4])
         plain = ft._table_reference_sweep(entries, *f64[:4])
         b3f = max(relative_error(torch, k, p) for k, p in zip(kernel, plain))
+        plain_f = max(relative_error(torch, k, p) for k, p in
+                      zip(ft._table_reference_sweep(entries, *f32[:4]), plain))
+        bounds = FLOAT_RTOL_LATTICE if label.startswith("full ARES lattice") else FLOAT_RTOL
         kernel_bwd = ft.moment_sweep_bwd(entries, *f32)
         plain_bwd = ft._reference_sweep_vjp(entries, *f64)
         b4f = cotangent_errors(torch, ft, entries, f64[0], kernel_bwd, plain_bwd, None)
+        plain_float = ft._reference_sweep_vjp(entries, *f32)[1] if full else None
+        energy32 = energy_ratio(torch, kernel_bwd[1], plain_bwd[1], bounds["B4 moments"],
+                                plain_float)
         torch.cuda.synchronize()
-        if (b3f > FLOAT_RTOL["B3"] or b4f[0] > FLOAT_RTOL["B4 values"]
-                or b4f[1] > FLOAT_RTOL["B4 moments"]):
-            raise AssertionError(f"B3/B4 in float exceed their bounds: {label}: {b3f}, {b4f}")
+        if (b3f > bounds["B3"] or b4f[0] > bounds["B4 values"]
+                or b4f[1] > bounds["B4 moments"] or energy32[0] > 1):
+            raise AssertionError(f"B3/B4 in float exceed their bounds: {label}: {b3f}, {b4f},"
+                                 f" energy {energy32}")
         if label.startswith("path S/T"):
             worst_abs["B3"] = max(float((k.double() - p).abs().max()) for k, p in zip(kernel, plain))
             # Over the cotangents the bounds hold (d/dk1 at |k1| < K1_SMALL apart).
@@ -454,9 +578,13 @@ def check_sweep_kernels(torch, ltt, ft, fused, env):
             errors += [float((k.double() - w).abs().max())
                        for k, w in zip(kernel_bwd[1:], plain_bwd[1:])]
             worst_abs["B4"] = max(errors)
+        spreads = (f" (the plain version's own spread {energy64[1]:.2e} forward against reverse"
+                   f" mode, {energy32[1]:.2e} float against double, of the largest; within"
+                   f" {energy64[0]:.2f} and {energy32[0]:.2f} of the bounds)" if full else "")
         print(f"B3/B4 check {label}: B={B}, {len(entries)} entries; double: B3 {b3:.2e},"
-              f" B4 values {b4[0]:.2e} moments {b4[1]:.2e}; float vs double: B3 {b3f:.2e},"
-              f" B4 values {b4f[0]:.2e} moments {b4f[1]:.2e}"
+              f" B4 values {b4[0]:.2e} moments {b4[1]:.2e} energy {b4[3]:.2e}; float vs double:"
+              f" B3 {b3f:.2e} (the plain version's own {plain_f:.2e}), B4 values {b4f[0]:.2e}"
+              f" moments {b4f[1]:.2e} energy {b4f[3]:.2e} per setting{spreads}"
               + (f"; d/dk1 at |k1| < {K1_SMALL}: double {b4[2]:.2e} of the entry,"
                  f" float {b4f[2]:.2e} (finite)" if b4[2] or b4f[2] else ""))
     return worst_abs
@@ -643,8 +771,8 @@ def path_serving(torch, ft, hist, envs, env, card):
     def step():
         env.batched_step(state0, actions[1], params)
 
-    ms = time_cuda(torch, step, iters=20)
-    device, sweep = device_time_ms(torch, step, iters=5, kernel="moment_sweep_kernel")
+    ms = cuda_ms(step, iters=20)
+    device, sweep = device_ms(step, iters=5, kernel="moment_sweep_kernel")
     print(f"path S: batched_step at B={B}: {ms:.4f} ms/step, {B * 1000.0 / ms:.1f} env-steps/s"
           f" (CUDA events, 20 steps after warm-up); device time {device:.4f} ms/step (busy"
           f" share {device / ms:.4f}), of it B3 {sweep:.4f} ms (torch.profiler, 5 steps;"
@@ -714,8 +842,8 @@ def path_training(torch, ft, hist, envs, env, tuning, card):
         m = start.clone().requires_grad_(True)
         loss_fn(m, params).backward()
 
-    ms = time_cuda(torch, step, iters=10)
-    device, backward = device_time_ms(torch, step, iters=3, kernel="moment_sweep_bwd_kernel")
+    ms = cuda_ms(step, iters=10)
+    device, backward = device_ms(step, iters=3, kernel="moment_sweep_bwd_kernel")
     print(f"path T: value and gradient at B={B}: {ms:.4f} ms/step (CUDA events, 10 steps after"
           f" warm-up); device time {device:.4f} ms/step (busy share {device / ms:.4f}), of it"
           f" B4 {backward:.4f} ms (torch.profiler, 3 steps; card {card})")
@@ -784,15 +912,15 @@ def path_particles(torch, ft, hist, segment_module, ares, ParticleBeam, card):
         for route in (True, False):
             segment_module.PARTICLE_SWEEP_PATH = route
             try:
-                forward = time_cuda(torch, lambda: seg_b.track(beam_b), iters=20)
+                forward = cuda_ms(lambda: seg_b.track(beam_b), iters=20)
 
                 def both():
                     out = seg_b.track(beam_b)
                     torch.autograd.grad(moment_loss(out), list(k1_b.values()))
 
-                backward = time_cuda(torch, both, iters=10)
-                device, push = device_time_ms(
-                    torch, lambda: seg_b.track(beam_b), iters=5,
+                backward = cuda_ms(both, iters=10)
+                device, push = device_ms(
+                    lambda: seg_b.track(beam_b), iters=5,
                     kernel="particle_apply_kernel" if route else "gemm",
                 )
             finally:
@@ -862,19 +990,39 @@ def product(a, a_ones, b, b_ones):
 
 def dynamic_support(ft, code):
     """Support and ones of a dynamic tape entry's map (fused_builders.cuh's
-    builders): a drift, a corrector (a drift and its kick cell), or a
-    quadrupole, exit @ rot(-tilt) @ base @ rot(tilt) @ entry."""
+    builders): a drift or an undulator, a corrector (a drift and its kick
+    cell), a quadrupole (exit @ rot(-tilt) @ base @ rot(tilt) @ entry), an
+    inactive cavity (its 12 cells), a solenoid (exit @ body @ entry), a
+    dipole (rot(-tilt) @ edge @ body @ edge @ rot(tilt)), or a custom map
+    (dense)."""
     drift = IDENTITY | mask_of([(0, 1), (2, 3), (4, 5)])
-    if code == ft.TAPE_DRIFT:
+    if code in (ft.TAPE_DRIFT, ft.TAPE_UNDULATOR):
         return drift, IDENTITY
     if code in (ft.TAPE_HCOR, ft.TAPE_VCOR):
         return drift | mask_of([(1, 6) if code == ft.TAPE_HCOR else (3, 6)]), IDENTITY
-    assert code == ft.TAPE_QUAD, code
+    if code == ft.TAPE_CUSTOM:
+        return DENSE, 0
     tail = mask_of([(4, 4), (5, 5), (6, 6)])
+    shift = IDENTITY | mask_of([(0, 6), (2, 6)])
+    if code == ft.TAPE_CAVITY:
+        return mask_of([(0, 0), (0, 1), (1, 0), (1, 1), (2, 2), (2, 3), (3, 2), (3, 3), (4, 4),
+                        (4, 5), (5, 4), (5, 5), (6, 6)]), mask_of([(6, 6)])
+    if code == ft.TAPE_SOLENOID:
+        body = IDENTITY | mask_of([(i, j) for i in range(4) for j in range(4)] + [(4, 5)])
+        s, o, _ = product(body, tail, shift, IDENTITY)
+        s, o, _ = product(shift, IDENTITY, s, o)
+        return s, o
     base = IDENTITY | mask_of(
         [(0, 1), (0, 5), (1, 0), (1, 5), (2, 3), (3, 2), (4, 0), (4, 1), (4, 5)])
     rot = IDENTITY | mask_of([(0, 2), (1, 3), (2, 0), (3, 1)])
-    shift = IDENTITY | mask_of([(0, 6), (2, 6)])
+    if code == ft.TAPE_DIPOLE:
+        edge = IDENTITY | mask_of([(1, 0), (3, 2)])
+        s, o, _ = product(base | mask_of([(2, 6)]), tail, edge, IDENTITY)
+        s, o, _ = product(edge, IDENTITY, s, o)
+        s, o, _ = product(s, o, rot, tail)
+        s, o, _ = product(rot, tail, s, o)
+        return s, o
+    assert code == ft.TAPE_QUAD, code
     s, o, _ = product(base, tail, rot, tail)
     s, o, _ = product(rot, tail, s, o)
     s, o, _ = product(s, o, shift, IDENTITY)
@@ -899,7 +1047,9 @@ def sweep_flops(ft, entries):
             if code == ft.TAPE_IDENTITY:
                 continue
             support, ones = dynamic_support(ft, code)
-            maps.append((support, ones, support & ~ones, count + 1))
+            # A custom map's cells are its inputs: their cotangents are dR's.
+            inputs = 0 if code == ft.TAPE_CUSTOM else count + 1
+            maps.append((support, ones, support & ~ones, inputs))
         else:
             literal = [[isinstance(c, float) for c in row] for row in meta]
             support = mask_of((i, j) for i in range(7) for j in range(7)
@@ -970,11 +1120,11 @@ def time_kernels(torch, ft, fused, tbl, env, card):
     b3_bound, b4_bound = sweep_bounds(ft, entries, [v.float() for v in values], full, mu, cov)
     shape = f"B={SWEEP_BATCH}, {len(entries)} entries"
     timing = {
-        "B3": dict(ms=time_cuda(torch, lambda: ft.moment_sweep(*args), iters=50),
-                   plain_ms=time_cuda(torch, lambda: ft._table_reference_sweep(*args), iters=10),
+        "B3": dict(ms=cuda_ms(lambda: ft.moment_sweep(*args), iters=50),
+                   plain_ms=cuda_ms(lambda: ft._table_reference_sweep(*args), iters=10),
                    bound=b3_bound, library_ms=None, shape=shape),
-        "B4": dict(ms=time_cuda(torch, lambda: ft.moment_sweep_bwd(*args, dmu, dcov), iters=50),
-                   plain_ms=time_cuda(torch, lambda: ft._reference_sweep_vjp(*args, dmu, dcov),
+        "B4": dict(ms=cuda_ms(lambda: ft.moment_sweep_bwd(*args, dmu, dcov), iters=50),
+                   plain_ms=cuda_ms(lambda: ft._reference_sweep_vjp(*args, dmu, dcov),
                                       iters=10),
                    bound=b4_bound, library_ms=None, shape=shape),
     }
@@ -1004,18 +1154,18 @@ def time_kernels(torch, ft, fused, tbl, env, card):
             return torch.bmm(particles, maps)
 
         timing[label] = dict(
-            ms=time_cuda(torch, kernel, iters=100), plain_ms=time_cuda(torch, plain, iters=20),
+            ms=cuda_ms(kernel, iters=100), plain_ms=cuda_ms(plain, iters=20),
             bound=bound(nbytes(matrix, particles, particles), 2 * cells * B * N),
-            library_ms=time_cuda(torch, library, iters=100), shape=f"B={B}, N={N}",
+            library_ms=cuda_ms(library, iters=100), shape=f"B={B}, N={N}",
         )
         calls[label] = (kernel, plain, "particle_apply_kernel", library)
     for name, t in timing.items():
         kernel_call, plain_call, kernel_name, *library_call = calls[name]
-        device, own = device_time_ms(torch, kernel_call, iters=5, kernel=kernel_name)
-        plain_device = device_time_ms(torch, plain_call, iters=2)
+        device, own = device_ms(kernel_call, iters=5, kernel=kernel_name)
+        plain_device = device_ms(plain_call, iters=2)
         library = ""
         if library_call:
-            library_device = device_time_ms(torch, library_call[0], iters=5)
+            library_device = device_ms(library_call[0], iters=5)
             library = (f"; library call torch.bmm {t['library_ms']:.5f} ms per call, device"
                        f" {library_device:.5f} ms")
         print(f"{name} at {t['shape']} (float): kernel {t['ms']:.5f} ms, plain"
@@ -1219,9 +1369,9 @@ def path_env_kernel(torch, ft, hist, env, ParticleBeam, card):
         def call():
             return env.batched_particle_beam_parameters(magnets, beam, method=method)
 
-        ms = time_cuda(torch, call, iters=iters)
+        ms = cuda_ms(call, iters=iters)
         rates[method] = B * 1000.0 / ms
-        device = device_time_ms(torch, call, iters=3)
+        device = device_ms(call, iters=3)
         print(f"path K: method='{method}' at B={B}, N={MOMENT_PARTICLES}: {ms:.4f} ms/call,"
               f" {rates[method]:.1f} env-steps/s (CUDA events, {iters} calls after warm-up);"
               f" device time {device:.4f} ms/call, busy share {device / ms:.4f} (torch.profiler,"
@@ -1307,11 +1457,11 @@ def path_aperture_sweep(torch, ltt, ft, hist, fused, functional, ParticleBeam, c
                 out, _ = functional.track(ltt.Segment(elements), beam.broadcast((B,)))
                 return out.sigma_x, out.sigma_y, out.mu_x, out.mu_y
 
-        kernel_ms = time_cuda(torch, kernel_route, iters=20)
-        dense_ms = time_cuda(torch, dense_route, iters=5)
-        kernel_device, gram_device = device_time_ms(torch, kernel_route, iters=3,
+        kernel_ms = cuda_ms(kernel_route, iters=20)
+        dense_ms = cuda_ms(dense_route, iters=5)
+        kernel_device, gram_device = device_ms(kernel_route, iters=3,
                                                     kernel="packed_gram_kernel")
-        dense_device = device_time_ms(torch, dense_route, iters=3)
+        dense_device = device_ms(dense_route, iters=3)
         print(f"path A: B={B}, N={MOMENT_PARTICLES}: kernel route {kernel_ms:.4f} ms"
               f" ({B * 1000.0 / kernel_ms:.1f} settings/s), dense route {dense_ms:.4f} ms"
               f" ({B * 1000.0 / dense_ms:.1f} settings/s) (CUDA events); device time: kernel"
@@ -1333,8 +1483,8 @@ def crossover(torch, ltt, ft, fused, ParticleBeam, card):
             name = "B6" if packed else "B5"
             ft.PACKED_MOMENT_SWEEP = packed
             try:
-                times[name] = time_cuda(torch, lambda: ft.fused_particle_moment_sweep(*ops), iters=20)
-                device[name] = device_time_ms(torch, lambda: ft.fused_particle_moment_sweep(*ops),
+                times[name] = cuda_ms(lambda: ft.fused_particle_moment_sweep(*ops), iters=20)
+                device[name] = device_ms(lambda: ft.fused_particle_moment_sweep(*ops),
                                               iters=3)
             finally:
                 ft.PACKED_MOMENT_SWEEP = None
@@ -1388,12 +1538,12 @@ def time_moment_kernels(torch, ltt, ft, fused, env, ParticleBeam, card):
     }
     timing = {}
     for name, (kernel_call, plain_call, kernels, shape, limit) in calls.items():
-        timing[name] = dict(ms=time_cuda(torch, kernel_call, iters=50),
-                            plain_ms=time_cuda(torch, plain_call, iters=10), bound=limit,
+        timing[name] = dict(ms=cuda_ms(kernel_call, iters=50),
+                            plain_ms=cuda_ms(plain_call, iters=10), bound=limit,
                             library_ms=None)
-        device, own = device_time_ms(torch, kernel_call, iters=5, kernel=kernels[0])
-        _, reduce = device_time_ms(torch, kernel_call, iters=5, kernel=kernels[1])
-        plain_device = device_time_ms(torch, plain_call, iters=2)
+        device, own = device_ms(kernel_call, iters=5, kernel=kernels[0])
+        _, reduce = device_ms(kernel_call, iters=5, kernel=kernels[1])
+        plain_device = device_ms(plain_call, iters=2)
         t = timing[name]
         print(f"{name} at {shape}, N={MOMENT_PARTICLES} (float): kernel {t['ms']:.4f} ms,"
               f" plain {t['plain_ms']:.4f} ms per call (CUDA events, host launch cost"
@@ -1403,21 +1553,375 @@ def time_moment_kernels(torch, ltt, ft, fused, env, ParticleBeam, card):
     return timing
 
 
+# -- the full ARES lattice: path L, fault C1 -------------------------------------
+
+
+def lattice_window(torch, functional, ParameterBeam, lattice):
+    """AREABSCR1's window in the full lattice, derived as ``ares``'s
+    ``_derived_ea_window`` derives the EA subcell's (k_sigma = 5): the
+    nominal flagship beam tracked as a ParameterBeam from the lattice's
+    start to the screen plane, on the CPU."""
+    probe = copy.deepcopy(lattice).to("cpu")
+    probe = probe.subcell(probe.elements[0].name, "AREABSCR1")
+    probe.AREABSCR1.is_active = False
+    nominal = ParameterBeam.from_parameters(
+        sigma_x=torch.tensor([1.75e-4]), sigma_y=torch.tensor([1.75e-4]),
+        sigma_xp=torch.tensor([2e-5]), sigma_yp=torch.tensor([2e-5]),
+        sigma_s=torch.tensor([8e-6]), sigma_p=torch.tensor([2e-3]),
+        energy=torch.tensor([1.073e8]), device="cpu",
+    )
+    at_screen, _ = functional.track(probe, nominal)
+    return probe.AREABSCR1.derive_histogram_window(at_screen, k_sigma=5.0)
+
+
+def path_lattice_read(torch, ares, functional, hist, ParticleBeam, ParameterBeam, card):
+    """Path L, the read: a 100k-particle f32 beam from the full lattice's
+    start to an active AREABSCR1, the EA quadrupoles at the flagship working
+    point, the rest as in the file; B1 serves the read; the image against
+    the CPU path's."""
+    lattice = ares.ares_lattice(device="cuda")
+    for name, k1 in ares.FLAGSHIP_K1.items():
+        getattr(lattice, name).k1 = torch.tensor([k1], device="cuda")
+    window = lattice_window(torch, functional, ParameterBeam, lattice)
+    lattice.AREABSCR1.histogram_window = window
+    lattice.AREABSCR1.is_active = True
+    _, beam = flagship(torch, ares, ParticleBeam, 1, "cuda", seed=61)
+    hist.window_histogram.launches = 0
+    hist.reset_histogram_fallback_count()
+    _, diagnostics = functional.track(lattice, beam)
+    image = diagnostics["AREABSCR1"]
+    torch.cuda.synchronize()
+    launches, fallbacks = hist.window_histogram.launches, hist.histogram_fallback_count()
+    print(f"path L (read): {len(lattice.elements)} elements to AREABSCR1, window {window};"
+          f" B1 launches {launches}, scatter fallbacks {fallbacks}")
+    if launches < 1 or fallbacks != 0:
+        raise AssertionError("path L: the read did not go through kernel B1")
+    if tuple(image.shape) != (1, 2040, 2448) or not bool(torch.isfinite(image).all()):
+        raise AssertionError(f"path L: bad image {tuple(image.shape)}")
+    _, diagnostics = functional.track(copy.deepcopy(lattice).to("cpu"), beam.to("cpu"))
+    image_cpu = diagnostics["AREABSCR1"]
+    mass, mass_cpu = float(image.sum()), float(image_cpu.sum())
+    l1 = float((image.cpu() - image_cpu).abs().sum())
+    print(f"path L (read): image mass {mass:.0f} (CPU path {mass_cpu:.0f}, {N_PARTICLES}"
+          f" particles), L1 against the CPU path's image {l1:.0f} (bound {2 * MAX_MOVED})")
+    if mass != mass_cpu or l1 > 2 * MAX_MOVED:
+        raise AssertionError("path L: GPU and CPU images differ")
+    ms = cuda_ms(lambda: functional.track(lattice, beam), iters=20)
+    device, b1 = device_ms(lambda: functional.track(lattice, beam), iters=5,
+                                kernel="window_histogram_kernel")
+    print(f"path L (read): track + read {ms:.4f} ms/call (CUDA events, 20 calls); device time"
+          f" {device:.4f} ms/call (busy share {device / ms:.4f}), of it B1 {b1:.5f} ms"
+          f" (torch.profiler, 5 calls; card {card})")
+    return launches
+
+
+def lattice_runs(fused, lattice, energy, B, torch):
+    """The fused sweep's plans of a lattice's runs between its non-skippable
+    elements, as ``segment._fused_flush`` builds them: (entries, values)."""
+    runs, run = [], []
+    for element in lattice.flattened().elements:
+        if element.is_skippable:
+            run.append(element)
+        elif run:
+            runs.append(run)
+            run = []
+    runs += [run] if run else []
+    plans = []
+    for run in runs:
+        plan = fused.plan_run([fused.element_map_builder(el) for el in run], energy,
+                              lambda x: torch.broadcast_to(x, (B,)).reshape(B))
+        plans.append((tuple((kind, meta, len(values)) for kind, meta, values in plan),
+                      [v.detach() for _, _, vs in plan for v in vs]))
+    return plans
+
+
+def path_lattice_sweep(torch, ltt, ares, ft, fused, hist, functional, segment_module, card):
+    """Path L, the sweep: an f32 ParameterBeam through the full lattice at
+    LATTICE_BATCH settings (every quadrupole's k1, corrector's angle,
+    solenoid's k and dipole's angle per setting); the forward through B3,
+    the value and gradient of sum(sigma_x + sigma_y) through B4; held
+    against the dense route."""
+    B = LATTICE_BATCH
+    lattice = ares.ares_lattice(device="cuda")
+    tuned = tune_lattice(torch, lattice, B, seed=62, requires_grad=True)
+    nominal = ltt.ParameterBeam.from_parameters(
+        sigma_x=torch.tensor([1.75e-4]), sigma_y=torch.tensor([1.75e-4]),
+        sigma_xp=torch.tensor([2e-5]), sigma_yp=torch.tensor([2e-5]),
+        sigma_s=torch.tensor([8e-6]), sigma_p=torch.tensor([2e-3]),
+        energy=torch.tensor([1.073e8]), device="cuda",
+    )
+    # B settings of one beam at one energy: the energy stays (1,), so the
+    # untuned elements pre-compose into const groups.
+    beam = ltt.ParameterBeam(nominal._mu.expand(B, 7).contiguous(),
+                             nominal._cov.expand(B, 7, 7).contiguous(), nominal.energy)
+
+    def loss_of(outgoing):
+        return torch.sum(outgoing.sigma_x + outgoing.sigma_y)
+
+    reset_counts(ft, hist)
+    with plain_on_cuda_guard(torch, ft) as plain:
+        outgoing, _ = functional.track(lattice, beam)
+        grads = torch.autograd.grad(loss_of(outgoing), tuned)
+        torch.cuda.synchronize()
+    launched = counts(ft)
+    runs = lattice_runs(fused, lattice, beam.energy, B, torch)
+    entries = [len(entries) for entries, _ in runs]
+    print(f"path L (sweep): {len(lattice.elements)} elements at B={B}, {len(tuned)} tuned fields,"
+          f" runs of {entries} tape entries; launches {launched}, plain versions on CUDA"
+          f" tensors {plain['count']}")
+    if launched["B3"] != len(runs) or launched["B4"] != len(runs) or plain["count"]:
+        raise AssertionError("path L did not run every run through kernels B3 and B4")
+    if outgoing._mu.shape != (B, 7) or not all(bool(torch.isfinite(g).all()) for g in grads):
+        raise AssertionError("path L: bad output or gradient")
+
+    # The reference: the dense route in double, the same settings (drawn in
+    # double, then rounded for the float lattice); beside it the dense route
+    # in float, whose own error scales the gradient's bound: through 96 maps
+    # a float gradient carries more rounding than path T's 11.
+    lattice64 = ares.ares_lattice(dtype=torch.float64, device="cuda")
+    tuned64 = tune_lattice(torch, lattice64, B, seed=62, requires_grad=True)
+    beam64 = ltt.ParameterBeam(beam._mu.double(), beam._cov.double(), beam.energy.double())
+    segment_module.FUSED_SWEEP_PATH = False
+    try:
+        dense, _ = functional.track(lattice64, beam64)
+        dense_grads = torch.autograd.grad(loss_of(dense), tuned64)
+        dense32, _ = functional.track(lattice, beam)
+        dense32_grads = torch.autograd.grad(loss_of(dense32), tuned)
+    finally:
+        segment_module.FUSED_SWEEP_PATH = None
+
+    def errors(out, out_grads):
+        moments = max(relative_error(torch, a, b, per_setting=False) for a, b in (
+            (out.sigma_x, dense.sigma_x), (out.sigma_y, dense.sigma_y),
+            (out.mu_x, dense.mu_x), (out.mu_y, dense.mu_y)))
+        return moments, max(relative_error(torch, g, d, per_setting=False)
+                            for g, d in zip(out_grads, dense_grads))
+
+    moments, gradient = errors(outgoing, grads)
+    dense_moments, dense_gradient = errors(dense32, dense32_grads)
+    grad_bound = max(GRAD_RTOL, 2 * dense_gradient)
+    print(f"path L (sweep): against the dense route in double, of each quantity's largest"
+          f" |value|: the B3/B4 route (float) moments {moments:.2e}, gradients {gradient:.2e};"
+          f" the dense route in float {dense_moments:.2e}, {dense_gradient:.2e} (bounds"
+          f" {OBS_RTOL}, {grad_bound:.2e}: the larger of {GRAD_RTOL} and twice the dense float"
+          f" route's)")
+    if moments > OBS_RTOL or gradient > grad_bound:
+        raise AssertionError("path L: the B3/B4 route and the dense route disagree")
+
+    def forward():
+        functional.track(lattice, beam)
+
+    def both():
+        out, _ = functional.track(lattice, beam)
+        torch.autograd.grad(loss_of(out), tuned)
+
+    forward_ms, both_ms = cuda_ms(forward, iters=5), cuda_ms(both, iters=5)
+    device, b3 = device_ms(forward, iters=3, kernel="moment_sweep_kernel")
+    device_both, b4 = device_ms(both, iters=3, kernel="moment_sweep_bwd_kernel")
+    mu = torch.zeros((B, 7), device="cuda")
+    cov = torch.zeros((B, 7, 7), device="cuda")
+    full = torch.full((B,), 1.073e8, device="cuda")
+    b3_bound = b4_bound = 0.0
+    for run_entries, values in runs:
+        bounds = sweep_bounds(ft, run_entries, [v.float() for v in values], full, mu, cov)
+        b3_bound, b4_bound = b3_bound + bounds[0][0], b4_bound + bounds[1][0]
+    print(f"path L (sweep): forward {forward_ms:.4f} ms, value and gradient {both_ms:.4f} ms per"
+          f" call (CUDA events, 5 calls); device time forward {device:.4f} ms, of it B3 {b3:.5f}"
+          f" ms (bound {b3_bound:.5f} ms over the runs), value and gradient {device_both:.4f} ms,"
+          f" of it B4 {b4:.5f} ms (bound {b4_bound:.5f} ms) (torch.profiler, 3 calls; card {card})")
+    return launched
+
+
+def fodo_plan(torch, fused, B, device):
+    """The plan of fodo_lattice(FODO_CELLS) with every quadrupole's k1 per
+    setting (|k1| 0.5-5, drawn on the host from one seed) on ``device``:
+    ``(entries, values, energy)``, float64."""
+    from lynx_tpu_torch.models.fodo import fodo_lattice
+
+    lattice = fodo_lattice(FODO_CELLS, dtype=torch.float64, device=device)
+    gen = torch.Generator().manual_seed(63)
+    for element in lattice.elements:
+        if type(element).__name__ == "Quadrupole":
+            sign = 1.0 if float(element.k1) >= 0 else -1.0
+            k1 = sign * (0.5 + 4.5 * torch.rand(B, generator=gen, dtype=torch.float64))
+            element.k1 = k1.to(device)
+    energy = torch.tensor([1.073e8], dtype=torch.float64, device=device)
+    plan = fused.plan_run([fused.element_map_builder(el) for el in lattice.elements], energy,
+                          lambda x: torch.broadcast_to(x, (B,)).reshape(B))
+    entries = tuple((kind, meta, len(values)) for kind, meta, values in plan)
+    return entries, [v for _, _, vs in plan for v in vs], energy.expand(B).contiguous()
+
+
+def dense_total(torch, ft, tbl, entries, values, energy):
+    """The plain version's total map R_{E-1} ... R_0 of a plan as dense
+    (B, 7, 7) products, each map from the plain builders on the values'
+    device."""
+    B, dtype, device = energy.shape[0], energy.dtype, energy.device
+    total = torch.eye(7, dtype=dtype, device=device).expand(B, 7, 7)
+    offset = 0
+    for kind, meta, count in entries:
+        vals = list(values[offset:offset + count])
+        offset += count
+        table = meta(vals, energy) if kind == "dyn" else ft._table_from_layout(meta, vals)
+        total = tbl.table_to_batch_last(table, (B,), dtype, device).permute(2, 0, 1) @ total
+    return total
+
+
+def check_long_tape(torch, ft, fused, tbl, card):
+    """Fault C1: B4 on fodo_lattice(FODO_CELLS) with every quadrupole batched,
+    FODO_BATCH settings, float64: past the prefix products that one
+    setting's share of shared memory holds, so it walks the tape in
+    segments; against the plain version.  Beside it, the plain version's
+    own spread: its moments' cotangents from the maps built on the host
+    against those built on the card (two math libraries, two matmuls)."""
+    B = FODO_BATCH
+    entries, values, full = fodo_plan(torch, fused, B, "cuda")
+    library = ft.moment_sweep_bwd_library()
+    segment = library.lynx_moment_sweep_bwd_segment(1, len(entries))
+    tile = library.lynx_moment_sweep_bwd_tile(1, len(entries))
+    gen = torch.Generator(device="cuda").manual_seed(64)
+    mu, cov = random_moments(torch, B, gen)
+    dmu = torch.randn((B, 7), generator=gen, dtype=torch.float64, device="cuda")
+    dcov = torch.randn((B, 7, 7), generator=gen, dtype=torch.float64, device="cuda")
+    args = (entries, values, full, mu, cov, dmu, dcov)
+    launches = ft.moment_sweep_bwd.launches
+    kernel = ft.moment_sweep_bwd(*args)
+    torch.cuda.synchronize()
+    if ft.moment_sweep_bwd.launches != launches + 1:
+        raise AssertionError("C1: B4 did not launch")
+    errors = cotangent_errors(torch, ft, entries, values, kernel, ft._reference_sweep_vjp(*args),
+                              K1_SMALL_RTOL)
+
+    def moment_cotangents(total):
+        t = total.transpose(1, 2)
+        return (t @ dmu[..., None])[..., 0], t @ dcov @ total
+
+    host_plan = fodo_plan(torch, fused, B, "cpu")
+    host = moment_cotangents(dense_total(torch, ft, tbl, *host_plan).cuda())
+    spread = max(relative_error(torch, h, c) for h, c in
+                 zip(host, moment_cotangents(dense_total(torch, ft, tbl, entries, values, full))))
+    bound = max(DOUBLE_RTOL, SPREAD_FACTOR * spread)
+    device, own = device_ms(lambda: ft.moment_sweep_bwd(*args), iters=3,
+                                 kernel="moment_sweep_bwd_kernel")
+    print(f"C1: B4 on fodo_lattice({FODO_CELLS}), every quadrupole batched, B={B}, double:"
+          f" {len(entries)} tape entries in segments of {segment}, {tile} settings a block;"
+          f" against the plain version values {errors[0]:.2e}, moments {errors[1]:.2e}, energy"
+          f" {errors[3]:.2e} per setting (bound {bound:.2e}: {SPREAD_FACTOR} times the plain"
+          f" version's own spread in the moments' cotangents, maps built on the host against the"
+          f" card, {spread:.2e}); device time {own:.4f} ms (the wrapper's GPU work"
+          f" {device:.4f} ms; torch.profiler, 3 calls; card {card})")
+    if (len(entries) <= 514 or segment >= len(entries) or max(errors[:2]) > bound
+            or errors[3] > bound):
+        raise AssertionError("C1: B4 past the shared memory disagrees or did not take segments")
+    return errors
+
+
+# -- kernel B7: the count-histogram A/B ----------------------------------------
+
+
+def hist_bound(n, win):
+    """B7's bound, the same for both kernels: the indices read and the int32
+    window written once.  A count histogram needs no arithmetic beyond one
+    add a pair, so the bytes bound it."""
+    return (8 * n + 4 * win[0] * win[1]) / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def onehot_floor(n, win):
+    """The one-hot contraction's own floor, printed beside B7's bound: its 2
+    N_pad win_x win_y int8 operations (N_pad: N to the mma's 32 particles)
+    at the dense int8 rate.  It is the formulation's cost, not the
+    function's."""
+    return 2 * (-(-n // 32) * 32) * win[0] * win[1] / INT8_OPS_PER_S * 1e3
+
+
+def path_hist_ab(torch, hist, card):
+    """Kernel B7: every variant exactly against the plain version and
+    against B1's count mode on the harness's spot, on -1 pads and indices
+    past the window, on all-padded and ragged inputs; then the harness
+    (its JSON lines, its yardsticks) with the launch counts from 0."""
+    from lynx_tpu_torch.benchmarks import hist_ab
+
+    win_x, win_y = WINDOW
+    gen = torch.Generator(device="cuda").manual_seed(71)
+
+    def randint(low, high, n):
+        return torch.randint(low, high, (n,), generator=gen, device="cuda", dtype=torch.int32)
+
+    cases = {
+        "harness spot": hist_ab.workload(N_PARTICLES, WINDOW, seed=0),
+        "pads and indices past the window": (randint(-1, win_x + 40, N_PARTICLES + 5),
+                                             randint(-1, win_y + 40, N_PARTICLES + 5)),
+        "all padded": (torch.full((1000,), -1, dtype=torch.int32, device="cuda"),
+                       randint(0, win_y, 1000)),
+        "33 particles": (randint(0, win_x, 33), randint(0, win_y, 33)),
+    }
+    worst = 0
+    for label, (lx, ly) in cases.items():
+        plain = hist_ab.hist_ab_reference(lx, ly, win_x, win_y)
+        b1 = hist.window_histogram(lx[None].contiguous(), ly[None].contiguous(), None,
+                                   win_x, win_y)
+        for name, (wrapper, knob) in hist_ab.VARIANTS.items():
+            counts = wrapper(lx, ly, win_x, win_y, **knob)
+            torch.cuda.synchronize()
+            worst = max(worst, int((counts - plain).abs().max()))
+            if not (torch.equal(counts, plain) and torch.equal(counts, b1)):
+                raise AssertionError(f"B7 {name} differs from its plain version or B1: {label}")
+        print(f"B7 check {label}: N={lx.shape[0]}, every variant equal to the plain version"
+              f" and to B1's count mode (mass {int(plain.sum())})")
+
+    hist_ab.hist_onehot.launches = hist_ab.hist_twolevel.launches = 0
+    records = hist_ab.main(["--particles", str(N_PARTICLES), "--win", f"{win_x},{win_y}"])
+    launched = {"onehot": hist_ab.hist_onehot.launches,
+                "twolevel": hist_ab.hist_twolevel.launches}
+    if min(launched.values()) < 1:
+        raise AssertionError(f"B7: the harness did not launch both kernels: {launched}")
+    by_name = {r["variant"]: r for r in records}
+    lx, ly = cases["harness spot"]
+    plain_ms = cuda_ms(lambda: hist_ab.hist_ab_reference(lx, ly, win_x, win_y),
+                         iters=50)
+    timing = {}
+    for kernel in ("onehot", "twolevel"):
+        best = min((r for r in records if r["variant"].startswith(kernel)),
+                   key=lambda r: r["ms_per_read"])
+        timing[kernel] = dict(
+            ms=best["ms_per_read"], device_ms=best["device_ms"], variant=best["variant"],
+            plain_ms=plain_ms, bound=hist_bound(N_PARTICLES, WINDOW),
+            library_ms=by_name["torch.bincount"]["ms_per_read"],
+        )
+        t = timing[kernel]
+        floor = (f" (the one-hot formulation's int8 floor"
+                 f" {onehot_floor(N_PARTICLES, WINDOW):.5f} ms)" if kernel == "onehot" else "")
+        print(f"B7 {kernel} at the harness's shape (N={N_PARTICLES}, window {WINDOW}): fastest"
+              f" variant {t['variant']} {t['ms']:.5f} ms per read (CUDA events, 200 reads),"
+              f" device {t['device_ms']:.5f} ms (torch.profiler); plain {plain_ms:.4f} ms;"
+              f" bound {t['bound'][0]:.5f} ms ({t['bound'][1]}){floor}; B1's count mode"
+              f" {by_name['B1 window_histogram']['ms_per_read']:.5f} ms, device"
+              f" {by_name['B1 window_histogram']['device_ms']:.5f} ms; torch.bincount"
+              f" {t['library_ms']:.5f} ms, device {by_name['torch.bincount']['device_ms']:.5f} ms;"
+              f" card {card}")
+    return launched, timing, float(worst)
+
+
 def ptxas_report(log):
-    """``kernel<type> R registers, S/L bytes spilled`` for each kernel of an
-    nvcc -Xptxas -v report (spill stores / spill loads)."""
+    """``kernel<args> R registers, S/L bytes spilled`` for each kernel of an
+    nvcc -Xptxas -v report (spill stores / spill loads); template arguments
+    decoded from the mangled name (float, double, a bool, an int): B3's are
+    <T, kFull>, B4's <T, kFull, kSegmented>, B7's onehot <kChunk>."""
     import re
 
-    types = {"f": "<float>", "d": "<double>", None: ""}
+    words = {"f": "float", "d": "double", "Lb0E": "false", "Lb1E": "true"}
     found = []
     for chunk in log.split("Compiling entry function")[1:]:
-        name = re.match(r" '\w*?([a-z][a-z_]*_kernel)(?:I([fd])E)?", chunk)
+        name = re.match(r" '\w*?([a-z][a-z_]*_kernel)(?:I((?:[fd]|L[bi]\d+E)+)E)?", chunk)
         registers = re.search(r"Used (\d+) registers", chunk)
         spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", chunk)
         if name and registers:
+            args = re.findall(r"[fd]|L[bi]\d+E", name[2] or "")
+            args = [words.get(a, a[2:-1]) for a in args]
             spilled = (f"{spills[1]}/{spills[2]} bytes spilled" if spills
                        else "spills not reported")
-            found.append(f"{name[1]}{types[name[2]]} {registers[1]} registers, {spilled}")
+            found.append(f"{name[1]}{'<' + ', '.join(args) + '>' if args else ''}"
+                         f" {registers[1]} registers, {spilled}")
     return "; ".join(found)
 
 
@@ -1443,6 +1947,7 @@ def main():
     from lynx_tpu_torch.accelerator import fused
     from lynx_tpu_torch.accelerator import segment as segment_module
     from lynx_tpu_torch.accelerator.screen import screen_histogram_args
+    from lynx_tpu_torch.benchmarks import hist_ab
     from lynx_tpu_torch.models import ares
     from lynx_tpu_torch.ops import fused_track as ft
     from lynx_tpu_torch.ops import histogram as hist
@@ -1453,7 +1958,8 @@ def main():
     _build.build_libraries(KERNEL_LIBRARIES)
     for load in (hist.window_histogram_library, ft.particle_apply_library,
                  ft.moment_sweep_library, ft.moment_sweep_bwd_library,
-                 ft.particle_moment_sweep_library, ft.packed_gram_library):
+                 ft.particle_moment_sweep_library, ft.packed_gram_library,
+                 hist_ab.hist_ab_library):
         load()
     print(f"build: {', '.join(KERNEL_LIBRARIES)} (one nvcc each, in parallel) in"
           f" {time.perf_counter() - start:.2f} s")
@@ -1466,6 +1972,7 @@ def main():
     sweep_abs_err = check_sweep_kernels(torch, ltt, ft, fused, env)
     push_abs_err = check_push_kernel(torch, ft, fused, tbl)
     moment_abs_err = check_moment_kernels(torch, ltt, ft, fused, env, ParticleBeam)
+    check_long_tape(torch, ft, fused, tbl, card)
 
     # -- 4. the main path ---------------------------------------------------
     seg1, beam1 = flagship(torch, ares, ParticleBeam, 1, "cuda", seed=0)
@@ -1511,7 +2018,7 @@ def main():
     # -- 5. times ------------------------------------------------------------
     rates = {}
     for label, segment, beam, batch in (("B=1", seg1, beam1, 1), ("B=8", seg8, beam8, 8)):
-        ms = time_cuda(torch, lambda: functional.track(segment, beam), iters=50)
+        ms = cuda_ms(lambda: functional.track(segment, beam), iters=50)
         rates[label] = batch * 1000.0 / ms
         print(f"flagship track + read {label}: {ms:.4f} ms/call, {rates[label]:.1f} tracks/s"
               f" (CUDA events, 50 calls after warm-up; card {card})")
@@ -1533,33 +2040,36 @@ def main():
     )
     if not bool(fits.all()):
         raise AssertionError("the flagship spot does not fit the window")
-    kernel_ms = time_cuda(torch, lambda: hist.window_histogram(lx, ly, None, *window), iters=200)
-    plain_ms = time_cuda(
-        torch, lambda: hist.window_histogram_reference(lx, ly, None, *window), iters=200
-    )
-    scatter_ms = time_cuda(
-        torch,
+    kernel_ms = cuda_ms(lambda: hist.window_histogram(lx, ly, None, *window), iters=200)
+    plain_ms = cuda_ms(lambda: hist.window_histogram_reference(lx, ly, None, *window), iters=200)
+    scatter_ms = cuda_ms(
         lambda: hist.weighted_histogram_2d(
             args["x"], args["y"], args["weights"], args["x_range"], args["y_range"], args["bins"]
         ),
         iters=200,
     )
     # Bound: the two index arrays read and the int32 window written once.
-    hist_bound = bound(nbytes(lx, ly) + window[0] * window[1] * 4, lx.numel())
+    b1_bound = bound(nbytes(lx, ly) + window[0] * window[1] * 4, lx.numel())
     print(f"B1 at the flagship read (B=1, N={N_PARTICLES}, window {window}, count mode):"
           f" kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms,"
           f" full-image scatter {scatter_ms:.4f} ms per call (CUDA events, 200 calls"
-          f" back to back, host launch cost included); bound {hist_bound[0]:.5f} ms"
-          f" ({hist_bound[1]}); card {card}")
-    kernel_device = device_time_ms(
-        torch, lambda: hist.window_histogram(lx, ly, None, *window), iters=50
-    )
-    plain_device = device_time_ms(
-        torch, lambda: hist.window_histogram_reference(lx, ly, None, *window), iters=50
+          f" back to back, host launch cost included); bound {b1_bound[0]:.5f} ms"
+          f" ({b1_bound[1]}); card {card}")
+    kernel_device = device_ms(lambda: hist.window_histogram(lx, ly, None, *window), iters=50)
+    plain_device = device_ms(
+        lambda: hist.window_histogram_reference(lx, ly, None, *window), iters=50
     )
     print(f"B1 at the flagship read, device time of the GPU work per call"
           f" (output zeroing included): kernel {kernel_device:.5f} ms,"
           f" plain {plain_device:.5f} ms (torch.profiler, 50 calls; card {card})")
+    # The one PyTorch call of B1's count mode: torch.bincount of the
+    # in-window pairs' flat indices (the mask taken once, outside).
+    inside = (lx >= 0) & (lx < window[0]) & (ly >= 0) & (ly < window[1])
+    flat = lx[inside].long() * window[1] + ly[inside].long()
+    bincount_ms = cuda_ms(lambda: torch.bincount(flat, minlength=window[0] * window[1]), iters=200
+    )
+    print(f"B1's library call at the flagship read: torch.bincount {bincount_ms:.5f} ms per call"
+          f" (CUDA events, 200 calls; card {card})")
 
     # -- 6. the batched-settings paths ---------------------------------------
     serving_launches = path_serving(torch, ft, hist, envs, env, card)
@@ -1574,8 +2084,14 @@ def main():
     crossover(torch, ltt, ft, fused, ParticleBeam, card)
     timing.update(time_moment_kernels(torch, ltt, ft, fused, env, ParticleBeam, card))
 
-    # -- 8. results ----------------------------------------------------------
-    timing["B1"] = dict(ms=kernel_ms, plain_ms=plain_ms, bound=hist_bound, library_ms=None)
+    # -- 8. the full ARES lattice and kernel B7 ---------------------------------
+    path_lattice_read(torch, ares, functional, hist, ParticleBeam, ltt.ParameterBeam, card)
+    path_lattice_sweep(torch, ltt, ares, ft, fused, hist, functional, segment_module, card)
+    hist_launches, hist_timing, hist_abs_err = path_hist_ab(torch, hist, card)
+
+    # -- 9. results ----------------------------------------------------------
+    timing["B1"] = dict(ms=kernel_ms, plain_ms=plain_ms, bound=b1_bound, library_ms=bincount_ms)
+    timing["B7 onehot"], timing["B7 twolevel"] = hist_timing["onehot"], hist_timing["twolevel"]
     kernels = []
     for name, label, source, replaces, launched, error in (
         ("window_histogram", "B1", "window_histogram.cu", "lynx_tpu/ops/histogram.py:250",
@@ -1590,6 +2106,10 @@ def main():
          "lynx_tpu/ops/pallas_track.py:633", walk_launches, moment_abs_err["B5"]),
         ("packed_gram", "B6", "packed_gram.cu", "lynx_tpu/ops/pallas_track.py:823",
          env_gram_launches + aperture_gram_launches, moment_abs_err["B6"]),
+        ("hist_onehot", "B7 onehot", "hist_ab.cu", "benchmarks/hist_ab.py:94",
+         hist_launches["onehot"], hist_abs_err),
+        ("hist_twolevel", "B7 twolevel", "hist_ab.cu", "benchmarks/hist_ab.py:50",
+         hist_launches["twolevel"], hist_abs_err),
     ):
         t = timing[label]
         kernels.append({

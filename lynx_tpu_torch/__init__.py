@@ -1,11 +1,13 @@
 """lynx-tpu's PyTorch port, for NVIDIA Hopper GPUs.
 
-Ported so far: the ARES Experimental Area track of a ParticleBeam and the
-screen read, with the windowed screen histogram as a hand-written CUDA
-kernel (``csrc/window_histogram.cu``); and the batched-settings sweep: the
+Ported so far: every element type of the full ARES lattice and its
+loader; the ARES Experimental Area track of a ParticleBeam and the screen
+read, with the windowed screen histogram as a hand-written CUDA kernel
+(``csrc/window_histogram.cu``); and the batched-settings sweep: the
 ARES-EA environment (``envs``), the gradient tuner (``tuning``), the fused
-ParameterBeam sweep with its backward and the per-setting particle push,
-as hand-written CUDA kernels (``ops/fused_track.py``).  ``lynx_tpu`` (JAX)
+ParameterBeam sweep with its backward, the per-setting particle push and
+the particle moment sweep, as hand-written CUDA kernels
+(``ops/fused_track.py``).  ``lynx_tpu`` (JAX)
 is the reference the port is held against; this package never imports JAX.
 """
 
@@ -13,13 +15,19 @@ from lynx_tpu_torch import functional  # noqa: F401
 from lynx_tpu_torch.accelerator import (  # noqa: F401
     BPM,
     Aperture,
+    Cavity,
+    CustomTransferMap,
+    Dipole,
     Drift,
     Element,
     HorizontalCorrector,
     Marker,
     Quadrupole,
+    RBend,
     Screen,
     Segment,
+    Solenoid,
+    Undulator,
     VerticalCorrector,
 )
 from lynx_tpu_torch.functional import track  # noqa: F401

@@ -133,5 +133,9 @@ class Aperture(Element):
     def split(self, resolution: float) -> list:
         return [self]
 
+    @property
+    def defining_features(self) -> list:
+        return super().defining_features + ["x_max", "y_max", "shape", "is_active"]
+
     def extra_repr(self) -> str:
         return f"shape={self.shape!r}, is_active={self.is_active!r}, name={self.name!r}"

@@ -68,6 +68,27 @@ class _Corrector(Element):
     def is_skippable(self) -> bool:
         return True
 
+    @property
+    def is_active(self) -> bool:
+        return bool(torch.any(self.angle != 0))
+
+    def split(self, resolution: float) -> list:
+        """Slices sharing the kick in proportion to their length."""
+        pieces = []
+        total = float(torch.max(self.length))
+        remaining = total
+        while remaining > 1e-6:  # ignore sub-micron float residue
+            piece = min(float(resolution), remaining)
+            pieces.append(
+                self.__class__(torch.full_like(self.length, piece), self.angle * piece / total)
+            )
+            remaining -= piece
+        return pieces
+
+    @property
+    def defining_features(self) -> list:
+        return super().defining_features + ["length", "angle"]
+
 
 class HorizontalCorrector(_Corrector):
     """Horizontal corrector: drift + thin kick x' += angle."""

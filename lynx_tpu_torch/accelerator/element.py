@@ -20,6 +20,9 @@ from lynx_tpu_torch.utils import UniqueNameGenerator, resolve_device
 
 generate_unique_name = UniqueNameGenerator(prefix="unnamed_element")
 
+#: Defining features whose value lives under another attribute name.
+_FEATURE_ATTRS = {"transfer_map": "_transfer_map"}
+
 
 def as_field(value, dtype: Optional[torch.dtype], device) -> torch.Tensor:
     """A tensor for an element field (lists, numbers and numpy arrays too)."""
@@ -164,6 +167,41 @@ class Element(nn.Module):
         """Whether the element is purely linear, so that its map can be
         fused with its neighbours' during tracking."""
         raise NotImplementedError
+
+    def split(self, resolution: float) -> list:
+        """Split into slices no longer than ``resolution`` meters."""
+        raise NotImplementedError
+
+    # -- equality ------------------------------------------------------------
+    @property
+    def defining_features(self) -> list:
+        """Names of the features that define the element (for equality)."""
+        return []
+
+    def feature(self, name: str):
+        """The value of a defining feature (``transfer_map`` is a
+        CustomTransferMap's map, not its method)."""
+        return getattr(self, _FEATURE_ATTRS.get(name, name))
+
+    def __eq__(self, other) -> bool:
+        """Equal type and equal defining features, tensors by shape and
+        value (the JAX package's rule); names are not compared."""
+        if type(self) is not type(other):
+            return NotImplemented
+        for name in self.defining_features:
+            a, b = self.feature(name), other.feature(name)
+            if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+                a, b = torch.as_tensor(a), torch.as_tensor(b)
+                if a.shape != b.shape or not bool(torch.all(a == b.to(a.device))):
+                    return False
+            elif a != b:
+                return False
+        return True
+
+    def __hash__(self) -> int:
+        # By identity, as in the JAX package: nn.Module's bookkeeping keeps
+        # modules in sets and dicts.
+        return id(self)
 
     def extra_repr(self) -> str:
         return f"name={self.name!r}"

@@ -8,10 +8,10 @@ PyTorch; the CUDA kernels B3 and B4 carry a device function per builder
 that repeats it op for op, named by the builder's ``tape_kind``
 (``ops/fused_track.py``).
 
-Ported types: Drift, Quadrupole, the horizontal and vertical correctors,
-and the identity of Marker, BPM, Screen and Aperture (only an inactive BPM,
-screen or aperture is skippable).  The builders of the other element types
-come with their elements.
+Types: Drift, Quadrupole, the horizontal and vertical correctors, an
+inactive Cavity, Undulator, Solenoid, Dipole and RBend, CustomTransferMap,
+and the identity of Marker, BPM, Screen and Aperture (only an inactive
+cavity, BPM, screen or aperture is skippable).
 
 :func:`particle_moment_plan` builds the plan of the particle moment sweep
 (kernels B5 and B6, ``ops/fused_track.fused_particle_moment_sweep``).
@@ -25,21 +25,38 @@ import torch
 
 from lynx_tpu_torch.accelerator.aperture import Aperture
 from lynx_tpu_torch.accelerator.bpm import BPM
+from lynx_tpu_torch.accelerator.cavity import Cavity
 from lynx_tpu_torch.accelerator.correctors import HorizontalCorrector, VerticalCorrector
+from lynx_tpu_torch.accelerator.custom_transfer_map import CustomTransferMap
+from lynx_tpu_torch.accelerator.dipole import Dipole, RBend, dipole_hx
 from lynx_tpu_torch.accelerator.drift import Drift
 from lynx_tpu_torch.accelerator.marker import Marker
 from lynx_tpu_torch.accelerator.quadrupole import Quadrupole
 from lynx_tpu_torch.accelerator.screen import Screen
+from lynx_tpu_torch.accelerator.solenoid import Solenoid, solenoid_entries
+from lynx_tpu_torch.accelerator.undulator import Undulator
 from lynx_tpu_torch.ops import table as tbl
 from lynx_tpu_torch.ops.fused_track import (
+    TAPE_CAVITY,
+    TAPE_CUSTOM,
+    TAPE_DIPOLE,
     TAPE_DRIFT,
     TAPE_HCOR,
     TAPE_IDENTITY,
     TAPE_QUAD,
+    TAPE_SOLENOID,
+    TAPE_UNDULATOR,
     TAPE_VCOR,
     _split_table,
 )
-from lynx_tpu_torch.ops.rmatrix import base_rmatrix_table, drift_rmatrix_entries
+from lynx_tpu_torch.ops.rmatrix import (
+    base_rmatrix_entries,
+    base_rmatrix_table,
+    cavity_rmatrix_entries,
+    drift_rmatrix_entries,
+    igamma2_from_energy,
+    rotation_entries,
+)
 
 Tensor = torch.Tensor
 
@@ -78,12 +95,70 @@ def _build_identity(params, energy):
     return tbl.identity_table()
 
 
+def _build_cavity(params, energy):
+    length, voltage, phase, frequency = params
+    entries, _, _ = cavity_rmatrix_entries(length, voltage, phase, frequency, energy)
+    return tbl.entries_to_table(entries)
+
+
+def _build_undulator(params, energy):
+    (length,) = params
+    igamma2 = igamma2_from_energy(energy, zero_value=0.0)
+    return tbl.entries_to_table({(0, 1): length, (2, 3): length, (4, 5): length * igamma2})
+
+
+def _misaligned(T, mx, my):
+    entry = tbl.entries_to_table({(0, 6): -mx, (2, 6): -my})
+    exit_ = tbl.entries_to_table({(0, 6): mx, (2, 6): my})
+    return tbl.compose(exit_, tbl.compose(T, entry))
+
+
+def _build_solenoid(params, energy):
+    length, k, mx, my = params
+    return _misaligned(tbl.entries_to_table(solenoid_entries(length, k, energy)), mx, my)
+
+
+def _build_dipole(params, energy):
+    length, angle, e1, e2, tilt, fint, fintx, gap = params
+    zero_length = length == 0
+    hx = dipole_hx(length, angle)
+    body_entries, _, _, _ = base_rmatrix_entries(
+        length=torch.where(zero_length, 1.0, length),
+        k1=torch.zeros_like(length),
+        hx=hx,
+        tilt=torch.zeros_like(length),
+        energy=energy,
+    )
+    body = tbl.entries_to_table(body_entries)
+    thin = tbl.entries_to_table({(0, 1): length, (2, 6): angle, (2, 3): length})
+    R = tbl.where_table(zero_length, thin, body)
+
+    def edge(e, fi):
+        sec_e = 1.0 / torch.cos(e)
+        phi = fi * hx * gap * sec_e * (1 + torch.sin(e) ** 2)
+        return tbl.entries_to_table({(1, 0): hx * torch.tan(e), (3, 2): -hx * torch.tan(e - phi)})
+
+    R = tbl.compose(edge(e2, fintx), tbl.compose(R, edge(e1, fint)))
+    rot_fwd = tbl.entries_to_table(rotation_entries(tilt))
+    rot_bwd = tbl.entries_to_table(rotation_entries(-tilt))
+    return tbl.compose(rot_bwd, tbl.compose(R, rot_fwd))
+
+
+def _build_custom(params, energy):
+    return [[params[i * 7 + j] for j in range(7)] for i in range(7)]
+
+
 # The kernels' device function for each builder.
 _build_drift.tape_kind = TAPE_DRIFT
 _build_quadrupole.tape_kind = TAPE_QUAD
 _build_horizontal_corrector.tape_kind = TAPE_HCOR
 _build_vertical_corrector.tape_kind = TAPE_VCOR
 _build_identity.tape_kind = TAPE_IDENTITY
+_build_cavity.tape_kind = TAPE_CAVITY
+_build_undulator.tape_kind = TAPE_UNDULATOR
+_build_solenoid.tape_kind = TAPE_SOLENOID
+_build_dipole.tape_kind = TAPE_DIPOLE
+_build_custom.tape_kind = TAPE_CUSTOM
 
 
 def element_map_builder(element) -> Optional[Builder]:
@@ -106,8 +181,30 @@ def element_map_builder(element) -> Optional[Builder]:
         return [element.length, element.angle], _build_horizontal_corrector
     if isinstance(element, VerticalCorrector):
         return [element.length, element.angle], _build_vertical_corrector
+    if type(element) is Cavity:  # reached only when inactive (skippable)
+        return (
+            [element.length, element.voltage, element.phase, element.frequency],
+            _build_cavity,
+        )
     if isinstance(element, (Marker, BPM, Screen, Aperture)):
         return [], _build_identity
+    if isinstance(element, Undulator):
+        return [element.length], _build_undulator
+    if isinstance(element, Solenoid):
+        return (
+            [element.length, element.k, element.misalignment[..., 0],
+             element.misalignment[..., 1]],
+            _build_solenoid,
+        )
+    if type(element) in (Dipole, RBend):
+        return (
+            [element.length, element.angle, element.e1, element.e2, element.tilt,
+             element.fringe_integral, element.fringe_integral_exit, element.gap],
+            _build_dipole,
+        )
+    if isinstance(element, CustomTransferMap):
+        tm = element._transfer_map
+        return [tm[..., i, j] for i in range(7) for j in range(7)], _build_custom
     return None
 
 

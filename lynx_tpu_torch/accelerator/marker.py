@@ -39,3 +39,6 @@ class Marker(Element):
     @property
     def is_skippable(self) -> bool:
         return True
+
+    def split(self, resolution: float) -> list:
+        return [self]

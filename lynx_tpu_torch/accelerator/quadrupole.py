@@ -74,3 +74,23 @@ class Quadrupole(Element):
     @property
     def is_skippable(self) -> bool:
         return True
+
+    @property
+    def is_active(self) -> bool:
+        return bool(torch.any(self.k1 != 0))
+
+    def split(self, resolution: float) -> list:
+        pieces = []
+        remaining = float(torch.max(self.length))
+        while remaining > 1e-6:  # ignore sub-micron float residue
+            piece = min(float(resolution), remaining)
+            pieces.append(
+                Quadrupole(torch.full_like(self.length, piece), self.k1,
+                           misalignment=self.misalignment, tilt=self.tilt)
+            )
+            remaining -= piece
+        return pieces
+
+    @property
+    def defining_features(self) -> list:
+        return super().defining_features + ["length", "k1", "misalignment", "tilt"]

@@ -289,6 +289,15 @@ class Screen(Element):
         self.cached_reading = image
         return image
 
+    def split(self, resolution: float) -> list:
+        return [self]
+
+    @property
+    def defining_features(self) -> list:
+        return super().defining_features + [
+            "resolution", "pixel_size", "binning", "misalignment", "is_active",
+        ]
+
     def get_read_beam(self) -> Beam:
         return self._read_beam
 

@@ -231,6 +231,95 @@ class Segment(Element):
             name=self.name,
         )
 
+    def split(self, resolution: float) -> list:
+        return [piece for element in self.elements for piece in element.split(resolution)]
+
+    @property
+    def defining_features(self) -> list:
+        return super().defining_features + ["elements"]
+
+    def feature(self, name: str):
+        # The elements as a list: nn.ModuleList compares by identity.
+        return list(self.elements) if name == "elements" else super().feature(name)
+
+    def transfer_maps_merged(
+        self, incoming_beam: Beam, except_for: Optional[list] = None
+    ) -> "Segment":
+        """Merge runs of skippable elements into ``CustomTransferMap``s; the
+        beam fixes each element's entrance energy.
+
+        :param except_for: Names of elements to keep unmerged (e.g. the
+            magnets that will be re-tuned between trackings)."""
+        from lynx_tpu_torch.accelerator.custom_transfer_map import CustomTransferMap
+
+        except_for = except_for or []
+        merged: List[Element] = []
+        run: List[Element] = []
+        tracked = incoming_beam
+
+        def flush() -> None:
+            nonlocal tracked
+            if len(run) == 1:
+                merged.append(run[0])
+                tracked = run[0].track(tracked)
+            elif len(run) > 1:
+                merged.append(CustomTransferMap.from_merging_elements(run, incoming_beam=tracked))
+                tracked = merged[-1].track(tracked)
+            run.clear()
+
+        for element in self.elements:
+            if element.is_skippable and element.name not in except_for:
+                run.append(element)
+                continue
+            flush()
+            merged.append(element)
+            tracked = element.track(tracked)
+        flush()
+        return Segment(elements=merged, name=self.name)
+
+    def without_inactive_markers(self, except_for: Optional[list] = None) -> "Segment":
+        """The segment without its markers (except those named)."""
+        from lynx_tpu_torch.accelerator.marker import Marker
+
+        except_for = except_for or []
+        return Segment(
+            elements=[
+                element for element in self.elements
+                if not isinstance(element, Marker) or element.name in except_for
+            ],
+            name=self.name,
+        )
+
+    def without_inactive_zero_length_elements(self, except_for: Optional[list] = None) -> "Segment":
+        """The segment without its inactive elements of zero length."""
+        except_for = except_for or []
+        return Segment(
+            elements=[
+                element for element in self.elements
+                if bool(torch.any(element.length > 0.0))
+                or getattr(element, "is_active", False)
+                or element.name in except_for
+            ],
+            name=self.name,
+        )
+
+    def inactive_elements_as_drifts(self, except_for: Optional[list] = None) -> "Segment":
+        """Inactive elements that have a length replaced by plain drifts."""
+        from lynx_tpu_torch.accelerator.drift import Drift
+
+        except_for = except_for or []
+        return Segment(
+            elements=[
+                element
+                if getattr(element, "is_active", False)
+                or bool(torch.all(element.length == 0.0))
+                or element.name in except_for
+                else Drift(element.length, name=element.name)
+                for element in self.elements
+            ],
+            name=self.name,
+        )
+
     # -- physics -----------------------------------------------------------
     @property
     def is_skippable(self) -> bool:
@@ -238,9 +327,21 @@ class Segment(Element):
 
     @property
     def length(self) -> torch.Tensor:
+        """The summed lengths, a tensor of the elements' joint batch shape
+        (0-d for an empty segment)."""
         lengths = [element.length for element in self.elements]
         batch_shape = torch.broadcast_shapes(*(l.shape for l in lengths))
-        return sum(torch.broadcast_to(l, batch_shape) for l in lengths)
+        zeros = dict(dtype=promoted_dtype(*lengths), device=lengths[0].device) if lengths else {}
+        return sum(
+            (torch.broadcast_to(l, batch_shape) for l in lengths),
+            start=torch.zeros(batch_shape, **zeros),
+        )
+
+    def transfer_map(self, energy: torch.Tensor) -> Optional[torch.Tensor]:
+        """The folded map of a skippable segment, else ``None``."""
+        if self.is_skippable:
+            return stacked_transfer_map(list(self.elements), energy)
+        return None
 
     def track(self, incoming: Beam) -> Beam:
         """Track a beam through the segment: runs of skippable elements go

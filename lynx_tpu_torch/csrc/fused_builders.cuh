@@ -6,9 +6,15 @@
 // (lynx_tpu_torch/accelerator/fused.py over ops/rmatrix.py, the same
 // formulas as the JAX package's lynx_tpu/accelerator/fused.py): the
 // additive k1 + 1e-12 at k1 == 0, _cos_sinc's small-argument series below
-// 0.1 and exp forms above, the tilt sandwich, the misalignment entry/exit
-// and the corrector's kick row.  A builder's products skip its factors'
-// structural zeros and ones (matmul7_support), and so does B3's chain
+// 0.1 and exp forms above, the tilt sandwich, the misalignment entry/exit,
+// the corrector's kick row, the inactive cavity's reparametrised map, the
+// solenoid's Chao block and the dipole's body, thin branch and edge maps.
+// A torch.where of the plain version becomes a branch on the value: only the
+// branch taken is evaluated, so the other branch's guards (its division by
+// a safe 1) never reach a derivative, as in autograd of the where.  A
+// builder's products skip its factors' structural zeros and ones
+// (matmul7_support, or in place for the sparse factors of the solenoid and
+// the dipole), and so does B3's chain
 // (compose_support) over each entry's support (a dynamic entry's from its
 // builder, a const entry's from its support class): a structural zero would
 // contribute an exact 0 and a structural one an exact product, so the values
@@ -37,7 +43,18 @@ enum TapeKind : int {
   kHCor = 3,
   kVCor = 4,
   kIdentity = 5,
+  kCavity = 6,     // an inactive cavity (an active one is not skippable)
+  kUndulator = 7,
+  kSolenoid = 8,
+  kDipole = 9,     // Dipole and RBend
+  kCustom = 10,    // a CustomTransferMap: its 49 cells are its parameters
 };
+
+// The first kind that only the kernels' full instantiation builds: a tape
+// of the older kinds runs an instantiation without the newer builders, whose
+// registers it does not pay for.
+constexpr int kFirstFullKind = kCavity;
+constexpr int kMaxParams = 8;  // a dipole's; a custom map's cells are read like a const entry's
 
 // Support classes of a const entry's map; lynx_tpu_torch/ops/fused_track.py
 // has the same codes and masks (_CONST_SUPPORTS).
@@ -60,9 +77,26 @@ struct TapeEntry {
   int support;
 };
 
+// Parameters of a dynamic entry of `kind`; without kFull only the kinds
+// below kFirstFullKind are asked, in fewer compares.
+template <bool kFull = true>
 __host__ __device__ constexpr int tape_params(int kind) {
-  return kind == kDrift ? 1 : kind == kQuad ? 5 : (kind == kHCor || kind == kVCor) ? 2 : 0;
+  if (!kFull) return kind == kDrift ? 1 : kind == kQuad ? 5 : (kind == kHCor || kind == kVCor) ? 2 : 0;
+  return kind == kDrift || kind == kUndulator ? 1
+         : kind == kQuad                      ? 5
+         : kind == kHCor || kind == kVCor     ? 2
+         : kind == kCavity || kind == kSolenoid ? 4
+         : kind == kDipole                    ? 8
+         : kind == kCustom                    ? 49
+                                              : 0;
 }
+
+// Besides the rest energy of ops/rmatrix.py (m_e c^2 / e, `rest`), the
+// cavity takes the CODATA electron mass (`mass`), both in eV and passed in
+// from lynx_tpu_torch.constants.
+constexpr double kSpeedOfLight = 299792458.0;  // m/s, exact
+constexpr double kPi = 3.14159265358979323846;
+constexpr double kDegToRad = 0.017453292519943295769236907684886127134428718885417;  // torch.deg2rad
 
 // -- scalars -------------------------------------------------------------
 
@@ -123,6 +157,10 @@ __device__ __forceinline__ float cos_(float x) { return cosf(x); }
 __device__ __forceinline__ double cos_(double x) { return cos(x); }
 __device__ __forceinline__ float sin_(float x) { return sinf(x); }
 __device__ __forceinline__ double sin_(double x) { return sin(x); }
+__device__ __forceinline__ float tan_(float x) { return tanf(x); }
+__device__ __forceinline__ double tan_(double x) { return tan(x); }
+__device__ __forceinline__ float log1p_(float x) { return log1pf(x); }
+__device__ __forceinline__ double log1p_(double x) { return log1p(x); }
 
 template <typename T>
 __device__ __forceinline__ Dual<T> sqrt_(Dual<T> a) {
@@ -143,6 +181,13 @@ template <typename T>
 __device__ __forceinline__ Dual<T> cos_(Dual<T> a) { return {cos_(a.v), -sin_(a.v) * a.d}; }
 template <typename T>
 __device__ __forceinline__ Dual<T> sin_(Dual<T> a) { return {sin_(a.v), cos_(a.v) * a.d}; }
+template <typename T>
+__device__ __forceinline__ Dual<T> tan_(Dual<T> a) {
+  const T t = tan_(a.v);
+  return {t, (T(1) + t * t) * a.d};
+}
+template <typename T>
+__device__ __forceinline__ Dual<T> log1p_(Dual<T> a) { return {log1p_(a.v), a.d / (a.v + T(1))}; }
 
 // -- 7x7 maps (row-major, 49 cells) -----------------------------------------
 
@@ -400,16 +445,360 @@ __device__ __forceinline__ void build_quadrupole(const S* p, S energy, T rest, S
   matmul7_support<kShift, kShiftOnes, kEntered, kEnteredOnes>(M, tmp, R);
 }
 
-// The map of a dynamic entry: p holds tape_params(kind) parameters.  Inlined
-// into the caller, so that the maps stay in registers.
+// -- the full lattice's kinds (kFirstFullKind on) ---------------------------
+
+// cavity_rmatrix_entries(length, voltage, phase, frequency, energy) of
+// p = (length, voltage, phase, frequency), into R.
 template <typename T, typename S>
-__device__ __forceinline__ void build_dynamic(int kind, const S* p, S energy, T rest, S* R) {
+__device__ __forceinline__ void build_cavity(const S* p, S energy, T rest, T mass, S* R) {
+  const S length = p[0], voltage = p[1];
+  const S phi = p[2] * T(kDegToRad);
+  const S cos_phi = cos_(phi), sin_phi = sin_(phi);
+  const bool has_beam = value_of(energy) != T(0);
+  const S Ei = (has_beam ? energy : S(T(1))) / mass;
+  const S Vm = voltage / mass;
+  S x = Vm * cos_phi / Ei;
+  S Ef = Ei * (T(1) + x);
+  const bool valid = has_beam && value_of(Ef) > T(1);
+  set_identity(R);
+  if (!valid) {  // no beam, or fully decelerated: the drift's map
+    const S igamma2 = igamma2_from_energy<T>(energy, rest, T(0));
+    const S beta2 = T(1) - igamma2;
+    R[0 * 7 + 1] = length;
+    R[2 * 7 + 3] = length;
+    R[4 * 7 + 5] = -length * safe_div<T>(igamma2, beta2, S(T(0)));
+    return;
+  }
+  const S lx = value_of(x) == T(0) ? S(T(1)) : log1p_(x) / x;  // ln(1 + x) / x
+  const S alpha = T(0.3535533905932738) * (Vm / Ei) * lx;       // sqrt(eta / 8)
+  const S sin_alpha = sin_(alpha), cos_alpha = cos_(alpha);
+  const T sqrt2 = T(1.4142135623730951);                           // sqrt(2 / eta)
+  const S r11 = cos_alpha - sqrt2 * cos_phi * sin_alpha;
+  const S r12 =
+      value_of(Vm) == T(0) ? length : T(2.8284271247461903) * length * (Ei / Vm) * sin_alpha;
+  const S r21 = -(Vm / (length * Ef)) * sin_alpha *
+                (cos_phi * cos_phi / T(1.4142135623730951) + T(0.3535533905932738));
+  const S r22 = Ei / Ef * (cos_alpha + sqrt2 * cos_phi * sin_alpha);
+  const S beta0 = sqrt_(T(1) - T(1) / (Ei * Ei));
+  const S beta1 = sqrt_(T(1) - T(1) / (Ef * Ef));
+  const S k = T(2.0 * kPi) * p[3] / T(kSpeedOfLight);
+  const S r56 = -length / (Ef * Ef * Ei * beta1) * (Ef + Ei) / (beta1 + beta0);
+  const S gb_sum = Ei * beta0 + Ef * beta1;
+  const S ratio = (Ei + Ef) / (value_of(gb_sum) == T(0) ? S(T(1)) : gb_sum);
+  const S r55_cor = -k * length * beta0 * Vm * sin_phi * (T(1) + ratio * ratio) /
+                    (T(2) * Ei * Ef * (T(1) + beta0 * beta1) * beta1 * Ef);
+  R[0 * 7 + 0] = r11;
+  R[0 * 7 + 1] = r12;
+  R[1 * 7 + 0] = r21;
+  R[1 * 7 + 1] = r22;
+  R[2 * 7 + 2] = r11;
+  R[2 * 7 + 3] = r12;
+  R[3 * 7 + 2] = r21;
+  R[3 * 7 + 3] = r22;
+  R[4 * 7 + 4] = T(1) + r55_cor;
+  R[4 * 7 + 5] = r56;
+  R[5 * 7 + 4] = k * sin_phi * Vm / (Ef * beta1);
+  R[5 * 7 + 5] = Ei / Ef * beta0 / beta1;
+}
+
+// _build_undulator: a drift with r56 = L / gamma^2, into an identity R.
+template <typename T, typename S>
+__device__ __forceinline__ void undulator_entries(S length, S energy, T rest, S* R) {
+  R[0 * 7 + 1] = length;
+  R[2 * 7 + 3] = length;
+  R[4 * 7 + 5] = length * igamma2_from_energy<T>(energy, rest, T(0));
+}
+
+// solenoid_entries(length, k, energy) into R.
+template <typename T, typename S>
+__device__ __forceinline__ void solenoid_body(S length, S k, S energy, T rest, S* R) {
+  const S gamma = energy / rest;
+  const S c = cos_(length * k), s = sin_(length * k);
+  const S s_k = value_of(k) == T(0) ? length : s / k;
+  S r56 = S(T(0));
+  if (value_of(gamma) != T(0)) {
+    const S b2g2 = gamma * gamma - T(1);
+    r56 = -length / (value_of(b2g2) == T(0) ? S(T(1)) : b2g2);
+  }
+  const S c2 = c * c, sc = s * c, s2 = s * s;
+  set_identity(R);
+  R[0 * 7 + 0] = c2;
+  R[0 * 7 + 1] = c * s_k;
+  R[0 * 7 + 2] = sc;
+  R[0 * 7 + 3] = s * s_k;
+  R[1 * 7 + 0] = -k * s * c;
+  R[1 * 7 + 1] = c2;
+  R[1 * 7 + 2] = -k * s2;
+  R[1 * 7 + 3] = sc;
+  R[2 * 7 + 0] = -s * c;
+  R[2 * 7 + 1] = -s * s_k;
+  R[2 * 7 + 2] = c2;
+  R[2 * 7 + 3] = c * s_k;
+  R[3 * 7 + 0] = k * s2;
+  R[3 * 7 + 1] = -s * c;
+  R[3 * 7 + 2] = -k * s * c;
+  R[3 * 7 + 3] = c2;
+  R[4 * 7 + 5] = r56;
+}
+
+constexpr uint64_t kCavityCells = cell(0, 0) | cell(0, 1) | cell(1, 0) | cell(1, 1) | cell(2, 2) |
+                                  cell(2, 3) | cell(3, 2) | cell(3, 3) | cell(4, 4) | cell(4, 5) |
+                                  cell(5, 4) | cell(5, 5) | cell(6, 6);
+constexpr uint64_t kLastOne = cell(6, 6);
+constexpr uint64_t kSolenoidBody = kIdentityCells | cell(0, 1) | cell(0, 2) | cell(0, 3) |
+                                   cell(1, 0) | cell(1, 2) | cell(1, 3) | cell(2, 0) | cell(2, 1) |
+                                   cell(2, 3) | cell(3, 0) | cell(3, 1) | cell(3, 2) | cell(4, 5);
+constexpr uint64_t kSolenoidBodyOnes = cell(4, 4) | cell(5, 5) | cell(6, 6);
+constexpr uint64_t kSolenoidEntered = product_support(kSolenoidBody, kShift);
+constexpr uint64_t kSolenoidEnteredOnes =
+    product_ones(kSolenoidBody, kSolenoidBodyOnes, kShift, kShiftOnes);
+constexpr uint64_t kSolenoidCells = product_support(kShift, kSolenoidEntered);
+constexpr uint64_t kSolenoidOnes = product_ones(kShift, kShiftOnes, kSolenoidEntered,
+                                                kSolenoidEnteredOnes);
+// A dipole's body (or thin kick), its edge maps and the tilt sandwich.
+constexpr uint64_t kBend = kQuadBase | cell(2, 6);
+constexpr uint64_t kBendOnes = kQuadBaseOnes;
+constexpr uint64_t kEdge = kIdentityCells | cell(1, 0) | cell(3, 2);
+constexpr uint64_t kEdgeOnes = kIdentityCells;
+constexpr uint64_t kBendIn = product_support(kBend, kEdge);
+constexpr uint64_t kBendInOnes = product_ones(kBend, kBendOnes, kEdge, kEdgeOnes);
+constexpr uint64_t kBendOut = product_support(kEdge, kBendIn);
+constexpr uint64_t kBendOutOnes = product_ones(kEdge, kEdgeOnes, kBendIn, kBendInOnes);
+constexpr uint64_t kBendTilted = product_support(kBendOut, kRot);
+constexpr uint64_t kBendTiltedOnes = product_ones(kBendOut, kBendOutOnes, kRot, kRotOnes);
+constexpr uint64_t kDipoleCells = product_support(kRot, kBendTilted);
+constexpr uint64_t kDipoleOnes = product_ones(kRot, kRotOnes, kBendTilted, kBendTiltedOnes);
+
+// -- products by sparse factors, in place ---------------------------------
+//
+// The solenoid's and the dipole's factors (shifts, edge maps, rotations) have
+// two or four cells off the identity, so their products update a few rows or
+// columns of the other factor in place, with one 7x7 array live instead of
+// three.  Each keeps matmul7_support's terms and order (j ascending, a
+// structural zero of the dense factor's support SM skipped, a one's multiply
+// skipped), so the values are the same.
+
+// Term j of out[i, k] = sum_j M[i, j] F[j, k] or sum_j F[i, j] M[j, k]: the
+// running sum `acc`, started or not, plus m * f (or m if f is a one).
+template <typename S>
+__device__ __forceinline__ void add_term(S& acc, bool& started, S term) {
+  acc = started ? acc + term : term;
+  started = true;
+}
+
+// M <- M @ C for C the identity but for column `to` = column `to` + f *
+// (column `from` of the identity), i.e. C[from, to] = f, from < to or from >
+// to; support SM.  Column `to` of the result: M[i, from] f and M[i, to] in j
+// order.
+template <uint64_t SM, int kFrom, int kTo, typename S>
+__device__ __forceinline__ void times_column_kick(S* M, S f) {
+#pragma unroll
+  for (int i = 0; i < 7; ++i) {
+    S acc = S(0);
+    bool started = false;
+#pragma unroll
+    for (int j = 0; j < 7; ++j) {
+      if (j == kFrom && has(SM, i, kFrom)) add_term(acc, started, M[i * 7 + kFrom] * f);
+      if (j == kTo && has(SM, i, kTo)) add_term(acc, started, M[i * 7 + kTo]);
+    }
+    if (started) M[i * 7 + kTo] = acc;
+  }
+}
+
+// M <- R @ M for R the identity but for R[to, from] = f: row `to` of the
+// result is f M[from, k] and M[to, k] in j order.
+template <uint64_t SM, int kFrom, int kTo, typename S>
+__device__ __forceinline__ void row_kick_times(S* M, S f) {
+#pragma unroll
+  for (int k = 0; k < 7; ++k) {
+    S acc = S(0);
+    bool started = false;
+#pragma unroll
+    for (int j = 0; j < 7; ++j) {
+      if (j == kFrom && has(SM, kFrom, k)) add_term(acc, started, f * M[kFrom * 7 + k]);
+      if (j == kTo && has(SM, kTo, k)) add_term(acc, started, M[kTo * 7 + k]);
+    }
+    if (started) M[kTo * 7 + k] = acc;
+  }
+}
+
+// M <- M @ rot(cs, sn), rot as rotation(): columns 0-3 mix, 4-6 stay.
+template <uint64_t SM, typename S>
+__device__ __forceinline__ void times_rotation(S* M, S cs, S sn) {
+  const S msn = -sn;
+#pragma unroll
+  for (int i = 0; i < 7; ++i) {
+    S out[4];
+    bool any[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      // rot[j, k] non-zero for j = k (cs) and j = k ^ 2 (sn above, -sn below).
+      S acc = S(0);
+      bool started = false;
+      const int other = k ^ 2;
+      const S f = k < 2 ? msn : sn;  // rot[other, k]
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (j == k && has(SM, i, k)) add_term(acc, started, M[i * 7 + k] * cs);
+        if (j == other && has(SM, i, other)) add_term(acc, started, M[i * 7 + other] * f);
+      }
+      out[k] = acc;
+      any[k] = started;
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (any[k]) M[i * 7 + k] = out[k];
+    }
+  }
+}
+
+// M <- rot(cs, sn) @ M: rows 0-3 mix, 4-6 stay.
+template <uint64_t SM, typename S>
+__device__ __forceinline__ void rotation_times(S* M, S cs, S sn) {
+  const S msn = -sn;
+#pragma unroll
+  for (int k = 0; k < 7; ++k) {
+    S out[4];
+    bool any[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      // rot[i, j] non-zero for j = i (cs) and j = i ^ 2 (sn above, -sn below).
+      S acc = S(0);
+      bool started = false;
+      const int other = i ^ 2;
+      const S f = i < 2 ? sn : msn;  // rot[i, other]
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (j == i && has(SM, i, k)) add_term(acc, started, cs * M[i * 7 + k]);
+        if (j == other && has(SM, other, k)) add_term(acc, started, f * M[other * 7 + k]);
+      }
+      out[i] = acc;
+      any[i] = started;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (any[i]) M[i * 7 + k] = out[i];
+    }
+  }
+}
+
+// _build_solenoid: exit @ (body @ entry) of p = (length, k, mx, my), in R.
+template <typename T, typename S>
+__device__ __forceinline__ void build_solenoid(const S* p, S energy, T rest, S* R) {
+  solenoid_body<T>(p[0], p[1], energy, rest, R);
+  // entry (x -= mx, y -= my): column 6 of R @ entry takes columns 0 and 2.
+  const S mmx = -p[2], mmy = -p[3];
+#pragma unroll
+  for (int i = 0; i < 7; ++i) {
+    S acc = S(0);
+    bool started = false;
+    if (has(kSolenoidBody, i, 0)) add_term(acc, started, R[i * 7 + 0] * mmx);
+    if (has(kSolenoidBody, i, 2)) add_term(acc, started, R[i * 7 + 2] * mmy);
+    if (has(kSolenoidBody, i, 6)) add_term(acc, started, R[i * 7 + 6]);
+    if (started) R[i * 7 + 6] = acc;
+  }
+  // exit: rows 0 and 2 of exit @ M take row 6 (the identity's, 0 0 0 0 0 0 1).
+  row_kick_times<kSolenoidEntered, 6, 0>(R, p[2]);
+  row_kick_times<kSolenoidEntered, 6, 2>(R, p[3]);
+}
+
+// A dipole's thin-wedge edge cells: (1, 0) = hx tan(e), (3, 2) = -hx tan(e - phi).
+template <typename T, typename S>
+__device__ __forceinline__ void dipole_edge(S hx, S e, S fringe, S gap, S* e10, S* e32) {
+  const S sec_e = T(1) / cos_(e);
+  const S sin_e = sin_(e);
+  const S phi = fringe * hx * gap * sec_e * (T(1) + sin_e * sin_e);
+  *e10 = hx * tan_(e);
+  *e32 = -hx * tan_(e - phi);
+}
+
+// _build_dipole of p = (length, angle, e1, e2, tilt, fint, fintx, gap):
+// rot(-tilt) @ (edge2 @ (R @ edge1)) @ rot(tilt), R the body of
+// base_rmatrix_entries(length, k1 = 0, hx = angle / length, tilt = 0,
+// energy), or at length 0 the thin kick (0, 1) = (2, 3) = length, (2, 6) =
+// angle.
+template <typename T, typename S>
+__device__ __forceinline__ void build_dipole(const S* p, S energy, T rest, S* R) {
+  const S length = p[0], angle = p[1];
+  const bool thin = value_of(length) == T(0);
+  const S hx = thin ? S(T(0)) : angle / length;
+  S* A = R;
+  set_identity(A);
+  if (thin) {
+    A[0 * 7 + 1] = length;
+    A[2 * 7 + 3] = length;
+    A[2 * 7 + 6] = angle;
+  } else {
+    // base_rmatrix_entries at k1 = 0 (+ 1e-12) and curvature hx.
+    const S igamma2 = igamma2_from_energy<T>(energy, rest, T(1));
+    const S beta = sqrt_(T(1) - igamma2);
+    const S k1 = S(T(1e-12));
+    const S kx2 = k1 + hx * hx;
+    const S ky2 = -k1;
+    S cx, sx, cy, sy;
+    cos_sinc<T>(kx2, length, &cx, &sx);
+    cos_sinc<T>(ky2, length, &cy, &sy);
+    const S dx = hx / kx2 * (T(1) - cx);
+    const S inv_beta = value_of(beta) == T(0) ? S(T(INFINITY)) : T(1) / beta;
+    const S inv_beta2 = inv_beta * inv_beta;
+    const S r56 = hx * hx * (length - sx) / kx2 * inv_beta2 - length * inv_beta2 * igamma2;
+    A[0 * 7 + 0] = cx;
+    A[0 * 7 + 1] = sx;
+    A[0 * 7 + 5] = dx * inv_beta;
+    A[1 * 7 + 0] = -kx2 * sx;
+    A[1 * 7 + 1] = cx;
+    A[1 * 7 + 5] = sx * hx * inv_beta;
+    A[2 * 7 + 2] = cy;
+    A[2 * 7 + 3] = sy;
+    A[3 * 7 + 2] = -ky2 * sy;
+    A[3 * 7 + 3] = cy;
+    A[4 * 7 + 0] = sx * hx * inv_beta;
+    A[4 * 7 + 1] = dx * inv_beta;
+    A[4 * 7 + 5] = r56;
+  }
+  S e10, e32;
+  dipole_edge<T>(hx, p[2], p[5], p[7], &e10, &e32);  // entrance: e1, fint
+  times_column_kick<kBend, 1, 0>(A, e10);             // A @ edge1: columns 0 and 2
+  times_column_kick<kBend, 3, 2>(A, e32);
+  dipole_edge<T>(hx, p[3], p[6], p[7], &e10, &e32);  // exit: e2, fintx
+  row_kick_times<kBendIn, 0, 1>(A, e10);              // edge2 @ A: rows 1 and 3
+  row_kick_times<kBendIn, 2, 3>(A, e32);
+  const S cs = cos_(p[4]), sn = sin_(p[4]);
+  times_rotation<kBendOut>(A, cs, sn);  // @ rot(tilt)
+  rotation_times<kBendTilted>(A, cs, -sn);  // rot(-tilt) @: cos and sin are even and odd to the bit
+}
+
+// The map of a dynamic entry other than a custom map's: p holds
+// tape_params(kind) parameters.  Inlined into the caller, so that the maps
+// stay in registers.  Without kFull only the kinds below kFirstFullKind are
+// built (the others are never on such a tape).
+template <bool kFull, typename T, typename S>
+__device__ __forceinline__ void build_dynamic(int kind, const S* p, S energy, T rest, T mass,
+                                              S* R) {
   if (kind == kQuad) {
     build_quadrupole<T>(p, energy, rest, R);
     return;
   }
+  if constexpr (kFull) {
+    if (kind == kCavity) {
+      build_cavity<T>(p, energy, rest, mass, R);
+      return;
+    }
+    if (kind == kSolenoid) {
+      build_solenoid<T>(p, energy, rest, R);
+      return;
+    }
+    if (kind == kDipole) {
+      build_dipole<T>(p, energy, rest, R);
+      return;
+    }
+  }
   set_identity(R);
   if (kind == kIdentity) return;
+  if (kFull && kind == kUndulator) {
+    undulator_entries<T>(p[0], energy, rest, R);
+    return;
+  }
   drift_entries<T>(p[0], energy, rest, R);  // drift, and the correctors' drift
   // Indices known at compile time, so that R stays in registers.
   if (kind == kHCor) R[1 * 7 + 6] = p[1];

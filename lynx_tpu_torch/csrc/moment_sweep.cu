@@ -28,7 +28,11 @@
 // conflicts).  T C and then (T C) T^T are formed in place there, column by
 // column and row by row.  A ragged last block computes on its last setting
 // and stores nothing.  Templated on float and double: the kernel computes in
-// the beam's dtype, as the TPU kernel does.
+// the beam's dtype, as the TPU kernel does.  And on kFull: a tape that holds
+// a kind of the full lattice (a cavity, undulator, solenoid, dipole or custom
+// map, kFirstFullKind on) runs the instantiation with their builders; the
+// paths' tapes of drifts, quadrupoles and correctors run the one without,
+// and keep its registers.  A custom map's 49 cells are its parameters.
 
 #include "fused_builders.cuh"
 
@@ -56,14 +60,20 @@ __device__ __forceinline__ void copy_block(const T* __restrict__ src, T* __restr
 }
 
 // total <- (the map of entry `entry` for setting b) @ total.
-template <typename T>
+template <bool kFull, typename T>
 __device__ __forceinline__ void compose_entry(const lynx::TapeEntry& entry,
                                               const T* __restrict__ params,
                                               const T* __restrict__ consts, int64_t batch,
-                                              int64_t b, T energy, T rest, T* total) {
+                                              int64_t b, T energy, T rest, T mass, T* total) {
   using namespace lynx;
   if (entry.kind == kIdentity) return;
   T R[49];
+  if (kFull && entry.kind == kCustom) {
+#pragma unroll
+    for (int c = 0; c < 49; ++c) R[c] = params[(entry.offset + c) * batch + b];
+    compose_support<kAllCells, 0>(R, total);
+    return;
+  }
   if (entry.kind == kConst) {
     const T* cells = consts + static_cast<int64_t>(entry.offset) * 49;
 #pragma unroll
@@ -77,17 +87,35 @@ __device__ __forceinline__ void compose_entry(const lynx::TapeEntry& entry,
     }
     return;
   }
-  T p[5];
-  const int n = tape_params(entry.kind);
+  constexpr int kParams = kFull ? kMaxParams : 5;
+  T p[kParams];
+  const int n = tape_params<kFull>(entry.kind);
 #pragma unroll
-  for (int k = 0; k < 5; ++k) p[k] = k < n ? params[(entry.offset + k) * batch + b] : T(0);
+  for (int k = 0; k < kParams; ++k) p[k] = k < n ? params[(entry.offset + k) * batch + b] : T(0);
   if (entry.kind == kQuad) {
     build_quadrupole<T>(p, energy, rest, R);
     compose_support<kQuadCells, kQuadOnes>(R, total);
     return;
   }
-  build_dynamic<T, T>(entry.kind, p, energy, rest, R);
-  if (entry.kind == kDrift) {
+  if constexpr (kFull) {
+    if (entry.kind == kCavity) {
+      build_cavity<T>(p, energy, rest, mass, R);
+      compose_support<kCavityCells, kLastOne>(R, total);
+      return;
+    }
+    if (entry.kind == kSolenoid) {
+      build_solenoid<T>(p, energy, rest, R);
+      compose_support<kSolenoidCells, kSolenoidOnes>(R, total);
+      return;
+    }
+    if (entry.kind == kDipole) {
+      build_dipole<T>(p, energy, rest, R);
+      compose_support<kDipoleCells, kDipoleOnes>(R, total);
+      return;
+    }
+  }
+  build_dynamic<kFull, T, T>(entry.kind, p, energy, rest, mass, R);
+  if (entry.kind == kDrift || (kFull && entry.kind == kUndulator)) {
     compose_support<kDriftCells, kIdentityCells>(R, total);
   } else if (entry.kind == kHCor) {
     compose_support<kHCorCells, kIdentityCells>(R, total);
@@ -96,12 +124,12 @@ __device__ __forceinline__ void compose_entry(const lynx::TapeEntry& entry,
   }
 }
 
-template <typename T>
+template <typename T, bool kFull>
 __global__ void __launch_bounds__(kSettings) moment_sweep_kernel(
     const lynx::TapeEntry* __restrict__ tape, int n_entries, const T* __restrict__ params,
     const T* __restrict__ consts, const T* __restrict__ energy, const T* __restrict__ mu,
     const T* __restrict__ cov, T* __restrict__ out_mu, T* __restrict__ out_cov, int64_t batch,
-    T rest) {
+    T rest, T mass) {
   __shared__ __align__(16) T s_cov[kSettings * 49];
   __shared__ __align__(16) T s_mu[kSettings * 7];
   const int64_t first = static_cast<int64_t>(blockIdx.x) * kSettings;
@@ -121,7 +149,7 @@ __global__ void __launch_bounds__(kSettings) moment_sweep_kernel(
   T total[49];
   lynx::set_identity(total);
   for (int e = 0; e < n_entries; ++e) {
-    compose_entry(tape[e], params, consts, batch, b, e_b, rest, total);
+    compose_entry<kFull>(tape[e], params, consts, batch, b, e_b, rest, mass, total);
   }
   __syncthreads();  // mu and cov are staged
 
@@ -173,16 +201,29 @@ __global__ void __launch_bounds__(kSettings) moment_sweep_kernel(
   copy_block(s_mu, out_mu + first * 7, count * 7, vectors);
 }
 
-template <typename T>
+template <typename T, bool kFull>
 void launch(const void* tape, int n_entries, const void* params, const void* consts,
             const void* energy, const void* mu, const void* cov, void* out_mu, void* out_cov,
-            long long batch, double rest, cudaStream_t stream) {
+            long long batch, double rest, double mass, cudaStream_t stream) {
   const int64_t blocks = (batch + kSettings - 1) / kSettings;
-  moment_sweep_kernel<T><<<static_cast<unsigned>(blocks), kSettings, 0, stream>>>(
+  moment_sweep_kernel<T, kFull><<<static_cast<unsigned>(blocks), kSettings, 0, stream>>>(
       static_cast<const lynx::TapeEntry*>(tape), n_entries, static_cast<const T*>(params),
       static_cast<const T*>(consts), static_cast<const T*>(energy), static_cast<const T*>(mu),
       static_cast<const T*>(cov), static_cast<T*>(out_mu), static_cast<T*>(out_cov), batch,
-      static_cast<T>(rest));
+      static_cast<T>(rest), static_cast<T>(mass));
+}
+
+template <typename T>
+void launch(int full, const void* tape, int n_entries, const void* params, const void* consts,
+            const void* energy, const void* mu, const void* cov, void* out_mu, void* out_cov,
+            long long batch, double rest, double mass, cudaStream_t stream) {
+  if (full) {
+    launch<T, true>(tape, n_entries, params, consts, energy, mu, cov, out_mu, out_cov, batch,
+                    rest, mass, stream);
+  } else {
+    launch<T, false>(tape, n_entries, params, consts, energy, mu, cov, out_mu, out_cov, batch,
+                     rest, mass, stream);
+  }
 }
 
 }  // namespace
@@ -191,19 +232,22 @@ extern "C" {
 
 // tape: (n_entries, 5) int32; params: (P, batch); consts: (n_consts, 49);
 // energy: (batch,); mu, out_mu: (batch, 7); cov, out_cov: (batch, 7, 7);
-// all float (is_double = 0) or double (is_double = 1), contiguous.
-// rest: the electron rest energy in eV.  Returns cudaGetLastError().
-int lynx_moment_sweep(int is_double, const void* tape, int n_entries, const void* params,
-                      const void* consts, const void* energy, const void* mu, const void* cov,
-                      void* out_mu, void* out_cov, long long batch, double rest, void* stream) {
+// all float (is_double = 0) or double (is_double = 1), contiguous.  full:
+// 1 if the tape holds a kind from kFirstFullKind on.  rest, mass: the
+// electron rest energy (m_e c^2 / e) and the CODATA electron mass, in eV.
+// Returns cudaGetLastError().
+int lynx_moment_sweep(int is_double, int full, const void* tape, int n_entries,
+                      const void* params, const void* consts, const void* energy, const void* mu,
+                      const void* cov, void* out_mu, void* out_cov, long long batch, double rest,
+                      double mass, void* stream) {
   if (batch > 0) {
     auto s = static_cast<cudaStream_t>(stream);
     if (is_double) {
-      launch<double>(tape, n_entries, params, consts, energy, mu, cov, out_mu, out_cov, batch,
-                     rest, s);
+      launch<double>(full, tape, n_entries, params, consts, energy, mu, cov, out_mu, out_cov,
+                     batch, rest, mass, s);
     } else {
-      launch<float>(tape, n_entries, params, consts, energy, mu, cov, out_mu, out_cov, batch,
-                    rest, s);
+      launch<float>(full, tape, n_entries, params, consts, energy, mu, cov, out_mu, out_cov,
+                    batch, rest, mass, s);
     }
   }
   return static_cast<int>(cudaGetLastError());

@@ -29,19 +29,36 @@
 // Design: a team of kLanes = 8 lanes per setting, four settings per warp.
 // Lane r < 7 owns row r of every 7x7 matrix and keeps it in 7 registers; it
 // reads the other operand's rows from shared memory, where each setting
-// keeps its prefix products M_0 .. M_E and three scratch matrices (no device
+// keeps its prefix products and three scratch matrices (no device
 // workspace), rows padded to 8 cells so that a row moves in 16-byte loads.
 // The number of settings per block is sized at launch from the tape length
 // and the dtype to fit the device's shared memory; a ragged last block
 // computes on the last setting and stores nothing.  In the reverse pass
-// every lane evaluates the entry's builder once in dual numbers, lane q
-// seeded on input q (parameters, then the energy), so one warp-wide pass
-// gives all of an entry's <= 6 derivatives; the value part of the same pass
-// is R_i.  The builders are fused_builders.cuh's, inlined so that their
-// maps stay in registers.  Sums run in the same order as the one-thread-per-setting
+// every lane evaluates the entry's builder in dual numbers, lane q seeded on
+// input q (parameters, then the energy), so one warp-wide pass gives up to 8
+// derivatives (a dipole's 9 take two passes); the value part of the same
+// pass is R_i.  A custom map's cells are its parameters: their cotangents
+// are dR_i's cells, as a const entry's.  The builders are
+// fused_builders.cuh's, inlined so that their maps stay in registers;
+// instantiated with the full lattice's kinds (kFull) only for a tape that
+// holds one.  Sums run in the same order as the one-thread-per-setting
 // kernel they replace, so the numbers differ from it only by FMA
 // contraction.  A team synchronises with __syncwarp: its lanes share one
 // warp.
+//
+// A tape whose prefix products M_0 .. M_{E-1} would leave fewer than 32
+// settings a block (past 28 entries in float, 12 in double; past about 514
+// and 1,033 one setting would not fit at all) is cut into segments of K
+// entries: the forward pass keeps only each segment's first prefix product
+// (a checkpoint, in a device scratch buffer of (B, checkpoints, 56) values),
+// and the reverse pass recomputes a segment's prefix products from its
+// checkpoint into shared memory before it walks the segment backwards: one
+// more forward pass in all.  K is the longest segment that keeps 32 settings
+// (eight warps) a block, 28 entries in float and 12 in double.  Kept whole,
+// a 68-entry tape in float held 12 settings a block, three warps an SM.
+// Path T's tape of 11 entries stays whole: its forward pass stores every
+// prefix product and nothing is recomputed, in an instantiation without the
+// segments' bookkeeping (kSegmented false), which cost it 4% on the card.
 
 #include <atomic>
 
@@ -55,13 +72,13 @@ constexpr int kRow = 8;         // a row in shared memory: 7 cells and padding
 constexpr int kMatrix = 7 * kRow;
 constexpr int kScratch = 3;     // scratch matrices per setting
 constexpr int kDevices = 64;    // devices whose launch settings are cached
-constexpr int kDoesNotFit = -1; // launch(): one setting exceeds the shared memory
 
-// Shared-memory elements per setting: M_0 .. M_E, the scratch matrices and
-// one slot, rounded so that a setting starts on 16 bytes and the four
-// settings of a warp start in four other banks (a stride of 4 mod 8).
-__host__ __device__ inline int setting_stride(int n_entries) {
-  return ((n_entries + 1 + kScratch) * kMatrix + 1 + 7) / 8 * 8 + 4;
+// Shared-memory elements per setting: a segment of prefix products, T, the
+// scratch matrices and one slot, rounded so that a setting starts on 16
+// bytes and the four settings of a warp start in four other banks (a stride
+// of 4 mod 8).
+__host__ __device__ inline int setting_stride(int segment) {
+  return ((segment + 1 + kScratch) * kMatrix + 1 + 7) / 8 * 8 + 4;
 }
 
 // Cell c of a 7x7 map in its padded place.
@@ -137,25 +154,97 @@ __device__ __forceinline__ void scatter_rows(const S (&R)[49], T* out, int lane)
   }
 }
 
-// A dynamic entry's parameters for setting b (at most 5), loaded without a
+// A dynamic entry's parameters for setting b (at most kP), loaded without a
 // run-time index into the register array.
-template <typename T>
+template <bool kFull, int kP, typename T>
 __device__ __forceinline__ void entry_params(const lynx::TapeEntry& entry,
                                              const T* __restrict__ params, int64_t batch,
-                                             int64_t b, T (&p)[5]) {
-  const int n = lynx::tape_params(entry.kind);
+                                             int64_t b, T (&p)[kP]) {
+  const int n = lynx::tape_params<kFull>(entry.kind);
 #pragma unroll
-  for (int k = 0; k < 5; ++k) p[k] = k < n ? params[(entry.offset + k) * batch + b] : T(0);
+  for (int k = 0; k < kP; ++k) p[k] = k < n ? params[(entry.offset + k) * batch + b] : T(0);
 }
 
-template <typename T>
+// One step of the forward pass: M (this entry's prefix product, in shared
+// memory) <- row, then row <- row r of R_i M.  S1 is scratch for a dynamic
+// entry's map; a const entry's and a custom map's rows are read directly.
+// The entry comes by value, a copy in registers: a reference into the tape
+// would be read again from device memory after each store.
+template <bool kFull, typename T>
+__device__ __forceinline__ void forward_step(const lynx::TapeEntry entry, T* M, T* checkpoint,
+                                             T* S1, const T* __restrict__ params,
+                                             const T* __restrict__ consts, int64_t batch,
+                                             int64_t b, T e_b, T rest, T mass, int r, int lane,
+                                             bool owner, unsigned mask, T (&row)[7]) {
+  constexpr int kP = kFull ? lynx::kMaxParams : 5;
+  if (owner) {
+    store_row(M + r * kRow, row);
+    if (checkpoint != nullptr) store_row(checkpoint + r * kRow, row);
+  }
+  T rrow[7];  // row r of R_i
+  const bool custom = kFull && entry.kind == lynx::kCustom;
+  if (entry.kind == lynx::kConst) {
+    const T* cells = consts + static_cast<int64_t>(entry.offset) * 49 + r * 7;
+#pragma unroll
+    for (int k = 0; k < 7; ++k) rrow[k] = cells[k];
+  } else if (custom) {
+#pragma unroll
+    for (int k = 0; k < 7; ++k) rrow[k] = params[(entry.offset + r * 7 + k) * batch + b];
+  } else {
+    T p[kP], R[49];
+    entry_params<kFull>(entry, params, batch, b, p);
+    lynx::build_dynamic<kFull, T, T>(entry.kind, p, e_b, rest, mass, R);
+    scatter_rows(R, S1, lane);
+  }
+  __syncwarp(mask);
+  if (entry.kind != lynx::kConst && !custom) load_row(S1 + r * kRow, rrow);
+  row_times(rrow, M, row);
+  __syncwarp(mask);
+}
+
+// One dual-number pass over a dynamic entry: lane q = base + lane is seeded
+// on input q (parameters, then the energy), contracts dR_i (M, in shared
+// memory) with dR_i/d(input q), and writes that input's cotangent (the
+// energy's to the slot); the pass that seeds the last input also scatters
+// R_i's rows to S1.
+template <bool kFull, int kP, typename T>
+__device__ __forceinline__ void dual_pass(const lynx::TapeEntry& entry, const T (&p)[kP], int base,
+                                          int n, const T* M, T* S1, T* slot,
+                                          T* __restrict__ d_params, int64_t batch, int64_t b,
+                                          bool active, T e_b, T rest, T mass, int lane) {
+  const int q = base + lane;  // the input this lane is seeded on
+  lynx::Dual<T> pd[kP];
+#pragma unroll
+  for (int k = 0; k < kP; ++k) pd[k] = lynx::Dual<T>(p[k], k == q ? T(1) : T(0));
+  const lynx::Dual<T> ed(e_b, q == n ? T(1) : T(0));
+  lynx::Dual<T> Rd[49];
+  lynx::build_dynamic<kFull, T, lynx::Dual<T>>(entry.kind, pd, ed, rest, mass, Rd);
+  T g = T(0);
+#pragma unroll
+  for (int i = 0; i < 7; ++i) {
+    T dri[7];
+    load_row(M + i * kRow, dri);
+#pragma unroll
+    for (int k = 0; k < 7; ++k) g = g + dri[k] * Rd[i * 7 + k].d;
+  }
+  if (q < n) {
+    if (active) d_params[(entry.offset + q) * batch + b] = g;
+  } else if (q == n) {
+    *slot = g;
+  }
+  if (!kFull || base + kLanes > n) scatter_rows(Rd, S1, lane);  // the last pass
+}
+
+template <typename T, bool kFull, bool kSegmented>
 __global__ void __launch_bounds__(kLanes * kMaxTeams) moment_sweep_bwd_kernel(
-    const lynx::TapeEntry* __restrict__ tape, int n_entries, const int* __restrict__ cell_pos,
-    const T* __restrict__ params, const T* __restrict__ consts, const T* __restrict__ energy,
-    const T* __restrict__ mu, const T* __restrict__ cov, const T* __restrict__ dmu,
-    const T* __restrict__ dcov, T* __restrict__ d_params, T* __restrict__ d_consts,
-    T* __restrict__ d_energy, T* __restrict__ d_mu, T* __restrict__ d_cov, int64_t batch,
-    T rest) {
+    const lynx::TapeEntry* __restrict__ tape, int n_entries, int checkpoints, int segment,
+    T* __restrict__ saved_all, const int* __restrict__ cell_pos, const T* __restrict__ params,
+    const T* __restrict__ consts, const T* __restrict__ energy, const T* __restrict__ mu,
+    const T* __restrict__ cov, const T* __restrict__ dmu, const T* __restrict__ dcov,
+    T* __restrict__ d_params, T* __restrict__ d_consts, T* __restrict__ d_energy,
+    T* __restrict__ d_mu, T* __restrict__ d_cov, int64_t batch, T rest, T mass) {
+  constexpr int kP = kFull ? lynx::kMaxParams : 5;
+  constexpr int kPasses = kFull ? 2 : 1;  // dual passes: up to kLanes inputs each
   extern __shared__ __align__(16) unsigned char shared_raw[];
   const int teams = blockDim.x / kLanes;
   const int lane = threadIdx.x % kLanes;
@@ -166,38 +255,31 @@ __global__ void __launch_bounds__(kLanes * kMaxTeams) moment_sweep_bwd_kernel(
   const int64_t b = active ? setting : batch - 1;
   const unsigned mask = warp_mask();
 
-  T* prefix = reinterpret_cast<T*>(shared_raw) +
-              static_cast<int64_t>(threadIdx.x / kLanes) * setting_stride(n_entries);
-  T* const Tm = prefix + n_entries * kMatrix;  // M_E = T
-  T* const S0 = Tm + kMatrix;                  // dcov, then T C, then A
-  T* const S1 = S0 + kMatrix;                  // cov, then dcov T, then R_i
-  T* const S2 = S1 + kMatrix;                  // T C^T
-  T* const slot = S2 + kMatrix;                // an entry's energy cotangent
+  T* const saved = saved_all + b * checkpoints * kMatrix;  // this setting's checkpoints
+  T* const prefix = reinterpret_cast<T*>(shared_raw) +
+                    static_cast<int64_t>(threadIdx.x / kLanes) *
+                        setting_stride(segment);  // one segment's M_i
+  T* const Tm = prefix + segment * kMatrix;       // M_E = T
+  T* const S0 = Tm + kMatrix;                       // dcov, then T C, then A
+  T* const S1 = S0 + kMatrix;                       // cov, then dcov T, then R_i
+  T* const S2 = S1 + kMatrix;                       // T C^T
+  T* const slot = S2 + kMatrix;                     // an entry's energy cotangent
   const T e_b = energy[b];
+  const int segments =
+      !kSegmented ? (n_entries > 0) : n_entries == 0 ? 0 : (n_entries + segment - 1) / segment;
 
-  // Forward pass: M_{i+1} = R_i M_i, each M_i to shared memory.
+  // Forward pass: M_{i+1} = R_i M_i, each M_i to its place in the segment
+  // buffer (the last segment's stay there), and with checkpoints each
+  // segment's first.
   T row[7];  // row r of M_i
 #pragma unroll
   for (int k = 0; k < 7; ++k) row[k] = T(k == r ? 1 : 0);
   for (int e = 0; e < n_entries; ++e) {
-    const lynx::TapeEntry entry = tape[e];
-    T* M = prefix + e * kMatrix;
-    if (owner) store_row(M + r * kRow, row);
-    T rrow[7];  // row r of R_i
-    if (entry.kind == lynx::kConst) {
-      const T* cells = consts + static_cast<int64_t>(entry.offset) * 49 + r * 7;
-#pragma unroll
-      for (int k = 0; k < 7; ++k) rrow[k] = cells[k];
-    } else {
-      T p[5], R[49];
-      entry_params(entry, params, batch, b, p);
-      lynx::build_dynamic<T, T>(entry.kind, p, e_b, rest, R);
-      scatter_rows(R, S1, lane);
-    }
-    __syncwarp(mask);
-    if (entry.kind != lynx::kConst) load_row(S1 + r * kRow, rrow);
-    row_times(rrow, M, row);
-    __syncwarp(mask);
+    const int place = kSegmented ? e % segment : e;
+    // A ragged last block's repeated setting writes the same checkpoints.
+    T* checkpoint = kSegmented && place == 0 ? saved + (e / segment) * kMatrix : nullptr;
+    forward_step<kFull>(tape[e], prefix + place * kMatrix, checkpoint, S1, params, consts,
+                        batch, b, e_b, rest, mass, r, lane, owner, mask, row);
   }
   if (owner) store_row(Tm + r * kRow, row);
 
@@ -253,68 +335,90 @@ __global__ void __launch_bounds__(kLanes * kMaxTeams) moment_sweep_bwd_kernel(
   }
   __syncwarp(mask);
 
-  // Reverse pass: dR_i = A M_i^T replaces M_i; then A <- R_i^T A.
+  // Reverse pass, segment by segment from the last: a segment's prefix
+  // products are recomputed from its checkpoint (the last segment's are in
+  // place); then per entry dR_i = A M_i^T replaces M_i, and A <- R_i^T A.
   T d_e = T(0);
-  for (int e = n_entries - 1; e >= 0; --e) {
-    const lynx::TapeEntry entry = tape[e];
-    T* M = prefix + e * kMatrix;
-    T dr[7];
-#pragma unroll
-    for (int c = 0; c < 7; ++c) {
-      T mc[7];
-      load_row(M + c * kRow, mc);
-      T acc = a[0] * mc[0];
-#pragma unroll
-      for (int k = 1; k < 7; ++k) acc = acc + a[k] * mc[k];
-      dr[c] = acc;
+  for (int s = segments - 1; s >= 0; --s) {
+    const int first = kSegmented ? s * segment : 0;
+    const int end = !kSegmented || first + segment >= n_entries ? n_entries : first + segment;
+    if (kSegmented && s != segments - 1) {
+      T m[7];
+      load_row(saved + s * kMatrix + r * kRow, m);
+      for (int e = first; e < end; ++e) {
+        forward_step<kFull>(tape[e], prefix + (e - first) * kMatrix, static_cast<T*>(nullptr), S1,
+                            params, consts, batch, b, e_b, rest, mass, r, lane, owner, mask, m);
+      }
     }
-    if (owner) store_row(S0 + r * kRow, a);
-    __syncwarp(mask);
-    if (owner) store_row(M + r * kRow, dr);
-    __syncwarp(mask);
+    for (int e = end - 1; e >= first; --e) {
+      const lynx::TapeEntry entry = tape[e];
+      T* M = prefix + (e - first) * kMatrix;
+      T dr[7];
+#pragma unroll
+      for (int c = 0; c < 7; ++c) {
+        T mc[7];
+        load_row(M + c * kRow, mc);
+        T acc = a[0] * mc[0];
+#pragma unroll
+        for (int k = 1; k < 7; ++k) acc = acc + a[k] * mc[k];
+        dr[c] = acc;
+      }
+      if (owner) store_row(S0 + r * kRow, a);
+      __syncwarp(mask);
+      if (owner) store_row(M + r * kRow, dr);
+      __syncwarp(mask);
 
-    const bool dynamic = entry.kind != lynx::kConst && entry.kind != lynx::kIdentity;
-    T rcol[7];  // column r of R_i
-    if (entry.kind == lynx::kConst) {
-      for (int q = lane; q < entry.cell_count; q += kLanes) {
-        const int cell = entry.cell_start + q;
-        if (active) d_consts[cell * batch + b] = M[padded(cell_pos[cell])];
+      const bool custom = kFull && entry.kind == lynx::kCustom;
+      const bool dynamic =
+          entry.kind != lynx::kConst && entry.kind != lynx::kIdentity && !custom;
+      T rcol[7];  // column r of R_i
+      if (entry.kind == lynx::kConst) {
+        for (int q = lane; q < entry.cell_count; q += kLanes) {
+          const int cell = entry.cell_start + q;
+          if (active) d_consts[cell * batch + b] = M[padded(cell_pos[cell])];
+        }
+        const T* cells = consts + static_cast<int64_t>(entry.offset) * 49 + r;
+#pragma unroll
+        for (int j = 0; j < 7; ++j) rcol[j] = cells[j * 7];
+      } else if (custom) {
+        for (int q = lane; q < 49; q += kLanes) {
+          if (active) d_params[(entry.offset + q) * batch + b] = M[padded(q)];
+        }
+#pragma unroll
+        for (int j = 0; j < 7; ++j) rcol[j] = params[(entry.offset + j * 7 + r) * batch + b];
+      } else if (dynamic) {
+        // A pass's break is uniform over the team: n is the entry's.
+        const int n = lynx::tape_params<kFull>(entry.kind);
+        if constexpr (kFull && sizeof(T) == 8) {
+          // In double the full builders' dual numbers keep within 255
+          // registers only if the passes stay a loop and reload their
+          // parameters (measured with ptxas: unrolled, 764 bytes spill).
+#pragma unroll 1
+          for (int pass = 0; pass < kPasses; ++pass) {
+            if (pass * kLanes > n) break;
+            T p[kP];
+            entry_params<kFull>(entry, params, batch, b, p);
+            dual_pass<kFull>(entry, p, pass * kLanes, n, M, S1, slot, d_params, batch, b, active,
+                             e_b, rest, mass, lane);
+          }
+        } else {
+          T p[kP];
+          entry_params<kFull>(entry, params, batch, b, p);
+          for (int pass = 0; pass < kPasses; ++pass) {
+            if (pass > 0 && pass * kLanes > n) break;
+            dual_pass<kFull>(entry, p, pass * kLanes, n, M, S1, slot, d_params, batch, b, active,
+                             e_b, rest, mass, lane);
+          }
+        }
       }
-      const T* cells = consts + static_cast<int64_t>(entry.offset) * 49 + r;
-#pragma unroll
-      for (int j = 0; j < 7; ++j) rcol[j] = cells[j * 7];
-    } else if (dynamic) {
-      const int n = lynx::tape_params(entry.kind);
-      T p[5];
-      entry_params(entry, params, batch, b, p);
-      lynx::Dual<T> pd[5];
-#pragma unroll
-      for (int k = 0; k < 5; ++k) pd[k] = lynx::Dual<T>(p[k], k == lane ? T(1) : T(0));
-      const lynx::Dual<T> ed(e_b, lane == n ? T(1) : T(0));
-      lynx::Dual<T> Rd[49];
-      lynx::build_dynamic<T, lynx::Dual<T>>(entry.kind, pd, ed, rest, Rd);
-      T g = T(0);
-#pragma unroll
-      for (int i = 0; i < 7; ++i) {
-        T dri[7];
-        load_row(M + i * kRow, dri);
-#pragma unroll
-        for (int k = 0; k < 7; ++k) g = g + dri[k] * Rd[i * 7 + k].d;
+      __syncwarp(mask);
+      if (dynamic) {
+        d_e = d_e + *slot;
+        load_column(S1, r, rcol);
       }
-      if (lane < n) {
-        if (active) d_params[(entry.offset + lane) * batch + b] = g;
-      } else if (lane == n) {
-        *slot = g;
-      }
-      scatter_rows(Rd, S1, lane);
+      if (entry.kind != lynx::kIdentity) row_times(rcol, S0, a);
+      __syncwarp(mask);
     }
-    __syncwarp(mask);
-    if (dynamic) {
-      d_e = d_e + *slot;
-      load_column(S1, r, rcol);
-    }
-    if (entry.kind != lynx::kIdentity) row_times(rcol, S0, a);
-    __syncwarp(mask);
   }
   if (lane == 0 && active) d_energy[b] = d_e;
 }
@@ -332,44 +436,88 @@ int shared_limit(int* device) {
   return limit;
 }
 
-// Settings per block: as many as `limit` bytes of shared memory hold, at
-// most kMaxTeams, whole warps where there are four or more; 0 if one setting
-// does not fit.
+// A launch's shape: settings per block, checkpoints a setting (0: one
+// segment) and the segment length.
+struct Layout {
+  int teams;
+  int checkpoints;
+  int segment;
+};
+
+// As many settings per block as `limit` bytes of shared memory hold, at most
+// kMaxTeams, whole warps where there are four or more: the whole tape in one
+// segment if that keeps kMaxTeams settings a block, else the longest
+// segments that do.
 template <typename T>
-int settings_per_block(int n_entries, int limit) {
-  const int64_t per_setting = static_cast<int64_t>(setting_stride(n_entries)) * sizeof(T);
-  int teams = static_cast<int>(limit / per_setting);
-  if (teams > kMaxTeams) teams = kMaxTeams;
-  if (teams >= 4) teams -= teams % 4;
-  return teams;
+Layout plan_layout(int n_entries, int limit) {
+  auto teams_for = [limit](int segment) {
+    const int64_t per_setting = static_cast<int64_t>(setting_stride(segment)) * sizeof(T);
+    int teams = static_cast<int>(limit / per_setting);
+    if (teams > kMaxTeams) teams = kMaxTeams;
+    if (teams >= 4) teams -= teams % 4;
+    return teams;
+  };
+  const int whole = teams_for(n_entries);
+  if (whole == kMaxTeams) return {whole, 0, n_entries};
+  int segment = n_entries;
+  while (segment > 1 && teams_for(segment) < kMaxTeams) --segment;
+  return {teams_for(segment), (n_entries + segment - 1) / segment, segment};
+}
+
+template <typename T, bool kFull, bool kSegmented>
+int launch(const void* tape, int n_entries, void* saved, const void* cell_pos,
+           const void* params, const void* consts, const void* energy, const void* mu,
+           const void* cov, const void* dmu, const void* dcov, void* d_params, void* d_consts,
+           void* d_energy, void* d_mu, void* d_cov, long long batch, double rest, double mass,
+           cudaStream_t stream) {
+  int device = 0;
+  const Layout layout = plan_layout<T>(n_entries, shared_limit(&device));
+  if (layout.teams < 1 || (layout.checkpoints && saved == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int bytes = layout.teams * setting_stride(layout.segment) * static_cast<int>(sizeof(T));
+  // The kernel's dynamic shared-memory limit, raised only past the largest
+  // launch so far on this device.
+  static std::atomic<int> allowed[kDevices];  // one per instantiation
+  if (device >= kDevices || bytes > allowed[device].load(std::memory_order_relaxed)) {
+    cudaFuncSetAttribute(moment_sweep_bwd_kernel<T, kFull, kSegmented>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (device < kDevices) allowed[device].store(bytes, std::memory_order_relaxed);
+  }
+  const int64_t blocks = (batch + layout.teams - 1) / layout.teams;
+  moment_sweep_bwd_kernel<T, kFull, kSegmented><<<static_cast<unsigned>(blocks),
+                                                  layout.teams * kLanes, bytes, stream>>>(
+      static_cast<const lynx::TapeEntry*>(tape), n_entries, layout.checkpoints, layout.segment,
+      static_cast<T*>(saved), static_cast<const int*>(cell_pos), static_cast<const T*>(params),
+      static_cast<const T*>(consts), static_cast<const T*>(energy), static_cast<const T*>(mu),
+      static_cast<const T*>(cov), static_cast<const T*>(dmu), static_cast<const T*>(dcov),
+      static_cast<T*>(d_params), static_cast<T*>(d_consts), static_cast<T*>(d_energy),
+      static_cast<T*>(d_mu), static_cast<T*>(d_cov), batch, static_cast<T>(rest),
+      static_cast<T>(mass));
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch(const void* tape, int n_entries, const void* cell_pos, const void* params,
-           const void* consts, const void* energy, const void* mu, const void* cov,
-           const void* dmu, const void* dcov, void* d_params, void* d_consts, void* d_energy,
-           void* d_mu, void* d_cov, long long batch, double rest, cudaStream_t stream) {
+int launch(int full, const void* tape, int n_entries, void* saved, const void* cell_pos,
+           const void* params, const void* consts, const void* energy, const void* mu,
+           const void* cov, const void* dmu, const void* dcov, void* d_params, void* d_consts,
+           void* d_energy, void* d_mu, void* d_cov, long long batch, double rest, double mass,
+           cudaStream_t stream) {
   int device = 0;
-  const int teams = settings_per_block<T>(n_entries, shared_limit(&device));
-  if (teams < 1) return kDoesNotFit;
-  const int bytes = teams * setting_stride(n_entries) * static_cast<int>(sizeof(T));
-  // The kernel's dynamic shared-memory limit, raised only past the largest
-  // launch so far on this device.
-  static std::atomic<int> allowed[kDevices];
-  if (device >= kDevices || bytes > allowed[device].load(std::memory_order_relaxed)) {
-    cudaFuncSetAttribute(moment_sweep_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         bytes);
-    if (device < kDevices) allowed[device].store(bytes, std::memory_order_relaxed);
-  }
-  const int64_t blocks = (batch + teams - 1) / teams;
-  moment_sweep_bwd_kernel<T><<<static_cast<unsigned>(blocks), teams * kLanes, bytes, stream>>>(
-      static_cast<const lynx::TapeEntry*>(tape), n_entries, static_cast<const int*>(cell_pos),
-      static_cast<const T*>(params), static_cast<const T*>(consts),
-      static_cast<const T*>(energy), static_cast<const T*>(mu), static_cast<const T*>(cov),
-      static_cast<const T*>(dmu), static_cast<const T*>(dcov), static_cast<T*>(d_params),
-      static_cast<T*>(d_consts), static_cast<T*>(d_energy), static_cast<T*>(d_mu),
-      static_cast<T*>(d_cov), batch, static_cast<T>(rest));
-  return static_cast<int>(cudaGetLastError());
+  const bool segmented = plan_layout<T>(n_entries, shared_limit(&device)).checkpoints > 0;
+  auto run = [&](auto kernel_launch) {
+    return kernel_launch(tape, n_entries, saved, cell_pos, params, consts, energy, mu, cov, dmu,
+                         dcov, d_params, d_consts, d_energy, d_mu, d_cov, batch, rest, mass,
+                         stream);
+  };
+  if (full) return segmented ? run(launch<T, true, true>) : run(launch<T, true, false>);
+  return segmented ? run(launch<T, false, true>) : run(launch<T, false, false>);
+}
+
+template <typename T>
+Layout layout_on_this_device(int n_entries) {
+  int device = 0;
+  return plan_layout<T>(n_entries, shared_limit(&device));
 }
 
 }  // namespace
@@ -377,34 +525,50 @@ int launch(const void* tape, int n_entries, const void* cell_pos, const void* pa
 extern "C" {
 
 // Settings per block of a launch with n_entries tape entries on the current
-// device; 0 if one setting's shared memory exceeds the device's limit.
+// device.
 int lynx_moment_sweep_bwd_tile(int is_double, int n_entries) {
-  int device = 0;
-  const int limit = shared_limit(&device);
-  return is_double ? settings_per_block<double>(n_entries, limit)
-                   : settings_per_block<float>(n_entries, limit);
+  return is_double ? layout_on_this_device<double>(n_entries).teams
+                   : layout_on_this_device<float>(n_entries).teams;
 }
 
-// tape: (n_entries, 4) int32; cell_pos: (C,) int32; params: (P, batch);
+// Entries per segment of such a launch: n_entries when the whole tape fits.
+int lynx_moment_sweep_bwd_segment(int is_double, int n_entries) {
+  return is_double ? layout_on_this_device<double>(n_entries).segment
+                   : layout_on_this_device<float>(n_entries).segment;
+}
+
+// Checkpoints a setting of such a launch: 0 when the whole tape fits, else
+// the caller passes a scratch buffer of batch * checkpoints * 56 values.
+int lynx_moment_sweep_bwd_checkpoints(int is_double, int n_entries) {
+  return is_double ? layout_on_this_device<double>(n_entries).checkpoints
+                   : layout_on_this_device<float>(n_entries).checkpoints;
+}
+
+// tape: (n_entries, 5) int32; saved: (batch, checkpoints, 56) scratch, or
+// null where lynx_moment_sweep_bwd_checkpoints is 0; cell_pos: (C,) int32; params: (P, batch);
 // consts: (n_consts, 49); energy, d_energy: (batch,); mu, dmu, d_mu:
 // (batch, 7); cov, dcov, d_cov: (batch, 7, 7); d_params: (P, batch);
 // d_consts: (C, batch).  All float (is_double = 0) or double (is_double =
-// 1), contiguous.  rest: the electron rest energy in eV.  Returns -1 if one
-// setting's prefix products do not fit in the device's shared memory per
-// block (lynx_moment_sweep_bwd_tile is 0), else cudaGetLastError().
-int lynx_moment_sweep_bwd(int is_double, const void* tape, int n_entries, const void* cell_pos,
-                          const void* params, const void* consts, const void* energy,
-                          const void* mu, const void* cov, const void* dmu, const void* dcov,
-                          void* d_params, void* d_consts, void* d_energy, void* d_mu,
-                          void* d_cov, long long batch, double rest, void* stream) {
+// 1), contiguous.  full: 1 if the tape holds a kind from kFirstFullKind on.
+// rest, mass: the electron rest energy (m_e c^2 / e) and the CODATA electron
+// mass, in eV.  Returns cudaGetLastError(), or cudaErrorInvalidValue
+// without a scratch buffer where one is needed.
+int lynx_moment_sweep_bwd(int is_double, int full, const void* tape, int n_entries,
+                          void* saved, const void* cell_pos, const void* params,
+                          const void* consts,
+                          const void* energy, const void* mu, const void* cov, const void* dmu,
+                          const void* dcov, void* d_params, void* d_consts, void* d_energy,
+                          void* d_mu, void* d_cov, long long batch, double rest, double mass,
+                          void* stream) {
   if (batch <= 0) return static_cast<int>(cudaGetLastError());
   auto s = static_cast<cudaStream_t>(stream);
   if (is_double) {
-    return launch<double>(tape, n_entries, cell_pos, params, consts, energy, mu, cov, dmu, dcov,
-                          d_params, d_consts, d_energy, d_mu, d_cov, batch, rest, s);
+    return launch<double>(full, tape, n_entries, saved, cell_pos, params, consts, energy, mu, cov,
+                          dmu, dcov, d_params, d_consts, d_energy, d_mu, d_cov, batch, rest, mass,
+                          s);
   }
-  return launch<float>(tape, n_entries, cell_pos, params, consts, energy, mu, cov, dmu, dcov,
-                       d_params, d_consts, d_energy, d_mu, d_cov, batch, rest, s);
+  return launch<float>(full, tape, n_entries, saved, cell_pos, params, consts, energy, mu, cov,
+                       dmu, dcov, d_params, d_consts, d_energy, d_mu, d_cov, batch, rest, mass, s);
 }
 
 const char* lynx_cuda_error_string(int code) {

@@ -12,6 +12,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 from lynx_tpu_torch.accelerator.aperture import Aperture
 from lynx_tpu_torch.accelerator.bpm import BPM, bpm_reading
+from lynx_tpu_torch.accelerator.cavity import Cavity
 from lynx_tpu_torch.accelerator.element import Element
 from lynx_tpu_torch.accelerator.screen import (
     Screen,
@@ -58,6 +59,9 @@ def track(segment: Segment, incoming: Beam) -> Tuple[Optional[Beam], Diagnostics
             continue
         beam = flush(run, beam)
         run = []
+        if isinstance(element, Cavity):
+            beam = element.track(beam)
+            continue
         if isinstance(element, BPM):
             diagnostics[element.name] = bpm_reading(beam)
             continue

@@ -12,11 +12,7 @@ from pathlib import Path
 import torch
 
 from lynx_tpu_torch.accelerator import Segment
-from lynx_tpu_torch.converters.latticejson import (
-    load_cheetah_model,
-    parse_element,
-    read_lattice_dict,
-)
+from lynx_tpu_torch.converters.latticejson import load_cheetah_model
 from lynx_tpu_torch.functional import track
 from lynx_tpu_torch.particles import ParameterBeam
 from lynx_tpu_torch.utils import resolve_device
@@ -31,9 +27,8 @@ FLAGSHIP_K1 = {"AREAMQZM1": 4.2, "AREAMQZM2": -4.2, "AREAMQZM3": 2.1}
 
 
 def ares_lattice(dtype: torch.dtype = torch.float32, device=None) -> Segment:
-    """The full ARES lattice (195 elements), on the card unless ``device``
-    says otherwise.  Raises ``NotImplementedError`` naming the element types
-    that are not ported yet."""
+    """The full ARES lattice (195 elements of 11 types, ~42.3 m), on the card
+    unless ``device`` says otherwise."""
     return load_cheetah_model(str(ARES_LATTICE_JSON), dtype=dtype, device=device)
 
 
@@ -76,20 +71,16 @@ def ares_ea_segment(
     """The ARES Experimental Area subcell (AREASOLA1 -> AREABSCR1): three
     quadrupoles, two correctors and the diagnostic screen AREABSCR1.
 
-    Only the subcell's elements are built from the lattice file, since the
-    full lattice holds element types that are not ported yet.  The segment
-    lives on the card unless ``device`` says otherwise.
+    The subcell of :func:`ares_lattice`, on the card unless ``device``
+    says otherwise.
 
     :param histogram_window: window of the screen's windowed histogram:
         ``"auto"`` derives it from the flagship working-point beam at the
         screen plane; an ``(x, y)`` pixel tuple overrides it; ``None``
         takes the default window.
     """
-    lattice_dict = read_lattice_dict(str(ARES_LATTICE_JSON))
-    cell = lattice_dict["lattices"][lattice_dict["root"]]
-    names = cell[cell.index("AREASOLA1") : cell.index("AREABSCR1") + 1]
     # Built on the CPU, where the window is derived, then moved.
-    segment = Segment([parse_element(name, lattice_dict, device="cpu") for name in names])
+    segment = ares_lattice(device="cpu").subcell("AREASOLA1", "AREABSCR1")
     if histogram_window == "auto":
         histogram_window = _derived_ea_window(segment, k_sigma=5.0)
     segment.AREABSCR1.histogram_window = histogram_window

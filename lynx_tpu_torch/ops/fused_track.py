@@ -43,7 +43,7 @@ from typing import Callable, List, NamedTuple, Optional, Tuple
 import torch
 
 from lynx_tpu_torch._build import check, load_library
-from lynx_tpu_torch.constants import REST_ENERGY_EV
+from lynx_tpu_torch.constants import ELECTRON_MASS_EV, REST_ENERGY_EV
 from lynx_tpu_torch.ops import table as tbl
 
 Tensor = torch.Tensor
@@ -51,8 +51,14 @@ Tensor = torch.Tensor
 #: Tape kinds: the kernels' device function for each plan entry.  A dynamic
 #: builder names its kind in its ``tape_kind`` attribute
 #: (``accelerator/fused.py``); ``csrc/fused_builders.cuh`` has the same codes.
-TAPE_CONST, TAPE_DRIFT, TAPE_QUAD, TAPE_HCOR, TAPE_VCOR, TAPE_IDENTITY = range(6)
-_TAPE_PARAMS = {TAPE_DRIFT: 1, TAPE_QUAD: 5, TAPE_HCOR: 2, TAPE_VCOR: 2, TAPE_IDENTITY: 0}
+(
+    TAPE_CONST, TAPE_DRIFT, TAPE_QUAD, TAPE_HCOR, TAPE_VCOR, TAPE_IDENTITY, TAPE_CAVITY,
+    TAPE_UNDULATOR, TAPE_SOLENOID, TAPE_DIPOLE, TAPE_CUSTOM,
+) = range(11)
+_TAPE_PARAMS = {
+    TAPE_DRIFT: 1, TAPE_QUAD: 5, TAPE_HCOR: 2, TAPE_VCOR: 2, TAPE_IDENTITY: 0, TAPE_CAVITY: 4,
+    TAPE_UNDULATOR: 1, TAPE_SOLENOID: 4, TAPE_DIPOLE: 8, TAPE_CUSTOM: 49,
+}
 
 #: Support classes of a const entry's map, as ``csrc/fused_builders.cuh``'s
 #: ``ConstSupport`` codes: B3 composes such an entry over the class's cells
@@ -192,13 +198,16 @@ class Tape(NamedTuple):
     entry).
     ``literals`` is the const tensor with the literal cells filled in and
     zeros elsewhere; ``cell_index`` places the non-literal cells into its
-    flattened view."""
+    flattened view.  ``full`` says that the tape holds a kind of the full
+    lattice (a cavity, undulator, solenoid, dipole or custom map): the
+    kernels then run their instantiation with those builders."""
 
     rows: Tensor
     cell_pos: Tensor
     cell_index: Tensor
     literals: Tensor
     n_params: int
+    full: bool
 
 
 def _tape(entries, device) -> Tape:
@@ -225,6 +234,7 @@ def _tape(entries, device) -> Tape:
         cell_index=torch.tensor(index, dtype=torch.int64).to(device),
         literals=torch.tensor(literals, dtype=torch.float64).reshape(-1, 49).to(device),
         n_params=n_params,
+        full=any(row[0] >= TAPE_CAVITY for row in rows),
     )
     _TAPES[key] = tape
     return tape
@@ -273,12 +283,14 @@ def _check_sweep_operands(what, energy, mu, cov, *more):
 # -- Kernel B3: the fused moment sweep ---------------------------------------
 
 _P = ctypes.c_void_p
-#: C signature of B3's entry point: is_double, tape, n_entries, params,
-#: consts, energy, mu, cov, out_mu, out_cov, batch, rest energy, stream.
+#: C signature of B3's entry point: is_double, full, tape, n_entries, params,
+#: consts, energy, mu, cov, out_mu, out_cov, batch, rest energy, electron
+#: mass, stream.
 _B3_SIGNATURE = {
     "lynx_moment_sweep": (
         ctypes.c_int,
-        [ctypes.c_int, _P, ctypes.c_int] + [_P] * 7 + [ctypes.c_longlong, ctypes.c_double, _P],
+        [ctypes.c_int, ctypes.c_int, _P, ctypes.c_int] + [_P] * 7
+        + [ctypes.c_longlong, ctypes.c_double, ctypes.c_double, _P],
     )
 }
 
@@ -299,10 +311,10 @@ def _moment_sweep_cuda(entries, flat_values, energy, mu, cov):
     library = moment_sweep_library()
     with torch.cuda.device(device):
         code = library.lynx_moment_sweep(
-            int(dtype == torch.float64), tape.rows.data_ptr(), tape.rows.shape[0],
+            int(dtype == torch.float64), int(tape.full), tape.rows.data_ptr(), tape.rows.shape[0],
             params.data_ptr(), consts.data_ptr(), energy.data_ptr(), mu.data_ptr(),
             cov.data_ptr(), out_mu.data_ptr(), out_cov.data_ptr(), B, REST_ENERGY_EV,
-            torch.cuda.current_stream(device).cuda_stream,
+            ELECTRON_MASS_EV, torch.cuda.current_stream(device).cuda_stream,
         )
     check(library, code, "moment_sweep")
     moment_sweep.launches += 1
@@ -328,21 +340,25 @@ moment_sweep.launches = 0
 # -- Kernel B4: the sweep's backward -----------------------------------------
 
 #: C signatures of B4's entry points.  ``lynx_moment_sweep_bwd``: is_double,
-#: tape, n_entries, cell_pos, params, consts, energy, mu, cov, dmu, dcov,
-#: d_params, d_consts, d_energy, d_mu, d_cov, batch, rest energy, stream;
-#: it returns a CUDA error code, or ``_B4_DOES_NOT_FIT``.
-#: ``lynx_moment_sweep_bwd_tile``: is_double, n_entries -> settings per
-#: block on the current device (0: one setting does not fit).
+#: full, tape, n_entries, saved (the checkpoints' scratch), cell_pos, params,
+#: consts, energy, mu, cov, dmu, dcov, d_params, d_consts, d_energy, d_mu,
+#: d_cov, batch, rest energy, electron mass, stream; it returns a CUDA error
+#: code.  ``lynx_moment_sweep_bwd_tile``, ``_segment`` and ``_checkpoints``:
+#: is_double, n_entries -> settings per block, entries per segment and
+#: checkpoints per setting on the current device: a tape whose prefix
+#: products do not fit one setting's share of shared memory is walked in
+#: segments, each recomputed from a checkpoint kept in a (B, checkpoints,
+#: 56) scratch buffer that the wrapper allocates.
 _B4_SIGNATURE = {
     "lynx_moment_sweep_bwd": (
         ctypes.c_int,
-        [ctypes.c_int, _P, ctypes.c_int] + [_P] * 13 + [ctypes.c_longlong, ctypes.c_double, _P],
+        [ctypes.c_int, ctypes.c_int, _P, ctypes.c_int] + [_P] * 14
+        + [ctypes.c_longlong, ctypes.c_double, ctypes.c_double, _P],
     ),
     "lynx_moment_sweep_bwd_tile": (ctypes.c_int, [ctypes.c_int, ctypes.c_int]),
+    "lynx_moment_sweep_bwd_segment": (ctypes.c_int, [ctypes.c_int, ctypes.c_int]),
+    "lynx_moment_sweep_bwd_checkpoints": (ctypes.c_int, [ctypes.c_int, ctypes.c_int]),
 }
-#: B4's return code when one setting's prefix products exceed the device's
-#: shared memory per block (CUDA's own codes are not negative).
-_B4_DOES_NOT_FIT = -1
 
 
 def moment_sweep_bwd_library() -> ctypes.CDLL:
@@ -365,18 +381,19 @@ def _moment_sweep_bwd_cuda(entries, flat_values, energy, mu, cov, dmu, dcov):
     d_mu = torch.empty_like(mu)
     d_cov = torch.empty_like(cov)
     library = moment_sweep_bwd_library()
+    is_double = int(dtype == torch.float64)
     with torch.cuda.device(device):
+        checkpoints = library.lynx_moment_sweep_bwd_checkpoints(is_double, n_entries)
+        saved = None
+        if checkpoints:  # the segments' checkpoints (the tape does not fit whole)
+            saved = torch.empty((B, checkpoints, 56), dtype=dtype, device=device)
         code = library.lynx_moment_sweep_bwd(
-            int(dtype == torch.float64), tape.rows.data_ptr(), n_entries, tape.cell_pos.data_ptr(),
-            params.data_ptr(), consts.data_ptr(), energy.data_ptr(), mu.data_ptr(),
-            cov.data_ptr(), dmu.data_ptr(), dcov.data_ptr(), d_params.data_ptr(),
+            is_double, int(tape.full), tape.rows.data_ptr(), n_entries,
+            None if saved is None else saved.data_ptr(),
+            tape.cell_pos.data_ptr(), params.data_ptr(), consts.data_ptr(), energy.data_ptr(),
+            mu.data_ptr(), cov.data_ptr(), dmu.data_ptr(), dcov.data_ptr(), d_params.data_ptr(),
             d_consts.data_ptr(), d_energy.data_ptr(), d_mu.data_ptr(), d_cov.data_ptr(), B,
-            REST_ENERGY_EV, torch.cuda.current_stream(device).cuda_stream,
-        )
-    if code == _B4_DOES_NOT_FIT:
-        raise ValueError(
-            f"moment_sweep_bwd: the prefix products of one setting's {n_entries} entries"
-            f" do not fit in the device's shared memory per block ({dtype})"
+            REST_ENERGY_EV, ELECTRON_MASS_EV, torch.cuda.current_stream(device).cuda_stream,
         )
     check(library, code, "moment_sweep_bwd")
     moment_sweep_bwd.launches += 1

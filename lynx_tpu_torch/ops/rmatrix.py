@@ -15,11 +15,12 @@ JAX package's batch-last and sparse-table layouts are TPU layout devices.
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
 
-from lynx_tpu_torch.constants import REST_ENERGY_EV
+from lynx_tpu_torch.constants import ELECTRON_MASS_EV, REST_ENERGY_EV, SPEED_OF_LIGHT
 
 Tensor = torch.Tensor
 
@@ -266,3 +267,123 @@ def drift_rmatrix_entries(length: Tensor, energy) -> dict:
     beta2 = 1.0 - igamma2
     r56 = -length * _safe_div(igamma2, beta2, fallback=0.0)
     return {(0, 1): length, (2, 3): length, (4, 5): r56}
+
+
+def cavity_rmatrix(length, voltage, phase, frequency, energy) -> Tensor:
+    """Linear map of an accelerating RF cavity (see
+    :func:`cavity_rmatrix_entries`)."""
+    entries, batch_shape, dtype = cavity_rmatrix_entries(length, voltage, phase, frequency, energy)
+    return build_rmatrix(entries, batch_shape, dtype, torch.as_tensor(length).device)
+
+
+def cavity_rmatrix_entries(length, voltage, phase, frequency, energy):
+    r"""Entry dict of an accelerating RF cavity's linear map (pi-standing-wave
+    model): Rosenzweig-Serafini-style transverse focusing plus the
+    longitudinal (r55, r56, r65, r66) block.  Returns ``(entries,
+    batch_shape, dtype)``.
+
+    The JAX package's branch-free reparametrisation, equal to the textbook
+    form in real arithmetic, so that one expression covers V = 0, the
+    zero-crossing phase (cos phi = 0) and mixed on/off batches without NaN:
+
+    * ``alpha = sqrt(eta/8)/cos(phi) * ln(Ef/Ei)`` through ``ln(1+x)/x``
+      with ``x = V cos(phi)/E``: no ``1/cos(phi)``;
+    * ``r12 = sqrt(8/eta) L (Ei/V) sin(alpha)``: no division by the energy
+      gain;
+    * the ``(g0-g1)^2`` denominator of ``r55_cor`` cancelled analytically.
+    """
+    length = torch.as_tensor(length)
+    dtype, device = length.dtype, length.device
+
+    def cast(value):
+        return torch.as_tensor(value, dtype=dtype, device=device)
+
+    voltage, phase, frequency, energy = cast(voltage), cast(phase), cast(frequency), cast(energy)
+    batch_shape = torch.broadcast_shapes(
+        length.shape, voltage.shape, phase.shape, frequency.shape, energy.shape
+    )
+    length, voltage, phase, frequency, energy = (
+        torch.broadcast_to(a, batch_shape) for a in (length, voltage, phase, frequency, energy)
+    )
+
+    eta = 1.0
+    phi = torch.deg2rad(phase)
+    cos_phi = torch.cos(phi)
+    sin_phi = torch.sin(phi)
+
+    has_beam = energy != 0
+    Ei = torch.where(has_beam, energy, 1.0) / ELECTRON_MASS_EV  # gamma_in
+    Vm = voltage / ELECTRON_MASS_EV
+
+    x = Vm * cos_phi / Ei  # relative energy gain
+    Ef = Ei * (1.0 + x)  # gamma_out
+    # Valid: a beam is present and the outgoing energy is physical.
+    valid = has_beam & (Ef > 1.0)
+    Ef = torch.where(valid, Ef, Ei)
+    x = torch.where(valid, x, 0.0)
+
+    # ln(Ef/Ei)/x = ln(1+x)/x, -> 1 as x -> 0.
+    x_safe = torch.where(x == 0, 1.0, x)
+    lx = torch.where(x == 0, 1.0, torch.log1p(x) / x_safe)
+    alpha = math.sqrt(eta / 8.0) * (Vm / Ei) * lx
+    sin_alpha = torch.sin(alpha)
+    cos_alpha = torch.cos(alpha)
+
+    r11 = cos_alpha - math.sqrt(2.0 / eta) * cos_phi * sin_alpha
+    # sin(alpha)/alpha -> 1 covers V -> 0 (r12 -> L, the drift limit).
+    Vm_safe = torch.where(Vm == 0, 1.0, Vm)
+    r12 = torch.where(Vm == 0, length, math.sqrt(8.0 / eta) * length * (Ei / Vm_safe) * sin_alpha)
+    r21 = (
+        -(Vm / (length * Ef))
+        * sin_alpha
+        * (cos_phi**2 / math.sqrt(2.0 * eta) + math.sqrt(eta / 8.0))
+    )
+    r22 = Ei / Ef * (cos_alpha + math.sqrt(2.0 / eta) * cos_phi * sin_alpha)
+
+    beta0 = torch.sqrt(1.0 - 1.0 / Ei**2)
+    beta1 = torch.sqrt(1.0 - 1.0 / Ef**2)
+
+    k = 2.0 * math.pi * frequency / SPEED_OF_LIGHT
+    # Equal to the drift's r56 when V == 0.
+    r56 = -length / (Ef**2 * Ei * beta1) * (Ef + Ei) / (beta1 + beta0)
+    # The r55 correction without cancellation (see the docstring).
+    g0, g1 = Ei, Ef
+    gb_sum = g0 * beta0 + g1 * beta1
+    ratio = (g0 + g1) / torch.where(gb_sum == 0, 1.0, gb_sum)
+    r55_cor = (
+        -k * length * beta0 * Vm * sin_phi * (1.0 + ratio**2)
+        / (2.0 * g0 * g1 * (1.0 + beta0 * beta1) * beta1 * g1)
+    )
+
+    r66 = Ei / Ef * beta0 / beta1
+    r65 = k * sin_phi * Vm / (Ef * beta1)
+
+    # Invalid entries (no beam, or fully decelerated): the drift's map.
+    igamma2 = igamma2_from_energy(energy, zero_value=0.0)
+    beta2 = 1.0 - igamma2
+    drift_r56 = -length * _safe_div(igamma2, beta2, fallback=0.0)
+
+    r11 = torch.where(valid, r11, 1.0)
+    r12 = torch.where(valid, r12, length)
+    r21 = torch.where(valid, r21, 0.0)
+    r22 = torch.where(valid, r22, 1.0)
+    r55 = torch.where(valid, 1.0 + r55_cor, 1.0)
+    r56 = torch.where(valid, r56, drift_r56)
+    r65 = torch.where(valid, r65, 0.0)
+    r66 = torch.where(valid, r66, 1.0)
+
+    entries = {
+        (0, 0): r11,
+        (0, 1): r12,
+        (1, 0): r21,
+        (1, 1): r22,
+        (2, 2): r11,
+        (2, 3): r12,
+        (3, 2): r21,
+        (3, 3): r22,
+        (4, 4): r55,
+        (4, 5): r56,
+        (5, 4): r65,
+        (5, 5): r66,
+    }
+    return entries, batch_shape, dtype

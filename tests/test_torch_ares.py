@@ -9,6 +9,8 @@ few particles across bin edges: mass stays equal and at most 0.1% of the
 particles land in another bin.
 """
 
+import json
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,7 +22,7 @@ import lynx_tpu.functional as jax_functional
 import lynx_tpu_torch.ops.histogram as torch_hist
 from lynx_tpu.models import ares_ea_segment as jax_ares_ea_segment
 from lynx_tpu_torch import Segment, functional
-from lynx_tpu_torch.converters import from_jax_arrays
+from lynx_tpu_torch.converters import from_jax_arrays, load_cheetah_model
 from lynx_tpu_torch.models import ares as torch_ares
 from lynx_tpu_torch.particles import ParticleBeam
 
@@ -104,9 +106,19 @@ def test_loader_matches_jax_lattice(jax_segment):
     assert carried.AREABSCR1.histogram_window == (244, 950)
 
 
-def test_full_lattice_names_the_missing_element_types():
-    with pytest.raises(NotImplementedError, match="ported to lynx_tpu_torch yet: Cavity, Dipole, Solenoid$"):
-        torch_ares.ares_lattice(device="cpu")
+def test_full_lattice_names_the_missing_element_types(tmp_path):
+    """The full lattice loads (all 11 types are ported); a file with types
+    the port lacks raises, naming every one of them."""
+    assert len(torch_ares.ares_lattice(device="cpu").elements) == 195
+    document = {
+        "root": "cell",
+        "elements": {"S1": ["Septum", {}], "K1": ["Kicker", {}], "D1": ["Drift", {"length": [1]}]},
+        "lattices": {"cell": ["S1", "K1", "D1"]},
+    }
+    path = tmp_path / "lattice.json"
+    path.write_text(json.dumps(document))
+    with pytest.raises(NotImplementedError, match="ported to lynx_tpu_torch yet: Kicker, Septum$"):
+        load_cheetah_model(str(path), device="cpu")
 
 
 @pytest.mark.parametrize("batch", [1, 8])

@@ -90,3 +90,48 @@ def test_packed_gram_bound_by_hand():
     plane_ms, gram_ms = pairs * 28 / 67e12 * 1e3, pairs * 216 / 989e12 * 1e3
     assert by == "operations" and ms == pytest.approx(plane_ms + gram_ms)
     assert 1.5 < plane_ms / gram_ms < 2.5 and 0.015 < ms < 0.018
+
+
+def test_hist_ab_bound_by_hand():
+    """B7's bound at the harness's shape (N = 100,000, window (952, 256)):
+    8 bytes a particle and the int32 window, 0.53 us at 3.35 TB/s, for both
+    kernels.  The one-hot contraction's own floor, its 2 N win_x win_y int8
+    operations (N to the mma's 32 particles) at 1,979 TOP/s, is 0.025 ms:
+    the formulation's cost, printed apart, not the bound."""
+    n, win = 100_000, (952, 256)
+    ms, by = chip_smoke.hist_bound(n, win)
+    assert by == "bytes" and ms == pytest.approx((8 * n + 4 * 952 * 256) / 3.35e12 * 1e3)
+    assert 0.00052 < ms < 0.00054
+    floor = chip_smoke.onehot_floor(n, win)
+    assert floor == pytest.approx(2 * n * 952 * 256 / 1979e12 * 1e3)
+    assert 0.0246 < floor < 0.0247
+    # 33 particles pad to the mma's 32 twice over: 2 * 64 * 16 * 128 operations.
+    assert chip_smoke.onehot_floor(33, (16, 128)) == pytest.approx(2 * 64 * 16 * 128 / 1979e12 * 1e3)
+    ms, by = chip_smoke.hist_bound(33, (16, 128))
+    assert by == "bytes" and ms == pytest.approx((8 * 33 + 4 * 16 * 128) / 3.35e12 * 1e3)
+
+
+@pytest.mark.parametrize("code, cells", [
+    (ft.TAPE_UNDULATOR, 10), (ft.TAPE_CAVITY, 13), (ft.TAPE_SOLENOID, 24), (ft.TAPE_CUSTOM, 49),
+])
+def test_new_kinds_supports_by_hand(code, cells):
+    """The structural supports of the new builders' maps: an undulator is a
+    drift (identity + 3 cells); an inactive cavity 12 cells and (6, 6); a
+    misaligned solenoid its 4x4 block, (4, 5), the diagonal's last three
+    and column 6 of rows 0-3; a custom map dense."""
+    support, ones = chip_smoke.dynamic_support(ft, code)
+    assert bin(support).count("1") == cells
+    assert ones & ~support == 0
+
+
+def test_dipole_support_holds_its_cells():
+    """A dipole's map (tilted edges around the body or thin kick) reaches
+    the transverse 4x4 block, the dispersion column 5 and row 4 (x, x'),
+    column 6 of rows 0-3 (the thin kick turned by the tilt), and the last
+    three diagonal cells, which stay exact ones."""
+    support, ones = chip_smoke.dynamic_support(ft, ft.TAPE_DIPOLE)
+    expected = ([(i, j) for i in range(4) for j in range(4)] + [(i, 5) for i in range(5)]
+                + [(4, j) for j in range(4)] + [(i, 6) for i in range(4)]
+                + [(4, 4), (5, 5), (6, 6)])
+    assert support == chip_smoke.mask_of(expected)
+    assert ones == chip_smoke.mask_of([(4, 4), (5, 5), (6, 6)])

@@ -18,7 +18,7 @@ import lynx_tpu_torch as ltt
 from lynx_tpu_torch import utils
 from lynx_tpu_torch.converters import latticejson
 from lynx_tpu_torch.envs import ares_ea
-from lynx_tpu_torch.models import ares
+from lynx_tpu_torch.models import ares, fodo
 from lynx_tpu_torch.particles import parameter_beam, particle_beam
 
 
@@ -78,6 +78,14 @@ ENTRY_POINTS = {
     "BPM": lambda path, **kw: ltt.BPM(is_active=True, **kw),
     "Aperture": lambda path, **kw: ltt.Aperture(x_max=1e-3, **kw),
     "Screen": lambda path, **kw: ltt.Screen(resolution=(8, 4), **kw),
+    "Dipole": lambda path, **kw: ltt.Dipole(0.3, angle=0.1, e1=[0.01], **kw),
+    "RBend": lambda path, **kw: ltt.RBend(0.3, angle=0.1, **kw),
+    "Solenoid": lambda path, **kw: ltt.Solenoid(0.2, k=1.0, **kw),
+    "Cavity": lambda path, **kw: ltt.Cavity(1.0, voltage=1e6, phase=10.0, frequency=1.3e9, **kw),
+    "Undulator": lambda path, **kw: ltt.Undulator(1.0, **kw),
+    "CustomTransferMap": lambda path, **kw: ltt.CustomTransferMap(np.eye(7), **kw),
+    "fodo_cell": lambda path, **kw: fodo.fodo_cell(**kw),
+    "fodo_lattice": lambda path, **kw: fodo.fodo_lattice(2, **kw),
     "ParticleBeam": lambda path, **kw: ltt.ParticleBeam(np.tile(np.eye(7)[6], (4, 1)), 1e8, **kw),
     "ParameterBeam": lambda path, **kw: ltt.ParameterBeam(np.eye(7)[6], np.eye(7), 1e8, **kw),
 }

@@ -1,4 +1,4 @@
-"""The CUDA sources of kernels B2-B6, run on the CPU.
+"""The CUDA sources of kernels B2-B7, run on the CPU.
 
 There is no nvcc here, so each ``csrc/*.cu`` is compiled as host C++ by gcc
 against a stand-in ``cuda_runtime.h``: ``__device__`` and friends are
@@ -12,7 +12,9 @@ launch's size.  A device intrinsic goes through a small helper that the
 stand-in replaces (``LYNX_HOST_STAND_IN``): B6's ``cp.async`` copies are
 plain copies there, done at once, and their commit and wait do nothing, so
 that the double-buffered stages still run through the kernel's buffer
-indexing and barriers.  That runs the kernels' arithmetic and their cooperation
+indexing and barriers; B6's and B7's ``mma.sync`` (m16n8k16 bf16, m16n8k32
+s8) form each lane's outputs from the warp's fragments in the PTX ISA's
+layouts; ``atomicAdd`` is a host atomic.  That runs the kernels' arithmetic and their cooperation
 (tape decoding, builders, dual numbers, shared-memory tiles, the ragged
 batch) on the plain versions' inputs.  What it cannot check is the device
 itself (FMA contraction, memory, occupancy, registers): ``chip_smoke.py``
@@ -41,7 +43,8 @@ import torch
 import lynx_tpu_torch as ltt
 from lynx_tpu_torch import _build
 from lynx_tpu_torch.accelerator import fused as torch_fused
-from lynx_tpu_torch.constants import REST_ENERGY_EV
+from lynx_tpu_torch.benchmarks import hist_ab
+from lynx_tpu_torch.constants import ELECTRON_MASS_EV, REST_ENERGY_EV
 from lynx_tpu_torch.ops import fused_track
 from lynx_tpu_torch.ops import table as tbl
 
@@ -83,6 +86,15 @@ struct alignas(8) float2 { float x, y; };
 struct alignas(8) uint2 { unsigned x, y; };
 struct alignas(16) float4 { float x, y, z, w; };
 struct alignas(16) double2 { double x, y; };
+struct alignas(16) int4 { int x, y, z, w; };
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1) : x(x_), y(y_), z(z_) {}
+};
+// Threads of a block run concurrently: atomics are atomic.
+inline int atomicAdd(int* address, int value) {
+  return __atomic_fetch_add(address, value, __ATOMIC_RELAXED);
+}
 inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
 inline double2 make_double2(double x, double y) { return {x, y}; }
 static std::barrier<>* lynx_host_barrier = nullptr;
@@ -151,22 +163,52 @@ inline void lynx_mma_bf16(float (&d)[4], const unsigned (&a)[4], const unsigned 
   }
   lynx_host_barrier->arrive_and_wait();
 }
+// mma.sync m16n8k32 s8 -> s32: as lynx_mma_bf16, with the s8 fragment
+// layouts (four s8 values to a register, element i in byte i).
+struct LynxHostMmaS8 { unsigned a[32][4]; unsigned b[32][2]; };
+static LynxHostMmaS8 lynx_host_mma_s8[32];
+inline int lynx_host_s8(unsigned word, int i) {
+  return static_cast<int>(static_cast<signed char>((word >> (8 * i)) & 0xffu));
+}
+inline void lynx_mma_s8(int (&d)[4], const unsigned (&a)[4], const unsigned (&b)[2]) {
+  LynxHostMmaS8& slot = lynx_host_mma_s8[threadIdx.x / 32];
+  const unsigned lane = threadIdx.x % 32;
+  for (int r = 0; r < 4; ++r) slot.a[lane][r] = a[r];
+  for (int r = 0; r < 2; ++r) slot.b[lane][r] = b[r];
+  lynx_host_barrier->arrive_and_wait();
+  for (int c = 0; c < 4; ++c) {
+    const int row = lane / 4 + 8 * (c / 2);
+    const int col = 2 * (lane % 4) + c % 2;
+    int acc = d[c];
+    for (int k = 0; k < 32; ++k) {
+      // A: register (row / 8) + 2 (k / 16) of lane 4 (row % 8) + (k % 16) / 4;
+      // B: register k / 16 of lane 4 col + (k % 16) / 4; byte k % 4.
+      const int x = lynx_host_s8(slot.a[4 * (row % 8) + (k % 16) / 4][row / 8 + 2 * (k / 16)], k % 4);
+      const int y = lynx_host_s8(slot.b[4 * col + (k % 16) / 4][k / 16], k % 4);
+      acc += x * y;
+    }
+    d[c] = acc;
+  }
+  lynx_host_barrier->arrive_and_wait();
+}
 template <typename F>
-void lynx_host_launch(F body, unsigned blocks, unsigned threads, size_t shared = 0,
+void lynx_host_launch(F body, dim3 grid, unsigned threads, size_t shared = 0,
                       cudaStream_t = nullptr) {
   void* memory = ::operator new(shared + 16, std::align_val_t(16));
   lynx_host_shared = static_cast<unsigned char*>(memory);
-  gridDim = {blocks, 1, 1};
+  gridDim = {grid.x, grid.y, 1};
   blockDim = {threads, 1, 1};
-  for (unsigned b = 0; b < blocks; ++b) {
-    blockIdx = {b, 0, 0};
-    std::barrier<> barrier(threads);
-    lynx_host_barrier = &barrier;
-    std::vector<std::thread> pool;
-    for (unsigned t = 0; t < threads; ++t) {
-      pool.emplace_back([&body, t] { threadIdx = {t, 0, 0}; body(); });
+  for (unsigned by = 0; by < grid.y; ++by) {
+    for (unsigned b = 0; b < grid.x; ++b) {
+      blockIdx = {b, by, 0};
+      std::barrier<> barrier(threads);
+      lynx_host_barrier = &barrier;
+      std::vector<std::thread> pool;
+      for (unsigned t = 0; t < threads; ++t) {
+        pool.emplace_back([&body, t] { threadIdx = {t, 0, 0}; body(); });
+      }
+      for (auto& thread : pool) thread.join();
     }
-    for (auto& thread : pool) thread.join();
   }
   ::operator delete(memory, std::align_val_t(16));
 }
@@ -178,9 +220,10 @@ SIGNATURES = {
     "particle_apply": fused_track._B2_SIGNATURE,
     "particle_moment_sweep": fused_track._B5_SIGNATURE,
     "packed_gram": fused_track._B6_SIGNATURE,
+    "hist_ab": hist_ab._B7_SIGNATURE,
 }
 # kernel<T, ...><<<grid>>>(args); -> lynx_host_launch([&] { kernel<T, ...>(args); }, grid);
-LAUNCH = re.compile(r"(\w+<[^<>;]*>)<<<(.*?)>>>\((.*?)\);", flags=re.S)
+LAUNCH = re.compile(r"(\w+(?:<[^<>;]*>)?)<<<(.*?)>>>\((.*?)\);", flags=re.S)
 # extern __shared__ __align__(16) unsigned char name[]; -> a pointer to the launch's buffer.
 DYNAMIC_SHARED = re.compile(
     r"extern\s+__shared__\s+(?:__align__\(\d+\)\s+)?(\w[\w ]*?)\s+(\w+)\[\];"
@@ -277,12 +320,15 @@ def sweep_plan(B, energy_batched, repeat=1):
     return entries, values, tape, params, consts, energy, mu, cov, k1_zero
 
 
-def check_backward(host_kernels, B, entries, values, tape, params, consts, energy, mu, cov,
-                   k1_zero):
-    """B4 against autograd of the plain sweep, at the module's bounds."""
+def cotangents(B):
+    """The moments' cotangents (dmu, dcov) of the backward checks."""
     rng = np.random.default_rng(1)
-    dmu = torch.from_numpy(rng.normal(size=(B, 7)))
-    dcov = torch.from_numpy(rng.normal(size=(B, 7, 7)))
+    return torch.from_numpy(rng.normal(size=(B, 7))), torch.from_numpy(rng.normal(size=(B, 7, 7)))
+
+
+def run_backward(host_kernels, tape, params, consts, energy, mu, cov, dmu, dcov):
+    """B4 on the host, float64: its outputs by name."""
+    B = mu.shape[0]
     outputs = {
         "d_params": torch.empty((tape.n_params, B), dtype=torch.float64),
         "d_consts": torch.empty((tape.cell_pos.shape[0], B), dtype=torch.float64),
@@ -290,12 +336,26 @@ def check_backward(host_kernels, B, entries, values, tape, params, consts, energ
         "d_mu": torch.empty_like(mu),
         "d_cov": torch.empty_like(cov),
     }
-    code = host_kernels["moment_sweep_bwd"].lynx_moment_sweep_bwd(
-        1, tape.rows.data_ptr(), tape.rows.shape[0], tape.cell_pos.data_ptr(), params.data_ptr(),
+    library = host_kernels["moment_sweep_bwd"]
+    checkpoints = library.lynx_moment_sweep_bwd_checkpoints(1, tape.rows.shape[0])
+    saved = torch.empty((B, checkpoints, 56), dtype=torch.float64) if checkpoints else None
+    code = library.lynx_moment_sweep_bwd(
+        1, int(tape.full), tape.rows.data_ptr(), tape.rows.shape[0],
+        None if saved is None else saved.data_ptr(), tape.cell_pos.data_ptr(), params.data_ptr(),
         consts.data_ptr(), energy.data_ptr(), mu.data_ptr(), cov.data_ptr(), dmu.data_ptr(),
-        dcov.data_ptr(), *(t.data_ptr() for t in outputs.values()), B, REST_ENERGY_EV, None,
+        dcov.data_ptr(), *(t.data_ptr() for t in outputs.values()), B, REST_ENERGY_EV,
+        ELECTRON_MASS_EV, None,
     )
     assert code == 0
+    return outputs
+
+
+def check_backward(host_kernels, B, entries, values, tape, params, consts, energy, mu, cov,
+                   k1_zero, energy_rtol=RTOL, rtol=RTOL):
+    """B4 against autograd of the plain sweep, at the module's bounds (or
+    ``rtol``; the energy cotangent at ``energy_rtol``)."""
+    dmu, dcov = cotangents(B)
+    outputs = run_backward(host_kernels, tape, params, consts, energy, mu, cov, dmu, dcov)
     ref_values, ref_energy, ref_mu, ref_cov = fused_track._reference_sweep_vjp(
         entries, values, energy, mu, cov, dmu, dcov
     )
@@ -312,11 +372,12 @@ def check_backward(host_kernels, B, entries, values, tape, params, consts, energ
                 zero = k1_zero if want.shape[0] == B else torch.zeros_like(k1_zero)
                 assert bool((error[zero] <= K1_ZERO_RTOL * want[zero].abs()).all())
                 error = error[~zero]
-            assert float(error.max()) <= RTOL * scale, (kind, offset + k)
+            assert float(error.max()) <= rtol * scale, (kind, offset + k)
         offset += count
-    for name, want in (("d_energy", ref_energy), ("d_mu", ref_mu), ("d_cov", ref_cov)):
+    for name, want, bound in (("d_energy", ref_energy, energy_rtol), ("d_mu", ref_mu, rtol),
+                              ("d_cov", ref_cov, rtol)):
         got = outputs[name]
-        assert float((got - want).abs().max()) <= RTOL * float(want.abs().max()), name
+        assert float((got - want).abs().max()) <= bound * float(want.abs().max()), name
 
 
 @pytest.mark.parametrize("energy_batched", [False, True])
@@ -326,13 +387,7 @@ def test_moment_sweep_and_backward_match_plain(host_kernels, energy_batched):
     entries, values, tape, params, consts, energy, mu, cov, _ = plan
     assert B % host_kernels["moment_sweep_bwd"].lynx_moment_sweep_bwd_tile(1, len(entries))
 
-    out_mu, out_cov = torch.empty_like(mu), torch.empty_like(cov)
-    code = host_kernels["moment_sweep"].lynx_moment_sweep(
-        1, tape.rows.data_ptr(), tape.rows.shape[0], params.data_ptr(), consts.data_ptr(),
-        energy.data_ptr(), mu.data_ptr(), cov.data_ptr(), out_mu.data_ptr(), out_cov.data_ptr(),
-        B, REST_ENERGY_EV, None,
-    )
-    assert code == 0
+    out_mu, out_cov = run_sweep(host_kernels, entries, values, energy, mu, cov)
     ref_mu, ref_cov = fused_track._table_reference_sweep(entries, values, energy, mu, cov)
     assert per_setting_error(out_mu, ref_mu) <= RTOL
     assert per_setting_error(out_cov, ref_cov) <= RTOL
@@ -346,9 +401,9 @@ def run_sweep(host_kernels, entries, values, energy, mu, cov):
     params, consts = fused_track._tape_operands(entries, values, tape, torch.float64, B)
     out_mu, out_cov = torch.empty_like(mu), torch.empty_like(cov)
     code = host_kernels["moment_sweep"].lynx_moment_sweep(
-        1, tape.rows.data_ptr(), tape.rows.shape[0], params.data_ptr(), consts.data_ptr(),
-        energy.data_ptr(), mu.data_ptr(), cov.data_ptr(), out_mu.data_ptr(), out_cov.data_ptr(),
-        B, REST_ENERGY_EV, None,
+        1, int(tape.full), tape.rows.data_ptr(), tape.rows.shape[0], params.data_ptr(),
+        consts.data_ptr(), energy.data_ptr(), mu.data_ptr(), cov.data_ptr(), out_mu.data_ptr(),
+        out_cov.data_ptr(), B, REST_ENERGY_EV, ELECTRON_MASS_EV, None,
     )
     assert code == 0
     return out_mu, out_cov
@@ -434,34 +489,173 @@ def test_const_support_classes():
 
 
 def test_backward_tile_follows_the_tape_and_the_dtype(host_kernels):
-    """B4 keeps each setting's prefix products in shared memory: the
-    settings per block (at most 32, whole warps from 4 on) shrink as the
-    tape grows and in float64, and are 0 where one setting cannot fit in
-    the 227 KB of an H100 block."""
+    """B4 keeps each setting's prefix products in shared memory, 32
+    settings a block: a tape whose prefix products would leave fewer (past
+    28 entries in float, 12 in double, with the 227 KB of an H100 block) is
+    walked in segments, each from a checkpoint in a device scratch buffer:
+    the longest segments that keep 32 settings a block, 28 entries in float
+    and 12 in double."""
     tile = host_kernels["moment_sweep_bwd"].lynx_moment_sweep_bwd_tile
-    assert tile(0, 11) == tile(1, 11) == 32  # path T's plan: 3.4 / 6.8 KB a setting
-    assert tile(0, 36) == 24 and tile(1, 36) == 12 and tile(1, 60) == 8
-    assert tile(1, 200) == 2 and tile(0, 700) == 1
-    assert tile(1, 700) == 0
-    # Such a launch returns the code that the wrapper raises on, before it
-    # reads any operand.
-    launch = host_kernels["moment_sweep_bwd"].lynx_moment_sweep_bwd
-    assert launch(1, None, 700, *[None] * 13, 1, REST_ENERGY_EV, None) == (
-        fused_track._B4_DOES_NOT_FIT
-    )
+    segment = host_kernels["moment_sweep_bwd"].lynx_moment_sweep_bwd_segment
+    checkpoints = host_kernels["moment_sweep_bwd"].lynx_moment_sweep_bwd_checkpoints
+    for is_double, entries in ((0, 11), (1, 11), (0, 28), (1, 12)):
+        # Whole: path T's plan takes 3.4 / 6.8 KB a setting.
+        assert tile(is_double, entries) == 32 and segment(is_double, entries) == entries
+        assert checkpoints(is_double, entries) == 0
+    for is_double, entries, length in ((0, 29, 28), (1, 13, 12), (0, 68, 28), (1, 200, 12),
+                                       (0, 1034, 28), (1, 901, 12), (1, 60_000, 12)):
+        assert tile(is_double, entries) == 32 and segment(is_double, entries) == length
+        assert checkpoints(is_double, entries) == -(-entries // length)
 
 
-@pytest.mark.parametrize("B, repeat, tile", [(5, 4, 12), (37, 4, 12), (5, 25, 2)])
-def test_backward_on_a_tape_that_shrinks_the_tile(host_kernels, B, repeat, tile):
-    """The run ``repeat`` times over, every entry dynamic: 36 entries give 12
-    settings a block in float64, so B = 37 fills three blocks and one setting
-    of a fourth and B = 5 one block in part; 225 entries give 2 settings a
-    block, a block of 16 threads that fills half a warp."""
+@pytest.mark.parametrize("B, repeat, segments", [(5, 4, 3), (37, 4, 3), (5, 25, 19)])
+def test_backward_on_a_tape_that_shrinks_the_tile(host_kernels, B, repeat, segments):
+    """The run ``repeat`` times over, every entry dynamic: 36 entries would
+    shrink the block to 12 settings in float64, so they are walked in 3
+    segments of 12 (B = 37 fills one block of 32 and part of a second, B = 5
+    part of one); 225 entries in 19 segments, the last of 9."""
     plan = sweep_plan(B, energy_batched=True, repeat=repeat)
     entries = plan[0]
     assert len(entries) == 9 * repeat
-    assert host_kernels["moment_sweep_bwd"].lynx_moment_sweep_bwd_tile(1, len(entries)) == tile
+    library = host_kernels["moment_sweep_bwd"]
+    assert library.lynx_moment_sweep_bwd_tile(1, len(entries)) == 32
+    assert library.lynx_moment_sweep_bwd_checkpoints(1, len(entries)) == segments
     check_backward(host_kernels, B, *plan)
+
+
+def new_kind_elements(B, seed=4):
+    """One batched element of each kind of the full lattice between static
+    drifts, float64: a dipole with non-zero e1, e2, tilt, fint and gap and
+    one at length 0, an RBend, a misaligned solenoid and one at k = 0, an
+    inactive cavity with batched length, phase and frequency, an undulator
+    and a custom map."""
+    rng = np.random.default_rng(seed)
+    f64 = dict(dtype=torch.float64)
+
+    def u(low, high, *shape):
+        return torch.from_numpy(rng.uniform(low, high, shape or (B,)))
+
+    kinds = [
+        ltt.Dipole(u(0.2, 0.5), angle=u(-0.2, 0.2), e1=u(-0.05, 0.05), e2=u(-0.05, 0.05),
+                   tilt=u(-0.1, 0.1), fringe_integral=u(0.3, 0.6),
+                   fringe_integral_exit=u(0.3, 0.6), gap=u(0.01, 0.05), **f64),
+        ltt.Dipole(torch.zeros(B, **f64), angle=u(-1e-3, 1e-3), tilt=u(-0.1, 0.1), **f64),
+        ltt.RBend(u(0.2, 0.4), angle=u(-0.2, 0.2), gap=u(0.01, 0.03),
+                  fringe_integral=u(0.3, 0.6), **f64),
+        ltt.Solenoid(u(0.1, 0.3), k=u(-3.0, 3.0), misalignment=u(-2e-4, 2e-4, B, 2), **f64),
+        ltt.Solenoid(u(0.1, 0.3), k=torch.zeros(B, **f64), **f64),
+        ltt.Cavity(u(0.5, 1.5), voltage=torch.zeros(1, **f64), phase=u(-30.0, 30.0),
+                   frequency=u(1e9, 3e9), **f64),
+        ltt.Undulator(u(0.5, 2.0), **f64),
+        ltt.CustomTransferMap(torch.eye(7, **f64) + 0.05 * u(-1.0, 1.0, B, 7, 7), **f64),
+    ]
+    elements = []
+    for element in kinds:
+        elements += [ltt.Drift(torch.tensor([0.3], **f64), **f64), element]
+    return elements
+
+
+def new_kind_plan(B, energy_batched):
+    """The plan of :func:`new_kind_elements` as B3 and B4 take it (see
+    :func:`sweep_plan`); no quadrupole, so no k1 = 0 entry."""
+    builders = [torch_fused.element_map_builder(el) for el in new_kind_elements(B)]
+    rng = np.random.default_rng(6)
+    energy = torch.full((B,), 1.073e8, dtype=torch.float64)
+    if energy_batched:  # every element dynamic, the drifts and the custom map too
+        energy = energy * torch.linspace(0.9, 1.1, B, dtype=torch.float64)
+    plan = torch_fused.plan_run(builders, energy if energy_batched else energy[:1],
+                                lambda x: torch.broadcast_to(x, (B,)))
+    entries = tuple((kind, meta, len(values)) for kind, meta, values in plan)
+    values = [v for _, _, vs in plan for v in vs]
+    tape = fused_track._tape(entries, torch.device("cpu"))
+    params, consts = fused_track._tape_operands(entries, values, tape, torch.float64, B)
+    mu = torch.from_numpy(
+        np.concatenate([rng.normal(scale=1e-4, size=(B, 6)), np.ones((B, 1))], axis=1))
+    a = rng.normal(scale=1e-4, size=(B, 7, 7))
+    a[:, 6, :] = 0.0
+    cov = torch.from_numpy(a @ np.swapaxes(a, 1, 2))
+    return entries, values, tape, params, consts, energy, mu, cov, torch.zeros(B, dtype=bool)
+
+
+@pytest.mark.parametrize("B, energy_batched", [(37, False), (5, True)])
+def test_new_builders_match_plain(host_kernels, B, energy_batched):
+    """B3 and B4 on one batched element of each new kind: the kernels'
+    instantiation with the full lattice's builders (the dipole's 9 inputs
+    in two dual passes, the custom map's cells as parameters) against the
+    plain versions.  The energy cotangent sums the 16 maps' contributions,
+    which cancel to ~1e-17 here: the two summation orders agree to 1e-10 of
+    it, 1e-12 of the contributions."""
+    plan = new_kind_plan(B, energy_batched)
+    entries, values, tape, params, consts, energy, mu, cov, _ = plan
+    assert tape.full
+    kinds = {row[0] for row in tape.rows.tolist()}
+    assert {fused_track.TAPE_DIPOLE, fused_track.TAPE_SOLENOID, fused_track.TAPE_CAVITY,
+            fused_track.TAPE_UNDULATOR, fused_track.TAPE_CUSTOM} <= kinds
+    out_mu, out_cov = run_sweep(host_kernels, entries, values, energy, mu, cov)
+    ref_mu, ref_cov = fused_track._table_reference_sweep(entries, values, energy, mu, cov)
+    assert per_setting_error(out_mu, ref_mu) <= RTOL
+    assert per_setting_error(out_cov, ref_cov) <= RTOL
+    check_backward(host_kernels, B, *plan, energy_rtol=1e-9)
+
+
+@pytest.mark.parametrize("B, energy_batched", [(37, False), (5, True)])
+def test_new_builders_energy_cotangent_is_the_forward_mode(host_kernels, B, energy_batched):
+    """B4's energy cotangent comes from dual numbers, a forward mode.  On the
+    new kinds it equals the plain version's forward mode per setting to
+    1e-12 of the value, while the plain version's reverse mode differs from
+    both by the inactive cavity's cancelling d/dE: ``chip_smoke.py`` holds
+    the kernel to its reverse mode within SPREAD_FACTOR times that spread."""
+    import chip_smoke
+
+    plan = new_kind_plan(B, energy_batched)
+    entries, values, tape, params, consts, energy, mu, cov, _ = plan
+    dmu, dcov = cotangents(B)
+    got = run_backward(host_kernels, tape, params, consts, energy, mu, cov, dmu, dcov)["d_energy"]
+    forward = chip_smoke.plain_energy_forward(torch, fused_track, entries, values, energy, mu,
+                                              cov, dmu, dcov)
+    reverse = fused_track._reference_sweep_vjp(entries, values, energy, mu, cov, dmu, dcov)[1]
+    assert float(((got - forward).abs() / forward.abs()).max()) <= RTOL
+    assert chip_smoke.energy_ratio(torch, got, reverse, RTOL, forward)[0] <= 1
+    if not energy_batched:  # one energy: the cavity's rounding outweighs the value
+        assert chip_smoke.energy_ratio(torch, got, reverse, RTOL)[0] > 1
+
+
+def test_backward_past_the_shared_memory_walks_segments(host_kernels):
+    """fodo_lattice(90) with every quadrupole batched plans to 541 entries:
+    past the 514 whose prefix products fit one setting in double, so B4
+    walks 46 segments of up to 12 entries from their checkpoints, against
+    the plain version; B = 37 fills one block of 32 settings and part of a
+    second.  The chain of 541 maps grows cotangents to ~1e10 (the const
+    cells', summed over the settings): 1e-11 of the largest is their
+    rounding."""
+    from lynx_tpu_torch.models.fodo import fodo_lattice
+
+    B = 37
+    rng = np.random.default_rng(8)
+    lattice = fodo_lattice(90, dtype=torch.float64, device="cpu")
+    for element in lattice.elements:
+        if isinstance(element, ltt.Quadrupole):
+            sign = 1.0 if float(element.k1) >= 0 else -1.0
+            element.k1 = torch.from_numpy(sign * rng.uniform(0.5, 5.0, B))
+    builders = [torch_fused.element_map_builder(el) for el in lattice.elements]
+    energy = torch.full((B,), 1.073e8, dtype=torch.float64)
+    plan = torch_fused.plan_run(builders, energy[:1], lambda x: torch.broadcast_to(x, (B,)))
+    entries = tuple((kind, meta, len(values)) for kind, meta, values in plan)
+    values = [v for _, _, vs in plan for v in vs]
+    assert len(entries) == 541
+    library = host_kernels["moment_sweep_bwd"]
+    assert library.lynx_moment_sweep_bwd_segment(1, 541) == 12
+    assert library.lynx_moment_sweep_bwd_tile(1, 541) == 32
+    assert library.lynx_moment_sweep_bwd_checkpoints(1, 541) == 46
+    tape = fused_track._tape(entries, torch.device("cpu"))
+    params, consts = fused_track._tape_operands(entries, values, tape, torch.float64, B)
+    mu = torch.from_numpy(
+        np.concatenate([rng.normal(scale=1e-4, size=(B, 6)), np.ones((B, 1))], axis=1))
+    a = rng.normal(scale=1e-4, size=(B, 7, 7))
+    a[:, 6, :] = 0.0
+    cov = torch.from_numpy(a @ np.swapaxes(a, 1, 2))
+    check_backward(host_kernels, B, entries, values, tape, params, consts, energy, mu, cov,
+                   torch.zeros(B, dtype=bool), rtol=1e-11)
 
 
 def push_inputs(B, N, dtype, shift=0):
@@ -710,3 +904,49 @@ def test_gram_splits_fill_the_card(host_kernels, is_double):
         assert 2 * warps * splits >= 132 * 16 or splits == chunks
     # Path A's launch: 2 tiles of 8 warps (float), 131 splits of 6 chunks.
     assert splits_of(0, 256, 100_000) == 131
+
+
+def hist_indices(n, win, seed):
+    """Indices in [-1, win + 4) on each axis: -1 pads and pairs past the
+    window, which B7 drops."""
+    rng = np.random.default_rng(seed)
+    lx = torch.from_numpy(rng.integers(-1, win[0] + 4, n).astype(np.int32))
+    ly = torch.from_numpy(rng.integers(-1, win[1] + 4, n).astype(np.int32))
+    return lx, ly
+
+
+@pytest.mark.parametrize("chunk, n", [(256, 3001), (1024, 700)])
+def test_hist_onehot_equals_plain(host_kernels, chunk, n):
+    """B7's one-hot contraction through the m16n8k32 s8 stand-in: a window
+    of one 64-row tile and four 32-column tiles, ragged chunks, particles
+    split across blocks (added with atomics), exactly the plain counts."""
+    win = (16, 128)
+    lx, ly = hist_indices(n, win, seed=chunk)
+    library = host_kernels["hist_ab"]
+    assert library.lynx_hist_onehot_splits(n, *win, chunk) == -(-n // chunk)
+    out = torch.zeros((1, *win), dtype=torch.int32)
+    code = library.lynx_hist_onehot(lx.data_ptr(), ly.data_ptr(), out.data_ptr(), n, *win, chunk,
+                                    None)
+    assert code == 0
+    expected = hist_ab.hist_ab_reference(lx, ly, *win)
+    assert torch.equal(out, expected) and 0 < int(out.sum()) < n
+    assert library.lynx_hist_onehot(lx.data_ptr(), ly.data_ptr(), out.data_ptr(), n, *win, 100,
+                                    None) != 0  # no such chunk
+
+
+@pytest.mark.parametrize("band_rows, n", [(4, 3000), (16, 3000), (5, 200)])
+def test_hist_twolevel_equals_plain(host_kernels, band_rows, n):
+    """B7's banded window: four bands of 4 rows, one band of the whole
+    window, and bands of 5 rows whose last is ragged; particles split
+    across blocks (band written with atomics), or, for 200 particles, one
+    split (plain stores)."""
+    win = (16, 128)
+    lx, ly = hist_indices(n, win, seed=band_rows)
+    library = host_kernels["hist_ab"]
+    splits = library.lynx_hist_twolevel_splits(n, win[0], band_rows)
+    assert (splits == 1) == (n <= 256)
+    out = torch.zeros((1, *win), dtype=torch.int32)
+    code = library.lynx_hist_twolevel(lx.data_ptr(), ly.data_ptr(), out.data_ptr(), n, *win,
+                                      band_rows, None)
+    assert code == 0
+    assert torch.equal(out, hist_ab.hist_ab_reference(lx, ly, *win))

@@ -18,7 +18,11 @@ def test_port_imports_no_jax():
     result = run(
         "import sys, torch\n"
         "import lynx_tpu_torch, lynx_tpu_torch.models, lynx_tpu_torch.converters\n"
+        "import lynx_tpu_torch.benchmarks.hist_ab, lynx_tpu_torch.models.fodo\n"
         "import chip_smoke\n"
+        "from lynx_tpu_torch.models import ares_lattice\n"
+        "lattice = ares_lattice(device='cpu')\n"
+        "assert len({type(e).__name__ for e in lattice.elements}) == 11\n"
         "from lynx_tpu_torch.models import ares_ea_segment\n"
         "segment = ares_ea_segment(device='cpu')\n"
         "segment.AREABSCR1.is_active = True\n"

@@ -52,6 +52,44 @@ VARIANTS = {
         "__launch_bounds__(kSettings, 12) moment_sweep_kernel",
         "B3 held to 80 registers (12 blocks of 64 a multiprocessor)",
     ),
+    "B4-inline-pass": (
+        "moment_sweep_bwd",
+        """          T p[kP];
+          entry_params<kFull>(entry, params, batch, b, p);
+          for (int pass = 0; pass < kPasses; ++pass) {
+            if (pass > 0 && pass * kLanes > n) break;
+            dual_pass<kFull>(entry, p, pass * kLanes, n, M, S1, slot, d_params, batch, b, active,
+                             e_b, rest, mass, lane);
+          }""",
+        """          T p[kP];
+          entry_params<kFull>(entry, params, batch, b, p);
+          for (int pass = 0; pass < kPasses; ++pass) {
+            const int base = pass * kLanes;
+            if (pass > 0 && base > n) break;
+            const int q = base + lane;
+            lynx::Dual<T> pd[kP];
+#pragma unroll
+            for (int k = 0; k < kP; ++k) pd[k] = lynx::Dual<T>(p[k], k == q ? T(1) : T(0));
+            const lynx::Dual<T> ed(e_b, q == n ? T(1) : T(0));
+            lynx::Dual<T> Rd[49];
+            lynx::build_dynamic<kFull, T, lynx::Dual<T>>(entry.kind, pd, ed, rest, mass, Rd);
+            T g = T(0);
+#pragma unroll
+            for (int i = 0; i < 7; ++i) {
+              T dri[7];
+              load_row(M + i * kRow, dri);
+#pragma unroll
+              for (int k = 0; k < 7; ++k) g = g + dri[k] * Rd[i * 7 + k].d;
+            }
+            if (q < n) {
+              if (active) d_params[(entry.offset + q) * batch + b] = g;
+            } else if (q == n) {
+              *slot = g;
+            }
+            if (!kFull || base + kLanes > n) scatter_rows(Rd, S1, lane);
+          }""",
+        "B4's dual passes written inline in the kernel, as before the pass function",
+    ),
 }
 
 
@@ -127,8 +165,11 @@ def main():
     _build.build_libraries(chip_smoke.KERNEL_LIBRARIES)
     for name, (_, log) in _build.BUILD_LOG.items():
         print(f"tree {name}: ptxas: {chip_smoke.ptxas_report(log)}")
-    tree = {"moment_sweep": ft.moment_sweep_library(), "packed_gram": ft.packed_gram_library()}
+    tree = {"moment_sweep": ft.moment_sweep_library(),
+            "moment_sweep_bwd": ft.moment_sweep_bwd_library(),
+            "packed_gram": ft.packed_gram_library()}
     variants = build_variants(names, {"moment_sweep": ft._B3_SIGNATURE,
+                                      "moment_sweep_bwd": ft._B4_SIGNATURE,
                                       "packed_gram": ft._B6_SIGNATURE})
     env = envs.make_env(device="cuda")
     runs = [("tree", library, tree[library]) for library in sorted({VARIANTS[n][0] for n in names})]
@@ -137,7 +178,7 @@ def main():
         _build._LIBRARIES.update(tree)
         _build._LIBRARIES[library] = handle
         print(f"=== {label}: {library}")
-        if library == "moment_sweep":
+        if library in ("moment_sweep", "moment_sweep_bwd"):
             chip_smoke.check_sweep_kernels(torch, ltt, ft, fused, env)
             chip_smoke.time_kernels(torch, ft, fused, tbl, env, card)
         else:
