@@ -17,7 +17,9 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    double and in float (bounds below; B5 and B6 on a ragged B and N =
    100,003, rectangular and elliptical apertures, two in one plan, x_max =
    inf, a setting that loses every particle, no aperture, and an
-   identity-only plan with ``batch_size=``; B3 and B4 also on one batched
+   identity-only plan with ``batch_size=``; B5 also at B = 1 and 15, the
+   route's edges, on 300 particles, fewer than one block's span, and on
+   none; B3 and B4 also on one batched
    element of each kind of the full lattice and on the full lattice's
    plan); fault C1: B4 on ``fodo_lattice(150)``'s 901 entries at 16,384
    settings in double, past the prefix products that fit in shared memory;
@@ -41,7 +43,8 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    lattice) at B = 32 and 256 through B6 with the gradient of sum(sigma_x)
    with respect to k1, held against dense ``functional.track`` and against
    autograd of the plain walk in double; the B5/B6 crossover at B = 8, 16,
-   32 and 256; B5's and B6's times against their plain versions.  In the
+   32, 64, 128 and 256 and the B where B6's route becomes faster; B5's and
+   B6's times against their plain versions and B5's parent's.  In the
    forward no plain version runs on a CUDA tensor; the backward is autograd
    of the plain walk, the JAX package's design, and is counted apart;
 8. path L, the full ARES lattice (195 elements): the read of AREABSCR1
@@ -50,8 +53,11 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    (every quadrupole, corrector, solenoid and dipole per setting) through B3
    and its gradient through B4, held against the dense route in double;
    kernel B7, the count-histogram A/B (``lynx_tpu_torch.benchmarks.hist_ab``):
-   every variant exactly against its plain version and B1's count mode,
-   then the harness with its yardsticks (B1, ``torch.bincount``);
+   every variant exactly against its plain version and B1's count mode (a
+   spot, pads and pairs past the window, all padded, 33 pairs, and every
+   pair in one 16-row tile, one bucket of the onehot read), then the
+   harness with its yardsticks (B1, ``torch.bincount``), each read's device
+   time summed over its kernels beside its main kernel's;
 9. print the kernels' JSON line and, last, the ``{"ok": true, ...}`` line.
 
 Each kernel is timed at its path's shape beside its plain version and its
@@ -60,9 +66,10 @@ its float32 operations over the card's peak outside the tensor cores; for
 B6, whose float Gram runs on the tensor cores in three bf16 parts, the
 Gram's operations at the bf16 tensor-core peak times three, plus its
 planes' at the float32 peak: ``gram_bound``; for both B7 kernels the
-bytes of a count histogram, ``hist_bound``, with the one-hot contraction's
-int8 operations at the dense int8 tensor-core peak printed beside it as
-that formulation's own floor, ``onehot_floor``); B2
+bytes of a count histogram, ``hist_bound``, with the int8 operations that
+the onehot read issues, counted from its buckets, at the dense int8
+tensor-core peak printed beside it as that formulation's own floor,
+``onehot_floor``); B2
 also beside ``torch.bmm`` of the same operands, B1 and B7 beside
 ``torch.bincount`` of the in-window pairs, the one PyTorch call that
 computes their function, timed here as a yardstick and never called by the
@@ -150,15 +157,20 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 BF16_TENSOR_FLOPS_PER_S = 989e12  # dense, FP32 accumulation
 INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core operations
+# Device times of the redesigned kernels' previous designs, as chip_smoke.py
+# measured them (PERF.md's kernel table; NVIDIA H100 80GB HBM3, 700 W):
+# printed beside the new ones, never compared against.
+PARENT_DEVICE_MS = {"B5": 0.17336, "B7 onehot": 0.51131}
 GRAM_PARTS = 3  # B6's float Gram: q in three bf16 parts, each a tensor-core product
 
 # The particle moment sweep, kernels B5 and B6: one shared cloud of
 # MOMENT_PARTICLES (paths K and A), ODD_PARTICLES in the checks.
 MOMENT_PARTICLES = 100_000
 ODD_PARTICLES = 100_003
+SMALL_CLOUD = 300  # B5 on fewer particles than one block's span (512 in float, 256 in double)
 ENV_KERNEL_BATCHES = (256, 8)  # path K: B6 at the JAX bench's PARTICLE_KERNEL_BATCH, B5
 APERTURE_BATCHES = (32, 256)  # path A: benchmarks/aperture_sweep_ab.py's B
-CROSSOVER_BATCHES = (8, 16, 32, 256)
+CROSSOVER_BATCHES = (8, 16, 32, 64, 128, 256)
 # Bounds of B5 and B6 against their plain versions: second-moment sums
 # relative to each setting's largest, first-moment sums relative to
 # sqrt(W max_r s2[r, r]), the size Cauchy-Schwarz gives a first-moment sum
@@ -1259,20 +1271,26 @@ def check_moment_kernels(torch, ltt, ft, fused, env, ParticleBeam):
     shape (B5: path K at B = 8; B6: path A at B = 256)."""
     cloud = moment_cloud(torch, ParticleBeam, ODD_PARTICLES, seed=71, dtype=torch.float64).particles[0]
     gen = torch.Generator(device="cuda").manual_seed(72)
-    cases = []  # (label, kernel, B, elements)
+    cases = []  # (label, kernel, B, elements, particles)
     for kernel, B in (("B5", 13), ("B6", 17), ("B6", 33)):
         for variant in ("rect", "two", "lost"):
             cases.append((f"{variant}, B={B}", kernel, B,
-                          aperture_lattice(torch, ltt, B, variant, torch.float64)))
+                          aperture_lattice(torch, ltt, B, variant, torch.float64), ODD_PARTICLES))
+    # B5 at the route's edges (B = 1 and 15), on a cloud smaller than one
+    # block's span of particles, and on no particle at all.
+    for B, n in ((1, ODD_PARTICLES), (15, ODD_PARTICLES), (5, SMALL_CLOUD), (4, 0)):
+        cases.append((f"two, B={B}", "B5", B, aperture_lattice(torch, ltt, B, "two", torch.float64),
+                      n))
     for kernel, B in (("B5", 8), ("B6", 256)):
         magnets = torch.rand((B, 5), generator=gen, device="cuda") - 0.5
         cases.append((f"path K plan (no aperture), B={B}", kernel, B,
-                      list(env._batched_tuned_segment(magnets).flattened().elements)))
+                      list(env._batched_tuned_segment(magnets).flattened().elements),
+                      ODD_PARTICLES))
     cases.append(("path A plan, B=256", "B6", 256,
-                  aperture_lattice(torch, ltt, 256, "rect", torch.float64)))
+                  aperture_lattice(torch, ltt, 256, "rect", torch.float64), ODD_PARTICLES))
     worst_abs = {}
-    for label, kernel, B, elements in cases:
-        ops64 = kernel_operands(torch, ft, fused, elements, B, cloud)
+    for label, kernel, B, elements, n in cases:
+        ops64 = kernel_operands(torch, ft, fused, elements, B, cloud[:n])
         ops32 = (ops64[0], tuple(v.float() for v in ops64[1]), ops64[2].float(), ops64[3].float())
         rounded = (ops32[0], tuple(v.double() for v in ops32[1]), ops32[2].double(),
                    ops32[3].double())
@@ -1295,7 +1313,7 @@ def check_moment_kernels(torch, ltt, ft, fused, env, ParticleBeam):
         single = sum_errors(torch, single_out, single_ref)
         torch.cuda.synchronize()
         survivors = expected[2]
-        print(f"{kernel} check {label}, N={ODD_PARTICLES}: double first/second {double[0]:.2e}/"
+        print(f"{kernel} check {label}, N={n}: double first/second {double[0]:.2e}/"
               f"{double[1]:.2e}, |dW| {double[2]:.0f}; float vs double first/second"
               f" {single[0]:.2e}/{single[1]:.2e}, net flipped particles per setting <="
               f" {single[2]:.0f}; survivors {survivors.min().item():.0f}-{survivors.max().item():.0f}")
@@ -1303,7 +1321,10 @@ def check_moment_kernels(torch, ltt, ft, fused, env, ParticleBeam):
             raise AssertionError(f"{kernel} in double exceeds {MOMENT_DOUBLE_RTOL}: {label}")
         if max(single[:2]) > MOMENT_FLOAT_RTOL or single[2] > MAX_FLIPS:
             raise AssertionError(f"{kernel} in float exceeds its bounds: {label}")
-        if ("lost" in label) != bool((survivors == 0).any()):
+        if n == 0:
+            if any(bool((t != 0).any()) for t in run(ops64) + single_out):
+                raise AssertionError(f"{kernel}: sums of no particle are not 0: {label}")
+        elif ("lost" in label) != bool((survivors == 0).any()):
             raise AssertionError(f"{kernel}: the all-lost setting is wrong: {label}")
         if label in ("path K plan (no aperture), B=8", "path A plan, B=256"):
             worst_abs[kernel] = max(float((a.double() - e).abs().max())
@@ -1475,6 +1496,7 @@ def crossover(torch, ltt, ft, fused, ParticleBeam, card):
     """B5 against B6 forced (PACKED_MOMENT_SWEEP) on path A's plan at
     MOMENT_PARTICLES, forward only, float."""
     particles = moment_cloud(torch, ParticleBeam, MOMENT_PARTICLES, seed=101).particles[0]
+    faster = None
     for B in CROSSOVER_BATCHES:
         ops = kernel_operands(torch, ft, fused, aperture_lattice(torch, ltt, B, "rect", torch.float32),
                               B, particles)
@@ -1492,6 +1514,11 @@ def crossover(torch, ltt, ft, fused, ParticleBeam, card):
               f" {times['B5']:.4f} ms, B6 route {times['B6']:.4f} ms per call (CUDA events,"
               f" 20 calls); device time per call: B5 route {device['B5']:.4f} ms, B6 route"
               f" {device['B6']:.4f} ms (torch.profiler, 3 calls; card {card})")
+        if faster is None and device["B6"] < device["B5"]:
+            faster = B
+    print(f"B5/B6 crossover by device time: the B6 route is faster from B={faster} of"
+          f" {CROSSOVER_BATCHES} (None: B5's at every B); the route's threshold"
+          f" _PACK_SETTINGS stays {ft._PACK_SETTINGS}; card {card}")
 
 
 def gram_bound(planes, bounds_, aug, w0):
@@ -1510,10 +1537,14 @@ def gram_bound(planes, bounds_, aug, w0):
 
 def time_moment_kernels(torch, ltt, ft, fused, env, ParticleBeam, card):
     """B5 at path K's B = 8 and B6 at path A's B = 256 against their plain
-    versions, float, N = MOMENT_PARTICLES, with their bounds.  B5's: the
-    cloud, its weights, the per-setting scalars and the (B, 36) sums once
-    each; per (setting, particle) 2 flops per non-zero map cell, 4 per
-    aperture and 72 for the 36 weighted sums.  B6's: ``gram_bound``."""
+    versions, float, N = MOMENT_PARTICLES, with their bounds and, for B5,
+    its parent's device time (PARENT_DEVICE_MS).  B5's bound: the cloud, its
+    weights, the per-setting scalars and the (B, 36) sums once each; per
+    (setting, particle) 2 flops per non-zero map cell, 4 per aperture and 72
+    for the 36 weighted sums.  B6's: ``gram_bound``.  B5 is one launch (the
+    walk, the block's reduction and, in each setting's last block, the sum
+    of its blocks); the wrapper's other GPU work is the zeroing of its
+    per-setting counters and the operands' copies."""
     particles = moment_cloud(torch, ParticleBeam, MOMENT_PARTICLES, seed=111).particles[0]
     gen = torch.Generator(device="cuda").manual_seed(112)
     magnets = torch.rand((8, 5), generator=gen, device="cuda") - 0.5
@@ -1531,7 +1562,7 @@ def time_moment_kernels(torch, ltt, ft, fused, env, ParticleBeam, card):
     walk_bound = bound(nbytes(cloud, weights, *scalars) + sums_bytes, 8 * n * per_particle)
     calls = {
         "B5": (lambda: ft.particle_moment_sweep(*walk), lambda: ft._moment_sweep_reference(*walk),
-               ("moment_walk_kernel", "reduce_partials_kernel"), "path K, B=8", walk_bound),
+               ("moment_walk_kernel",), "path K, B=8", walk_bound),
         "B6": (lambda: ft.packed_gram(*gram), lambda: ft.packed_gram_reference(*gram),
                ("packed_gram_kernel", "reduce_partials_kernel"), "path A, B=256",
                gram_bound(*gram[1:])),
@@ -1542,14 +1573,20 @@ def time_moment_kernels(torch, ltt, ft, fused, env, ParticleBeam, card):
                             plain_ms=cuda_ms(plain_call, iters=10), bound=limit,
                             library_ms=None)
         device, own = device_ms(kernel_call, iters=5, kernel=kernels[0])
-        _, reduce = device_ms(kernel_call, iters=5, kernel=kernels[1])
+        if len(kernels) > 1:
+            _, reduce = device_ms(kernel_call, iters=5, kernel=kernels[1])
+            stages = f"stage 1 {own:.5f} ms, stage 2 {reduce:.5f} ms, both {own + reduce:.5f} ms"
+        else:
+            stages = f"both stages, one launch, {own:.5f} ms"
         plain_device = device_ms(plain_call, iters=2)
         t = timing[name]
+        parent = (f"; previous design {PARENT_DEVICE_MS[name]:.5f} ms (PERF.md)"
+                  if name in PARENT_DEVICE_MS else "")
         print(f"{name} at {shape}, N={MOMENT_PARTICLES} (float): kernel {t['ms']:.4f} ms,"
               f" plain {t['plain_ms']:.4f} ms per call (CUDA events, host launch cost"
-              f" included); device time per call: stage 1 {own:.5f} ms, stage 2 {reduce:.5f} ms,"
-              f" all of the wrapper's GPU work {device:.5f} ms, plain {plain_device:.5f} ms"
-              f" (torch.profiler); bound {limit[0]:.5f} ms ({limit[1]}); card {card}")
+              f" included); device time per call: {stages}, all of the wrapper's GPU work"
+              f" {device:.5f} ms, plain {plain_device:.5f} ms (torch.profiler); bound"
+              f" {limit[0]:.5f} ms ({limit[1]}){parent}; card {card}")
     return timing
 
 
@@ -1826,12 +1863,18 @@ def hist_bound(n, win):
     return (8 * n + 4 * win[0] * win[1]) / HBM_BYTES_PER_S * 1e3, "bytes"
 
 
-def onehot_floor(n, win):
-    """The one-hot contraction's own floor, printed beside B7's bound: its 2
-    N_pad win_x win_y int8 operations (N_pad: N to the mma's 32 particles)
-    at the dense int8 rate.  It is the formulation's cost, not the
-    function's."""
-    return 2 * (-(-n // 32) * 32) * win[0] * win[1] / INT8_OPS_PER_S * 1e3
+def onehot_floor(torch, lx, ly, win):
+    """The int8 operations that B7's onehot read issues, at the dense int8
+    rate, printed beside B7's bound: the formulation's own cost, not the
+    function's.  Each 16-row tile's in-window pairs go through the mma in
+    steps of 32 (a bucket's spans are multiples of 32, so ceil(count / 32)
+    steps whatever the span), each step one m16n8k32 mma (2 x 16 x 8 x 32
+    operations) for each 8-column tile of the window."""
+    win_x, win_y = win
+    inside = (lx >= 0) & (lx < win_x) & (ly >= 0) & (ly < win_y)
+    counts = torch.bincount((lx[inside] // 16).long(), minlength=-(-win_x // 16))
+    steps = int(((counts + 31) // 32).sum())
+    return 2 * 16 * 8 * 32 * steps * -(-win_y // 8) / INT8_OPS_PER_S * 1e3
 
 
 def path_hist_ab(torch, hist, card):
@@ -1854,6 +1897,8 @@ def path_hist_ab(torch, hist, card):
         "all padded": (torch.full((1000,), -1, dtype=torch.int32, device="cuda"),
                        randint(0, win_y, 1000)),
         "33 particles": (randint(0, win_x, 33), randint(0, win_y, 33)),
+        "one bucket: every pair in rows 480-495": (randint(480, 496, N_PARTICLES),
+                                                   randint(0, win_y, N_PARTICLES)),
     }
     worst = 0
     for label, (lx, ly) in cases.items():
@@ -1879,26 +1924,39 @@ def path_hist_ab(torch, hist, card):
     lx, ly = cases["harness spot"]
     plain_ms = cuda_ms(lambda: hist_ab.hist_ab_reference(lx, ly, win_x, win_y),
                          iters=50)
+    plain_device = device_ms(lambda: hist_ab.hist_ab_reference(lx, ly, win_x, win_y), iters=20)
     timing = {}
     for kernel in ("onehot", "twolevel"):
         best = min((r for r in records if r["variant"].startswith(kernel)),
-                   key=lambda r: r["ms_per_read"])
+                   key=lambda r: r["device_ms"])
         timing[kernel] = dict(
             ms=best["ms_per_read"], device_ms=best["device_ms"], variant=best["variant"],
             plain_ms=plain_ms, bound=hist_bound(N_PARTICLES, WINDOW),
             library_ms=by_name["torch.bincount"]["ms_per_read"],
         )
         t = timing[kernel]
-        floor = (f" (the one-hot formulation's int8 floor"
-                 f" {onehot_floor(N_PARTICLES, WINDOW):.5f} ms)" if kernel == "onehot" else "")
+        floor = (f"; the onehot read's own int8 operations"
+                 f" {onehot_floor(torch, lx, ly, WINDOW):.5f} ms; previous design"
+                 f" {PARENT_DEVICE_MS['B7 onehot']:.5f} ms of device time (PERF.md)"
+                 if kernel == "onehot" else "")
+        main_kernel = "contraction" if kernel == "onehot" else "band kernel"
         print(f"B7 {kernel} at the harness's shape (N={N_PARTICLES}, window {WINDOW}): fastest"
-              f" variant {t['variant']} {t['ms']:.5f} ms per read (CUDA events, 200 reads),"
-              f" device {t['device_ms']:.5f} ms (torch.profiler); plain {plain_ms:.4f} ms;"
-              f" bound {t['bound'][0]:.5f} ms ({t['bound'][1]}){floor}; B1's count mode"
-              f" {by_name['B1 window_histogram']['ms_per_read']:.5f} ms, device"
-              f" {by_name['B1 window_histogram']['device_ms']:.5f} ms; torch.bincount"
+              f" variant by device time {t['variant']} {t['ms']:.5f} ms per read (CUDA events,"
+              f" 200 reads),"
+              f" device {t['device_ms']:.5f} ms summed over every kernel of the read, of it the"
+              f" {main_kernel} {best['kernel_ms']:.5f} ms (torch.profiler); plain"
+              f" {plain_ms:.4f} ms,"
+              f" device {plain_device:.5f} ms; bound {t['bound'][0]:.5f} ms ({t['bound'][1]})"
+              f"{floor}; B1's count mode {by_name['B1 window_histogram']['ms_per_read']:.5f} ms,"
+              f" device {by_name['B1 window_histogram']['device_ms']:.5f} ms (its kernel"
+              f" {by_name['B1 window_histogram']['kernel_ms']:.5f} ms); torch.bincount"
               f" {t['library_ms']:.5f} ms, device {by_name['torch.bincount']['device_ms']:.5f} ms;"
               f" card {card}")
+    for record in records:
+        if record["variant"].startswith(("onehot", "twolevel")):
+            print(f"B7 {record['variant']}: {record['ms_per_read']:.5f} ms per read, device"
+                  f" {record['device_ms']:.5f} ms, of it the main kernel"
+                  f" {record['kernel_ms']:.5f} ms")
     return launched, timing, float(worst)
 
 
@@ -1906,7 +1964,7 @@ def ptxas_report(log):
     """``kernel<args> R registers, S/L bytes spilled`` for each kernel of an
     nvcc -Xptxas -v report (spill stores / spill loads); template arguments
     decoded from the mangled name (float, double, a bool, an int): B3's are
-    <T, kFull>, B4's <T, kFull, kSegmented>, B7's onehot <kChunk>."""
+    <T, kFull>, B4's <T, kFull, kSegmented>."""
     import re
 
     words = {"f": "float", "d": "double", "Lb0E": "false", "Lb1E": "true"}

@@ -11,14 +11,16 @@ spot (sigma = win / 8 about the window's centre, clipped into it) over the
 variant is first checked exactly against :func:`hist_ab_reference`, then
 timed with CUDA events over many launches and with ``torch.profiler``'s
 device time; one JSON line each: ``variant``, ``ms_per_read``, ``win``,
-``particles``, ``device_ms``.
+``particles``, ``device_ms`` (every kernel the read launches, the output's
+zeroing included) and ``kernel_ms`` (the variant's main kernel alone: the
+contraction, the band kernel, B1's kernel; null for ``torch.bincount``).
 
 Variants: ``onehot_c<chunk>`` (the one-hot contraction on the int8 tensor
-cores, ``chunk`` particles staged per step: the TPU kernel's ``tile_n`` /
-``halves``) and ``twolevel_b<rows>`` (the window in bands of ``rows`` rows
-in shared memory).  The TPU variants' ``compare_dtype`` and ``pretrans``
-exist for the TPU's vector lanes and matrix-unit layout and have no
-counterpart here.
+cores over the particles bucketed by 16-row tile, a warp contracting at
+most ``chunk`` particles of one bucket) and ``twolevel_b<rows>`` (the
+window in bands of ``rows`` rows in shared memory).  The TPU variants'
+``compare_dtype`` and ``pretrans`` exist for the TPU's vector lanes and
+matrix-unit layout and have no counterpart here.
 """
 
 from __future__ import annotations
@@ -35,18 +37,23 @@ from lynx_tpu_torch.benchmarks.timing import cuda_ms, device_ms
 
 Tensor = torch.Tensor
 
-#: C signatures of B7's entry points: the counts (lx, ly, out, n, win_x,
-#: win_y, chunk or band rows, stream) and the particle splits of a launch.
+#: C signatures of B7's entry points: the counts (lx, ly, out, [workspace,]
+#: n, win_x, win_y, chunk or band rows, stream); the onehot read's int32
+#: workspace (n, win_x, chunk) and its contraction's warps (n, win_x, win_y,
+#: chunk); the twolevel particle splits of a launch.
 _B7_SIGNATURE = {
     "lynx_hist_onehot": (
         ctypes.c_int,
-        [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_void_p],
     ),
     "lynx_hist_twolevel": (
         ctypes.c_int,
         [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_void_p],
     ),
-    "lynx_hist_onehot_splits": (
+    "lynx_hist_onehot_workspace": (
+        ctypes.c_longlong, [ctypes.c_longlong, ctypes.c_int, ctypes.c_int],
+    ),
+    "lynx_hist_onehot_warps": (
         ctypes.c_longlong, [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int],
     ),
     "lynx_hist_twolevel_splits": (
@@ -54,6 +61,9 @@ _B7_SIGNATURE = {
     ),
 }
 
+#: The onehot knob: the most particles of one bucket (16-row tile) that a
+#: warp contracts; the tile's other spans go to other warps.  256 is the
+#: fastest of the three on an H100 (PERF.md).
 ONEHOT_CHUNKS = (256, 1024, 2048)
 #: The twolevel default, the fastest band of the A/B on an H100: 34 bands of
 #: 28 rows of the flagship window, 28 KB of shared memory a block.  The
@@ -91,29 +101,34 @@ def _check(what: str, lx: Tensor, ly: Tensor, win_x: int, win_y: int) -> None:
 
 
 def _launch(what: str, function: str, lx: Tensor, ly: Tensor, win_x: int, win_y: int,
-            knob: int) -> Tensor:
-    _check(what, lx, ly, win_x, win_y)
+            knob: int, out: Tensor, *workspace: Tensor) -> Tensor:
     library = hist_ab_library()
-    out = torch.zeros((1, win_x, win_y), dtype=torch.int32, device=lx.device)
     with torch.cuda.device(lx.device):
         code = getattr(library, function)(
-            lx.data_ptr(), ly.data_ptr(), out.data_ptr(), lx.shape[0], win_x, win_y, knob,
-            torch.cuda.current_stream(lx.device).cuda_stream,
+            lx.data_ptr(), ly.data_ptr(), out.data_ptr(), *(w.data_ptr() for w in workspace),
+            lx.shape[0], win_x, win_y, knob, torch.cuda.current_stream(lx.device).cuda_stream,
         )
     check(library, code, what)
     return out
 
 
-def hist_onehot(lx: Tensor, ly: Tensor, win_x: int, win_y: int, chunk: int = 1024) -> Tensor:
+def hist_onehot(lx: Tensor, ly: Tensor, win_x: int, win_y: int, chunk: int = 256) -> Tensor:
     """Kernel B7, ``onehot``: the counts as the one-hot contraction on the
-    int8 tensor cores, ``chunk`` particles staged per step.  A CUDA tensor
-    launches the kernel (or raises); a CPU tensor takes the plain version.
-    ``hist_onehot.launches`` counts kernel launches."""
+    int8 tensor cores over the pairs bucketed by 16-row tile, a warp taking
+    at most ``chunk`` particles of a bucket (a multiple of 32).  Three
+    kernels (count, scatter, contraction); the first zeroes the output.  A
+    CUDA tensor launches them (or raises); a CPU tensor takes the plain
+    version.  ``hist_onehot.launches`` counts reads launched."""
     if lx.device.type == "cpu":
         return hist_ab_reference(lx, ly, win_x, win_y)
-    if chunk not in ONEHOT_CHUNKS:
-        raise ValueError(f"hist_onehot: chunk must be one of {ONEHOT_CHUNKS}, got {chunk}")
-    out = _launch("hist_onehot", "lynx_hist_onehot", lx, ly, win_x, win_y, chunk)
+    if chunk % 32 or not 32 <= chunk <= 65536:
+        raise ValueError(f"hist_onehot: chunk must be a multiple of 32 up to 65536, got {chunk}")
+    _check("hist_onehot", lx, ly, win_x, win_y)
+    library = hist_ab_library()
+    out = torch.empty((1, win_x, win_y), dtype=torch.int32, device=lx.device)
+    workspace = torch.empty((library.lynx_hist_onehot_workspace(lx.shape[0], win_x, chunk),),
+                            dtype=torch.int32, device=lx.device)
+    _launch("hist_onehot", "lynx_hist_onehot", lx, ly, win_x, win_y, chunk, out, workspace)
     hist_onehot.launches += 1
     return out
 
@@ -129,7 +144,9 @@ def hist_twolevel(lx: Tensor, ly: Tensor, win_x: int, win_y: int,
     ``hist_twolevel.launches`` counts kernel launches."""
     if lx.device.type == "cpu":
         return hist_ab_reference(lx, ly, win_x, win_y)
-    out = _launch("hist_twolevel", "lynx_hist_twolevel", lx, ly, win_x, win_y, band_rows)
+    _check("hist_twolevel", lx, ly, win_x, win_y)
+    out = torch.zeros((1, win_x, win_y), dtype=torch.int32, device=lx.device)
+    _launch("hist_twolevel", "lynx_hist_twolevel", lx, ly, win_x, win_y, band_rows, out)
     hist_twolevel.launches += 1
     return out
 
@@ -137,6 +154,8 @@ def hist_twolevel(lx: Tensor, ly: Tensor, win_x: int, win_y: int,
 hist_twolevel.launches = 0
 
 #: The A/B's variants: name -> (wrapper, its knob).
+#: Each variant's main kernel, timed apart from the rest of its read.
+KERNELS = {"hist_onehot": "onehot_contract_kernel", "hist_twolevel": "twolevel_kernel"}
 VARIANTS = {
     **{f"onehot_c{chunk}": (hist_onehot, dict(chunk=chunk)) for chunk in ONEHOT_CHUNKS},
     **{f"twolevel_b{rows}": (hist_twolevel, dict(band_rows=rows)) for rows in (28, 56, 112)},
@@ -159,19 +178,19 @@ def workload(particles: int, win: Tuple[int, int], seed: int = 0,
 
 
 def run_variant(name: str, lx: Tensor, ly: Tensor, win_x: int, win_y: int,
-                iters: int = 200) -> Tuple[float, float]:
+                iters: int = 200) -> Tuple[float, float, float]:
     """Check a variant exactly against the plain version, then time it:
-    ``(ms per read by CUDA events, device ms of its kernel)``."""
+    ``(ms per read by CUDA events, device ms of every kernel of the read,
+    device ms of its main kernel)``."""
     wrapper, knob = VARIANTS[name]
     counts = wrapper(lx, ly, win_x, win_y, **knob)
     if not torch.equal(counts, hist_ab_reference(lx, ly, win_x, win_y)):
         raise AssertionError(f"hist_ab: {name} does not match the plain version")
-    kernel = "onehot_kernel" if wrapper is hist_onehot else "twolevel_kernel"
 
     def read():
         return wrapper(lx, ly, win_x, win_y, **knob)
 
-    return cuda_ms(read, iters), device_ms(read, 20, kernel)[1]
+    return (cuda_ms(read, iters), *device_ms(read, 20, KERNELS[wrapper.__name__]))
 
 
 def main(argv: Optional[Sequence[str]] = None) -> list:
@@ -189,9 +208,9 @@ def main(argv: Optional[Sequence[str]] = None) -> list:
 
     records = []
     for name in args.variants.split(","):
-        ms, device = run_variant(name, lx, ly, win_x, win_y)
+        ms, device, kernel = run_variant(name, lx, ly, win_x, win_y)
         records.append({"variant": name, "ms_per_read": ms, "win": [win_x, win_y],
-                        "particles": args.particles, "device_ms": device})
+                        "particles": args.particles, "device_ms": device, "kernel_ms": kernel})
         print(json.dumps(records[-1]), flush=True)
 
     # Yardsticks on the same indices: B1's count mode (one batch row), and
@@ -209,7 +228,7 @@ def main(argv: Optional[Sequence[str]] = None) -> list:
         total, own = device_ms(fn, 20, kernel or "")
         records.append({"variant": name, "ms_per_read": cuda_ms(fn, 200),
                         "win": [win_x, win_y], "particles": args.particles,
-                        "device_ms": own if kernel else total})
+                        "device_ms": total, "kernel_ms": own if kernel else None})
         print(json.dumps(records[-1]), flush=True)
     return records
 

@@ -1,9 +1,10 @@
 // Shared device code of the particle moment sweep (kernels B5 and B6): the
-// second stage of their two-stage reduction.
+// 36 sums' count, and the second stage of B6's two-stage reduction (B5
+// reduces inside its one launch).
 //
-// Stage 1 (each kernel's own .cu) sums the 36 moments of each setting over
-// a slot of the particles (B5: a thread's particles; B6: a split of the
-// cloud) and writes them to a (batch, slots, 36) partial buffer.  Stage 2, here, sums
+// Stage 1 (packed_gram.cu) sums the 36 moments of each setting over a
+// split of the cloud and writes them to a (batch, slots, 36) partial
+// buffer.  Stage 2, here, sums
 // the partials of each setting in a fixed order: levels that each add
 // kReduceGroup consecutive slots, until one slot is left.  No shared memory
 // and no atomics, so the result is deterministic and the code runs under the
@@ -62,17 +63,6 @@ void reduce_partials(T* partials, T* scratch, T* out, int64_t batch, int64_t slo
     src = dst;
     dst = next;
   }
-}
-
-// The slot of thread i of a (batch * slots)-thread stage-1 launch.
-struct Slot {
-  int64_t setting;
-  int64_t slot;
-};
-
-__host__ __device__ inline Slot slot_of(int64_t i, int64_t slots) {
-  const int64_t b = i / slots;
-  return Slot{b, i - b * slots};
 }
 
 }  // namespace lynx

@@ -750,16 +750,9 @@ def _apply_layout_matrix_left(layout, mat, scalars):
     return torch.stack(rows, dim=1)
 
 
-def _moment_slots(B: int, N: int) -> int:
-    """Particle slots per setting of B5's first stage: each thread
-    sums at least 32 particles, and the launch aims at one full card of
-    resident threads (132 SMs x 2048)."""
-    return max(1, min(-(-N // 32), -(-(132 * 2048) // B)))
-
-
 def _moment_workspace(B: int, slots: int, dtype, device):
-    """``(partials, scratch, out)`` of a B5 or B6 launch with ``slots``
-    partial sums per setting (``csrc/moment_sums.cuh``)."""
+    """``(partials, scratch, out)`` of a B6 launch with ``slots`` partial
+    sums per setting (``csrc/moment_sums.cuh``)."""
     partials = torch.empty((B, slots, 36), dtype=dtype, device=device)
     scratch = torch.empty((B, -(-slots // 64), 36), dtype=dtype, device=device)
     out = torch.empty((B, 36), dtype=dtype, device=device)
@@ -861,19 +854,38 @@ def _walk_tape(entries, device) -> WalkTape:
     return tape
 
 
-#: C signature of B5's entry point: is_double, tape, n_entries, literals,
-#: scalars, cloud, weights, partials, scratch, out, batch, n, slots, stream.
+#: C signatures of B5's entry points.  ``lynx_particle_moment_sweep``:
+#: is_double, tape, n_entries, literals, scalars, cloud, weights, partials,
+#: arrived, out, batch, n, spans, stream; it returns a CUDA error code, or
+#: ``_B5_DOES_NOT_FIT``.  ``lynx_particle_moment_spans``: is_double, batch, n
+#: -> the particle spans per setting of a launch (its blocks per setting).
 _B5_SIGNATURE = {
     "lynx_particle_moment_sweep": (
         ctypes.c_int,
         [ctypes.c_int, _P, ctypes.c_int] + [_P] * 7 + [ctypes.c_longlong] * 3 + [_P],
-    )
+    ),
+    "lynx_particle_moment_spans": (
+        ctypes.c_longlong, [ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong]
+    ),
 }
+#: B5's return code when a block's resolved tape exceeds the device's shared
+#: memory per block.
+_B5_DOES_NOT_FIT = -1
 
 
 def particle_moment_sweep_library() -> ctypes.CDLL:
     """Kernel B5's library, built with nvcc at first use."""
     return load_library("particle_moment_sweep", _B5_SIGNATURE)
+
+
+def _walk_workspace(B: int, spans: int, dtype, device):
+    """``(partials, arrived, out)`` of a B5 launch with ``spans`` blocks per
+    setting: one partial sum per block, each setting's count of arrived
+    blocks (zeroed) and the ``(B, 36)`` sums."""
+    partials = torch.empty((B, spans, 36), dtype=dtype, device=device)
+    arrived = torch.zeros((B,), dtype=torch.int32, device=device)
+    out = torch.empty((B, 36), dtype=dtype, device=device)
+    return partials, arrived, out
 
 
 def _walk_sums(out: Tensor):
@@ -901,15 +913,21 @@ def _particle_moment_sweep_cuda(entries, scalars, particles, weights):
             f"particle_moment_sweep: the plan indexes {tape.n_scalars} scalars, got {len(scalars)}"
         )
     literals = tape.literals.to(dtype)
-    slots = _moment_slots(B, N)
-    partials, scratch, out = _moment_workspace(B, slots, dtype, device)
     library = particle_moment_sweep_library()
+    is_double = int(dtype == torch.float64)
+    spans = library.lynx_particle_moment_spans(is_double, B, N)
+    partials, arrived, out = _walk_workspace(B, spans, dtype, device)
     with torch.cuda.device(device):
         code = library.lynx_particle_moment_sweep(
-            int(dtype == torch.float64), tape.records.data_ptr(), tape.records.shape[0],
+            is_double, tape.records.data_ptr(), tape.records.shape[0],
             literals.data_ptr(), stacked.data_ptr(), cloud.data_ptr(), weights.data_ptr(),
-            partials.data_ptr(), scratch.data_ptr(), out.data_ptr(), B, N, slots,
+            partials.data_ptr(), arrived.data_ptr(), out.data_ptr(), B, N, spans,
             torch.cuda.current_stream(device).cuda_stream,
+        )
+    if code == _B5_DOES_NOT_FIT:
+        raise ValueError(
+            f"particle_moment_sweep: the plan's {tape.records.shape[0]} entries do not fit in"
+            f" the device's shared memory per block ({dtype})"
         )
     check(library, code, "particle_moment_sweep")
     particle_moment_sweep.launches += 1

@@ -95,20 +95,30 @@ def test_packed_gram_bound_by_hand():
 def test_hist_ab_bound_by_hand():
     """B7's bound at the harness's shape (N = 100,000, window (952, 256)):
     8 bytes a particle and the int32 window, 0.53 us at 3.35 TB/s, for both
-    kernels.  The one-hot contraction's own floor, its 2 N win_x win_y int8
-    operations (N to the mma's 32 particles) at 1,979 TOP/s, is 0.025 ms:
-    the formulation's cost, printed apart, not the bound."""
+    kernels.  The onehot read's own int8 operations, printed apart: per
+    16-row tile ceil(pairs / 32) steps of one m16n8k32 mma (8,192
+    operations) for each of the window's 8-column tiles, at 1,979 TOP/s."""
+    from lynx_tpu_torch.benchmarks import hist_ab
+
     n, win = 100_000, (952, 256)
     ms, by = chip_smoke.hist_bound(n, win)
     assert by == "bytes" and ms == pytest.approx((8 * n + 4 * 952 * 256) / 3.35e12 * 1e3)
     assert 0.00052 < ms < 0.00054
-    floor = chip_smoke.onehot_floor(n, win)
-    assert floor == pytest.approx(2 * n * 952 * 256 / 1979e12 * 1e3)
-    assert 0.0246 < floor < 0.0247
-    # 33 particles pad to the mma's 32 twice over: 2 * 64 * 16 * 128 operations.
-    assert chip_smoke.onehot_floor(33, (16, 128)) == pytest.approx(2 * 64 * 16 * 128 / 1979e12 * 1e3)
+    # 33 pairs in one tile of a (16, 128) window, two pads dropped: 2 steps
+    # of 16 column tiles.
+    lx = torch.tensor([3] * 33 + [-1, 16], dtype=torch.int32)
+    ly = torch.tensor([5] * 33 + [0, 0], dtype=torch.int32)
+    floor = chip_smoke.onehot_floor(torch, lx, ly, (16, 128))
+    assert floor == pytest.approx(2 * 16 * 8192 / 1979e12 * 1e3)
     ms, by = chip_smoke.hist_bound(33, (16, 128))
     assert by == "bytes" and ms == pytest.approx((8 * 33 + 4 * 16 * 128) / 3.35e12 * 1e3)
+    # The harness's spot: N / 32 steps and at most one ragged step per tile,
+    # far below the dense formulation's 2 N win_x win_y operations.
+    lx, ly = hist_ab.workload(n, win, seed=0, device="cpu")
+    floor = chip_smoke.onehot_floor(torch, lx, ly, win)
+    least = n / 32 * 32 * 8192 / 1979e12 * 1e3
+    assert least <= floor <= (n / 32 + 60) * 32 * 8192 / 1979e12 * 1e3
+    assert floor < 2 * n * 952 * 256 / 1979e12 * 1e3 / 50
 
 
 @pytest.mark.parametrize("code, cells", [

@@ -112,4 +112,5 @@ def test_harness_runs_every_variant_and_yardstick(monkeypatch):
     assert [r["variant"] for r in records] == [
         "onehot_c256", "twolevel_b56", "B1 window_histogram", "torch.bincount"]
     assert all(r["win"] == [16, 128] and r["particles"] == 500 for r in records)
-    assert [r["device_ms"] for r in records] == [0.5, 0.5, 0.5, 2.0]
+    assert [r["device_ms"] for r in records] == [2.0] * 4
+    assert [r["kernel_ms"] for r in records] == [0.5, 0.5, 0.5, None]

@@ -63,6 +63,7 @@ K1_ZERO_RTOL = 1e-3
 STAND_IN = r"""
 #pragma once
 #include <math.h>
+#include <atomic>
 #include <barrier>
 #include <cstddef>
 #include <cstring>
@@ -115,6 +116,36 @@ inline cudaError_t cudaDeviceGetAttribute(int* value, int, int) {
   return 0;
 }
 template <typename F> cudaError_t cudaFuncSetAttribute(F, int, int) { return 0; }
+inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
+// __shfl_xor_sync: each lane leaves its value in its warp's slot; after a
+// barrier it reads its partner's, and a second barrier frees the slots.
+struct LynxHostShfl { double v[32]; };
+static LynxHostShfl lynx_host_shfl[32];
+template <typename T> inline T lynx_shfl_xor(T value, int mask) {
+  LynxHostShfl& slot = lynx_host_shfl[threadIdx.x / 32];
+  const unsigned lane = threadIdx.x % 32;
+  slot.v[lane] = static_cast<double>(value);
+  lynx_host_barrier->arrive_and_wait();
+  const T out = static_cast<T>(slot.v[lane ^ static_cast<unsigned>(mask)]);
+  lynx_host_barrier->arrive_and_wait();
+  return out;
+}
+// __vcmpeq4: 0xff in each byte where the two words' bytes are equal, else 0.
+inline unsigned lynx_vcmpeq4(unsigned a, unsigned b) {
+  unsigned out = 0;
+  for (int i = 0; i < 4; ++i) {
+    if (((a >> (8 * i)) & 0xffu) == ((b >> (8 * i)) & 0xffu)) out |= 0xffu << (8 * i);
+  }
+  return out;
+}
+// __byte_perm: byte i of the result is byte (s >> 4 i) & 7 of the pair
+// (a in bytes 0-3, b in bytes 4-7).
+inline unsigned lynx_byte_perm(unsigned a, unsigned b, unsigned s) {
+  const unsigned long long pool = (static_cast<unsigned long long>(b) << 32) | a;
+  unsigned out = 0;
+  for (int i = 0; i < 4; ++i) out |= ((pool >> (8 * ((s >> (4 * i)) & 7u))) & 0xffu) << (8 * i);
+  return out;
+}
 // cp.async: the copy is done at once, so commit and wait have nothing to do.
 template <typename T> inline void lynx_cp_async(T* shared_dst, const T* src) { *shared_dst = *src; }
 inline void lynx_cp_async_commit() {}
@@ -758,24 +789,101 @@ def moment_inputs(B, n):
     return entries, scalars, torch.from_numpy(cloud(n)), torch.from_numpy(weights)
 
 
-def test_particle_moment_sweep_matches_plain(host_kernels):
-    B, n = 13, 1001  # ragged: neither a multiple of the block nor of the slots
-    entries, scalars, particles, weights = moment_inputs(B, n)
-    assert sum(e[0] == "aperture" for e in entries) == 4
+def run_walk(host_kernels, entries, scalars, particles, weights, dtype=torch.float64):
+    """B5 on the host, as its wrapper launches it: ``((s1, s2, w_sum),
+    spans)`` in ``dtype``."""
+    B, n = scalars[0].shape[0], particles.shape[0]
+    is_double = int(dtype == torch.float64)
+    library = host_kernels["particle_moment_sweep"]
     tape = fused_track._walk_tape(entries, torch.device("cpu"))
-    stacked = torch.stack(scalars).contiguous()
-    cloud_t = particles.t().contiguous()
-    slots = fused_track._moment_slots(B, n)
-    partials, scratch, out = fused_track._moment_workspace(B, slots, torch.float64, "cpu")
-    code = host_kernels["particle_moment_sweep"].lynx_particle_moment_sweep(
-        1, tape.records.data_ptr(), tape.records.shape[0], tape.literals.data_ptr(),
+    literals = tape.literals.to(dtype)
+    stacked = torch.stack(scalars).to(dtype).contiguous()
+    cloud_t = particles.t().to(dtype).contiguous()
+    weights = weights.to(dtype).contiguous()
+    spans = library.lynx_particle_moment_spans(is_double, B, n)
+    partials, arrived, out = fused_track._walk_workspace(B, spans, dtype, "cpu")
+    code = library.lynx_particle_moment_sweep(
+        is_double, tape.records.data_ptr(), tape.records.shape[0], literals.data_ptr(),
         stacked.data_ptr(), cloud_t.data_ptr(), weights.data_ptr(), partials.data_ptr(),
-        scratch.data_ptr(), out.data_ptr(), B, n, slots, None,
+        arrived.data_ptr(), out.data_ptr(), B, n, spans, None,
     )
     assert code == 0
+    assert arrived.tolist() == [spans] * B  # every block of each setting arrived once
+    return fused_track._walk_sums(out), spans
+
+
+def check_walk(host_kernels, B, n, dtype, spans):
+    """B5 against the plain walk: two apertures (x_max = inf, an ellipse),
+    0/1 weights; several blocks per setting, each reducing its 36 sums by
+    warp shuffles and shared memory, the last to arrive adding the
+    setting's partials.  Float against the plain walk in double on the same
+    rounded inputs."""
+    entries, scalars, particles, weights = moment_inputs(B, n)
+    assert sum(e[0] == "aperture" for e in entries) == 4
+    (s1, s2, w_sum), used = run_walk(host_kernels, entries, scalars, particles, weights, dtype)
+    assert used == spans
+    if dtype == torch.float32:
+        scalars = tuple(s.float().double() for s in scalars)
+        particles, weights = particles.float().double(), weights.float().double()
     expected = fused_track._moment_sweep_reference(entries, scalars, particles, weights)
+    got = (s1.double(), s2.double(), w_sum.double())
+    if n == 0:
+        assert all(bool((t == 0).all()) for t in got)
+        return
     assert 0 < float(expected[2].min()) < float(weights.sum())  # the apertures cut
-    assert max(sums_errors(fused_track._walk_sums(out), expected)) <= RTOL
+    assert max(sums_errors(got, expected)) <= (RTOL if dtype == torch.float64 else 1e-5)
+
+
+def test_particle_moment_sweep_matches_plain(host_kernels):
+    check_walk(host_kernels, 13, 1001, torch.float64, 4)  # 4 spans of 256, the last of 233
+
+
+@pytest.mark.parametrize(
+    "B, n, dtype, spans",
+    [
+        (1, 1001, torch.float64, 4),  # one setting over four blocks
+        (3, 1000, torch.float64, 4),  # double2 loads (n even), the last span of 232
+        (2, 3000, torch.float32, 6),  # float4 loads: 6 spans of 512, the last of 440
+        (5, 100, torch.float64, 1),  # fewer particles than one block's span
+        (4, 0, torch.float64, 1),  # no particle: every sum is 0
+    ],
+)
+def test_particle_moment_sweep_spans(host_kernels, B, n, dtype, spans):
+    check_walk(host_kernels, B, n, dtype, spans)
+
+
+def test_particle_moment_sweep_every_particle_lost(host_kernels):
+    """Apertures closed to 1e-12 m on every setting: every weight is 0, and
+    the sums are exact zeros, as in the plain walk."""
+    B, n = 3, 700
+    entries, scalars, particles, weights = moment_inputs(B, n)
+    scalars = list(scalars)
+    for entry in entries:
+        if entry[0] == "aperture":
+            scalars[entry[1]] = torch.full((B,), 1e-12, dtype=torch.float64)
+    (s1, s2, w_sum), spans = run_walk(host_kernels, entries, tuple(scalars), particles, weights)
+    assert spans == 3
+    expected = fused_track._moment_sweep_reference(entries, tuple(scalars), particles, weights)
+    assert float(expected[2].abs().max()) == 0
+    for got, want in zip((s1, s2, w_sum), expected):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("is_double", [0, 1])
+def test_walk_spans_fill_the_card(host_kernels, is_double):
+    """B5's grid: spans of whole groups (128 threads x 4 floats or 2
+    doubles), at least 132 blocks (one per SM) at every B of the route
+    (1-15) at N = 100,000, and about 528 (four a multiprocessor) where
+    the cloud allows; one span for a cloud of one group or none."""
+    spans_of = host_kernels["particle_moment_sweep"].lynx_particle_moment_spans
+    group = 128 * (2 if is_double else 4)
+    for B in range(1, 16):
+        spans = spans_of(is_double, B, 100_000)
+        assert B * spans >= 132 and spans <= -(-100_000 // group)
+        assert B * spans <= 528 + B
+    assert spans_of(0, 8, 100_000) == 66  # path K: 528 blocks of 1,536 particles
+    for n in (0, 1, group):
+        assert spans_of(is_double, 8, n) == 1
 
 
 def packed_gram(host_kernels, operands, splits=None, dtype=torch.float64):
@@ -915,23 +1023,70 @@ def hist_indices(n, win, seed):
     return lx, ly
 
 
-@pytest.mark.parametrize("chunk, n", [(256, 3001), (1024, 700)])
-def test_hist_onehot_equals_plain(host_kernels, chunk, n):
-    """B7's one-hot contraction through the m16n8k32 s8 stand-in: a window
-    of one 64-row tile and four 32-column tiles, ragged chunks, particles
-    split across blocks (added with atomics), exactly the plain counts."""
-    win = (16, 128)
-    lx, ly = hist_indices(n, win, seed=chunk)
-    library = host_kernels["hist_ab"]
-    assert library.lynx_hist_onehot_splits(n, *win, chunk) == -(-n // chunk)
-    out = torch.zeros((1, *win), dtype=torch.int32)
-    code = library.lynx_hist_onehot(lx.data_ptr(), ly.data_ptr(), out.data_ptr(), n, *win, chunk,
-                                    None)
+def run_onehot(library, lx, ly, win, chunk):
+    """B7's onehot read on the host, as its wrapper launches it."""
+    n = lx.shape[0]
+    out = torch.full((1, *win), 7, dtype=torch.int32)  # the read zeroes it
+    workspace = torch.empty(library.lynx_hist_onehot_workspace(n, win[0], chunk),
+                            dtype=torch.int32)
+    code = library.lynx_hist_onehot(lx.data_ptr(), ly.data_ptr(), out.data_ptr(),
+                                    workspace.data_ptr(), n, *win, chunk, None)
     assert code == 0
+    return out
+
+
+def one_bucket_and_gaps(n, seed):
+    """Pairs in the (80, 300) window's row tiles 0, 2 and 4 only (empty
+    buckets between full ones), half of them in tile 2, on all 300 columns
+    (three 128-column slices, the last past the first 256 columns), with -1
+    pads and pairs past the window."""
+    rng = np.random.default_rng(seed)
+    tile = rng.choice([0, 2, 2, 4], n)
+    lx = tile * 16 + rng.integers(0, 16, n)
+    ly = rng.integers(0, 300, n)
+    lx[::17], ly[::23], ly[5::29] = -1, -1, 300 + rng.integers(0, 5, ly[5::29].shape)
+    return torch.from_numpy(lx.astype(np.int32)), torch.from_numpy(ly.astype(np.int32))
+
+
+@pytest.mark.parametrize(
+    "chunk, n, win, layout",
+    [
+        (256, 3001, (16, 128), "uniform"),  # one bucket, 12 spans, the last ragged
+        (1024, 700, (16, 128), "uniform"),  # one bucket, one span
+        (64, 2500, (80, 300), "gaps"),  # empty buckets between full ones, three column slices
+        (2048, 2500, (80, 300), "gaps"),  # a whole bucket a warp
+        (96, 5000, (952, 256), "one tile"),  # every pair in one tile of the harness's window
+        (256, 0, (40, 64), "uniform"),  # no pair: the read only zeroes the window
+    ],
+    ids=["256-3001", "1024-700", "64-2500-gaps", "2048-2500-gaps", "96-5000-one-tile", "256-0"],
+)
+def test_hist_onehot_equals_plain(host_kernels, chunk, n, win, layout):
+    """B7's onehot read through the count, scatter and contraction kernels
+    (the m16n8k32 s8, vcmpeq4 and byte_perm stand-ins): exactly the plain
+    counts, the pairs outside the window dropped."""
+    if layout == "gaps":
+        lx, ly = one_bucket_and_gaps(n, seed=chunk)
+    elif layout == "one tile":  # rows 480-495, the spot's centre
+        rng = np.random.default_rng(9)
+        lx = torch.from_numpy(rng.integers(480, 496, n).astype(np.int32))
+        ly = torch.from_numpy(rng.integers(0, win[1], n).astype(np.int32))
+    else:
+        lx, ly = hist_indices(n, win, seed=chunk)
+    library = host_kernels["hist_ab"]
+    tiles, slices = -(-win[0] // 16), -(-win[1] // 128)
+    assert library.lynx_hist_onehot_warps(n, *win, chunk) == (-(-n // chunk) + tiles) * slices
+    out = run_onehot(library, lx, ly, win, chunk)
     expected = hist_ab.hist_ab_reference(lx, ly, *win)
-    assert torch.equal(out, expected) and 0 < int(out.sum()) < n
-    assert library.lynx_hist_onehot(lx.data_ptr(), ly.data_ptr(), out.data_ptr(), n, *win, 100,
-                                    None) != 0  # no such chunk
+    assert torch.equal(out, expected)
+    if n:
+        assert 0 < int(out.sum()) <= n
+    if layout == "gaps":
+        rows = expected[0].sum(dim=1)
+        assert int(rows[16:32].sum()) == 0 and int(rows[32:48].sum()) > n // 3
+    workspace = torch.empty(library.lynx_hist_onehot_workspace(n, win[0], 32), dtype=torch.int32)
+    for bad in (100, 0, 65568):  # not a multiple of 32, or out of range
+        assert library.lynx_hist_onehot(lx.data_ptr(), ly.data_ptr(), out.data_ptr(),
+                                        workspace.data_ptr(), n, *win, bad, None) != 0
 
 
 @pytest.mark.parametrize("band_rows, n", [(4, 3000), (16, 3000), (5, 200)])

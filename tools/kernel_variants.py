@@ -52,6 +52,25 @@ VARIANTS = {
         "__launch_bounds__(kSettings, 12) moment_sweep_kernel",
         "B3 held to 80 registers (12 blocks of 64 a multiprocessor)",
     ),
+    "B5-8-blocks": (
+        "particle_moment_sweep",
+        "constexpr int64_t kTargetBlocks = 132 * 4;",
+        "constexpr int64_t kTargetBlocks = 132 * 8;",
+        "B5 aiming at eight blocks a multiprocessor: shorter spans, more partials",
+    ),
+    "B5-256-threads": (
+        "particle_moment_sweep",
+        "constexpr int kThreads = 128;",
+        "constexpr int kThreads = 256;",
+        "B5 in blocks of 256 threads (spans of whole 256-thread groups)",
+    ),
+    "B7-no-prefetch": (
+        "hist_ab",
+        "    int4 u = u_next, v = v_next;\n"
+        "    if (s + 32 < to) u_next = lane_pairs[8], v_next = lane_pairs[12];",
+        "    int4 u = lane_pairs[0], v = lane_pairs[4];",
+        "B7's onehot contraction loading each step's pairs when it starts",
+    ),
     "B4-inline-pass": (
         "moment_sweep_bwd",
         """          T p[kP];
@@ -159,17 +178,23 @@ def main():
     import lynx_tpu_torch as ltt
     from lynx_tpu_torch import ParticleBeam, _build, envs
     from lynx_tpu_torch.accelerator import fused
+    from lynx_tpu_torch.benchmarks import hist_ab
     from lynx_tpu_torch.ops import fused_track as ft
+    from lynx_tpu_torch.ops import histogram as hist
     from lynx_tpu_torch.ops import table as tbl
 
     _build.build_libraries(chip_smoke.KERNEL_LIBRARIES)
     for name, (_, log) in _build.BUILD_LOG.items():
         print(f"tree {name}: ptxas: {chip_smoke.ptxas_report(log)}")
-    tree = {"moment_sweep": ft.moment_sweep_library(),
+    tree = {"hist_ab": hist_ab.hist_ab_library(),
+            "moment_sweep": ft.moment_sweep_library(),
             "moment_sweep_bwd": ft.moment_sweep_bwd_library(),
+            "particle_moment_sweep": ft.particle_moment_sweep_library(),
             "packed_gram": ft.packed_gram_library()}
-    variants = build_variants(names, {"moment_sweep": ft._B3_SIGNATURE,
+    variants = build_variants(names, {"hist_ab": hist_ab._B7_SIGNATURE,
+                                      "moment_sweep": ft._B3_SIGNATURE,
                                       "moment_sweep_bwd": ft._B4_SIGNATURE,
+                                      "particle_moment_sweep": ft._B5_SIGNATURE,
                                       "packed_gram": ft._B6_SIGNATURE})
     env = envs.make_env(device="cuda")
     runs = [("tree", library, tree[library]) for library in sorted({VARIANTS[n][0] for n in names})]
@@ -181,6 +206,8 @@ def main():
         if library in ("moment_sweep", "moment_sweep_bwd"):
             chip_smoke.check_sweep_kernels(torch, ltt, ft, fused, env)
             chip_smoke.time_kernels(torch, ft, fused, tbl, env, card)
+        elif library == "hist_ab":
+            chip_smoke.path_hist_ab(torch, hist, card)
         else:
             chip_smoke.check_moment_kernels(torch, ltt, ft, fused, env, ParticleBeam)
             chip_smoke.time_moment_kernels(torch, ltt, ft, fused, env, ParticleBeam, card)
