@@ -10,9 +10,16 @@ Phases, each of which raises on failure (non-zero exit, no result line):
 2. build kernels B1-B7 (``lynx_tpu_torch/csrc/*.cu``), one nvcc each, all
    started together, and print each build's seconds and, for each kernel
    and instantiation, its ptxas registers and spill-store/spill-load bytes;
-3. hold B1 against its plain PyTorch version on the card at the flagship
-   shapes and at the edge cases (count mode exactly equal, weighted mode
-   within 1e-5 relative of the plain version in float64); hold B2-B6
+3. hold B1's (lx, ly) count core against its plain PyTorch version on the
+   card at the flagship shapes and at the edge cases (count mode exactly
+   equal, weighted mode within 1e-5 relative of the plain version in
+   float64); hold B1's fused read (``windowed_read``) against
+   ``windowed_read_reference`` on the same CUDA tensors at the flagship's
+   B = 1 and 8, on path L's window, bin edges, NaN and +-inf with an
+   all-dead row, a spot past its window, Python-float ranges and N =
+   100,003 (the image exact in count mode, within 1e-5 relative weighted,
+   origins and fits equal), and print B7 twolevel's
+   ``cudaOccupancyMaxActiveClusters``; hold B2-B6
    against theirs at the main paths' shapes and at the edge cases, in
    double and in float (bounds below; B5 and B6 on a ragged B and N =
    100,003, rectangular and elliptical apertures, two in one plan, x_max =
@@ -26,9 +33,15 @@ Phases, each of which raises on failure (non-zero exit, no result line):
 4. drive the flagship path, the ARES EA track of a 100k-particle beam and
    the 2448 x 2040 read of screen AREABSCR1, at B = 1 (``functional.track``
    and ``Segment.track`` + ``reading``) and B = 8; check the images, that
-   B1 served every read and that no read fell back, and hold the images
-   against the port's CPU path on the same particles;
-5. time the flagship read and B1 with CUDA events;
+   B1 served every read (two launches a read) and that no
+   read fell back, and hold the images against the port's CPU path on the
+   same particles;
+5. time the flagship track + read with CUDA events; the windowed read's
+   device time (all of its GPU work) through the fused read and through
+   the composed read (the prologue in PyTorch, B1's count core,
+   ``_place``) in turns, beside the full-image scatter, B1's kernels' own time, its bound
+   and the read's floor (the image written once), and the device kernels a
+   read issues (at most 4) and a flagship call issues;
 6. path S, serving: the ARES-EA environment's ``batched_reset`` and 10
    ``batched_step``s at B = 100,000 settings through B3; path T, training:
    ``tuning.tune`` of (100,000, 5) settings for 10 Adam steps through B3
@@ -49,13 +62,15 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    of the plain walk, the JAX package's design, and is counted apart;
 8. path L, the full ARES lattice (195 elements): the read of AREABSCR1
    by a 100k-particle beam from the lattice's start through B1, held
-   against the CPU path's image; a ParameterBeam sweep at 100,000 settings
+   against the CPU path's image,
+   and its read timed as the flagship's; a ParameterBeam sweep at 100,000 settings
    (every quadrupole, corrector, solenoid and dipole per setting) through B3
    and its gradient through B4, held against the dense route in double;
    kernel B7, the count-histogram A/B (``lynx_tpu_torch.benchmarks.hist_ab``):
-   every variant exactly against its plain version and B1's count mode (a
-   spot, pads and pairs past the window, all padded, 33 pairs, and every
-   pair in one 16-row tile, one bucket of the onehot read), then the
+   every variant (onehot's chunks; twolevel's clusters of C = 8 and 16
+   blocks, K = 1-8 clusters) exactly against its plain version and B1's
+   count mode (a spot, pads and pairs past the window, all padded, 33 pairs,
+   and every pair in one 16-row tile, one bucket of the onehot read), then the
    harness with its yardsticks (B1, ``torch.bincount``), each read's device
    time summed over its kernels beside its main kernel's;
 9. print the kernels' JSON line and, last, the ``{"ok": true, ...}`` line.
@@ -85,7 +100,7 @@ import subprocess
 import sys
 import time
 
-from lynx_tpu_torch.benchmarks.timing import cuda_ms, device_ms
+from lynx_tpu_torch.benchmarks.timing import cuda_ms, device_launches, device_ms
 
 N_PARTICLES = 100_000
 WINDOW = (952, 256)  # the flagship kernel window, after swap and rounding
@@ -160,7 +175,7 @@ INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core operations
 # Device times of the redesigned kernels' previous designs, as chip_smoke.py
 # measured them (PERF.md's kernel table; NVIDIA H100 80GB HBM3, 700 W):
 # printed beside the new ones, never compared against.
-PARENT_DEVICE_MS = {"B5": 0.17336, "B7 onehot": 0.51131}
+PARENT_DEVICE_MS = {"B1": 0.00362, "B7 twolevel": 0.01284}
 GRAM_PARTS = 3  # B6's float Gram: q in three bf16 parts, each a tensor-core product
 
 # The particle moment sweep, kernels B5 and B6: one shared cloud of
@@ -262,6 +277,216 @@ def check_kernel_cases(torch, hist):
         print(f"B1 check {label}: shape {tuple(lx.shape)} count exact,"
               f" weighted max |err| {error:.3e}, mass {int(counts.sum())}")
     return worst
+
+
+# -- kernel B1's fused read -------------------------------------------------------
+
+FLAGSHIP_BINS = (2040, 2448)  # the flagship image, (-y, x) binned
+LATTICE_WINDOW = (1848, 512)  # path L's AREABSCR1 window, rounded
+READ_RANGES = (-3.4e-3, 3.4e-3, -4.1e-3, 4.1e-3)
+READ_RTOL = 1e-5  # weighted mode: float atomics sum in any order
+
+
+def read_inputs(torch, gen, batch, n, sigma, bins=FLAGSHIP_BINS, ranges_on_card=True):
+    """A screen read's operands at ``bins`` as the screen passes them: x
+    contiguous, y a column of a (B, N, 7) particle array (stride 7),
+    weights with a tenth dead, ranges 0-d CUDA tensors (or Python floats);
+    a Gaussian spot about the image's centre, sigma in bins, each row's
+    centre moved by 10 bins."""
+    lo_x, hi_x, lo_y, hi_y = READ_RANGES
+    px, py = (hi_x - lo_x) / bins[0], (hi_y - lo_y) / bins[1]
+    shift = 10.0 * torch.arange(batch, device="cuda")[:, None]
+    x = lo_x + px * (bins[0] / 2 + shift + sigma[0] * torch.randn((batch, n), generator=gen,
+                                                                  device="cuda"))
+    particles = torch.randn((batch, n, 7), generator=gen, device="cuda")
+    particles[..., 0] = lo_y + py * (bins[1] / 2 - shift + sigma[1] * particles[..., 0])
+    weights = (torch.rand((batch, n), generator=gen, device="cuda") > 0.1).float()
+    ranges = tuple(torch.tensor(v, device="cuda") for v in READ_RANGES)
+    return x, particles[..., 0], weights, ranges if ranges_on_card else READ_RANGES
+
+
+def read_edges(torch, bins):
+    """Row 0: particles on a grid of interior bin edges formed on the card
+    in float32, on lo and hi in x (the window spans x), one ulp past hi, at
+    +-inf and NaN, one dead; row 1: only NaN."""
+    lo_x, hi_x, lo_y, hi_y = (torch.tensor(v, device="cuda") for v in READ_RANGES)
+    ex = lo_x + (hi_x - lo_x) / bins[0] * torch.arange(900, 940, device="cuda")
+    ey = lo_y + (hi_y - lo_y) / bins[1] * torch.arange(1100, 1140, device="cuda")
+    gx, gy = torch.meshgrid(ex, ey, indexing="ij")
+    special = torch.tensor([float("nan"), float("inf"), -float("inf")], device="cuda")
+    x0 = torch.cat([gx.reshape(-1), torch.stack([lo_x, hi_x, torch.nextafter(hi_x, hi_x + 1)]),
+                    special, ex[:4]])
+    y0 = torch.cat([gy.reshape(-1), ey[:3], ey[:3], special, ey[:1]])
+    x = torch.stack([x0, torch.full_like(x0, float("nan"))])
+    weights = torch.ones_like(x)
+    weights[0, -1] = 0.0
+    return x, torch.stack([y0, y0]), weights, (lo_x, hi_x, lo_y, hi_y)
+
+
+def check_read(torch, hist, label, operands, bins, window, binary):
+    """B1's fused read against its plain version on the same CUDA tensors:
+    origins and fits equal, the image exact in count mode (within
+    READ_RTOL per cell weighted); max |error|."""
+    x, y, weights, ranges = operands
+    image, ox, oy, fits = hist.windowed_read(x, y, weights, ranges, bins, window, binary)
+    ref = hist.windowed_read_reference(x, y, weights, ranges, bins, window, binary)
+    torch.cuda.synchronize()
+    if not (torch.equal(ox, ref[1]) and torch.equal(oy, ref[2]) and torch.equal(fits, ref[3])):
+        raise AssertionError(f"B1 read: origins or fits differ from the plain version: {label}")
+    if binary and not torch.equal(image, ref[0]):
+        raise AssertionError(f"B1 read: count-mode image differs from the plain version: {label}")
+    if not torch.allclose(image, ref[0], rtol=READ_RTOL, atol=0.0):
+        raise AssertionError(f"B1 read: weighted image past {READ_RTOL} relative: {label}")
+    return float((image - ref[0]).abs().max()), fits
+
+
+def check_read_cases(torch, hist, card):
+    """Phase 3, B1's fused read at the flagship's shapes (B = 1 and 8, N =
+    100,000, float32, the screen's operands), count and weighted; on path
+    L's window, on bin edges, NaN and +-inf with an all-dead row, on a spot
+    past its window (fits False), with Python-float ranges and on N =
+    100,003; max |error|."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    window = WINDOW
+    spot = (80.0, 20.0)  # sigma in bins: the flagship spot's extent in the window
+    worst = 0.0
+    for batch in (1, 8):
+        operands = read_inputs(torch, gen, batch, N_PARTICLES, spot)
+        for binary in (True, False):
+            error, fits = check_read(torch, hist, f"B={batch}", operands, FLAGSHIP_BINS, window,
+                                     binary)
+            worst = max(worst, error)
+            if not bool(fits.all()):
+                raise AssertionError("B1 read: the flagship-shaped spot does not fit")
+        print(f"B1 read check B={batch}: count exact, weighted max |err| {error:.3e}")
+    others = {  # label: (operands, window, every row fits)
+        "path L's window": (read_inputs(torch, gen, 1, N_PARTICLES, (150.0, 40.0)),
+                                      LATTICE_WINDOW, True),
+        "bin edges, NaN, +-inf, a dead row": (read_edges(torch, FLAGSHIP_BINS),
+                                              (FLAGSHIP_BINS[0], window[1]), True),
+        "a spot past its window": (read_inputs(torch, gen, 2, 20_000, (400.0, 100.0)), window,
+                                   False),
+        "Python-float ranges": (read_inputs(torch, gen, 2, 20_000, spot, ranges_on_card=False),
+                                window, True),
+        "N = 100,003": (read_inputs(torch, gen, 3, ODD_PARTICLES, spot), window, True),
+    }
+    for label, (operands, win, fit) in others.items():
+        for binary in (True, False):
+            error, fits = check_read(torch, hist, label, operands, FLAGSHIP_BINS, win, binary)
+            worst = max(worst, error)
+        if bool(fits.all()) != fit:
+            raise AssertionError(f"B1 read: {label}: fits {fits.tolist()}")
+        print(f"B1 read check {label}: fits {fits.tolist()}; count exact, weighted max |err|"
+              f" {error:.3e}")
+    clusters = {c: hist_ab_max_clusters(c) for c in (8, 16)}
+    print(f"B7 twolevel at the harness's window {WINDOW}: cudaOccupancyMaxActiveClusters"
+          f" {clusters} (cluster size: clusters; card {card})")
+    return worst
+
+
+def hist_ab_max_clusters(cluster):
+    from lynx_tpu_torch.benchmarks import hist_ab
+
+    return hist_ab.twolevel_max_clusters(*WINDOW, cluster)
+
+
+def screen_read_args(segment, beam):
+    """The arguments of the AREABSCR1 read after ``segment.track(beam)``."""
+    from lynx_tpu_torch.accelerator.screen import screen_histogram_args
+
+    segment.track(beam)
+    screen = segment.AREABSCR1
+    return screen_histogram_args(screen.get_read_beam(), screen.resolution, screen.pixel_size,
+                                 screen.binning, histogram_window=screen.histogram_window)
+
+
+def composed_forward(torch, hist):
+    """The composed windowed read, the yardstick of the fused one: the
+    prologue in PyTorch (``window_prologue``), kernel B1's (lx, ly) count
+    core into a zeroed window, then the crop and ``_place``."""
+    def forward(x, y, weights, ranges, bins, window, binary_weights):
+        (x_lo, x_hi, y_lo, y_hi), (nx, ny), (win_x, win_y) = ranges, bins, window
+        lx, ly, ox, oy, fits = hist.window_prologue(x, y, weights, ranges, bins, window)
+        if not bool(fits.all()):
+            hist._note_fallback()
+            return hist.weighted_histogram_2d(x, y, weights, (x_lo, x_hi), (y_lo, y_hi), bins)
+        batch_shape, n = x.shape[:-1], x.shape[-1]
+        w_b = torch.broadcast_to(weights, x.shape)
+        kernel_weights = None
+        if not binary_weights:
+            kernel_weights = w_b.reshape(-1, n).to(torch.float32).contiguous()
+        wins = hist.window_histogram(lx, ly, kernel_weights, win_x, win_y).to(w_b.dtype)
+        wins = wins[:, : min(win_x, nx), : min(win_y, ny)]
+        return hist._place(wins, ox, oy, nx, ny).reshape(*batch_shape, nx, ny)
+
+    return forward
+
+
+@contextlib.contextmanager
+def composed_route(hist, on=True):
+    """Route the windowed read through the composed read while on."""
+    import torch
+
+    fused = hist._windowed_forward
+    if on:
+        hist._windowed_forward = composed_forward(torch, hist)
+    try:
+        yield
+    finally:
+        hist._windowed_forward = fused
+
+
+def device_kernels(launches):
+    """Kernels and memsets in a ``device_launches`` count (copies not)."""
+    return sum(count for name, count in launches.items() if not name.startswith("Memcpy"))
+
+
+def time_read(torch, hist, args, card, label):
+    """The windowed read's device time (all of its GPU work, from the
+    coordinates to the image: the zeroing, B1's kernels, the fits
+    reduction) through the fused read and through the composed read, in
+    turns, beside the full-image scatter; B1's own kernels' time; device
+    kernels a read; the read's floor (the image written once) and B1's
+    bound (x, y, weights read once, the window written once)."""
+    def read():
+        return hist.screen_histogram_2d(**args)
+
+    def scatter():
+        return hist.weighted_histogram_2d(args["x"], args["y"], args["weights"], args["x_range"],
+                                          args["y_range"], args["bins"])
+
+    device, kernels, call = {"fused": [], "composed": []}, {}, {}
+    for route in ("composed", "fused", "fused", "composed"):
+        with composed_route(hist, route == "composed"):
+            device[route].append(device_ms(read, 20))
+    for route in ("fused", "composed"):
+        with composed_route(hist, route == "composed"):
+            kernels[route] = device_kernels(device_launches(read))
+            call[route] = cuda_ms(read, 50)
+    _, kernel_ms = device_ms(read, 20, kernel="windowed_read_")
+    _, bins_ms = device_ms(read, 20, kernel="windowed_read_bins")
+    scatter_ms = device_ms(scatter, 20)
+    kernels["scatter"] = device_kernels(device_launches(scatter))
+    x, w = args["x"], args["weights"]
+    batch, n = x.numel() // x.shape[-1], x.shape[-1]
+    (nx, ny), window = args["bins"], hist._window_shape(args["window"], *args["bins"])
+    floor = batch * nx * ny * w.element_size() / HBM_BYTES_PER_S * 1e3
+    kernel_bound = bound(nbytes(x, args["y"], w) + batch * window[0] * window[1] * w.element_size(),
+                         x.numel())
+    print(f"read {label} (window {window}): device time a read, fused"
+          f" {device['fused'][0]:.5f} / {device['fused'][1]:.5f} ms, composed read"
+          f" {device['composed'][0]:.5f} / {device['composed'][1]:.5f} ms (in turns: composed,"
+          f" fused, fused, composed), full-image scatter {scatter_ms:.5f} ms; of the fused read B1's"
+          f" kernels {kernel_ms:.5f} ms (its binning pass {bins_ms:.5f} ms; bound"
+          f" {kernel_bound[0]:.5f} ms, {kernel_bound[1]});"
+          f" the read's floor (the image written once) {floor:.5f} ms; device kernels a read:"
+          f" fused {kernels['fused']}, composed {kernels['composed']}, scatter"
+          f" {kernels['scatter']}; a call (CUDA events, 50 calls): fused {call['fused']:.4f} ms,"
+          f" composed {call['composed']:.4f} ms; card {card}")
+    if kernels["fused"] > 4:
+        raise AssertionError(f"read {label}: the fused read issued {kernels['fused']} kernels")
+    return dict(kernel_ms=kernel_ms, device=device, scatter_ms=scatter_ms, kernels=kernels,
+                floor=floor, bound=kernel_bound)
 
 
 # -- the batched-settings sweep: kernels B2, B3, B4 -----------------------------
@@ -1630,8 +1855,8 @@ def path_lattice_read(torch, ares, functional, hist, ParticleBeam, ParameterBeam
     torch.cuda.synchronize()
     launches, fallbacks = hist.window_histogram.launches, hist.histogram_fallback_count()
     print(f"path L (read): {len(lattice.elements)} elements to AREABSCR1, window {window};"
-          f" B1 launches {launches}, scatter fallbacks {fallbacks}")
-    if launches < 1 or fallbacks != 0:
+          f" B1 launches {launches} ({hist.READ_LAUNCHES} a read), scatter fallbacks {fallbacks}")
+    if launches != hist.READ_LAUNCHES or fallbacks != 0:
         raise AssertionError("path L: the read did not go through kernel B1")
     if tuple(image.shape) != (1, 2040, 2448) or not bool(torch.isfinite(image).all()):
         raise AssertionError(f"path L: bad image {tuple(image.shape)}")
@@ -1645,10 +1870,11 @@ def path_lattice_read(torch, ares, functional, hist, ParticleBeam, ParameterBeam
         raise AssertionError("path L: GPU and CPU images differ")
     ms = cuda_ms(lambda: functional.track(lattice, beam), iters=20)
     device, b1 = device_ms(lambda: functional.track(lattice, beam), iters=5,
-                                kernel="window_histogram_kernel")
+                           kernel="windowed_read_")
     print(f"path L (read): track + read {ms:.4f} ms/call (CUDA events, 20 calls); device time"
           f" {device:.4f} ms/call (busy share {device / ms:.4f}), of it B1 {b1:.5f} ms"
           f" (torch.profiler, 5 calls; card {card})")
+    time_read(torch, hist, screen_read_args(lattice, beam), card, "path L")
     return launches
 
 
@@ -1936,10 +2162,10 @@ def path_hist_ab(torch, hist, card):
         )
         t = timing[kernel]
         floor = (f"; the onehot read's own int8 operations"
-                 f" {onehot_floor(torch, lx, ly, WINDOW):.5f} ms; previous design"
-                 f" {PARENT_DEVICE_MS['B7 onehot']:.5f} ms of device time (PERF.md)"
-                 if kernel == "onehot" else "")
-        main_kernel = "contraction" if kernel == "onehot" else "band kernel"
+                 f" {onehot_floor(torch, lx, ly, WINDOW):.5f} ms" if kernel == "onehot" else
+                 f"; previous design (28-row bands) {PARENT_DEVICE_MS['B7 twolevel']:.5f} ms of"
+                 f" device time (PERF.md)")
+        main_kernel = "contraction" if kernel == "onehot" else "cluster kernel"
         print(f"B7 {kernel} at the harness's shape (N={N_PARTICLES}, window {WINDOW}): fastest"
               f" variant by device time {t['variant']} {t['ms']:.5f} ms per read (CUDA events,"
               f" 200 reads),"
@@ -2004,7 +2230,6 @@ def main():
     from lynx_tpu_torch import ParticleBeam, _build, envs, functional, tuning
     from lynx_tpu_torch.accelerator import fused
     from lynx_tpu_torch.accelerator import segment as segment_module
-    from lynx_tpu_torch.accelerator.screen import screen_histogram_args
     from lynx_tpu_torch.benchmarks import hist_ab
     from lynx_tpu_torch.models import ares
     from lynx_tpu_torch.ops import fused_track as ft
@@ -2026,6 +2251,7 @@ def main():
 
     # -- 3. kernels against their plain versions ----------------------------
     max_abs_err = check_kernel_cases(torch, hist)
+    max_abs_err = max(max_abs_err, check_read_cases(torch, hist, card))
     env = envs.make_env(device="cuda")
     sweep_abs_err = check_sweep_kernels(torch, ltt, ft, fused, env)
     push_abs_err = check_push_kernel(torch, ft, fused, tbl)
@@ -2046,8 +2272,9 @@ def main():
     torch.cuda.synchronize()
     launches = hist.window_histogram.launches
     fallbacks = hist.histogram_fallback_count()
-    print(f"main path: B1 launches {launches}, scatter fallbacks {fallbacks}")
-    if launches < 3 or fallbacks != 0:
+    print(f"main path: B1 launches {launches} over 3 reads ({hist.READ_LAUNCHES} a read),"
+          f" scatter fallbacks {fallbacks}")
+    if launches != 3 * hist.READ_LAUNCHES or fallbacks != 0:
         raise AssertionError("the main path did not go through kernel B1 on every read")
     if not torch.equal(image1, image1_stateful):
         raise AssertionError("functional.track and Segment.track + reading disagree")
@@ -2081,53 +2308,43 @@ def main():
         print(f"flagship track + read {label}: {ms:.4f} ms/call, {rates[label]:.1f} tracks/s"
               f" (CUDA events, 50 calls after warm-up; card {card})")
 
-    screen = seg1.AREABSCR1
-    args = screen_histogram_args(
-        screen.get_read_beam(),  # stored by seg1.track in phase 4
-        screen.resolution,
-        screen.pixel_size,
-        screen.binning,
-        histogram_window=screen.histogram_window,
-    )
+    read_args = {"B=1": screen_read_args(seg1, beam1), "B=8": screen_read_args(seg8, beam8)}
+    args = read_args["B=1"]
     window = hist._window_shape(args["window"], *args["bins"])
     if window != WINDOW:
         raise AssertionError(f"flagship window {window}, expected {WINDOW}")
+    read_timing = {label: time_read(torch, hist, a, card, label) for label, a in read_args.items()}
+    flagship_kernels = {}
+    for route in ("fused", "composed"):
+        with composed_route(hist, route == "composed"):
+            flagship_kernels[route] = device_kernels(
+                device_launches(lambda: functional.track(seg1, beam1)))
+    print(f"flagship call (functional.track, B=1): {flagship_kernels['fused']} device kernels"
+          f" with the fused read, {flagship_kernels['composed']} with the composed read"
+          f" (torch.profiler; memsets counted, copies not; card {card})")
+
+    # B1's row at the flagship read (B=1): the fused read's call time and
+    # its plain version's on the same CUDA operands (CUDA events, as every
+    # row's ms), its bound (x, y and weights read once, the window written
+    # once) and the one PyTorch call of the histogram, torch.bincount of the
+    # live particles' image cells.  B1's device time is printed beside them.
+    x, y, w = args["x"], args["y"], args["weights"]
     ranges = (*args["x_range"], *args["y_range"])
-    lx, ly, _, _, fits = hist.window_prologue(
-        args["x"], args["y"], args["weights"], ranges, args["bins"], window
-    )
-    if not bool(fits.all()):
-        raise AssertionError("the flagship spot does not fit the window")
-    kernel_ms = cuda_ms(lambda: hist.window_histogram(lx, ly, None, *window), iters=200)
-    plain_ms = cuda_ms(lambda: hist.window_histogram_reference(lx, ly, None, *window), iters=200)
-    scatter_ms = cuda_ms(
-        lambda: hist.weighted_histogram_2d(
-            args["x"], args["y"], args["weights"], args["x_range"], args["y_range"], args["bins"]
-        ),
-        iters=200,
-    )
-    # Bound: the two index arrays read and the int32 window written once.
-    b1_bound = bound(nbytes(lx, ly) + window[0] * window[1] * 4, lx.numel())
-    print(f"B1 at the flagship read (B=1, N={N_PARTICLES}, window {window}, count mode):"
-          f" kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms,"
-          f" full-image scatter {scatter_ms:.4f} ms per call (CUDA events, 200 calls"
-          f" back to back, host launch cost included); bound {b1_bound[0]:.5f} ms"
-          f" ({b1_bound[1]}); card {card}")
-    kernel_device = device_ms(lambda: hist.window_histogram(lx, ly, None, *window), iters=50)
-    plain_device = device_ms(
-        lambda: hist.window_histogram_reference(lx, ly, None, *window), iters=50
-    )
-    print(f"B1 at the flagship read, device time of the GPU work per call"
-          f" (output zeroing included): kernel {kernel_device:.5f} ms,"
-          f" plain {plain_device:.5f} ms (torch.profiler, 50 calls; card {card})")
-    # The one PyTorch call of B1's count mode: torch.bincount of the
-    # in-window pairs' flat indices (the mask taken once, outside).
-    inside = (lx >= 0) & (lx < window[0]) & (ly >= 0) & (ly < window[1])
-    flat = lx[inside].long() * window[1] + ly[inside].long()
-    bincount_ms = cuda_ms(lambda: torch.bincount(flat, minlength=window[0] * window[1]), iters=200
-    )
-    print(f"B1's library call at the flagship read: torch.bincount {bincount_ms:.5f} ms per call"
-          f" (CUDA events, 200 calls; card {card})")
+    bins = args["bins"]
+    read_ms = cuda_ms(lambda: hist.windowed_read(x, y, w, ranges, bins, window, True), iters=50)
+    plain_ms = cuda_ms(lambda: hist.windowed_read_reference(x, y, w, ranges, bins, window, True),
+                       iters=50)
+    b1_bound = bound(nbytes(x, y, w) + window[0] * window[1] * w.element_size(), x.numel())
+    ix, vx = hist._bin_index(x, *args["x_range"], bins[0])
+    iy, vy = hist._bin_index(y, *args["y_range"], bins[1])
+    flat = (ix.long() * bins[1] + iy.long())[vx & vy & (w != 0)]
+    bincount_ms = cuda_ms(lambda: torch.bincount(flat, minlength=bins[0] * bins[1]), iters=200)
+    print(f"B1 at the flagship read (B=1): the fused read {read_ms:.4f} ms a call (CUDA"
+          f" events, 50 calls), its kernels {read_timing['B=1']['kernel_ms']:.5f} ms of device"
+          f" time a read (previous design's count core {PARENT_DEVICE_MS['B1']:.5f} ms, PERF.md);"
+          f" plain version {plain_ms:.4f} ms a call (CUDA events); bound"
+          f" {b1_bound[0]:.5f} ms ({b1_bound[1]}); torch.bincount over the image"
+          f" {bincount_ms:.5f} ms a call (CUDA events, 200 calls; card {card})")
 
     # -- 6. the batched-settings paths ---------------------------------------
     serving_launches = path_serving(torch, ft, hist, envs, env, card)
@@ -2148,7 +2365,8 @@ def main():
     hist_launches, hist_timing, hist_abs_err = path_hist_ab(torch, hist, card)
 
     # -- 9. results ----------------------------------------------------------
-    timing["B1"] = dict(ms=kernel_ms, plain_ms=plain_ms, bound=b1_bound, library_ms=bincount_ms)
+    timing["B1"] = dict(ms=read_ms, plain_ms=plain_ms, bound=b1_bound,
+                        library_ms=bincount_ms)
     timing["B7 onehot"], timing["B7 twolevel"] = hist_timing["onehot"], hist_timing["twolevel"]
     kernels = []
     for name, label, source, replaces, launched, error in (

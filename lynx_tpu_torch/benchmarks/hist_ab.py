@@ -13,12 +13,13 @@ timed with CUDA events over many launches and with ``torch.profiler``'s
 device time; one JSON line each: ``variant``, ``ms_per_read``, ``win``,
 ``particles``, ``device_ms`` (every kernel the read launches, the output's
 zeroing included) and ``kernel_ms`` (the variant's main kernel alone: the
-contraction, the band kernel, B1's kernel; null for ``torch.bincount``).
+contraction, the cluster kernel, B1's kernel; null for ``torch.bincount``).
 
 Variants: ``onehot_c<chunk>`` (the one-hot contraction on the int8 tensor
 cores over the particles bucketed by 16-row tile, a warp contracting at
-most ``chunk`` particles of one bucket) and ``twolevel_b<rows>`` (the
-window in bands of ``rows`` rows in shared memory).  The TPU variants'
+most ``chunk`` particles of one bucket) and ``twolevel_c<C>k<K>`` (the
+whole window in the distributed shared memory of a thread-block cluster of
+C blocks, K clusters splitting the pairs).  The TPU variants'
 ``compare_dtype`` and ``pretrans`` exist for the TPU's vector lanes and
 matrix-unit layout and have no counterpart here.
 """
@@ -38,9 +39,10 @@ from lynx_tpu_torch.benchmarks.timing import cuda_ms, device_ms
 Tensor = torch.Tensor
 
 #: C signatures of B7's entry points: the counts (lx, ly, out, [workspace,]
-#: n, win_x, win_y, chunk or band rows, stream); the onehot read's int32
-#: workspace (n, win_x, chunk) and its contraction's warps (n, win_x, win_y,
-#: chunk); the twolevel particle splits of a launch.
+#: n, win_x, win_y, chunk or cluster size and clusters, stream); the onehot
+#: read's int32 workspace (n, win_x, chunk) and its contraction's warps (n,
+#: win_x, win_y, chunk); the clusters of a size the card holds at once for a
+#: window (win_x, win_y, cluster size).
 _B7_SIGNATURE = {
     "lynx_hist_onehot": (
         ctypes.c_int,
@@ -48,7 +50,7 @@ _B7_SIGNATURE = {
     ),
     "lynx_hist_twolevel": (
         ctypes.c_int,
-        [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_void_p],
     ),
     "lynx_hist_onehot_workspace": (
         ctypes.c_longlong, [ctypes.c_longlong, ctypes.c_int, ctypes.c_int],
@@ -56,20 +58,19 @@ _B7_SIGNATURE = {
     "lynx_hist_onehot_warps": (
         ctypes.c_longlong, [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int],
     ),
-    "lynx_hist_twolevel_splits": (
-        ctypes.c_longlong, [ctypes.c_longlong, ctypes.c_int, ctypes.c_int],
-    ),
+    "lynx_hist_twolevel_max_clusters": (ctypes.c_int, [ctypes.c_int] * 3),
 }
 
 #: The onehot knob: the most particles of one bucket (16-row tile) that a
 #: warp contracts; the tile's other spans go to other warps.  256 is the
 #: fastest of the three on an H100 (PERF.md).
 ONEHOT_CHUNKS = (256, 1024, 2048)
-#: The twolevel default, the fastest band of the A/B on an H100: 34 bands of
-#: 28 rows of the flagship window, 28 KB of shared memory a block.  The
-#: band's height is the question B1's redesign asks of this A/B, so the
-#: variants keep 56 and 112 beside it.
-BAND_ROWS = 28
+#: The twolevel knobs: blocks of a cluster (8 portable, 16 non-portable:
+#: 122 KB and 61 KB of the flagship window a block) and clusters splitting
+#: the pairs.  The default is the fastest of the A/B on an H100 (PERF.md).
+TWOLEVEL_CLUSTERS = (8, 16)
+TWOLEVEL_SPLITS = (1, 2, 4, 8)
+CLUSTER, SPLITS = 16, 4
 
 
 def hist_ab_library() -> ctypes.CDLL:
@@ -101,12 +102,12 @@ def _check(what: str, lx: Tensor, ly: Tensor, win_x: int, win_y: int) -> None:
 
 
 def _launch(what: str, function: str, lx: Tensor, ly: Tensor, win_x: int, win_y: int,
-            knob: int, out: Tensor, *workspace: Tensor) -> Tensor:
+            knobs: Tuple[int, ...], out: Tensor, *workspace: Tensor) -> Tensor:
     library = hist_ab_library()
     with torch.cuda.device(lx.device):
         code = getattr(library, function)(
             lx.data_ptr(), ly.data_ptr(), out.data_ptr(), *(w.data_ptr() for w in workspace),
-            lx.shape[0], win_x, win_y, knob, torch.cuda.current_stream(lx.device).cuda_stream,
+            lx.shape[0], win_x, win_y, *knobs, torch.cuda.current_stream(lx.device).cuda_stream,
         )
     check(library, code, what)
     return out
@@ -128,7 +129,7 @@ def hist_onehot(lx: Tensor, ly: Tensor, win_x: int, win_y: int, chunk: int = 256
     out = torch.empty((1, win_x, win_y), dtype=torch.int32, device=lx.device)
     workspace = torch.empty((library.lynx_hist_onehot_workspace(lx.shape[0], win_x, chunk),),
                             dtype=torch.int32, device=lx.device)
-    _launch("hist_onehot", "lynx_hist_onehot", lx, ly, win_x, win_y, chunk, out, workspace)
+    _launch("hist_onehot", "lynx_hist_onehot", lx, ly, win_x, win_y, (chunk,), out, workspace)
     hist_onehot.launches += 1
     return out
 
@@ -136,31 +137,46 @@ def hist_onehot(lx: Tensor, ly: Tensor, win_x: int, win_y: int, chunk: int = 256
 hist_onehot.launches = 0
 
 
-def hist_twolevel(lx: Tensor, ly: Tensor, win_x: int, win_y: int,
-                  band_rows: int = BAND_ROWS) -> Tensor:
-    """Kernel B7, ``twolevel``: the counts with the window in bands of
-    ``band_rows`` rows in shared memory.  A CUDA tensor launches the kernel
-    (or raises); a CPU tensor takes the plain version.
+def hist_twolevel(lx: Tensor, ly: Tensor, win_x: int, win_y: int, cluster: int = CLUSTER,
+                  splits: int = SPLITS) -> Tensor:
+    """Kernel B7, ``twolevel``: the counts with the whole window in the
+    distributed shared memory of a thread-block cluster of ``cluster``
+    blocks (1-16), ``splits`` clusters splitting the pairs (the output then
+    zeroed first, in the same entry point).  A CUDA tensor launches the
+    kernel or raises, also where the card can hold no cluster of that size
+    (no smaller cluster is taken); a CPU tensor takes the plain version.
     ``hist_twolevel.launches`` counts kernel launches."""
     if lx.device.type == "cpu":
         return hist_ab_reference(lx, ly, win_x, win_y)
     _check("hist_twolevel", lx, ly, win_x, win_y)
-    out = torch.zeros((1, win_x, win_y), dtype=torch.int32, device=lx.device)
-    _launch("hist_twolevel", "lynx_hist_twolevel", lx, ly, win_x, win_y, band_rows, out)
+    out = torch.empty((1, win_x, win_y), dtype=torch.int32, device=lx.device)
+    _launch("hist_twolevel", "lynx_hist_twolevel", lx, ly, win_x, win_y, (cluster, splits), out)
     hist_twolevel.launches += 1
     return out
 
 
 hist_twolevel.launches = 0
 
+
+def twolevel_max_clusters(win_x: int, win_y: int, cluster: int) -> int:
+    """``cudaOccupancyMaxActiveClusters`` of the twolevel kernel's clusters
+    of ``cluster`` blocks for a (win_x, win_y) window; raises where the
+    query fails (a window whose rows pass a block's shared memory)."""
+    library = hist_ab_library()
+    clusters = library.lynx_hist_twolevel_max_clusters(win_x, win_y, cluster)
+    if clusters < 0:
+        check(library, -clusters, "hist_twolevel_max_clusters")
+    return clusters
+
 #: The A/B's variants: name -> (wrapper, its knob).
 #: Each variant's main kernel, timed apart from the rest of its read.
 KERNELS = {"hist_onehot": "onehot_contract_kernel", "hist_twolevel": "twolevel_kernel"}
 VARIANTS = {
     **{f"onehot_c{chunk}": (hist_onehot, dict(chunk=chunk)) for chunk in ONEHOT_CHUNKS},
-    **{f"twolevel_b{rows}": (hist_twolevel, dict(band_rows=rows)) for rows in (28, 56, 112)},
+    **{f"twolevel_c{c}k{k}": (hist_twolevel, dict(cluster=c, splits=k))
+       for c in TWOLEVEL_CLUSTERS for k in TWOLEVEL_SPLITS},
 }
-DEFAULT_VARIANTS = "onehot_c256,onehot_c1024,onehot_c2048,twolevel_b28,twolevel_b56,twolevel_b112"
+DEFAULT_VARIANTS = ",".join(VARIANTS)
 
 
 def workload(particles: int, win: Tuple[int, int], seed: int = 0,

@@ -49,3 +49,24 @@ def device_ms(fn, iters: int, kernel=None):
         return total_us / iters / 1e3
     own_us = sum(event.self_device_time_total for event in events if kernel in event.key)
     return total_us / iters / 1e3, own_us / iters / 1e3
+
+
+def device_launches(fn) -> dict:
+    """``{name: count}`` of the device work one call of ``fn`` issues
+    (kernels, memsets and copies), from ``torch.profiler``; an empty trace
+    is taken again, three empty ones raise."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        launches = {
+            event.key: event.count for event in prof.key_averages()
+            if event.device_type == torch.autograd.DeviceType.CUDA
+        }
+        if launches:
+            return launches
+    raise RuntimeError("torch.profiler traced no device work in three traces")

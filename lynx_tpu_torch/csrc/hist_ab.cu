@@ -37,17 +37,29 @@
 //   any order.  The mma count is about (N / 32 + tiles) x win_y / 8 against
 //   the dense formulation's N / 32 x win_x win_y / 128.
 //
-// twolevel: the TPU kernel's factoring x = 8 h + l becomes the band and the
-// row: a block owns a band of band_rows window rows (hi = lx / band_rows),
-// keeps it in shared memory and counts its band's pairs there with
-// shared-memory atomics (the row lo = lx % band_rows); it writes the band
-// once, with plain stores, or int32 atomics where the particles are split
-// across blocks.  It asks whether privatising the window beats B1's atomics
-// in L2.
+// twolevel: the TPU kernel's factoring x = 8 h + l becomes "which block of
+// a thread-block cluster" and "which row of that block's shared memory".
+// A cluster of C blocks (8, or 16 with non-portable clusters) holds the
+// whole int32 window in its blocks' distributed shared memory: window row
+// x lives in block x % C at row x / C, so the spot's busy central rows
+// spread over every block of the cluster.  Each block zeroes its rows, the
+// cluster syncs, each block reads its share of the pairs once (16-byte
+// loads) and adds each in-window pair into the owning block's rows with an
+// int32 atomicAdd through map_shared_rank; the cluster syncs again (no
+// block may exit while another can still write into its shared memory),
+// and each block writes its rows once with 16-byte stores.  K clusters
+// split the pairs to fill the card; then, and only then, the output is
+// zeroed first (in the entry point) and the partial windows merge with
+// int32 atomics of their non-zero cells.  Each pair is read once per
+// cluster, where blocks that each held a band of rows would read it once
+// per band.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -57,8 +69,16 @@ constexpr int kBinThreads = 256;    // threads of the count and scatter blocks
 constexpr int kBinChunk = 1024;     // particles of a count and scatter block, at least
 constexpr int64_t kBinBlocks = 512;  // count and scatter blocks, at most
 constexpr int kMaxTiles = 2048;     // row tiles (win_x <= 32,768): the scatter's 40 KB of offsets
-constexpr int kBandThreads = 256;
-constexpr int kResidentBlocks = 132 * 4;  // blocks that fill the card's 132 SMs
+// Threads of a twolevel block: one block an SM (its shared memory), so as
+// many warps as a block may have keep the loads and atomics in flight.  The
+// host stand-in runs every thread of a cluster as a std::thread, and takes
+// fewer.
+#ifdef LYNX_HOST_STAND_IN
+constexpr int kClusterThreads = 64;
+#else
+constexpr int kClusterThreads = 1024;
+#endif
+constexpr int kMaxCluster = 16;  // blocks of a cluster: 8 portable, 16 non-portable
 
 #ifndef LYNX_HOST_STAND_IN
 // d += a b for the warp's fragments: A 16 x 32 s8 (row), B 32 x 8 s8 (col),
@@ -286,43 +306,107 @@ __global__ void __launch_bounds__(32) onehot_contract_kernel(
   }
 }
 
-__global__ void __launch_bounds__(kBandThreads) twolevel_kernel(
+// One pair into the cluster's window, or dropped.
+__device__ __forceinline__ void twolevel_add(const cg::cluster_group& cluster, int* s_rows,
+                                             int x, int y, int win_x, int win_y, int blocks) {
+  if (x < 0 || y < 0 || x >= win_x || y >= win_y) return;  // dropped
+  int* owner = cluster.map_shared_rank(s_rows, static_cast<unsigned>(x % blocks));  // the block
+  atomicAdd(owner + (x / blocks) * win_y + y, 1);  // the row in it
+}
+
+// Window rows of block `rank` of a cluster of `blocks`: rank, rank + blocks, ...
+__host__ __device__ __forceinline__ int twolevel_rows(int win_x, int rank, int blocks) {
+  return win_x > rank ? (win_x - rank + blocks - 1) / blocks : 0;
+}
+
+// The grid is (C K) blocks in clusters of C; cluster k counts the pairs
+// [k per_split, (k + 1) per_split).  vector: lx and ly lie on 16 bytes and
+// per_split is a multiple of 4.  merge: K > 1, the output was zeroed.
+__global__ void __launch_bounds__(kClusterThreads) twolevel_kernel(
     const int32_t* __restrict__ lx, const int32_t* __restrict__ ly, int32_t* __restrict__ out,
-    int64_t n, int win_x, int win_y, int band_rows, int64_t per_split, int split) {
-  extern __shared__ __align__(16) int s_band[];
-  const int band = blockIdx.x;
-  const int x0 = band * band_rows;
-  const int rows = win_x - x0 < band_rows ? win_x - x0 : band_rows;
-  const int cells = rows * win_y;
-  for (int i = threadIdx.x; i < cells; i += kBandThreads) s_band[i] = 0;
-  __syncthreads();
-  const int64_t begin = static_cast<int64_t>(blockIdx.y) * per_split;
+    int64_t n, int win_x, int win_y, int64_t per_split, int vector, int merge) {
+  extern __shared__ __align__(16) int s_rows[];
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int blocks = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int rows = twolevel_rows(win_x, rank, blocks);
+  for (int i = threadIdx.x; i < rows * win_y; i += blockDim.x) s_rows[i] = 0;
+  cluster.sync();  // every block's rows are zero before any pair lands
+
+  const int64_t begin = static_cast<int64_t>(blockIdx.x / blocks) * per_split;
   const int64_t end = begin + per_split < n ? begin + per_split : n;
-  for (int64_t k = begin + threadIdx.x; k < end; k += kBandThreads) {
-    const int x = lx[k], y = ly[k];
-    if (x < 0 || y < 0 || x >= win_x || y >= win_y) continue;  // dropped
-    const int hi = x / band_rows;  // the first level: the band
-    if (hi != band) continue;
-    atomicAdd(s_band + (x - hi * band_rows) * win_y + y, 1);  // the second: the row
+  const int64_t thread = static_cast<int64_t>(rank) * blockDim.x + threadIdx.x;
+  const int64_t stride = static_cast<int64_t>(blocks) * blockDim.x;
+  int64_t scalar_from = begin;
+  if (vector) {
+    const int64_t quads = end > begin ? (end - begin) / 4 : 0;
+    const int4* x4 = reinterpret_cast<const int4*>(lx + begin);
+    const int4* y4 = reinterpret_cast<const int4*>(ly + begin);
+    for (int64_t q = thread; q < quads; q += stride) {
+      const int4 x = x4[q], y = y4[q];
+      twolevel_add(cluster, s_rows, x.x, y.x, win_x, win_y, blocks);
+      twolevel_add(cluster, s_rows, x.y, y.y, win_x, win_y, blocks);
+      twolevel_add(cluster, s_rows, x.z, y.z, win_x, win_y, blocks);
+      twolevel_add(cluster, s_rows, x.w, y.w, win_x, win_y, blocks);
+    }
+    scalar_from = begin + 4 * quads;
   }
-  __syncthreads();
-  int32_t* dst = out + static_cast<int64_t>(x0) * win_y;
-  for (int i = threadIdx.x; i < cells; i += kBandThreads) {
-    if (!split) {
-      dst[i] = s_band[i];
-    } else if (s_band[i] != 0) {
-      atomicAdd(dst + i, s_band[i]);
+  for (int64_t k = scalar_from + thread; k < end; k += stride) {
+    twolevel_add(cluster, s_rows, lx[k], ly[k], win_x, win_y, blocks);
+  }
+  cluster.sync();  // every pair of the cluster is in; no remote write is left
+
+  if (!merge && win_y % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0) {
+    const int quads = win_y / 4;
+    for (int i = threadIdx.x; i < rows * quads; i += blockDim.x) {
+      const int row = i / quads, q = i - row * quads;
+      reinterpret_cast<int4*>(out + static_cast<int64_t>(rank + row * blocks) * win_y)[q] =
+          reinterpret_cast<const int4*>(s_rows + row * win_y)[q];
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * win_y; i += blockDim.x) {
+      const int row = i / win_y, column = i - row * win_y;
+      int32_t* dst = out + static_cast<int64_t>(rank + row * blocks) * win_y + column;
+      if (!merge) {
+        *dst = s_rows[i];
+      } else if (s_rows[i] != 0) {
+        atomicAdd(dst, s_rows[i]);
+      }
     }
   }
 }
 
-// Particle splits: enough blocks to fill the card, each split at least one
-// staging step of particles.
-int64_t splits_for(int64_t n, int64_t blocks, int64_t step) {
-  int64_t splits = (kResidentBlocks + blocks - 1) / blocks;
-  const int64_t most = (n + step - 1) / step;
-  if (splits > most) splits = most;
-  return splits < 1 ? 1 : splits;
+// A twolevel launch's configuration: `splits` clusters of `cluster` blocks,
+// a block's window rows in dynamic shared memory; sets the kernel's
+// attributes the launch needs.  Returns 0, or cudaErrorInvalidValue for a
+// cluster outside 1..16, splits < 1 or rows past a block's shared memory.
+int twolevel_config(cudaLaunchConfig_t& config, cudaLaunchAttribute& attribute, int win_x,
+                    int win_y, int cluster, int splits, void* stream) {
+  if (cluster < 1 || cluster > kMaxCluster || splits < 1 || win_x < 1 || win_y < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int device = 0, optin = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  const int64_t bytes = static_cast<int64_t>(twolevel_rows(win_x, 0, cluster)) * win_y * 4;
+  if (bytes > optin) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t code = cudaFuncSetAttribute(
+      twolevel_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (code == cudaSuccess && cluster > 8) {
+    code = cudaFuncSetAttribute(twolevel_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  }
+  if (code != cudaSuccess) return static_cast<int>(code);
+  attribute.id = cudaLaunchAttributeClusterDimension;
+  attribute.val.clusterDim.x = static_cast<unsigned>(cluster);
+  attribute.val.clusterDim.y = 1;
+  attribute.val.clusterDim.z = 1;
+  config.gridDim = dim3(static_cast<unsigned>(cluster * splits));
+  config.blockDim = dim3(kClusterThreads);
+  config.dynamicSmemBytes = static_cast<size_t>(bytes);
+  config.stream = static_cast<cudaStream_t>(stream);
+  config.attrs = &attribute;
+  config.numAttrs = 1;
+  return 0;
 }
 
 int onehot_tiles(int win_x) { return (win_x + kTileRows - 1) / kTileRows; }
@@ -348,10 +432,6 @@ long long lynx_hist_onehot_workspace(long long n, int win_x, int chunk) {
 
 long long lynx_hist_onehot_warps(long long n, int win_x, int win_y, int chunk) {
   return onehot_warps(n, win_x, win_y, chunk);
-}
-
-long long lynx_hist_twolevel_splits(long long n, int win_x, int band_rows) {
-  return splits_for(n, (win_x + band_rows - 1) / band_rows, kBandThreads);
 }
 
 // lx, ly: (n,) int32 window indices; out: (win_x, win_y) int32, zeroed
@@ -387,22 +467,48 @@ int lynx_hist_onehot(const void* lx, const void* ly, void* out, void* workspace,
   return static_cast<int>(cudaGetLastError());
 }
 
-// As lynx_hist_onehot, with bands of band_rows window rows in shared memory
-// (band_rows * win_y * 4 bytes, at most the 227 KB of a block).
+// Clusters of `cluster` blocks (1-16) that the card can hold at once for
+// this window (cudaOccupancyMaxActiveClusters), or minus an error code.
+int lynx_hist_twolevel_max_clusters(int win_x, int win_y, int cluster) {
+  cudaLaunchConfig_t config = {};
+  cudaLaunchAttribute attribute = {};
+  int code = twolevel_config(config, attribute, win_x, win_y, cluster, 1, nullptr);
+  if (code != 0) return -code;
+  int clusters = 0;
+  code = static_cast<int>(cudaOccupancyMaxActiveClusters(&clusters, twolevel_kernel, &config));
+  return code != 0 ? -code : clusters;
+}
+
+// As lynx_hist_onehot, with the window in the distributed shared memory of
+// `splits` clusters of `cluster` blocks (cluster 1-16, splits >= 1); the
+// output is written whole, zeroed first where splits > 1.  Returns
+// cudaErrorInvalidValue for a window whose rows pass a block's shared
+// memory, cudaErrorInvalidConfiguration where the card can hold no such
+// cluster, else cudaGetLastError() after the launch.
 int lynx_hist_twolevel(const void* lx, const void* ly, void* out, long long n, int win_x,
-                       int win_y, int band_rows, void* stream) {
-  const int bytes = band_rows * win_y * static_cast<int>(sizeof(int));
-  if (band_rows < 1 || bytes > 232448) return static_cast<int>(cudaErrorInvalidValue);
-  if (n > 0) {
-    const int bands = (win_x + band_rows - 1) / band_rows;
-    const int64_t splits = splits_for(n, bands, kBandThreads);
-    const int64_t per_split = (n + splits - 1) / splits;
-    cudaFuncSetAttribute(twolevel_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    const dim3 grid(static_cast<unsigned>(bands), static_cast<unsigned>(splits));
-    twolevel_kernel<<<grid, kBandThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int32_t*>(lx), static_cast<const int32_t*>(ly),
-        static_cast<int32_t*>(out), n, win_x, win_y, band_rows, per_split, splits > 1);
+                       int win_y, int cluster, int splits, void* stream) {
+  cudaLaunchConfig_t config = {};
+  cudaLaunchAttribute attribute = {};
+  int code = twolevel_config(config, attribute, win_x, win_y, cluster, splits, stream);
+  if (code != 0) return code;
+  int clusters = 0;
+  code = static_cast<int>(cudaOccupancyMaxActiveClusters(&clusters, twolevel_kernel, &config));
+  if (code != 0) return code;
+  if (clusters < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  if (splits > 1) {
+    code = static_cast<int>(cudaMemsetAsync(out, 0, static_cast<size_t>(win_x) * win_y * 4,
+                                            config.stream));
+    if (code != 0) return code;
   }
+  const auto aligned = [](const void* pointer) {
+    return reinterpret_cast<uintptr_t>(pointer) % 16 == 0;
+  };
+  const int64_t per_split = ((n + splits - 1) / splits + 3) / 4 * 4;
+  code = static_cast<int>(cudaLaunchKernelEx(
+      &config, twolevel_kernel, static_cast<const int32_t*>(lx), static_cast<const int32_t*>(ly),
+      static_cast<int32_t*>(out), static_cast<int64_t>(n), win_x, win_y, per_split,
+      static_cast<int>(aligned(lx) && aligned(ly)), static_cast<int>(splits > 1)));
+  if (code != 0) return code;
   return static_cast<int>(cudaGetLastError());
 }
 

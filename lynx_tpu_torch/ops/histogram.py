@@ -7,11 +7,12 @@ Two routes give the same image:
   arithmetic plus one ``index_add_`` into the full image, with an overflow
   slot that absorbs out-of-range particles.  It runs for CPU tensors.
 * :func:`windowed_histogram_2d`, for CUDA tensors: each batch row is binned
-  into a small window placed at the row's lowest live bin, by the
+  into a small window placed at the row's lowest live bin.  On the card
+  the whole read, from the coordinates to the placed image, is the
   hand-written CUDA kernel B1 (``csrc/window_histogram.cu``, wrapper
-  :func:`window_histogram`), and the window is then placed into the full
-  image.  When any live particle lands outside the window the read falls
-  back to the exact scatter, and :func:`histogram_fallback_count` counts it.
+  :func:`windowed_read`, plain version :func:`windowed_read_reference`).
+  When any live particle lands outside the window the read falls back to
+  the exact scatter, and :func:`histogram_fallback_count` counts it.
 """
 
 from __future__ import annotations
@@ -182,14 +183,15 @@ def window_fits(
     return fits if per_row else torch.all(fits)
 
 
-# -- Kernel B1: the windowed histogram ---------------------------------------
+# -- Kernel B1: the windowed read ---------------------------------------------
 
 
 def window_histogram_reference(
     lx: Tensor, ly: Tensor, weights: Optional[Tensor], win_x: int, win_y: int
 ) -> Tensor:
-    """Plain PyTorch version of kernel B1: ``(B, win_x, win_y)`` histograms
-    of the local indices ``lx``, ``ly`` (``(B, N)``, -1 = masked).
+    """Plain PyTorch version of kernel B1's (lx, ly) count core: ``(B,
+    win_x, win_y)`` histograms of the local indices ``lx``, ``ly`` (``(B,
+    N)``, -1 = masked).
 
     Count mode (``weights is None``) returns int32 counts; weighted mode
     sums the weights in their own dtype."""
@@ -207,13 +209,21 @@ def window_histogram_reference(
     return out[:overflow].view(B, win_x, win_y)
 
 
-#: C signature of B1's entry point: lx, ly, weights, out (pointers), batch,
-#: n (64-bit), win_x, win_y, stream.
+#: C signatures of B1's entry points: the (lx, ly) count core (lx, ly,
+#: weights, out, batch, n, win_x, win_y, stream) and the fused read (x, y,
+#: w, strides[6], bound pointers[4], bound steps[4], bound values[6],
+#: divide[2], image, tail, bins, batch, n, nx, ny, win_x, win_y, t_double,
+#: w_double, weighted, stream).
+_I, _L, _P = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
 _B1_SIGNATURE = {
-    "lynx_window_histogram": (
-        ctypes.c_int,
-        [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
-    )
+    "lynx_window_histogram": (_I, [_P] * 4 + [_L] * 2 + [_I] * 2 + [_P]),
+    "lynx_windowed_read": (
+        _I,
+        [_P] * 3
+        + [ctypes.POINTER(_L), ctypes.POINTER(_P), ctypes.POINTER(_L),
+           ctypes.POINTER(ctypes.c_double), ctypes.POINTER(_I)]
+        + [_P] * 3 + [_L, _L] + [_I] * 7 + [_P],
+    ),
 }
 
 
@@ -225,7 +235,7 @@ def window_histogram_library() -> ctypes.CDLL:
 def _window_histogram_cuda(
     lx: Tensor, ly: Tensor, weights: Optional[Tensor], win_x: int, win_y: int
 ) -> Tensor:
-    """Launch kernel B1 on the current stream (no synchronisation)."""
+    """Launch B1's count core on the current stream (no synchronisation)."""
     operands = [lx, ly] + ([weights] if weights is not None else [])
     for t in operands:
         if not t.is_cuda or t.device != lx.device:
@@ -269,13 +279,17 @@ def _window_histogram_cuda(
 def window_histogram(
     lx: Tensor, ly: Tensor, weights: Optional[Tensor], win_x: int, win_y: int
 ) -> Tensor:
-    """Kernel B1: ``(B, win_x, win_y)`` histograms of in-window local bin
-    indices (``(B, N)`` int32, -1 = masked), int32 counts when ``weights``
-    is None, else float32 sums of ``(B, N)`` float32 weights.
+    """Kernel B1's (lx, ly) count core: ``(B, win_x, win_y)`` histograms of
+    in-window local bin indices (``(B, N)`` int32, -1 = masked), int32
+    counts when ``weights`` is None, else float32 sums of ``(B, N)``
+    float32 weights.  The screen read takes :func:`windowed_read`; this
+    core is the yardstick of the count-histogram A/B and of the read's
+    timing.
 
     A CUDA tensor launches the kernel (or raises); a CPU tensor takes the
     plain version, :func:`window_histogram_reference`.
-    ``window_histogram.launches`` counts kernel launches."""
+    ``window_histogram.launches`` counts the launches of every B1 kernel,
+    the fused read's included."""
     if lx.device.type == "cpu":
         return window_histogram_reference(lx, ly, weights, win_x, win_y)
     return _window_histogram_cuda(lx, ly, weights, win_x, win_y)
@@ -299,11 +313,11 @@ def _place(wins: Tensor, ox: Tensor, oy: Tensor, nx: int, ny: int) -> Tensor:
 
 def window_prologue(x, y, weights, ranges, bins, window):
     """The windowed read's prologue: ``(lx, ly, ox, oy, fits)`` with
-    ``lx``, ``ly`` the ``(B, N)`` int32 local bin indices that kernel B1
-    takes (-1 = dead, out of range or out of window), ``ox``, ``oy`` the
-    ``(B,)`` window origins and ``fits`` the ``(B,)`` bool rows whose live
-    particles all lie inside the row's window.  ``x`` and ``y`` share their
-    batch shape, which flattens to B."""
+    ``lx``, ``ly`` the ``(B, N)`` int32 local bin indices that the count
+    core takes (-1 = dead, out of range or out of window), ``ox``, ``oy``
+    the ``(B,)`` window origins and ``fits`` the ``(B,)`` bool rows whose
+    live particles all lie inside the row's window.  ``x`` and ``y`` share
+    their batch shape, which flattens to B."""
     (x_lo, x_hi, y_lo, y_hi), (nx, ny), (win_x, win_y) = ranges, bins, window
     ix, vx = _bin_index(x, x_lo, x_hi, nx)
     iy, vy = _bin_index(y, y_lo, y_hi, ny)
@@ -322,28 +336,167 @@ def window_prologue(x, y, weights, ranges, bins, window):
     return lx, ly, ox.reshape(-1), oy.reshape(-1), fits
 
 
-def _windowed_forward(x, y, weights, ranges, bins, window, binary_weights):
-    (x_lo, x_hi, y_lo, y_hi), (nx, ny), (win_x, win_y) = ranges, bins, window
-    lx, ly, ox, oy, fits = window_prologue(x, y, weights, ranges, bins, window)
-    # One decision for the whole batch, as JAX's lax.cond makes it.  Unlike
-    # lax.cond this reads the flag on the host: one sync per read.
-    if not bool(fits.all()):
-        _note_fallback()
-        return weighted_histogram_2d(x, y, weights, (x_lo, x_hi), (y_lo, y_hi), bins)
+def windowed_read_reference(x, y, weights, ranges, bins, window, binary_weights):
+    """Plain PyTorch version of kernel B1's fused read:
+    ``(image, ox, oy, fits)``.
 
+    :func:`window_prologue`, then :func:`window_histogram_reference` (int32
+    counts when ``binary_weights``, else the weights' sums in their dtype)
+    and :func:`_place`: the ``(*batch, nx, ny)`` image in the weights'
+    dtype, holding each row's window at its origin (rounding can push the
+    window past the image's edge on an axis it fully covers, origin 0
+    there: the window is cropped).  A live particle outside its row's window
+    is left out of the image, and its row's ``fits`` is False.  ``x`` and
+    ``y`` share their batch shape; ``ox``, ``oy`` (int32) and ``fits`` are
+    ``(B,)``; ``window`` is already rounded (:func:`_window_shape`)."""
+    (nx, ny), (win_x, win_y) = bins, window
+    lx, ly, ox, oy, fits = window_prologue(x, y, weights, ranges, bins, window)
     batch_shape, n = x.shape[:-1], x.shape[-1]
     w_b = torch.broadcast_to(weights, x.shape)
-    kernel_weights = None
-    if not binary_weights:
-        kernel_weights = w_b.reshape(-1, n)
-        if kernel_weights.is_cuda:  # the kernel sums float32 weights
-            kernel_weights = kernel_weights.to(torch.float32)
-        kernel_weights = kernel_weights.contiguous()
-    wins = window_histogram(lx, ly, kernel_weights, win_x, win_y).to(w_b.dtype)
-    # Rounding can push the window past the image edge on an axis it fully
-    # covers (origin 0 there): crop before placing.
+    summed = None if binary_weights else w_b.reshape(-1, n)
+    wins = window_histogram_reference(lx, ly, summed, win_x, win_y).to(w_b.dtype)
     wins = wins[:, : min(win_x, nx), : min(win_y, ny)]
-    return _place(wins, ox, oy, nx, ny).reshape(*batch_shape, nx, ny)
+    image = _place(wins, ox, oy, nx, ny).reshape(*batch_shape, nx, ny)
+    return image, ox, oy, fits
+
+
+_MAX_BINS = 32767  # the packed bins keep 15 bits an axis
+_EXACT_FLOAT_COUNTS = 1 << 24  # float32 counts stay exact below 2^24 a cell
+#: Kernel launches of one fused read: the packed bins, then the count.
+READ_LAUNCHES = 2
+
+
+def _read_launch(library, x, y, weights, ranges, bins, window, binary_weights, stream):
+    """Marshal one fused read for ``library``'s entry point and call it:
+    ``(code, image, ox, oy, misfit)``.  A tensor bound on ``x``'s device is
+    read from its memory; any other bound is passed as a host value.  No
+    device checks: the caller's."""
+    (nx, ny), (win_x, win_y) = (int(b) for b in bins), window
+    batch_shape, n = x.shape[:-1], x.shape[-1]
+    weights = torch.broadcast_to(weights, x.shape)
+    if y.shape != x.shape:
+        raise ValueError(f"windowed_read: x and y must share their shape, got {x.shape}, {y.shape}")
+    if max(nx, ny) > _MAX_BINS or min(nx, ny) < 1:
+        raise ValueError(f"windowed_read: bins {bins} outside 1..{_MAX_BINS}")
+    if weights.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"windowed_read: weights must be float32 or float64, got {weights.dtype}")
+    # The compute type, promoted with tensor bounds as _bin_index promotes.
+    dtype = x.dtype
+    for bound in ranges:
+        if isinstance(bound, Tensor):
+            dtype = torch.promote_types(dtype, bound.dtype)
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"windowed_read: coordinates must be float32 or float64, got {dtype}")
+    if binary_weights and weights.dtype == torch.float32 and n >= _EXACT_FLOAT_COUNTS:
+        raise ValueError("windowed_read: float32 counts are exact below 2^24 particles a row")
+    x2, y2 = (t.to(dtype).reshape(-1, n) for t in (x, y))  # views where x, y are the dtype
+    w2 = weights.reshape(-1, n)
+    B = x2.shape[0]
+
+    def in_memory(bound):
+        return isinstance(bound, Tensor) and bound.device == x.device
+
+    bounds = []  # (tensor or None, step, host value) of lo_x, hi_x, lo_y, hi_y
+    for bound in ranges:
+        if in_memory(bound):
+            flat = bound.to(dtype).reshape(-1).contiguous()
+            if flat.numel() not in (1, B):
+                raise ValueError(f"windowed_read: a range bound of {flat.numel()} values, B={B}")
+            bounds.append((flat, 0 if flat.numel() == 1 else 1, 0.0))
+        else:
+            bounds.append((None, 0, float(bound)))
+    spans = []  # (divide on the card, host span) of each axis
+    for lo, hi in (ranges[:2], ranges[2:]):
+        # _bin_index's span: one formed from a bound in device memory is a
+        # device tensor, divided by; a host one (Python numbers, CPU
+        # tensors) becomes PyTorch's product by its reciprocal, rounded in
+        # the compute type.
+        if in_memory(lo) or in_memory(hi):
+            spans.append((1, 0.0))
+        else:
+            lo, hi = (b.to(dtype) if isinstance(b, Tensor) else b for b in (lo, hi))
+            spans.append((0, float(hi - lo)))
+    pointers = (_P * 4)(*(None if t is None else t.data_ptr() for t, _, _ in bounds))
+    steps = (_L * 4)(*(step for _, step, _ in bounds))
+    values = (ctypes.c_double * 6)(bounds[0][2], bounds[1][2], spans[0][1],
+                                   bounds[2][2], bounds[3][2], spans[1][1])
+    divide = (_I * 2)(spans[0][0], spans[1][0])
+    strides = (_L * 6)(*x2.stride(), *y2.stride(), *w2.stride())
+
+    # One zeroed buffer: the image, then the tail (int32 tops and origins,
+    # 4 B of them, then B misfit bytes), in the weights' dtype.
+    cells = B * nx * ny
+    item = weights.element_size()
+    buffer = torch.zeros(cells + -(-17 * B // item) + 1, dtype=weights.dtype, device=x.device)
+    image = buffer[:cells].view(B, nx, ny)
+    tail = buffer[cells:].view(torch.uint8)
+    tail_ints = tail[: 16 * B].view(torch.int32)
+    misfit = tail[16 * B: 17 * B].view(torch.bool)
+    workspace = torch.empty((B, n), dtype=torch.int32, device=x.device)  # the packed bins
+    code = library.lynx_windowed_read(
+        x2.data_ptr(), y2.data_ptr(), w2.data_ptr(), strides, pointers, steps, values, divide,
+        image.data_ptr(), tail.data_ptr(), workspace.data_ptr(), B, n, nx, ny, win_x, win_y,
+        int(dtype == torch.float64), int(weights.dtype == torch.float64),
+        int(not binary_weights), stream,
+    )
+    image = image.reshape(*batch_shape, nx, ny)
+    return code, image, tail_ints[2 * B: 3 * B], tail_ints[3 * B:], misfit
+
+
+def _windowed_read_cuda(x, y, weights, ranges, bins, window, binary_weights):
+    """Launch kernel B1's fused read on the current stream (no
+    synchronisation): ``(image, ox, oy, misfit)``, ``misfit`` the ``(B,)``
+    bool rows that do not fit their window.  The image and the small tail
+    that carries the origins and misfits come from one ``torch.zeros``."""
+    weights = torch.broadcast_to(weights, x.shape)
+    on_card = [b for b in ranges if isinstance(b, Tensor) and b.is_cuda]
+    for t in [x, y, weights, *on_card]:
+        if not t.is_cuda or t.device != x.device:
+            raise ValueError("windowed_read: x, y, weights and ranges must share one CUDA device")
+    library = window_histogram_library()
+    with torch.cuda.device(x.device):
+        code, image, ox, oy, misfit = _read_launch(
+            library, x, y, weights, ranges, bins, window, binary_weights,
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    check(library, code, "windowed_read")
+    window_histogram.launches += READ_LAUNCHES
+    return image, ox, oy, misfit
+
+
+def windowed_read(x, y, weights, ranges, bins, window, binary_weights):
+    """Kernel B1, the fused windowed read: ``(image, ox, oy, fits)`` as
+    :func:`windowed_read_reference` gives them, from the coordinates (as
+    ``(*batch, N)`` views with their strides: no copy), the weights and the
+    ranges (0-d tensors as the screen passes them, one-a-row tensors, or
+    Python numbers), in two launches.
+
+    A CUDA tensor launches the kernel (or raises); a CPU tensor takes the
+    plain version.  ``window_histogram.launches`` counts B1's launches."""
+    if not x.is_cuda:
+        return windowed_read_reference(x, y, weights, ranges, bins, window, binary_weights)
+    image, ox, oy, misfit = _windowed_read_cuda(
+        x, y, weights, ranges, bins, window, binary_weights
+    )
+    return image, ox, oy, ~misfit
+
+
+def _windowed_forward(x, y, weights, ranges, bins, window, binary_weights):
+    (x_lo, x_hi, y_lo, y_hi) = ranges
+    if x.is_cuda:
+        image, _, _, misfit = _windowed_read_cuda(x, y, weights, ranges, bins, window,
+                                                  binary_weights)
+        fits = not bool(misfit.any())
+    else:
+        image, _, _, fits = windowed_read_reference(x, y, weights, ranges, bins, window,
+                                                    binary_weights)
+        fits = bool(fits.all())
+    # One decision for the whole batch, as JAX's lax.cond makes it.  Unlike
+    # lax.cond this reads the flag on the host: one sync per read.
+    if not fits:
+        _note_fallback()
+        return weighted_histogram_2d(x, y, weights, (x_lo, x_hi), (y_lo, y_hi), bins)
+    return image
 
 
 class _WindowedHistogram(torch.autograd.Function):

@@ -26,6 +26,7 @@ int lynx_window_histogram(const void* lx, const void* ly, const void* w, void* o
   o[6] = w == 0; o[7] = stream == 0;
   return 0;
 }
+int lynx_windowed_read(void) { return 1; }
 const char* lynx_cuda_error_string(int code) { return "stub error"; }
 """
 

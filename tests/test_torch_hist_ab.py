@@ -108,9 +108,9 @@ def test_harness_runs_every_variant_and_yardstick(monkeypatch):
     monkeypatch.setattr(hist_ab, "workload",
                         lambda particles, win: workload(particles, win, device="cpu"))
     records = hist_ab.main(["--particles", "500", "--win", "16,128",
-                            "--variants", "onehot_c256,twolevel_b56"])
+                            "--variants", "onehot_c256,twolevel_c16k2"])
     assert [r["variant"] for r in records] == [
-        "onehot_c256", "twolevel_b56", "B1 window_histogram", "torch.bincount"]
+        "onehot_c256", "twolevel_c16k2", "B1 window_histogram", "torch.bincount"]
     assert all(r["win"] == [16, 128] and r["particles"] == 500 for r in records)
     assert [r["device_ms"] for r in records] == [2.0] * 4
     assert [r["kernel_ms"] for r in records] == [0.5, 0.5, 0.5, None]

@@ -1,4 +1,4 @@
-"""The CUDA sources of kernels B2-B7, run on the CPU.
+"""The CUDA sources of kernels B1-B7, run on the CPU.
 
 There is no nvcc here, so each ``csrc/*.cu`` is compiled as host C++ by gcc
 against a stand-in ``cuda_runtime.h``: ``__device__`` and friends are
@@ -14,9 +14,16 @@ plain copies there, done at once, and their commit and wait do nothing, so
 that the double-buffered stages still run through the kernel's buffer
 indexing and barriers; B6's and B7's ``mma.sync`` (m16n8k16 bf16, m16n8k32
 s8) form each lane's outputs from the warp's fragments in the PTX ISA's
-layouts; ``atomicAdd`` is a host atomic.  That runs the kernels' arithmetic and their cooperation
-(tape decoding, builders, dual numbers, shared-memory tiles, the ragged
-batch) on the plain versions' inputs.  What it cannot check is the device
+layouts; ``atomicAdd`` is a host atomic.  A thread-block cluster launch
+(``cudaLaunchKernelEx``) runs all threads of a cluster's blocks at once,
+``cluster.sync()`` a barrier over them and ``map_shared_rank`` the same
+offset in the other block's dynamic shared memory, so that B7's
+distributed shared window runs on the CPU too.  That runs the kernels'
+arithmetic and their cooperation (tape decoding, builders, dual numbers,
+shared-memory tiles, the ragged batch, cluster windows) on the plain
+versions' inputs.  B1's bins are held bit for bit, and its count-mode
+images exactly; its weighted images within 1e-5 relative per cell (float
+atomics sum in any order).  What it cannot check is the device
 itself (FMA contraction, memory, occupancy, registers): ``chip_smoke.py``
 does that on the card.
 
@@ -46,6 +53,7 @@ from lynx_tpu_torch.accelerator import fused as torch_fused
 from lynx_tpu_torch.benchmarks import hist_ab
 from lynx_tpu_torch.constants import ELECTRON_MASS_EV, REST_ENERGY_EV
 from lynx_tpu_torch.ops import fused_track
+from lynx_tpu_torch.ops import histogram as torch_hist
 from lynx_tpu_torch.ops import table as tbl
 
 from test_torch_particle_moments import (
@@ -68,8 +76,11 @@ STAND_IN = r"""
 #include <cstddef>
 #include <cstring>
 #include <cstdint>
+#include <memory>
 #include <new>
 #include <thread>
+#include <tuple>
+#include <type_traits>
 #include <vector>
 #define __device__
 #define __global__
@@ -81,8 +92,8 @@ STAND_IN = r"""
 #define __shared__ static
 #define LYNX_HOST_STAND_IN 1
 struct HostDim3 { unsigned x, y, z; };
-static thread_local HostDim3 threadIdx;
-static HostDim3 blockIdx, blockDim, gridDim;
+static thread_local HostDim3 threadIdx, blockIdx;
+static HostDim3 blockDim, gridDim;
 struct alignas(8) float2 { float x, y; };
 struct alignas(8) uint2 { unsigned x, y; };
 struct alignas(16) float4 { float x, y, z, w; };
@@ -96,16 +107,43 @@ struct dim3 {
 inline int atomicAdd(int* address, int value) {
   return __atomic_fetch_add(address, value, __ATOMIC_RELAXED);
 }
+inline float atomicAdd(float* address, float value) {
+  return std::atomic_ref<float>(*address).fetch_add(value, std::memory_order_relaxed);
+}
+inline double atomicAdd(double* address, double value) {
+  return std::atomic_ref<double>(*address).fetch_add(value, std::memory_order_relaxed);
+}
+inline int atomicMax(int* address, int value) {
+  std::atomic_ref<int> cell(*address);
+  int old = cell.load(std::memory_order_relaxed);
+  while (old < value && !cell.compare_exchange_weak(old, value, std::memory_order_relaxed)) {}
+  return old;
+}
+inline int atomicMin(int* address, int value) {
+  std::atomic_ref<int> cell(*address);
+  int old = cell.load(std::memory_order_relaxed);
+  while (old > value && !cell.compare_exchange_weak(old, value, std::memory_order_relaxed)) {}
+  return old;
+}
+// The _rn arithmetic: x86-64 SSE rounds each operation to nearest, and
+// -std=c++20 contracts nothing.
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline double __dsub_rn(double a, double b) { return a - b; }
+inline float __fdiv_rn(float a, float b) { return a / b; }
+inline double __ddiv_rn(double a, double b) { return a / b; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline double __dmul_rn(double a, double b) { return a * b; }
 inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
 inline double2 make_double2(double x, double y) { return {x, y}; }
-static std::barrier<>* lynx_host_barrier = nullptr;
-static unsigned char* lynx_host_shared = nullptr;
+static thread_local std::barrier<>* lynx_host_barrier = nullptr;
+static thread_local unsigned char* lynx_host_shared = nullptr;
 inline void __syncthreads() { lynx_host_barrier->arrive_and_wait(); }
 inline void __syncwarp(unsigned = 0xffffffffu) { lynx_host_barrier->arrive_and_wait(); }
 typedef void* cudaStream_t;
 typedef int cudaError_t;
-enum { cudaErrorInvalidValue = 1 };
-enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorInvalidConfiguration = 9 };
+enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8,
+       cudaFuncAttributeNonPortableClusterSizeAllowed = 10 };
 enum { cudaDevAttrMaxSharedMemoryPerBlockOptin = 97 };
 constexpr int kHostSharedOptin = 232448;  // an H100's 227 KB
 inline cudaError_t cudaGetLastError() { return 0; }
@@ -226,23 +264,125 @@ template <typename F>
 void lynx_host_launch(F body, dim3 grid, unsigned threads, size_t shared = 0,
                       cudaStream_t = nullptr) {
   void* memory = ::operator new(shared + 16, std::align_val_t(16));
-  lynx_host_shared = static_cast<unsigned char*>(memory);
+  unsigned char* buffer = static_cast<unsigned char*>(memory);
   gridDim = {grid.x, grid.y, 1};
   blockDim = {threads, 1, 1};
   for (unsigned by = 0; by < grid.y; ++by) {
     for (unsigned b = 0; b < grid.x; ++b) {
-      blockIdx = {b, by, 0};
       std::barrier<> barrier(threads);
-      lynx_host_barrier = &barrier;
       std::vector<std::thread> pool;
       for (unsigned t = 0; t < threads; ++t) {
-        pool.emplace_back([&body, t] { threadIdx = {t, 0, 0}; body(); });
+        pool.emplace_back([&body, &barrier, buffer, t, b, by] {
+          threadIdx = {t, 0, 0};
+          blockIdx = {b, by, 0};
+          lynx_host_barrier = &barrier;
+          lynx_host_shared = buffer;
+          body();
+        });
       }
       for (auto& thread : pool) thread.join();
     }
   }
   ::operator delete(memory, std::align_val_t(16));
 }
+inline cudaError_t cudaMemsetAsync(void* address, int value, size_t bytes, cudaStream_t = nullptr) {
+  std::memset(address, value, bytes);
+  return 0;
+}
+// Thread-block clusters: the blocks of one cluster run together, each
+// thread a std::thread; clusters run one after another.  cluster.sync() is
+// a barrier over all of a cluster's threads; map_shared_rank maps an
+// address in the block's dynamic shared memory to the same offset in
+// another block's.
+enum { cudaLaunchAttributeClusterDimension = 4 };
+struct cudaLaunchAttribute {
+  int id;
+  struct { struct { unsigned x, y, z; } clusterDim; } val;
+};
+struct cudaLaunchConfig_t {
+  dim3 gridDim, blockDim;
+  size_t dynamicSmemBytes;
+  cudaStream_t stream;
+  cudaLaunchAttribute* attrs;
+  unsigned numAttrs;
+};
+struct LynxHostCluster {
+  std::barrier<>* barrier;
+  unsigned char* const* shared;
+  unsigned rank, blocks;
+};
+static thread_local LynxHostCluster lynx_host_cluster;
+inline unsigned lynx_host_cluster_size(const cudaLaunchConfig_t* config) {
+  for (unsigned i = 0; i < config->numAttrs; ++i) {
+    if (config->attrs[i].id == cudaLaunchAttributeClusterDimension) {
+      return config->attrs[i].val.clusterDim.x;
+    }
+  }
+  return 1;
+}
+template <typename F>
+cudaError_t cudaOccupancyMaxActiveClusters(int* clusters, F, const cudaLaunchConfig_t* config) {
+  const unsigned size = lynx_host_cluster_size(config);
+  *clusters = config->dynamicSmemBytes <= static_cast<size_t>(kHostSharedOptin) && size <= 16
+                  ? static_cast<int>(132 / size) : 0;
+  return 0;
+}
+template <typename... Params, typename... Args>
+cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* config, void (*kernel)(Params...),
+                               Args&&... args) {
+  const std::tuple<std::decay_t<Params>...> params(std::forward<Args>(args)...);
+  const unsigned size = lynx_host_cluster_size(config);
+  const unsigned threads = config->blockDim.x;
+  if (config->gridDim.x % size != 0) return cudaErrorInvalidConfiguration;
+  gridDim = {config->gridDim.x, config->gridDim.y, 1};
+  blockDim = {threads, 1, 1};
+  for (unsigned by = 0; by < config->gridDim.y; ++by) {
+    for (unsigned first = 0; first < config->gridDim.x; first += size) {
+      std::barrier<> cluster_barrier(size * threads);
+      std::vector<std::unique_ptr<std::barrier<>>> barriers;
+      std::vector<unsigned char*> buffers;
+      for (unsigned r = 0; r < size; ++r) {
+        barriers.push_back(std::make_unique<std::barrier<>>(threads));
+        buffers.push_back(static_cast<unsigned char*>(
+            ::operator new(config->dynamicSmemBytes + 16, std::align_val_t(16))));
+      }
+      std::vector<std::thread> pool;
+      for (unsigned r = 0; r < size; ++r) {
+        for (unsigned t = 0; t < threads; ++t) {
+          pool.emplace_back([&, r, t] {
+            threadIdx = {t, 0, 0};
+            blockIdx = {first + r, by, 0};
+            lynx_host_barrier = barriers[r].get();
+            lynx_host_shared = buffers[r];
+            lynx_host_cluster = {&cluster_barrier, buffers.data(), r, size};
+            std::apply(kernel, params);
+          });
+        }
+      }
+      for (auto& thread : pool) thread.join();
+      for (auto* buffer : buffers) ::operator delete(buffer, std::align_val_t(16));
+    }
+  }
+  return 0;
+}
+"""
+
+COOPERATIVE_GROUPS = r"""
+#pragma once
+#include "cuda_runtime.h"
+namespace cooperative_groups {
+struct cluster_group {
+  void sync() const { lynx_host_cluster.barrier->arrive_and_wait(); }
+  unsigned block_rank() const { return lynx_host_cluster.rank; }
+  unsigned num_blocks() const { return lynx_host_cluster.blocks; }
+  template <typename T> T* map_shared_rank(T* address, unsigned rank) const {
+    const auto offset = reinterpret_cast<unsigned char*>(address) -
+                        lynx_host_cluster.shared[lynx_host_cluster.rank];
+    return reinterpret_cast<T*>(lynx_host_cluster.shared[rank] + offset);
+  }
+};
+inline cluster_group this_cluster() { return {}; }
+}  // namespace cooperative_groups
 """
 
 SIGNATURES = {
@@ -252,6 +392,7 @@ SIGNATURES = {
     "particle_moment_sweep": fused_track._B5_SIGNATURE,
     "packed_gram": fused_track._B6_SIGNATURE,
     "hist_ab": hist_ab._B7_SIGNATURE,
+    "window_histogram": torch_hist._B1_SIGNATURE,
 }
 # kernel<T, ...><<<grid>>>(args); -> lynx_host_launch([&] { kernel<T, ...>(args); }, grid);
 LAUNCH = re.compile(r"(\w+(?:<[^<>;]*>)?)<<<(.*?)>>>\((.*?)\);", flags=re.S)
@@ -273,6 +414,7 @@ def host_kernels(tmp_path_factory):
     assert compiler, "the host build of the kernels needs g++"
     root = tmp_path_factory.mktemp("host_kernels")
     (root / "cuda_runtime.h").write_text(STAND_IN)
+    (root / "cooperative_groups.h").write_text(COOPERATIVE_GROUPS)
     for header in _build.CSRC.glob("*.cuh"):
         (root / header.name).write_text(host_source(header.read_text()))
     libraries = {}
@@ -1089,19 +1231,240 @@ def test_hist_onehot_equals_plain(host_kernels, chunk, n, win, layout):
                                         workspace.data_ptr(), n, *win, bad, None) != 0
 
 
-@pytest.mark.parametrize("band_rows, n", [(4, 3000), (16, 3000), (5, 200)])
-def test_hist_twolevel_equals_plain(host_kernels, band_rows, n):
-    """B7's banded window: four bands of 4 rows, one band of the whole
-    window, and bands of 5 rows whose last is ragged; particles split
-    across blocks (band written with atomics), or, for 200 particles, one
-    split (plain stores)."""
-    win = (16, 128)
-    lx, ly = hist_indices(n, win, seed=band_rows)
-    library = host_kernels["hist_ab"]
-    splits = library.lynx_hist_twolevel_splits(n, win[0], band_rows)
-    assert (splits == 1) == (n <= 256)
-    out = torch.zeros((1, *win), dtype=torch.int32)
-    code = library.lynx_hist_twolevel(lx.data_ptr(), ly.data_ptr(), out.data_ptr(), n, *win,
-                                      band_rows, None)
+TWOLEVEL = [name for name in hist_ab.VARIANTS if name.startswith("twolevel")]
+
+
+def run_twolevel(library, lx, ly, win, cluster, splits):
+    out = torch.full((1, *win), 7, dtype=torch.int32)  # written whole, or zeroed first
+    code = library.lynx_hist_twolevel(lx.data_ptr(), ly.data_ptr(), out.data_ptr(), lx.shape[0],
+                                      *win, cluster, splits, None)
     assert code == 0
-    assert torch.equal(out, hist_ab.hist_ab_reference(lx, ly, *win))
+    return out
+
+
+@pytest.mark.parametrize("name", TWOLEVEL)
+@pytest.mark.parametrize("layout", ["uniform", "one block"])
+def test_hist_twolevel_equals_plain(host_kernels, name, layout):
+    """B7's window in a cluster's distributed shared memory, at each of the
+    A/B's (C, K): exactly the plain counts, the pairs outside the window
+    dropped.  "uniform": pads and pairs past the window over a (40, 128)
+    window (C = 16 leaves blocks of 2 and 3 rows); "one block": every pair
+    in rows x = 5 mod C, so one block of the cluster takes every atomic."""
+    _, knob = hist_ab.VARIANTS[name]
+    cluster, splits = knob["cluster"], knob["splits"]
+    win, n = (40, 128), 3001  # n not a multiple of 4: the scalar tail
+    if layout == "uniform":
+        lx, ly = hist_indices(n, win, seed=cluster + splits)
+    else:
+        rng = np.random.default_rng(cluster * splits)
+        rows = np.arange(5, win[0], cluster)
+        lx = torch.from_numpy(rng.choice(rows, n).astype(np.int32))
+        ly = torch.from_numpy(rng.integers(0, win[1], n).astype(np.int32))
+    out = run_twolevel(host_kernels["hist_ab"], lx, ly, win, cluster, splits)
+    expected = hist_ab.hist_ab_reference(lx, ly, *win)
+    assert torch.equal(out, expected)
+    if layout == "one block":
+        assert int(out.sum()) == n and int(expected[0, 5::cluster].sum()) == n
+
+
+def test_hist_twolevel_scalar_paths_and_refusals(host_kernels):
+    """Pairs off 16 bytes (the scalar loads), a window whose rows are not a
+    multiple of 4 (the scalar stores), no pair at all; and the refusals: a
+    cluster past 16, rows past a block's shared memory."""
+    library = host_kernels["hist_ab"]
+    lx, ly = hist_indices(2001, (20, 30), seed=3)
+    for cluster, splits in ((8, 1), (16, 2)):
+        out = run_twolevel(library, lx[1:], ly[1:], (20, 30), cluster, splits)
+        assert torch.equal(out, hist_ab.hist_ab_reference(lx[1:], ly[1:], 20, 30))
+        empty = run_twolevel(library, lx[:0], ly[:0], (20, 30), cluster, splits)
+        assert int(empty.abs().sum()) == 0
+    out = torch.zeros((1, 20, 30), dtype=torch.int32)
+    for cluster, splits, win in ((17, 1, (20, 30)), (8, 0, (20, 30)), (1, 1, (64, 1024))):
+        assert library.lynx_hist_twolevel(lx.data_ptr(), ly.data_ptr(), out.data_ptr(), 10, *win,
+                                          cluster, splits, None) != 0
+    assert library.lynx_hist_twolevel_max_clusters(952, 256, 16) > 0
+    assert library.lynx_hist_twolevel_max_clusters(952, 256, 1) < 0  # 975 KB in one block
+
+
+# -- kernel B1: the fused windowed read ------------------------------------------
+
+READ_BINS = (60, 200)
+READ_RANGES = (-3e-3, 3e-3, -5e-3, 5e-3)
+
+
+def read_spot(B, n, dtype, seed, sigma=(3.0, 8.0), centre=((30.0, 100.0),)):
+    """B rows of a Gaussian spot (sigma and centre in bins) over the
+    READ_BINS image, each row's centre moved, with dead particles (weight
+    0) and a few out of range."""
+    rng = np.random.default_rng(seed)
+    lo_x, hi_x, lo_y, hi_y = READ_RANGES
+    px, py = (hi_x - lo_x) / READ_BINS[0], (hi_y - lo_y) / READ_BINS[1]
+    cx = centre[0][0] + 5.0 * np.arange(B)[:, None]
+    cy = centre[0][1] - 20.0 * np.arange(B)[:, None]
+    x = lo_x + px * (cx + sigma[0] * rng.normal(size=(B, n)))
+    y = lo_y + py * (cy + sigma[1] * rng.normal(size=(B, n)))
+    x[:, :3] = hi_x * 1.5  # out of range
+    w = rng.uniform(0.5, 1.5, (B, n)) * (rng.uniform(size=(B, n)) > 0.1)
+    return (torch.from_numpy(x).to(dtype), torch.from_numpy(y).to(dtype),
+            torch.from_numpy(w).to(torch.float32))
+
+
+def read_ranges(kind, dtype, B):
+    if kind == "floats":
+        return READ_RANGES
+    if kind == "rows":  # one bound a row, shaped to broadcast as _bin_index takes it
+        return tuple(torch.full((B, 1), v, dtype=dtype) for v in READ_RANGES)
+    return tuple(torch.tensor(v, dtype=dtype) for v in READ_RANGES)
+
+
+def host_read(library, x, y, w, ranges, bins, window, binary):
+    """B1's fused read on the host, marshalled as the wrapper marshals it;
+    tensor bounds (on the CPU, as x is) are read from (host) device memory."""
+    code, image, ox, oy, misfit = torch_hist._read_launch(
+        library, x, y, w, ranges, bins, window, binary, None)
+    assert code == 0
+    return image, ox, oy, ~misfit
+
+
+def check_read(library, x, y, w, ranges, bins, window, binary, rtol=1e-5):
+    window = torch_hist._window_shape(window, *bins)
+    image, ox, oy, fits = host_read(library, x, y, w, ranges, bins, window, binary)
+    ref_image, ref_ox, ref_oy, ref_fits = torch_hist.windowed_read_reference(
+        x, y, w, ranges, bins, window, binary)
+    assert torch.equal(ox, ref_ox) and torch.equal(oy, ref_oy)
+    assert torch.equal(fits, ref_fits)
+    assert image.shape == ref_image.shape and image.dtype == ref_image.dtype
+    if binary:
+        assert torch.equal(image, ref_image)
+    else:  # float atomics sum in any order: 1e-5 relative, per cell
+        torch.testing.assert_close(image, ref_image, rtol=rtol, atol=0.0)
+    return image, fits
+
+
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("binary", [True, False], ids=["count", "weighted"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_windowed_read_equals_plain(host_kernels, B, binary, dtype):
+    """B1's fused read against the plain version: origins and fits equal,
+    the image exact in count mode; each row with its own origin, x a
+    strided view as the screen passes it."""
+    x, y, w = read_spot(B, 2001, dtype, seed=B)
+    particles = torch.stack([x, torch.zeros_like(x), y], dim=-1)  # x, y with stride 3
+    x, y = particles[..., 0], particles[..., 2]
+    image, fits = check_read(host_kernels["window_histogram"], x, y, w,
+                             read_ranges("0-d", dtype, B), READ_BINS, (32, 128), binary)
+    assert bool(fits.all())
+    if binary:
+        live = int((w != 0).sum()) - int((w[:, :3] != 0).sum())
+        assert int(image.sum()) == live
+
+
+def reciprocal_bins(v, lo, hi, n):
+    """Bins as the kernel forms them from a span on the host: PyTorch's CUDA
+    division by a CPU scalar, the product by the reciprocal rounded in v's
+    dtype."""
+    inv = 1.0 / torch.tensor(hi - lo, dtype=v.dtype)
+    return torch.clamp(torch.floor((v - lo) * inv * n), 0, n - 1).to(torch.int32)
+
+
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("kind", ["floats", "rows"])
+def test_windowed_read_takes_every_kind_of_range(host_kernels, kind, B):
+    """Ranges as Python floats (the span and its reciprocal on the host)
+    and one bound a row, in float32.  With Python floats the kernel takes
+    the reciprocal product, as PyTorch's CUDA division by a CPU scalar
+    does, while the CPU plain version divides: the comparison is exact only
+    while no particle bins differently under the two, which is asserted
+    first (chip_smoke.py holds both on the card, where both take the
+    product)."""
+    x, y, w = read_spot(B, 1500, torch.float32, seed=B)
+    if kind == "floats":
+        lo_x, hi_x, lo_y, hi_y = READ_RANGES
+        for v, lo, hi, n in ((x, lo_x, hi_x, READ_BINS[0]), (y, lo_y, hi_y, READ_BINS[1])):
+            assert torch.equal(reciprocal_bins(v, lo, hi, n), torch_hist._bin_index(v, lo, hi, n)[0])
+    check_read(host_kernels["window_histogram"], x, y, w, read_ranges(kind, torch.float32, B),
+               READ_BINS, (32, 128), True)
+
+
+def edge_particles(dtype):
+    """Row 0: particles on a grid of interior bin edges (formed in the
+    compute type, so they sit where the arithmetic puts an edge), exactly
+    on lo and hi in x, one ulp past hi, at +-inf and NaN, one of weight 0;
+    row 1: only dead particles (x NaN)."""
+    lo_x, hi_x, lo_y, hi_y = (torch.tensor(v, dtype=dtype) for v in READ_RANGES)
+    nx, ny = READ_BINS
+    ex = lo_x + (hi_x - lo_x) / nx * torch.arange(20, 37, dtype=dtype)
+    ey = lo_y + (hi_y - lo_y) / ny * torch.arange(90, 107, dtype=dtype)
+    gx, gy = torch.meshgrid(ex, ey, indexing="ij")
+    inf, nan = float("inf"), float("nan")
+    extra_x = torch.stack([lo_x, hi_x, torch.nextafter(hi_x, hi_x + 1), ex[2], ex[2], ex[2],
+                           torch.tensor(nan, dtype=dtype), torch.tensor(inf, dtype=dtype),
+                           torch.tensor(-inf, dtype=dtype), ex[4]])
+    extra_y = torch.stack([ey[0], ey[5], ey[5], torch.tensor(nan, dtype=dtype),
+                           torch.tensor(inf, dtype=dtype), torch.tensor(-inf, dtype=dtype),
+                           ey[1], ey[1], ey[1], ey[3]])
+    x0 = torch.cat([gx.reshape(-1), extra_x])
+    y0 = torch.cat([gy.reshape(-1), extra_y])
+    n = x0.numel()
+    x = torch.stack([x0, torch.full((n,), nan, dtype=dtype)])
+    y = torch.stack([y0, y0])
+    w = torch.ones((2, n), dtype=torch.float32)
+    w[0, -1] = 0.0
+    return x, y, w
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_windowed_read_bin_edges_nan_and_dead_rows(host_kernels, dtype):
+    """Bins bit for bit on the edges, lo and hi counted, NaN and +-inf
+    never live, an all-dead row at the clamped origin with an empty
+    window; count mode, exact."""
+    x, y, w = edge_particles(dtype)
+    image, fits = check_read(host_kernels["window_histogram"], x, y, w,
+                             read_ranges("0-d", dtype, 2), READ_BINS, (64, 128), True)
+    assert int(image[1].sum()) == 0 and bool(fits.all())
+    assert int(image[0].sum()) == 17 * 17 + 2  # the grid, lo and hi
+
+
+@pytest.mark.parametrize("binary", [True, False], ids=["count", "weighted"])
+def test_windowed_read_misfit_and_window_past_the_edge(host_kernels, binary):
+    """A spot wider than its window (that row's fits False, the image the
+    plain version's window-only image, the other row fitting), and a
+    rounded window past the image's edge in y (origin 0 there, cropped)."""
+    wide, narrow = (read_spot(2, 2000, torch.float32, seed=5, sigma=(sx, 8.0))
+                    for sx in (12.0, 1.5))
+    x, y, w = (torch.cat([a[:1], b[1:]]) for a, b in zip(wide, narrow))
+    _, fits = check_read(host_kernels["window_histogram"], x, y, w,
+                         read_ranges("0-d", torch.float32, 2), READ_BINS, (16, 128), binary)
+    assert fits.tolist() == [False, True]
+    bins = (READ_BINS[0], 100)  # the window's 128 columns pass 100
+    check_read(host_kernels["window_histogram"], x, y, w, read_ranges("0-d", torch.float32, 2),
+               bins, (40, 100), binary)
+
+
+def test_windowed_read_weighted_double_and_refusals(host_kernels):
+    """float64 weights sum in float64; the entry point refuses an empty
+    read, bins past the packed 15 bits and a batch past the grid's 65,535
+    rows, and the wrapper bins past 32,767 before any launch."""
+    library = host_kernels["window_histogram"]
+    x, y, w = read_spot(2, 1500, torch.float64, seed=8)
+    check_read(library, x, y, w.double(), read_ranges("0-d", torch.float64, 2), READ_BINS,
+               (32, 128), False, rtol=1e-12)
+    window = torch_hist._window_shape((32, 128), *READ_BINS)
+    for rows, n, bins in ((1, 0, READ_BINS), (1, 10, (40_000, 10)), (65_536, 1, READ_BINS)):
+        code = host_read_code(library, rows, n, bins, window)
+        assert code == 1  # cudaErrorInvalidValue
+    with pytest.raises(ValueError, match="bins"):
+        torch_hist._read_launch(library, x, y, w, read_ranges("0-d", torch.float64, 2),
+                                (40_000, 10), window, True, None)
+
+
+def host_read_code(library, rows, n, bins, window):
+    """The entry point's code for a read of ``rows`` x ``n`` particles into
+    ``bins``, marshalled by hand (no buffers: a refused read reads none)."""
+    strides = (ctypes.c_longlong * 6)(n, 1, n, 1, n, 1)
+    pointers = (ctypes.c_void_p * 4)()
+    steps = (ctypes.c_longlong * 4)()
+    values = (ctypes.c_double * 6)(0.0, 1.0, 1.0, 0.0, 1.0, 1.0)
+    divide = (ctypes.c_int * 2)()
+    return library.lynx_windowed_read(None, None, None, strides, pointers, steps, values, divide,
+                                      None, None, None, rows, n, *bins, *window, 0, 0, 0, None)

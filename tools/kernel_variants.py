@@ -71,6 +71,18 @@ VARIANTS = {
         "    int4 u = lane_pairs[0], v = lane_pairs[4];",
         "B7's onehot contraction loading each step's pairs when it starts",
     ),
+    "B7-512-threads": (
+        "hist_ab",
+        "constexpr int kClusterThreads = 1024;",
+        "constexpr int kClusterThreads = 512;",
+        "B7's twolevel cluster blocks of 512 threads",
+    ),
+    "B7-256-threads": (
+        "hist_ab",
+        "constexpr int kClusterThreads = 1024;",
+        "constexpr int kClusterThreads = 256;",
+        "B7's twolevel cluster blocks of 256 threads",
+    ),
     "B4-inline-pass": (
         "moment_sweep_bwd",
         """          T p[kP];
