@@ -73,7 +73,18 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    and every pair in one 16-row tile, one bucket of the onehot read), then the
    harness with its yardsticks (B1, ``torch.bincount``), each read's device
    time summed over its kernels beside its main kernel's;
-9. print the kernels' JSON line and, last, the ``{"ok": true, ...}`` line.
+9. path I, the beam and lattice I/O slice: I1, the ASTRA beam
+   (``ParticleBeam.from_astra``, 100,000 particles at 107.3 MeV) on the
+   flagship screen of ``ares_lattice()`` written as LatticeJSON and read
+   back, read through B1 as loaded and ``transformed_to`` a moved spot,
+   each image equal to the original lattice's, and its Twiss values at
+   AREABSCR1's plane held to ``ParameterBeam.from_astra``'s; I2a, the same
+   beam through the NX-tables ARES lattice's 45 elements to ARMRBSCR1, read
+   through B1; I2b, a ParameterBeam with the ASTRA beam's Twiss values
+   through the whole NX-tables lattice (235 elements) at 100,000 settings
+   through B3, and the gradient of sum(beta_x + beta_y) through B4, held
+   against the dense route in double;
+10. print the kernels' JSON line and, last, the ``{"ok": true, ...}`` line.
 
 Each kernel is timed at its path's shape beside its plain version and its
 bound (``bound``: the larger of its bytes over the card's memory rate and
@@ -96,9 +107,12 @@ It imports neither JAX nor ``lynx_tpu``.
 import contextlib
 import copy
 import json
+import math
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 from lynx_tpu_torch.benchmarks.timing import cuda_ms, device_launches, device_ms
 
@@ -573,11 +587,15 @@ def new_kind_lattice(torch, ltt, B, seed=3):
     return elements
 
 
-def tune_lattice(torch, lattice, B, seed, requires_grad=False):
+TUNED_KINDS = ("Quadrupole", "HorizontalCorrector", "VerticalCorrector", "Solenoid", "Dipole")
+
+
+def tune_lattice(torch, lattice, B, seed, requires_grad=False, kinds=TUNED_KINDS):
     """Per-setting values, in the lattice's dtype and on its device, of
     every quadrupole's k1 (|k1| from 0.5 to 3 1/m^2, either sign), every
     corrector's angle, both solenoids' k and every dipole's angle (its
-    file value +-0.05 rad); returns the new tensors."""
+    file value +-0.05 rad), of the element types in ``kinds``; returns the
+    new tensors."""
     gen = torch.Generator().manual_seed(seed)
 
     def u(low, high):
@@ -586,6 +604,8 @@ def tune_lattice(torch, lattice, B, seed, requires_grad=False):
     tuned = []
     for element in lattice.elements:
         kind = type(element).__name__
+        if kind not in kinds:
+            continue
         if kind == "Quadrupole":
             sign = torch.where(torch.rand(B, generator=gen) < 0.5, -1.0, 1.0).double()
             field, value = "k1", sign * u(0.5, 3.0)
@@ -2079,6 +2099,290 @@ def check_long_tape(torch, ft, fused, tbl, card):
     return errors
 
 
+# -- path I: the beam and lattice I/O slice ------------------------------------
+
+RESOURCES = Path(__file__).resolve().parent / "tests" / "resources"
+ASTRA_BEAM = RESOURCES / "ACHIP_EA1_2021.1351.001"  # 100,000 particles at 107.3 MeV
+NX_TABLES = RESOURCES / "nxtables_ares_stage4.csv"  # the ARES stage-4 device table
+NX_ELEMENTS = 235
+NX_READ_CELL = ("AREASOLA1", "ARMRBSCR1")  # path I2a's subcell: 45 elements, 6.48 m
+# The particle beam's Twiss values against ParameterBeam.from_astra's at
+# the same plane.  They differ by design in one term: the particle beam's
+# x-x' and y-y' correlations are population moments (ddof = 0, as the
+# reference's), np.cov's are ddof = 1, and the emittance's cancellation
+# (eps^2 = s^2 s'^2 - c^2) amplifies that 1/N by alpha^2: 1.3e-3 for
+# alpha_y = -11.5 at AREABSCR1.  So the particle beam's values with its
+# correlations taken at ddof = 1 are held to the ParameterBeam's within
+# TWISS_RTOL (float rounding and the tracking beside), and the API's own
+# values are printed beside them.
+TWISS_RTOL = 1e-3
+TWISS = ("emittance_x", "emittance_y", "beta_x", "beta_y", "alpha_x", "alpha_y")
+
+
+def read_through_b1(torch, hist, functional, segment, screen, beam, label):
+    """One read of ``screen`` (active, its window set) by ``beam`` through
+    B1: two launches and no fallback, image mass equal to the particle
+    count, and within 2 x MAX_MOVED L1 of the CPU path's image on the same
+    particles.  Returns the image and B1's launches."""
+    hist.window_histogram.launches = 0
+    hist.reset_histogram_fallback_count()
+    _, diagnostics = functional.track(segment, beam)
+    image = diagnostics[screen]
+    torch.cuda.synchronize()
+    launches, fallbacks = hist.window_histogram.launches, hist.histogram_fallback_count()
+    _, diagnostics = functional.track(copy.deepcopy(segment).to("cpu"), beam.to("cpu"))
+    image_cpu = diagnostics[screen]
+    mass, mass_cpu = float(image.sum()), float(image_cpu.sum())
+    l1 = float((image.cpu() - image_cpu).abs().sum())
+    print(f"{label}: {screen} image {tuple(image.shape)}, B1 launches {launches}"
+          f" ({hist.READ_LAUNCHES} a read), scatter fallbacks {fallbacks}; image mass {mass:.0f}"
+          f" (CPU path {mass_cpu:.0f}, {beam.num_particles} particles), L1 against the CPU"
+          f" path's image {l1:.0f} (bound {2 * MAX_MOVED})")
+    if launches != hist.READ_LAUNCHES or fallbacks != 0:
+        raise AssertionError(f"{label}: the read did not go through kernel B1")
+    if not bool(torch.isfinite(image).all()) or mass != beam.num_particles or mass_cpu != mass:
+        raise AssertionError(f"{label}: bad image")
+    if l1 > 2 * MAX_MOVED:
+        raise AssertionError(f"{label}: GPU and CPU images differ")
+    return image, launches
+
+
+def screen_window(functional, segment, screen, beam):
+    """``screen``'s window derived as ``lattice_window`` derives
+    AREABSCR1's (k_sigma = 5), from ``beam`` (a ParameterBeam on the CPU)
+    tracked to the screen's plane on the CPU."""
+    probe = copy.deepcopy(segment).to("cpu")
+    getattr(probe, screen).is_active = False
+    at_screen, _ = functional.track(probe, beam)
+    return getattr(probe, screen).derive_histogram_window(at_screen, k_sigma=5.0)
+
+
+def twiss_at(functional, segment, screen, beam):
+    """The beam's Twiss values at ``screen``'s plane (an active screen
+    absorbs the beam, so the track runs with the screen inactive), and for
+    a particle beam also those with its correlations at ddof = 1."""
+    probe = copy.deepcopy(segment)
+    getattr(probe, screen).is_active = False
+    out, _ = functional.track(probe, beam)
+    api = {name: float(getattr(out, name)) for name in TWISS}
+    if not hasattr(out, "num_particles"):
+        return api, api
+    n = out.num_particles
+    ddof1 = {}
+    for plane, sigma, sigma_p, corr in (("x", out.sigma_x, out.sigma_xp, out.sigma_xxp),
+                                        ("y", out.sigma_y, out.sigma_yp, out.sigma_yyp)):
+        sigma, sigma_p, corr = float(sigma), float(sigma_p), float(corr) * n / (n - 1)
+        emittance = (sigma**2 * sigma_p**2 - corr**2) ** 0.5
+        ddof1.update({f"emittance_{plane}": emittance, f"beta_{plane}": sigma**2 / emittance,
+                      f"alpha_{plane}": -corr / emittance})
+    return api, ddof1
+
+
+def path_io_astra(torch, ltt, ares, functional, hist, card):
+    """Path I1: the ASTRA beam on the flagship screen.  The beam read from
+    the file; ``ares_lattice()`` written as LatticeJSON and read back; the
+    round trip's EA subcell reads AREABSCR1 through B1 for the beam and for
+    ``transformed_to`` a moved spot, each image the same as the original
+    lattice's; the Twiss values at AREABSCR1's plane of both beam types
+    from the file, held to each other."""
+    start = time.perf_counter()
+    beam = ltt.ParticleBeam.from_astra(str(ASTRA_BEAM), device="cuda")
+    torch.cuda.synchronize()
+    particle_s = time.perf_counter() - start
+    start = time.perf_counter()
+    moments = ltt.ParameterBeam.from_astra(str(ASTRA_BEAM), device="cuda")
+    torch.cuda.synchronize()
+    parameter_s = time.perf_counter() - start
+    print(f"path I1: from_astra {beam.num_particles} particles at {float(beam.energy):.6e} eV:"
+          f" ParticleBeam {particle_s:.3f} s, ParameterBeam {parameter_s:.3f} s (host clock,"
+          f" the file read and converted on the host; card {card})")
+
+    original = ares.ares_ea_segment(device="cuda")
+    with tempfile.TemporaryDirectory() as directory:
+        path = Path(directory) / "ares_lattice.json"
+        ares.ares_lattice(device="cuda").to_lattice_json(str(path))
+        loaded = ltt.Segment.from_lattice_json(str(path), device="cuda")
+    segment = loaded.subcell("AREASOLA1", "AREABSCR1")
+    segment.AREABSCR1.histogram_window = original.AREABSCR1.histogram_window
+    for seg in (original, segment):
+        seg.AREABSCR1.is_active = True
+        for name, k1 in ares.FLAGSHIP_K1.items():
+            getattr(seg, name).k1 = torch.tensor([k1], device="cuda")
+    if segment != original:
+        raise AssertionError("path I1: the LatticeJSON round trip changed the EA subcell")
+
+    moved = beam.transformed_to(mu_x=torch.tensor([1e-4]), mu_y=torch.tensor([-1e-4]))
+    launches = 0
+    for label, read_beam in (("as loaded", beam), ("moved", moved)):
+        image, read_launches = read_through_b1(torch, hist, functional, segment, "AREABSCR1",
+                                               read_beam, f"path I1 ({label})")
+        launches += read_launches
+        _, diagnostics = functional.track(original, read_beam)
+        if not torch.equal(image, diagnostics["AREABSCR1"]):
+            raise AssertionError("path I1: the round-tripped lattice reads another image")
+    print("path I1: the round-tripped lattice reads the original lattice's images exactly")
+
+    (api, particle), (parameter, _) = (twiss_at(functional, segment, "AREABSCR1", b)
+                                       for b in (beam, moments))
+
+    def worst(values):
+        return max(abs(values[k] - parameter[k]) / abs(parameter[k]) for k in TWISS)
+
+    print("path I1: at AREABSCR1's plane, ParticleBeam (correlations at ddof = 1 / the API's"
+          " ddof = 0) against ParameterBeam: " + ", ".join(
+              f"{k} {particle[k]:.6e} / {api[k]:.6e} against {parameter[k]:.6e}" for k in TWISS)
+          + f"; largest relative difference {worst(particle):.2e} (bound {TWISS_RTOL}), the"
+          f" API's {worst(api):.2e}")
+    if worst(particle) > TWISS_RTOL:
+        raise AssertionError("path I1: the two beam types' Twiss values disagree")
+
+    ms = cuda_ms(lambda: functional.track(segment, beam), iters=50)
+    device, b1 = device_ms(lambda: functional.track(segment, beam), iters=5,
+                           kernel="windowed_read_")
+    print(f"path I1: track + read {ms:.4f} ms/call (CUDA events, 50 calls); device time"
+          f" {device:.4f} ms/call (busy share {device / ms:.4f}), of it B1 {b1:.5f} ms"
+          f" (torch.profiler, 5 calls; card {card})")
+    return launches
+
+
+def path_io_nx_read(torch, ltt, functional, hist, card):
+    """Path I2a: the ASTRA beam through the NX-tables lattice's subcell
+    AREASOLA1 ... ARMRBSCR1, read on ARMRBSCR1 through B1 (window derived
+    from the beam at that plane)."""
+    lattice = ltt.Segment.from_nx_tables(NX_TABLES, device="cuda")
+    if len(lattice.elements) != NX_ELEMENTS:
+        raise AssertionError(f"path I2: {len(lattice.elements)} elements, expected {NX_ELEMENTS}")
+    segment = lattice.subcell(*NX_READ_CELL)
+    screen = NX_READ_CELL[1]
+    beam = ltt.ParticleBeam.from_astra(str(ASTRA_BEAM), device="cuda")
+    window = screen_window(functional, segment, screen,
+                           ltt.ParameterBeam.from_astra(str(ASTRA_BEAM), device="cpu"))
+    getattr(segment, screen).histogram_window = window
+    getattr(segment, screen).is_active = True
+    print(f"path I2a: {len(segment.elements)} elements, {float(segment.length):.4f} m to {screen}"
+          f" ({getattr(segment, screen).resolution}), window {window}")
+    _, launches = read_through_b1(torch, hist, functional, segment, screen, beam, "path I2a")
+    ms = cuda_ms(lambda: functional.track(segment, beam), iters=20)
+    device, b1 = device_ms(lambda: functional.track(segment, beam), iters=5,
+                           kernel="windowed_read_")
+    print(f"path I2a: track + read {ms:.4f} ms/call (CUDA events, 20 calls); device time"
+          f" {device:.4f} ms/call (busy share {device / ms:.4f}), of it B1 {b1:.5f} ms"
+          f" (torch.profiler, 5 calls; card {card})")
+    return launches
+
+
+def path_io_nx_sweep(torch, ltt, ft, fused, hist, functional, segment_module, card):
+    """Path I2b: a float ParameterBeam with the ASTRA beam's own Twiss
+    values through the whole NX-tables lattice at LATTICE_BATCH settings
+    (every quadrupole's k1 and every corrector's angle per setting, drawn
+    as path L draws them); the forward through B3, the value and gradient
+    of sum(beta_x + beta_y) through B4; held against the dense route in
+    double within path L's bounds."""
+    B = LATTICE_BATCH
+    kinds = ("Quadrupole", "HorizontalCorrector", "VerticalCorrector")
+    lattice = ltt.Segment.from_nx_tables(NX_TABLES, device="cuda")
+    tuned = tune_lattice(torch, lattice, B, seed=63, requires_grad=True, kinds=kinds)
+    astra = ltt.ParameterBeam.from_astra(str(ASTRA_BEAM), device="cuda")
+    nominal = ltt.ParameterBeam.from_twiss(
+        beta_x=astra.beta_x, alpha_x=astra.alpha_x, emittance_x=astra.emittance_x,
+        beta_y=astra.beta_y, alpha_y=astra.alpha_y, emittance_y=astra.emittance_y,
+        sigma_s=astra.sigma_s, sigma_p=astra.sigma_p, energy=astra.energy, device="cuda",
+    )
+    beam = ltt.ParameterBeam(nominal._mu.expand(B, 7).contiguous(),
+                             nominal._cov.expand(B, 7, 7).contiguous(), nominal.energy)
+
+    def loss_of(outgoing):
+        return torch.sum(outgoing.beta_x + outgoing.beta_y)
+
+    runs = lattice_runs(fused, lattice, beam.energy, B, torch)
+    reset_counts(ft, hist)
+    with plain_on_cuda_guard(torch, ft) as plain:
+        outgoing, _ = functional.track(lattice, beam)
+        grads = torch.autograd.grad(loss_of(outgoing), tuned)
+        torch.cuda.synchronize()
+    launched = counts(ft)
+    print(f"path I2b: {len(lattice.elements)} elements at B={B}, {len(tuned)} tuned fields,"
+          f" runs of {[len(entries) for entries, _ in runs]} tape entries; launches {launched},"
+          f" plain versions on CUDA tensors {plain['count']}")
+    if launched["B3"] != len(runs) or launched["B4"] != len(runs) or plain["count"]:
+        raise AssertionError("path I2b did not run every run through kernels B3 and B4")
+    if outgoing._mu.shape != (B, 7) or not all(bool(torch.isfinite(g).all()) for g in grads):
+        raise AssertionError("path I2b: bad output or gradient")
+
+    # The reference: the dense route in double on the same settings.  The
+    # moments are held as path L holds them.  These draws blow most
+    # settings' beams up over the 44 m (1 + alpha_y^2 has a median ~1e8 at
+    # the end), and beta = sigma^2 / eps takes eps from eps^2 = s^2 s'^2 -
+    # c^2, which cancels by 1 + alpha^2: float carries beta, and the loss's
+    # own derivative, only on the tamer settings (the dense route in float
+    # no better).  So the gradient is held as B3/B4 compute it: the VJP of
+    # the loss's cotangents (from the float outputs, scaled to 1 per
+    # setting) through the runs' maps, against the dense route in double on
+    # the same cotangents, beside the dense route in float; and beta's
+    # agreement is counted per setting.
+    lattice64 = ltt.Segment.from_nx_tables(NX_TABLES, dtype=torch.float64, device="cuda")
+    tuned64 = tune_lattice(torch, lattice64, B, seed=63, requires_grad=True, kinds=kinds)
+    beam64 = ltt.ParameterBeam(beam._mu.double(), beam._cov.double(), beam.energy.double())
+    (d_cov,) = torch.autograd.grad(loss_of(outgoing), (outgoing._cov,))
+    d_mu = torch.zeros_like(outgoing._mu)  # beta does not depend on the means
+    scale = torch.maximum(d_mu.abs().amax(dim=1), d_cov.abs().amax(dim=(1, 2))).clamp_min(1e-30)
+    d_mu, d_cov = d_mu / scale[:, None], d_cov / scale[:, None, None]
+
+    def vjp(out, params):
+        return torch.autograd.grad((out._mu, out._cov), params,
+                                   (d_mu.to(out._mu.dtype), d_cov.to(out._mu.dtype)))
+
+    kernel_vjp = vjp(functional.track(lattice, beam)[0], tuned)
+    segment_module.FUSED_SWEEP_PATH = False
+    try:
+        dense, _ = functional.track(lattice64, beam64)
+        dense_vjp = vjp(dense, tuned64)
+        dense32, _ = functional.track(lattice, beam)
+        dense32_vjp = vjp(dense32, tuned)
+    finally:
+        segment_module.FUSED_SWEEP_PATH = None
+
+    def errors(out, out_vjp):
+        moments = max(relative_error(torch, getattr(out, k), getattr(dense, k), per_setting=False)
+                      for k in ("sigma_x", "sigma_y", "mu_x", "mu_y"))
+        agree = torch.ones_like(dense.beta_x, dtype=torch.bool)
+        for k in ("beta_x", "beta_y"):
+            agree &= (getattr(out, k).double() - getattr(dense, k)).abs() <= (
+                TWISS_RTOL * getattr(dense, k).abs())
+        return moments, int(agree.sum()), max(relative_error(torch, g, d, per_setting=False)
+                                               for g, d in zip(out_vjp, dense_vjp))
+
+    moments, beta_agree, gradient = errors(outgoing, kernel_vjp)
+    dense_moments, dense_beta_agree, dense_gradient = errors(dense32, dense32_vjp)
+    grad_bound = max(GRAD_RTOL, 2 * dense_gradient)
+    loss = float(loss_of(outgoing).detach())
+    print(f"path I2b: against the dense route in double, of each quantity's largest |value|:"
+          f" the B3/B4 route (float) moments {moments:.2e}, the VJP of the loss's cotangents"
+          f" {gradient:.2e}; the dense route in float {dense_moments:.2e}, {dense_gradient:.2e}"
+          f" (bounds {OBS_RTOL}, {grad_bound:.2e}: path L's); beta_x and beta_y within"
+          f" {TWISS_RTOL} of double on {beta_agree} of {B} settings ({dense_beta_agree} in the"
+          f" dense route in float); sum(beta_x + beta_y) {loss:.6e} (double"
+          f" {float(loss_of(dense).detach()):.6e})")
+    if moments > OBS_RTOL or gradient > grad_bound or not math.isfinite(loss):
+        raise AssertionError("path I2b: the B3/B4 route and the dense route disagree")
+
+    def forward():
+        functional.track(lattice, beam)
+
+    def both():
+        out, _ = functional.track(lattice, beam)
+        torch.autograd.grad(loss_of(out), tuned)
+
+    forward_ms, both_ms = cuda_ms(forward, iters=5), cuda_ms(both, iters=5)
+    device, b3 = device_ms(forward, iters=3, kernel="moment_sweep_kernel")
+    device_both, b4 = device_ms(both, iters=3, kernel="moment_sweep_bwd_kernel")
+    print(f"path I2b: forward {forward_ms:.4f} ms, value and gradient {both_ms:.4f} ms per call"
+          f" (CUDA events, 5 calls); device time forward {device:.4f} ms, of it B3 {b3:.5f} ms,"
+          f" value and gradient {device_both:.4f} ms, of it B4 {b4:.5f} ms (torch.profiler,"
+          f" 3 calls; card {card})")
+    return launched
+
+
 # -- kernel B7: the count-histogram A/B ----------------------------------------
 
 
@@ -2364,7 +2668,14 @@ def main():
     path_lattice_sweep(torch, ltt, ares, ft, fused, hist, functional, segment_module, card)
     hist_launches, hist_timing, hist_abs_err = path_hist_ab(torch, hist, card)
 
-    # -- 9. results ----------------------------------------------------------
+    # -- 9. path I, the beam and lattice I/O slice -------------------------------
+    io_launches = {"B1": path_io_astra(torch, ltt, ares, functional, hist, card)}
+    io_launches["B1"] += path_io_nx_read(torch, ltt, functional, hist, card)
+    io_launches.update(path_io_nx_sweep(torch, ltt, ft, fused, hist, functional, segment_module,
+                                        card))
+    print(f"path I: launches {io_launches}")
+
+    # -- 10. results ---------------------------------------------------------
     timing["B1"] = dict(ms=read_ms, plain_ms=plain_ms, bound=b1_bound,
                         library_ms=bincount_ms)
     timing["B7 onehot"], timing["B7 twolevel"] = hist_timing["onehot"], hist_timing["twolevel"]

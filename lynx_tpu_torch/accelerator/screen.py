@@ -206,6 +206,35 @@ class Screen(Element):
     def effective_pixel_size(self) -> torch.Tensor:
         return self.pixel_size * self._binning
 
+    def _half_extent(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Half the camera's width and height in meters."""
+        return (
+            self._resolution[0] * self.pixel_size[..., 0] / 2,
+            self._resolution[1] * self.pixel_size[..., 1] / 2,
+        )
+
+    @property
+    def extent(self) -> torch.Tensor:
+        """``(4, ...)`` the image's (left, right, bottom, top) in meters."""
+        half_w, half_h = self._half_extent()
+        return torch.stack([-half_w, half_w, -half_h, half_h])
+
+    @property
+    def pixel_bin_edges(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The effective pixels' edges in meters: ``(W + 1, ...)`` in x and
+        ``(H + 1, ...)`` in y, evenly spaced as by ``linspace``."""
+
+        def linspace(half, steps):
+            t = torch.arange(steps, dtype=half.dtype, device=half.device) / (steps - 1)
+            t = t.reshape(steps, *([1] * half.ndim))
+            return -half + (2 * half) * t
+
+        half_w, half_h = self._half_extent()
+        return (
+            linspace(half_w, self.effective_resolution[0] + 1),
+            linspace(half_h, self.effective_resolution[1] + 1),
+        )
+
     def transfer_map(self, energy: torch.Tensor) -> torch.Tensor:
         energy = torch.as_tensor(energy)
         eye = torch.eye(7, dtype=self.misalignment.dtype, device=self.misalignment.device)

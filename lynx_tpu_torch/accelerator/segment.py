@@ -21,7 +21,8 @@ and table routes are TPU layout devices and are not ported.
 
 from __future__ import annotations
 
-from typing import List, Optional
+from pathlib import Path
+from typing import List, Optional, Union
 
 import torch
 from torch import nn
@@ -34,6 +35,7 @@ from lynx_tpu_torch.accelerator.element import (
 )
 from lynx_tpu_torch.ops.folding import fold_transfer_maps
 from lynx_tpu_torch.particles import Beam, ParameterBeam, ParticleBeam
+from lynx_tpu_torch.utils import resolve_device
 
 #: Flat batch size from which ParameterBeam runs take the fused moment sweep
 #: (kernels B3/B4).  The JAX package's value, tuned on a TPU; the H100's
@@ -319,6 +321,74 @@ class Segment(Element):
             ],
             name=self.name,
         )
+
+    # -- I/O -----------------------------------------------------------------
+    @classmethod
+    def from_lattice_json(
+        cls, filepath: str, dtype: torch.dtype = torch.float32, device=None
+    ) -> "Segment":
+        """Load a lattice from a (Cheetah-compatible) LatticeJSON file, on
+        the card unless ``device`` says otherwise."""
+        from lynx_tpu_torch.converters.latticejson import load_cheetah_model
+
+        return load_cheetah_model(filepath, dtype=dtype, device=device)
+
+    def to_lattice_json(
+        self,
+        filepath: str,
+        title: Optional[str] = None,
+        info: str = "This is a placeholder lattice description",
+    ) -> None:
+        """Save the lattice to a (Cheetah-compatible) LatticeJSON file."""
+        from lynx_tpu_torch.converters.latticejson import save_cheetah_model
+
+        save_cheetah_model(self, filepath, title, info)
+
+    @classmethod
+    def from_ocelot(
+        cls,
+        cell,
+        name: Optional[str] = None,
+        warnings: bool = True,
+        dtype: torch.dtype = torch.float32,
+        device=None,
+        **kwargs,
+    ) -> "Segment":
+        """Translate an Ocelot cell (duck-typed) to a Segment, on the card
+        unless ``device`` says otherwise."""
+        from lynx_tpu_torch.converters.ocelot import ocelot2lynx
+
+        device = resolve_device(device)
+        converted = [
+            ocelot2lynx(element, warnings=warnings, dtype=dtype, device=device) for element in cell
+        ]
+        return cls(converted, name=name, **kwargs)
+
+    @classmethod
+    def from_bmad(
+        cls,
+        bmad_lattice_file_path: str,
+        environment_variables: Optional[dict] = None,
+        dtype: torch.dtype = torch.float32,
+        device=None,
+    ) -> "Segment":
+        """Read a Segment from a Bmad lattice file, on the card unless
+        ``device`` says otherwise."""
+        from lynx_tpu_torch.converters.bmad import convert_bmad_lattice
+
+        return convert_bmad_lattice(
+            Path(bmad_lattice_file_path), environment_variables, dtype=dtype, device=device
+        )
+
+    @classmethod
+    def from_nx_tables(
+        cls, filepath: Union[Path, str], dtype: torch.dtype = torch.float32, device=None
+    ) -> "Segment":
+        """Read an NX Tables CSV file (ARES/DESY-specific) into a flat
+        Segment, on the card unless ``device`` says otherwise."""
+        from lynx_tpu_torch.converters.nxtables import read_nx_tables
+
+        return read_nx_tables(Path(filepath), dtype=dtype, device=device)
 
     # -- physics -----------------------------------------------------------
     @property

@@ -1,16 +1,17 @@
-"""LatticeJSON loading (counterpart of the loader in
-``lynx_tpu.converters.latticejson``).
+"""LatticeJSON load and save (counterpart of
+``lynx_tpu.converters.latticejson``), file-compatible with Cheetah's flavour.
 
-The format: a JSON document with an ``elements`` dict ``{name: [ClassName,
-params]}`` and a ``lattices`` dict of name -> cell lists (nested lattices
-allowed).  Class names map to the port's classes through
-``accelerator.ELEMENT_CLASSES``; a class that is not ported yet raises.
+The format: a JSON document with metadata (``"version": "cheetah-0.6"``),
+an ``elements`` dict ``{name: [ClassName, params]}`` and a ``lattices``
+dict of name -> cell lists (nested lattices allowed).  Class names map to
+the port's classes through ``accelerator.ELEMENT_CLASSES``; a class that is
+not ported yet raises.
 """
 
 from __future__ import annotations
 
 import json
-from typing import Iterable, Optional
+from typing import Any, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -20,6 +21,80 @@ from lynx_tpu_torch.utils import resolve_device
 
 #: Parameters that are configuration (plain Python values), not tensors.
 _HOST_KEYS = frozenset({"resolution", "binning", "shape", "is_active"})
+
+
+def feature_to_plain(value: Any) -> Any:
+    """A feature value as a JSON-serialisable plain value (tensors on any
+    device as nested lists of Python numbers)."""
+    if isinstance(value, torch.Tensor):
+        return value.detach().cpu().tolist()
+    if isinstance(value, tuple):
+        return list(value)
+    return value
+
+
+def convert_element(element: Element) -> Tuple[str, str, dict]:
+    """Deconstruct an element into (name, class name, parameter dict)."""
+    params = {name: feature_to_plain(element.feature(name)) for name in element.defining_features}
+    return element.name, element.__class__.__name__, params
+
+
+def convert_segment(segment: Segment) -> Tuple[dict, dict]:
+    """Deconstruct a segment into its elements and lattices dicts
+    (recursively for nested segments)."""
+    elements: dict = {}
+    lattices: dict = {}
+    cell = []
+    for element in segment.elements:
+        if isinstance(element, Segment):
+            sub_elements, sub_lattices = convert_segment(element)
+            elements.update(sub_elements)
+            lattices.update(sub_lattices)
+        else:
+            name, class_name, params = convert_element(element)
+            elements[name] = [class_name, params]
+        cell.append(element.name)
+    lattices[segment.name] = cell
+    return elements, lattices
+
+
+def save_cheetah_model(
+    segment: Segment,
+    filename: str,
+    title: Optional[str] = None,
+    info: str = "This is a placeholder lattice description",
+) -> None:
+    """Save a segment as LatticeJSON (Cheetah's ``version`` tag)."""
+    if title is None:
+        title = segment.name if segment.name is not None else "Unnamed Lattice"
+    elements, lattices = convert_segment(segment)
+    lattice_dict = {
+        "version": "cheetah-0.6",
+        "title": title,
+        "info": info,
+        "root": segment.name if segment.name is not None else "cell",
+        "elements": elements,
+        "lattices": lattices,
+    }
+    with open(filename, "w") as f:
+        f.write(json.dumps(lattice_dict, cls=CompactJSONEncoder, indent=4))
+
+
+class CompactJSONEncoder(json.JSONEncoder):
+    """JSON encoder that indents only the first two levels, so that lattice
+    files stay readable (format from nobeam/latticejson)."""
+
+    def encode(self, obj, level=0):
+        if isinstance(obj, dict) and level < 2:
+            items_indent = (level + 1) * self.indent * " "
+            items_string = ",\n".join(
+                f"{items_indent}{json.dumps(key)}: {self.encode(value, level=level + 1)}"
+                for key, value in obj.items()
+            )
+            dict_indent = level * self.indent * " "
+            newline = "\n" if level == 0 else ""
+            return f"{{\n{items_string}\n{dict_indent}}}{newline}"
+        return json.dumps(obj)
 
 
 def read_lattice_dict(filename: str) -> dict:
@@ -54,7 +129,16 @@ def parse_element(
         else torch.as_tensor(np.asarray(value, dtype=np.float32), device=device)
         for key, value in params.items()
     }
-    return ELEMENT_CLASSES[class_name](name=name, **converted, dtype=dtype, device=device)
+    element = ELEMENT_CLASSES[class_name](name=name, **converted, dtype=dtype, device=device)
+    if class_name == "RBend":
+        # The file holds an RBend's faces as the element keeps them, angle /
+        # 2 added (its defining features); RBend.__init__ adds it again, so
+        # the file's values are put back.  The JAX package reloads them
+        # shifted twice.
+        for face in ("e1", "e2"):
+            if face in converted:
+                setattr(element, face, converted[face].to(dtype))
+    return element
 
 
 def parse_segment(

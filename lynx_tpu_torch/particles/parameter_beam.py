@@ -9,9 +9,15 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
-from lynx_tpu_torch.particles.beam import Beam, _common_shape, _resolve
+from lynx_tpu_torch.particles.beam import (
+    Beam,
+    _common_shape,
+    _host_arrays_to_device,
+    _resolve,
+)
 from lynx_tpu_torch.utils import resolve_device
 
 
@@ -94,6 +100,96 @@ class ParameterBeam(Beam):
             7, sigma_x, sigma_xp, sigma_y, sigma_yp, sigma_s, sigma_p, cor_x, cor_y, cor_s
         )
         return cls(mu=mu, cov=cov, energy=energy, total_charge=total_charge)
+
+    @classmethod
+    def from_twiss(
+        cls,
+        beta_x=None,
+        alpha_x=None,
+        emittance_x=None,
+        beta_y=None,
+        alpha_y=None,
+        emittance_y=None,
+        sigma_s=None,
+        sigma_p=None,
+        cor_s=None,
+        energy=None,
+        total_charge=None,
+        dtype: torch.dtype = torch.float32,
+        device=None,
+    ) -> "ParameterBeam":
+        """Moments from Twiss parameters: sigma = sqrt(eps beta), sigma' =
+        sqrt(eps (1 + alpha^2) / beta), cor = -eps alpha (the JAX package's
+        defaults: emittance 7.1971891e-13, beta 1)."""
+        device = resolve_device(device)
+        shape = _common_shape(
+            [beta_x, alpha_x, emittance_x, beta_y, alpha_y, emittance_y,
+             sigma_s, sigma_p, cor_s, energy, total_charge]
+        )
+
+        def resolve(value, default):
+            return _resolve(value, default, shape, dtype, device)
+
+        beta_x, alpha_x = resolve(beta_x, 1.0), resolve(alpha_x, 0.0)
+        beta_y, alpha_y = resolve(beta_y, 1.0), resolve(alpha_y, 0.0)
+        emittance_x = resolve(emittance_x, 7.1971891e-13)
+        emittance_y = resolve(emittance_y, 7.1971891e-13)
+        return cls.from_parameters(
+            sigma_x=torch.sqrt(emittance_x * beta_x),
+            sigma_xp=torch.sqrt(emittance_x * (1 + alpha_x**2) / beta_x),
+            sigma_y=torch.sqrt(emittance_y * beta_y),
+            sigma_yp=torch.sqrt(emittance_y * (1 + alpha_y**2) / beta_y),
+            sigma_s=resolve(sigma_s, 1e-6),
+            sigma_p=resolve(sigma_p, 1e-6),
+            energy=resolve(energy, 1e8),
+            cor_s=resolve(cor_s, 0.0),
+            cor_x=-emittance_x * alpha_x,
+            cor_y=-emittance_y * alpha_y,
+            total_charge=resolve(total_charge, 0.0),
+            dtype=dtype,
+            device=device,
+        )
+
+    @classmethod
+    def _from_host_moments(cls, mean, cov, energy, total_charge, dtype, device):
+        """A beam of the float64 host moments ``mean`` (6,) and ``cov``
+        (6, 6), cast on the host and copied to the device once."""
+        mu = np.ones(7)
+        mu[:6] = mean
+        cov7 = np.zeros((7, 7))
+        cov7[:6, :6] = cov
+        mu, cov7, energy, total_charge = _host_arrays_to_device(
+            [mu[None], cov7[None], np.array([energy]), np.array([total_charge])],
+            dtype, resolve_device(device),
+        )
+        return cls(mu=mu, cov=cov7, energy=energy, total_charge=total_charge)
+
+    @classmethod
+    def from_ocelot(
+        cls, parray, dtype: torch.dtype = torch.float32, device=None
+    ) -> "ParameterBeam":
+        """Moments of an Ocelot ``ParticleArray`` (duck-typed: it needs
+        ``rparticles`` (6, N), ``E`` in GeV and ``q_array``): the mean and
+        ``np.cov`` (ddof = 1) on the host."""
+        rparticles = np.asarray(parray.rparticles)
+        return cls._from_host_moments(
+            rparticles.mean(axis=1), np.cov(rparticles), 1e9 * parray.E,
+            np.sum(parray.q_array), dtype, device,
+        )
+
+    @classmethod
+    def from_astra(
+        cls, path: str, dtype: torch.dtype = torch.float32, device=None
+    ) -> "ParameterBeam":
+        """Moments of an ASTRA particle distribution file: the mean and
+        ``np.cov`` (ddof = 1) on the host."""
+        from lynx_tpu_torch.converters.astra import from_astrabeam
+
+        particles, energy, particle_charges = from_astrabeam(path)
+        return cls._from_host_moments(
+            particles.mean(axis=0), np.cov(particles.transpose()), energy,
+            np.sum(particle_charges), dtype, device,
+        )
 
     # -- statistics --------------------------------------------------------
     def _sigma(self, i: int) -> torch.Tensor:

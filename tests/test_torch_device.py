@@ -8,6 +8,8 @@ factories, and the element and beam constructors."""
 
 import json
 import sys
+from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -17,6 +19,7 @@ from torch import nn
 import lynx_tpu_torch as ltt
 from lynx_tpu_torch import utils
 from lynx_tpu_torch.converters import latticejson
+from lynx_tpu_torch.converters import ocelot_shim as shim
 from lynx_tpu_torch.envs import ares_ea
 from lynx_tpu_torch.models import ares, fodo
 from lynx_tpu_torch.particles import parameter_beam, particle_beam
@@ -88,7 +91,32 @@ ENTRY_POINTS = {
     "fodo_lattice": lambda path, **kw: fodo.fodo_lattice(2, **kw),
     "ParticleBeam": lambda path, **kw: ltt.ParticleBeam(np.tile(np.eye(7)[6], (4, 1)), 1e8, **kw),
     "ParameterBeam": lambda path, **kw: ltt.ParameterBeam(np.eye(7)[6], np.eye(7), 1e8, **kw),
+    # The beam and lattice I/O slice.
+    "ParticleBeam.from_twiss": lambda path, **kw: ltt.ParticleBeam.from_twiss(
+        num_particles=64, beta_x=5.0, emittance_x=1e-9, **kw),
+    "ParticleBeam.uniform_3d_ellipsoid": lambda path, **kw: (
+        ltt.ParticleBeam.uniform_3d_ellipsoid(num_particles=64, **kw)),
+    "ParticleBeam.make_linspaced": lambda path, **kw: ltt.ParticleBeam.make_linspaced(**kw),
+    "ParticleBeam.from_astra": lambda path, **kw: ltt.ParticleBeam.from_astra(ASTRA, **kw),
+    "ParticleBeam.from_ocelot": lambda path, **kw: ltt.ParticleBeam.from_ocelot(PARRAY, **kw),
+    "ParameterBeam.from_twiss": lambda path, **kw: ltt.ParameterBeam.from_twiss(**kw),
+    "ParameterBeam.from_astra": lambda path, **kw: ltt.ParameterBeam.from_astra(ASTRA, **kw),
+    "ParameterBeam.from_ocelot": lambda path, **kw: ltt.ParameterBeam.from_ocelot(PARRAY, **kw),
+    "Segment.from_lattice_json": lambda path, **kw: ltt.Segment.from_lattice_json(path, **kw),
+    "Segment.from_nx_tables": lambda path, **kw: ltt.Segment.from_nx_tables(NX_TABLES, **kw),
+    "Segment.from_bmad": lambda path, **kw: ltt.Segment.from_bmad(BMAD, **kw),
+    "Segment.from_ocelot": lambda path, **kw: ltt.Segment.from_ocelot(
+        [shim.Quadrupole(l=0.2, k1=4.2, eid="q"), shim.Monitor(eid="BSC1")], warnings=False,
+        **kw),
 }
+
+RESOURCES = Path(__file__).parent / "resources"
+ASTRA = str(RESOURCES / "ACHIP_EA1_2021.1351.001")
+NX_TABLES = str(RESOURCES / "nxtables_ares_stage4.csv")
+BMAD = str(RESOURCES / "bmad_tutorial_lattice.bmad")
+#: A duck-typed Ocelot ParticleArray.
+PARRAY = SimpleNamespace(rparticles=np.arange(60.0).reshape(6, 10) * 1e-6, E=0.1,
+                         q_array=np.full(10, 1e-15))
 
 
 #: What ``from_jax_arrays`` reads of a ``lynx_tpu`` drift: its class name,

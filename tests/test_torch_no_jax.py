@@ -19,6 +19,9 @@ def test_port_imports_no_jax():
         "import sys, torch\n"
         "import lynx_tpu_torch, lynx_tpu_torch.models, lynx_tpu_torch.converters\n"
         "import lynx_tpu_torch.benchmarks.hist_ab, lynx_tpu_torch.models.fodo\n"
+        "import lynx_tpu_torch.checkpoint, lynx_tpu_torch.log, lynx_tpu_torch.random\n"
+        "import lynx_tpu_torch.track_methods\n"
+        "from lynx_tpu_torch.converters import astra, bmad, nxtables, ocelot, ocelot_shim\n"
         "import chip_smoke\n"
         "from lynx_tpu_torch.models import ares_lattice\n"
         "lattice = ares_lattice(device='cpu')\n"
@@ -28,6 +31,18 @@ def test_port_imports_no_jax():
         "segment.AREABSCR1.is_active = True\n"
         "beam = lynx_tpu_torch.ParticleBeam.from_parameters(num_particles=100, device='cpu')\n"
         "lynx_tpu_torch.functional.track(segment, beam)\n"
+        "r = 'tests/resources/'\n"
+        "nx = lynx_tpu_torch.Segment.from_nx_tables(r + 'nxtables_ares_stage4.csv', device='cpu')\n"
+        "assert len(nx.elements) == 235\n"
+        "assert len(lynx_tpu_torch.Segment.from_bmad(r + 'bmad_tutorial_lattice.bmad',\n"
+        "                                            device='cpu').elements) == 3\n"
+        "cell = [ocelot_shim.Quadrupole(l=0.2, k1=4.2, eid='q'), ocelot_shim.Drift(l=0.5, eid='d')]\n"
+        "assert len(lynx_tpu_torch.Segment.from_ocelot(cell, device='cpu').elements) == 2\n"
+        "assert astra.from_astrabeam(r + 'ACHIP_EA1_2021.1351.001')[0].shape == (100000, 6)\n"
+        "import tempfile, os\n"
+        "path = os.path.join(tempfile.mkdtemp(), 'lattice.json')\n"
+        "lattice.to_lattice_json(path)\n"
+        "assert lynx_tpu_torch.Segment.from_lattice_json(path, device='cpu') == lattice\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "assert 'lynx_tpu' not in sys.modules\n"
     )
