@@ -84,7 +84,22 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    through the whole NX-tables lattice (235 elements) at 100,000 settings
    through B3, and the gradient of sum(beta_x + beta_y) through B4, held
    against the dense route in double;
-10. print the kernels' JSON line and, last, the ``{"ok": true, ...}`` line.
+10. path R, the RL-training and tuning slice (``lynx_tpu_torch.examples``):
+    R1, PPO (``ppo_ares_ea.collect_and_update``) on the env at 100,000
+    settings, rollout 16, 3 updates, every env step through B3 (16 x 3 + 1
+    launches), its first update held against the same update on the CPU in
+    double, the loss, mean reward and gradient each within 10 times the CPU
+    path's own float-against-double spread of it, env-transitions/s, the device's busy share and B3's, the top device ops
+    (``profiling.device_op_profile``), and one update at the example's 512
+    envs (dense route); R2, one ``batched_step`` at 100,000 with
+    ``log_metrics`` on: one line, ``step=1``, the observation's means; R3,
+    the tuning examples (``gradient_tuning``, ``emittance_measurement``
+    within 1% of the true emittance, ``image_tuning``); R4,
+    ``particle_fidelity_sweep`` at B = 64 through B6 and B = 8 through B5,
+    held against the plain walk in double; R5, ``debug.validate_beam`` on
+    R1's and R4's beams and ``debug.nan_debug`` on a clean card sweep and
+    on one with a NaN setting;
+11. print the kernels' JSON line and, last, the ``{"ok": true, ...}`` line.
 
 Each kernel is timed at its path's shape beside its plain version and its
 bound (``bound``: the larger of its bytes over the card's memory rate and
@@ -101,7 +116,7 @@ also beside ``torch.bmm`` of the same operands, B1 and B7 beside
 computes their function, timed here as a yardstick and never called by the
 port.
 
-It imports neither JAX nor ``lynx_tpu``.
+It imports neither JAX nor ``lynx_tpu``, nor gymnasium or matplotlib.
 """
 
 import contextlib
@@ -219,6 +234,23 @@ KERNEL_OBS_RTOL = 1e-4
 # Path A: the sweep (float) against dense functional.track (float): mu and
 # sigma relative to the plane's largest sigma, survivors within MAX_FLIPS.
 APERTURE_RTOL = 1e-4
+
+# Path R, the RL-training and tuning slice (lynx_tpu_torch.examples): PPO
+# at the env's SWEEP_BATCH settings with the example's rollout, 3 updates
+# (every env step through B3), and one update at the example's default of
+# 512 envs (the dense route); the fidelity example at its B = 64 (B6) and at
+# B = 8 (B5) on its 20,000 particles.
+PPO_ROLLOUT = 16
+PPO_UPDATES = 3
+PPO_DEFAULT_ENVS = 512
+FIDELITY_BATCHES = (64, 8)
+FIDELITY_PARTICLES = 20_000
+TUNING_STEPS = 300  # gradient_tuning's default
+# The emittance fit's bound, that of the JAX package's tests/test_tuning.py.
+EMITTANCE_RTOL = 0.01
+# R2: a metric line's values (6 significant digits, means of the batch in
+# float32) against the observation's means in double.
+METRIC_RTOL = 2e-5
 
 
 def flagship(torch, ares, ParticleBeam, batch, device, seed):
@@ -2386,6 +2418,284 @@ def path_io_nx_sweep(torch, ltt, ft, fused, hist, functional, segment_module, ca
 # -- kernel B7: the count-histogram A/B ----------------------------------------
 
 
+def relative_spread(torch, a, b):
+    """max |a - b| over the largest |b|, a tensor or each of a list of them
+    (the worst over the list)."""
+    pairs = zip(a, b) if isinstance(a, (list, tuple)) else [(a, b)]
+    return max(float((x.detach().double().cpu() - y.detach().double().cpu()).abs().max()
+                     / y.detach().double().abs().max().cpu().clamp_min(1e-300))
+               for x, y in pairs)
+
+
+def ppo_update_on_cpu(torch, envs, ppo, policy, params, magnets, noise, dtype):
+    """The first PPO update on the CPU in ``dtype``: the same weights, env
+    params, initial magnets and noise, moved to the CPU; the initial
+    observation recomputed there.  Returns (loss, mean reward, gradients)."""
+    env = envs.make_env(dtype=dtype, device="cpu")
+    params = envs.EnvParams(*(x.to("cpu", dtype) for x in params[:3]))
+    policy = copy.deepcopy(policy).to("cpu", dtype)
+    optimizer = torch.optim.Adam(policy.parameters(), lr=ppo.LEARNING_RATE)
+    magnets = magnets.to("cpu", dtype)
+    with torch.no_grad():
+        obs = env._observe(magnets, env.batched_beam_parameters(magnets, params), params.target)
+    states = envs.EnvState(magnets, torch.zeros(magnets.shape[0], dtype=torch.int32), None)
+    update = ppo.make_collect_and_update(env, params, optimizer, PPO_ROLLOUT)
+    _, _, loss, reward = update(policy, obs, states, noise=noise.to("cpu", dtype))
+    return loss, reward, [p.grad for p in policy.parameters()]
+
+
+def path_rl_ppo(torch, ft, hist, envs, ppo, profiling, card):
+    """R1: PPO on the env at SWEEP_BATCH settings, PPO_UPDATES updates of a
+    PPO_ROLLOUT rollout through ``collect_and_update``, every env step
+    through B3; the first update held against the same update on the CPU in
+    double, the loss, mean reward and gradient each within SPREAD_FACTOR
+    times the CPU path's own float-against-double spread of it;
+    env-transitions/s, the device's busy share and B3's, the
+    top device ops; one update at the example's PPO_DEFAULT_ENVS (dense
+    route).  Returns (the launches, R1's env, params and states)."""
+    B = SWEEP_BATCH
+    env = envs.make_env(device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    params = envs.default_params(gen, device="cuda", batch_shape=(B,))
+    policy = ppo.MLPPolicy(env.obs_size, env.num_actions, generator=gen, device="cuda")
+    initial_policy = copy.deepcopy(policy)
+    optimizer = torch.optim.Adam(policy.parameters(), lr=ppo.LEARNING_RATE)
+    update = ppo.make_collect_and_update(env, params, optimizer, PPO_ROLLOUT)
+    noise = torch.randn((PPO_ROLLOUT, B, env.num_actions), generator=gen, device="cuda")
+
+    reset_counts(ft, hist)
+    with plain_on_cuda_guard(torch, ft) as plain:
+        obs, states = env.batched_reset(gen, params)
+        magnets = states.magnets.clone()
+        history = []
+        for i in range(PPO_UPDATES):
+            obs, states, loss, reward = update(policy, obs, states, gen,
+                                               noise=noise if i == 0 else None)
+            if i == 0:
+                first = (loss, reward, [p.grad.clone() for p in policy.parameters()])
+            history.append((loss, reward))
+        torch.cuda.synchronize()
+    launched = counts(ft)  # the path's own launches, before any timing
+    history = [(float(loss), float(reward)) for loss, reward in history]
+    print(f"path R1: PPO at B={B} envs, rollout {PPO_ROLLOUT}, {PPO_UPDATES} updates: (loss, mean"
+          f" reward) {history}; launches {launched}, plain versions on CUDA tensors"
+          f" {plain['count']}")
+    if launched["B3"] != PPO_ROLLOUT * PPO_UPDATES + 1 or plain["count"]:
+        raise AssertionError("path R1 did not run every env step through kernel B3")
+    if not all(math.isfinite(x) for pair in history for x in pair):
+        raise AssertionError("path R1: non-finite losses")
+    if int(states.step_count[0]) != PPO_ROLLOUT * PPO_UPDATES:
+        raise AssertionError("path R1: bad step counts")
+
+    # The first update against the same update on the CPU in double.
+    start = time.perf_counter()
+    cpu = {dtype: ppo_update_on_cpu(torch, envs, ppo, initial_policy, params, magnets, noise,
+                                    dtype)
+           for dtype in (torch.float64, torch.float32)}
+    reference, other = cpu[torch.float64], cpu[torch.float32]
+    names = ("loss", "mean reward", "gradient")
+    spreads = {name: relative_spread(torch, a, b) for name, a, b in zip(names, other, reference)}
+    errors = {name: relative_spread(torch, a, b) for name, a, b in zip(names, first, reference)}
+    print(f"path R1: first update (GPU, float) against the CPU in double, each quantity within"
+          f" {SPREAD_FACTOR} x the CPU path's own float-against-double spread of it (gradient:"
+          f" each tensor's largest |difference| over its largest |value|, the worst tensor): "
+          + ", ".join(f"{name} error {errors[name]:.2e}, spread {spreads[name]:.2e}, bound"
+                      f" {SPREAD_FACTOR * spreads[name]:.2e}" for name in names)
+          + f"; CPU updates {time.perf_counter() - start:.1f} s")
+    if any(errors[name] > SPREAD_FACTOR * spreads[name] for name in names):
+        raise AssertionError("path R1: the first update disagrees with the CPU's in double")
+
+    def one_update():
+        return update(policy, obs, states, gen)
+
+    ms = cuda_ms(one_update, iters=3, warmup=1)
+    device_total, sweep = device_ms(one_update, iters=2, kernel="moment_sweep_kernel")
+    print(f"path R1: collect_and_update at B={B}, rollout {PPO_ROLLOUT}: {ms:.4f} ms/update,"
+          f" {B * PPO_ROLLOUT * 1000.0 / ms:.1f} env-transitions/s (CUDA events, 3 updates after"
+          f" warm-up); device time {device_total:.4f} ms/update (busy share"
+          f" {device_total / ms:.4f}), of it B3 {sweep:.4f} ms (share {sweep / device_total:.4f};"
+          f" torch.profiler, 2 updates; card {card})")
+    rows = profiling.device_op_profile(one_update, iters=2, top=10)
+    print("path R1: top device ops per update (profiling.device_op_profile, 2 updates):")
+    for row in rows:
+        print(f"  {row['us_per_iter']:12.2f} us  x{row['count_per_iter']:g}  {row['name'][:100]}")
+
+    # One update at the example's default width, on the dense route.
+    small_gen = torch.Generator(device="cuda").manual_seed(42)
+    small_params = envs.default_params(small_gen, device="cuda", batch_shape=(PPO_DEFAULT_ENVS,))
+    small_update = ppo.make_collect_and_update(env, small_params, optimizer, PPO_ROLLOUT)
+    small_obs, small_states = env.batched_reset(small_gen, small_params)
+    reset_counts(ft, hist)
+    _, _, small_loss, _ = small_update(policy, small_obs, small_states, small_gen)
+    torch.cuda.synchronize()
+    small_launched = counts(ft)
+    small_ms = cuda_ms(lambda: small_update(policy, small_obs, small_states, small_gen), iters=3,
+                       warmup=1)
+    print(f"path R1: one update at the example's default B={PPO_DEFAULT_ENVS} envs (dense route):"
+          f" {small_ms:.4f} ms/update, {PPO_DEFAULT_ENVS * PPO_ROLLOUT * 1000.0 / small_ms:.1f}"
+          f" env-transitions/s (CUDA events, 3 updates); launches {small_launched}; loss"
+          f" {float(small_loss):.4f} (card {card})")
+    if small_launched["B3"] or not math.isfinite(float(small_loss)):
+        raise AssertionError("path R1: the default-width update left the dense route")
+    return launched, (env, params, states)
+
+
+def path_rl_metrics(torch, envs, env_state, card):
+    """R2: one batched_step at SWEEP_BATCH with log_metrics on emits one
+    metric line, step=1 and the five keys, whose values are the step's
+    observation means; its time beside the same step with metrics off."""
+    import logging
+
+    env, params, states = env_state
+    env_on = envs.make_env(log_metrics=True, device="cuda")
+    start = envs.EnvState(states.magnets, torch.zeros_like(states.step_count), None)
+    actions = torch.tanh(states.magnets * 2.0)
+    lines = []
+    handler = logging.Handler()
+    handler.emit = lambda record: lines.append(record.getMessage())
+    logger = logging.getLogger("lynx_tpu_torch.metrics")
+    level = logger.level
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+    try:
+        obs, _, rewards, _ = env_on.batched_step(start, actions, params)
+    finally:
+        logger.removeHandler(handler)
+        logger.setLevel(level)
+    print(f"path R2: log_metrics at B={SWEEP_BATCH}: {lines}")
+    if len(lines) != 1 or not lines[0].startswith("step=1 "):
+        raise AssertionError("path R2: expected one metric line at step=1")
+    values = dict(part.split("=") for part in lines[0].split()[1:])
+    expected = dict(zip(("mu_x", "sigma_x", "mu_y", "sigma_y"),
+                        (obs[:, 5:9].double().mean(dim=0) / 1e3).tolist()))
+    expected["reward"] = float(rewards.double().mean())
+    if sorted(values) != sorted(expected):
+        raise AssertionError(f"path R2: keys {sorted(values)}")
+    columns = torch.cat([obs[:, 5:9].double() / 1e3, rewards.double()[:, None]], dim=1)
+    scales = dict(zip(("mu_x", "sigma_x", "mu_y", "sigma_y", "reward"),
+                      columns.abs().mean(dim=0).tolist()))
+    error = max(abs(float(values[k]) - v) / scales[k] for k, v in expected.items())
+    print(f"path R2: metric values against the observation's means in double: max error"
+          f" {error:.2e} of each column's mean |value| (bound {METRIC_RTOL}: 6 printed digits"
+          f" and float32 means)")
+    if error > METRIC_RTOL:
+        raise AssertionError("path R2: metric values disagree with the observation")
+    on_ms = cuda_ms(lambda: env_on.batched_step(start, actions, params), iters=10)
+    off_ms = cuda_ms(lambda: env.batched_step(start, actions, params), iters=10)
+    print(f"path R2: batched_step at B={SWEEP_BATCH}: {on_ms:.4f} ms with metrics on,"
+          f" {off_ms:.4f} ms off (CUDA events, 10 steps; card {card})")
+
+
+def path_rl_tuning(torch, gradient_tuning, emittance_measurement, image_tuning, card):
+    """R3: the tuning examples on the card: gradient_tuning's TUNING_STEPS
+    steps lower the loss, the emittance fit lands within EMITTANCE_RTOL of
+    the true emittance, image_tuning's loss falls below 1e-3 of its first
+    value (the example's own check); ms per tune step of each."""
+    for label, run, steps in (
+        ("gradient_tuning", lambda: gradient_tuning.main(TUNING_STEPS, device="cuda"),
+         TUNING_STEPS),
+        ("emittance_measurement", lambda: emittance_measurement.main(device="cuda"), 600),
+        ("image_tuning", lambda: image_tuning.main(device="cuda"), 200),
+    ):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        result = run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        if label == "gradient_tuning":
+            losses = result[1]
+            if not float(losses[-1]) < float(losses[0]) or not bool(torch.isfinite(losses).all()):
+                raise AssertionError("path R3: gradient_tuning's loss did not fall")
+            detail = f"loss {float(losses[0]):.4f} -> {float(losses[-1]):.4f} mm"
+        elif label == "emittance_measurement":
+            error = abs(result["emittance"] / result["true_emittance"] - 1)
+            if not error < EMITTANCE_RTOL:
+                raise AssertionError(f"path R3: fitted emittance {error:.2e} off")
+            detail = (f"fitted emittance {result['emittance']:.5e} against"
+                      f" {result['true_emittance']:.5e} m rad, error {error:.2e} (bound"
+                      f" {EMITTANCE_RTOL})")
+        else:
+            params, losses = result
+            detail = (f"loss {float(losses[0]):.3e} -> {float(losses[-1]):.3e}, k ="
+                      f" {[round(x, 4) for x in params.tolist()]}")
+        print(f"path R3: {label}: {detail}; {seconds * 1000.0 / steps:.4f} ms per tune step"
+              f" (the example's wall time over its {steps} steps, host clock after"
+              f" synchronize; card {card})")
+
+
+def path_rl_fidelity(torch, ft, hist, particle_fidelity_sweep, card):
+    """R4: particle_fidelity_sweep at its B = 64 (B6) and at B = 8 (B5),
+    FIDELITY_PARTICLES particles; the kernel route's moments held against
+    the plain walk in double on the CPU.  Returns the launches and the
+    example's beams."""
+    launched, beams = {}, []
+    for B in FIDELITY_BATCHES:
+        reset_counts(ft, hist)
+        with plain_on_cuda_guard(torch, ft) as plain:
+            result = particle_fidelity_sweep.main(B, FIDELITY_PARTICLES, device="cuda")
+            torch.cuda.synchronize()
+        launched[B] = counts(ft)
+        route = "B6" if B >= ft._PACK_SETTINGS else "B5"
+        other = "B5" if route == "B6" else "B6"
+        print(f"path R4: particle_fidelity_sweep at B={B}, N={FIDELITY_PARTICLES}: launches"
+              f" {launched[B]}, plain versions on CUDA tensors {plain['count']}")
+        if launched[B][route] != 1 or launched[B][other] or plain["count"]:
+            raise AssertionError(f"path R4 at B={B} did not go through kernel {route}")
+        entries, scalars, particles, weights = result["plan"]
+        mu, cov, survivors = result["moments"]
+        mu64, cov64, survivors64 = ft.sweep_particle_moments(
+            entries, [s.double().cpu() for s in scalars], particles.double().cpu(),
+            weights.double().cpu())
+        flips = float((survivors.double().cpu() - survivors64).abs().max())
+        errors = {}
+        for stat, got, want, plane in (
+            ("mu_x", mu[:, 0], mu64[:, 0], 0), ("mu_y", mu[:, 2], mu64[:, 2], 2),
+            ("sigma_x", cov[:, 0, 0].sqrt(), cov64[:, 0, 0].sqrt(), 0),
+            ("sigma_y", cov[:, 2, 2].sqrt(), cov64[:, 2, 2].sqrt(), 2),
+        ):
+            scale = float(cov64[:, plane, plane].sqrt().max())
+            errors[stat] = float((got.double().cpu() - want).abs().max()) / scale
+        print(f"path R4: B={B} kernel route against the plain walk (double, CPU): net flipped"
+              f" particles per setting <= {flips:.0f} (bound {MAX_FLIPS}); errors relative to the"
+              f" plane's largest sigma: {', '.join(f'{k} {v:.2e}' for k, v in errors.items())}"
+              f" (bound {KERNEL_OBS_RTOL}); route 1's moments against the dense push, max"
+              f" relative {result['drift']:.2e} (printed, as the example prints it; card {card})")
+        if flips > MAX_FLIPS or max(errors.values()) > KERNEL_OBS_RTOL:
+            raise AssertionError(f"path R4 at B={B}: the kernel route disagrees with the plain walk")
+        beams.append(result["beam"])
+    return launched, beams
+
+
+def path_rl_debug(torch, functional, debug, env_state, beams):
+    """R5: validate_beam passes on R1's beams (the incoming ParameterBeam of
+    SWEEP_BATCH settings and its image at the screen) and on R4's particle
+    beams; nan_debug passes a clean card sweep and raises on a NaN injected
+    into one setting of it."""
+    env, params, states = env_state
+    with torch.no_grad():
+        incoming = env._incoming(params.incoming_mu, params.incoming_sigma)
+        outgoing, _ = functional.track(env._batched_tuned_segment(states.magnets), incoming)
+    for label, beam in (("R1 incoming", incoming), ("R1 outgoing", outgoing),
+                        *((f"R4 beam {i}", b) for i, b in enumerate(beams))):
+        debug.validate_beam(beam, name=label)
+    with torch.no_grad(), debug.nan_debug():
+        clean = env.batched_beam_parameters(states.magnets, params)
+    if not bool(torch.isfinite(clean).all()):
+        raise AssertionError("path R5: the clean sweep is not finite")
+    magnets = states.magnets.clone()
+    magnets[SWEEP_BATCH // 2, 0] = float("nan")
+    try:
+        with torch.no_grad(), debug.nan_debug():
+            env.batched_beam_parameters(magnets, params)
+    except FloatingPointError as error:
+        caught = str(error)
+    else:
+        raise AssertionError("path R5: nan_debug did not raise on a NaN setting")
+    print(f"path R5: validate_beam passed on R1's incoming and outgoing beams ({SWEEP_BATCH}"
+          f" settings) and R4's {len(beams)} beams; nan_debug passed the clean sweep and raised"
+          f" on setting {SWEEP_BATCH // 2}'s NaN: {caught}")
+
+
 def hist_bound(n, win):
     """B7's bound, the same for both kernels: the indices read and the int32
     window written once.  A count histogram needs no arithmetic beyond one
@@ -2531,10 +2841,17 @@ def main():
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, cuda {torch.version.cuda}")
 
     import lynx_tpu_torch as ltt
-    from lynx_tpu_torch import ParticleBeam, _build, envs, functional, tuning
+    from lynx_tpu_torch import ParticleBeam, _build, debug, envs, functional, profiling, tuning
     from lynx_tpu_torch.accelerator import fused
     from lynx_tpu_torch.accelerator import segment as segment_module
     from lynx_tpu_torch.benchmarks import hist_ab
+    from lynx_tpu_torch.examples import (
+        emittance_measurement,
+        gradient_tuning,
+        image_tuning,
+        particle_fidelity_sweep,
+        ppo_ares_ea,
+    )
     from lynx_tpu_torch.models import ares
     from lynx_tpu_torch.ops import fused_track as ft
     from lynx_tpu_torch.ops import histogram as hist
@@ -2675,7 +2992,21 @@ def main():
                                         card))
     print(f"path I: launches {io_launches}")
 
-    # -- 10. results ---------------------------------------------------------
+    # -- 10. path R, the RL-training and tuning slice ----------------------------
+    rl_launches, env_state = path_rl_ppo(torch, ft, hist, envs, ppo_ares_ea, profiling, card)
+    path_rl_metrics(torch, envs, env_state, card)
+    path_rl_tuning(torch, gradient_tuning, emittance_measurement, image_tuning, card)
+    fidelity_launches, fidelity_beams = path_rl_fidelity(torch, ft, hist,
+                                                         particle_fidelity_sweep, card)
+    path_rl_debug(torch, functional, debug, env_state, fidelity_beams)
+    rl_launches = {
+        "B3": rl_launches["B3"],
+        "B5": sum(launched["B5"] for launched in fidelity_launches.values()),
+        "B6": sum(launched["B6"] for launched in fidelity_launches.values()),
+    }
+    print(f"path R: launches {rl_launches}")
+
+    # -- 11. results ---------------------------------------------------------
     timing["B1"] = dict(ms=read_ms, plain_ms=plain_ms, bound=b1_bound,
                         library_ms=bincount_ms)
     timing["B7 onehot"], timing["B7 twolevel"] = hist_timing["onehot"], hist_timing["twolevel"]
@@ -2686,13 +3017,14 @@ def main():
         ("particle_apply", "B2", "particle_apply.cu", "lynx_tpu/ops/pallas_track.py:1439",
          push_launches["B2"], push_abs_err),
         ("moment_sweep", "B3", "moment_sweep.cu", "lynx_tpu/ops/pallas_track.py:72",
-         serving_launches["B3"], sweep_abs_err["B3"]),
+         serving_launches["B3"] + rl_launches["B3"], sweep_abs_err["B3"]),
         ("moment_sweep_bwd", "B4", "moment_sweep_bwd.cu", "lynx_tpu/ops/pallas_track.py:249",
          training_launches["B4"], sweep_abs_err["B4"]),
         ("particle_moment_sweep", "B5", "particle_moment_sweep.cu",
-         "lynx_tpu/ops/pallas_track.py:633", walk_launches, moment_abs_err["B5"]),
+         "lynx_tpu/ops/pallas_track.py:633", walk_launches + rl_launches["B5"],
+         moment_abs_err["B5"]),
         ("packed_gram", "B6", "packed_gram.cu", "lynx_tpu/ops/pallas_track.py:823",
-         env_gram_launches + aperture_gram_launches, moment_abs_err["B6"]),
+         env_gram_launches + aperture_gram_launches + rl_launches["B6"], moment_abs_err["B6"]),
         ("hist_onehot", "B7 onehot", "hist_ab.cu", "benchmarks/hist_ab.py:94",
          hist_launches["onehot"], hist_abs_err),
         ("hist_twolevel", "B7 twolevel", "hist_ab.cu", "benchmarks/hist_ab.py:50",

@@ -9,7 +9,10 @@ Experimental Area track of a ParticleBeam and the screen read, with the windowed
 ARES-EA environment (``envs``), the gradient tuner (``tuning``), the fused
 ParameterBeam sweep with its backward, the per-setting particle push and
 the particle moment sweep, as hand-written CUDA kernels
-(``ops/fused_track.py``).  ``lynx_tpu`` (JAX)
+(``ops/fused_track.py``); the RL-training and tuning slice: ``metrics``,
+the env's Gymnasium adapter, ``debug``, ``profiling``, the lattice plots
+and the examples (``lynx_tpu_torch.examples``, PPO among them).
+``lynx_tpu`` (JAX)
 is the reference the port is held against; this package never imports JAX.
 """
 

@@ -14,7 +14,7 @@ from typing import Optional
 
 import torch
 
-from lynx_tpu_torch.accelerator.element import Element, as_field
+from lynx_tpu_torch.accelerator.element import Element, as_field, draw_patch
 from lynx_tpu_torch.particles import Beam, ParticleBeam
 from lynx_tpu_torch.utils import resolve_device
 
@@ -132,6 +132,9 @@ class Aperture(Element):
 
     def split(self, resolution: float) -> list:
         return [self]
+
+    def plot(self, ax, s: float) -> None:
+        draw_patch(ax, (s, 0), 0.0, 0.4, "tab:pink", self.is_active)
 
     @property
     def defining_features(self) -> list:

@@ -6,7 +6,7 @@ from typing import Optional
 
 import torch
 
-from lynx_tpu_torch.accelerator.element import Element
+from lynx_tpu_torch.accelerator.element import Element, draw_patch
 from lynx_tpu_torch.particles import Beam, ParameterBeam, ParticleBeam
 
 
@@ -62,6 +62,9 @@ class BPM(Element):
         )
         new_bpm.length = torch.broadcast_to(self.length, shape).clone()
         return new_bpm
+
+    def plot(self, ax, s: float) -> None:
+        draw_patch(ax, (s, -0.3), 0, 0.3 * 2, "darkkhaki", self.is_active)
 
     def split(self, resolution: float) -> list:
         return [self]

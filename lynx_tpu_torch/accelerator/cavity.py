@@ -21,7 +21,7 @@ from typing import Optional
 
 import torch
 
-from lynx_tpu_torch.accelerator.element import Element, as_field
+from lynx_tpu_torch.accelerator.element import Element, as_field, draw_patch, first_value
 from lynx_tpu_torch.constants import ELECTRON_MASS_EV, SPEED_OF_LIGHT
 from lynx_tpu_torch.ops.rmatrix import cavity_rmatrix
 from lynx_tpu_torch.particles import Beam, ParameterBeam, ParticleBeam
@@ -240,6 +240,9 @@ class Cavity(Element):
             )
             remaining -= piece
         return pieces
+
+    def plot(self, ax, s: float) -> None:
+        draw_patch(ax, (s, 0), first_value(self.length), 0.4, "gold", self.is_active)
 
     @property
     def defining_features(self) -> list:

@@ -8,7 +8,7 @@ from typing import Optional
 
 import torch
 
-from lynx_tpu_torch.accelerator.element import Element, as_field
+from lynx_tpu_torch.accelerator.element import Element, as_field, draw_patch, first_value
 from lynx_tpu_torch.ops.rmatrix import _safe_div, build_rmatrix, igamma2_from_energy
 from lynx_tpu_torch.utils import resolve_device
 
@@ -85,6 +85,10 @@ class _Corrector(Element):
             remaining -= piece
         return pieces
 
+    def plot(self, ax, s: float) -> None:
+        sign = float(torch.sign(self.angle.reshape(-1)[0])) if self.is_active else 1.0
+        draw_patch(ax, (s, 0), first_value(self.length), 0.8 * sign, self._plot_color, self.is_active)
+
     @property
     def defining_features(self) -> list:
         return super().defining_features + ["length", "angle"]
@@ -94,9 +98,11 @@ class HorizontalCorrector(_Corrector):
     """Horizontal corrector: drift + thin kick x' += angle."""
 
     _kick_row = 1
+    _plot_color = "tab:blue"
 
 
 class VerticalCorrector(_Corrector):
     """Vertical corrector: drift + thin kick y' += angle."""
 
     _kick_row = 3
+    _plot_color = "tab:cyan"

@@ -80,6 +80,9 @@ class CustomTransferMap(Element):
     def split(self, resolution: float) -> list:
         return [self]
 
+    def plot(self, ax, s: float) -> None:
+        pass
+
     @property
     def defining_features(self) -> list:
         return super().defining_features + ["transfer_map"]

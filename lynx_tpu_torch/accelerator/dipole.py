@@ -7,7 +7,7 @@ from typing import Optional
 
 import torch
 
-from lynx_tpu_torch.accelerator.element import Element, as_field
+from lynx_tpu_torch.accelerator.element import Element, as_field, draw_patch, first_value
 from lynx_tpu_torch.ops.rmatrix import base_rmatrix, build_rmatrix, rotation_matrix, sandwich
 from lynx_tpu_torch.utils import resolve_device
 
@@ -153,6 +153,10 @@ class Dipole(Element):
             )
             for i, piece in enumerate(pieces)
         ]
+
+    def plot(self, ax, s: float) -> None:
+        sign = float(torch.sign(self.angle.reshape(-1)[0])) if self.is_active else 1.0
+        draw_patch(ax, (s, 0), first_value(self.length), 0.8 * sign, "tab:green", self.is_active)
 
     @property
     def defining_features(self) -> list:

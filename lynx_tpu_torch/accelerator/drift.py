@@ -50,6 +50,9 @@ class Drift(Element):
             remaining -= piece
         return pieces
 
+    def plot(self, ax, s: float) -> None:
+        pass
+
     @property
     def defining_features(self) -> list:
         return super().defining_features + ["length"]

@@ -60,6 +60,20 @@ def apply_transfer_map(tm: torch.Tensor, beam: Beam) -> Beam:
     raise TypeError(f"Parameter incoming is of invalid type {type(beam)}")
 
 
+def first_value(value: torch.Tensor) -> float:
+    """The first entry of a (batched) field, as a host float."""
+    return float(value.reshape(-1)[0])
+
+
+def draw_patch(ax, xy: tuple, width: float, height: float, color: str, is_active: bool) -> None:
+    """An element's rectangle on a lattice plot, faded when it is inactive
+    (matplotlib is imported here, at the first plot)."""
+    from matplotlib.patches import Rectangle
+
+    alpha = 1 if is_active else 0.2
+    ax.add_patch(Rectangle(xy, width, height, color=color, alpha=alpha, zorder=2))
+
+
 def promoted_dtype(*tensors: torch.Tensor) -> torch.dtype:
     return reduce(torch.promote_types, (t.dtype for t in tensors))
 
@@ -170,6 +184,11 @@ class Element(nn.Module):
 
     def split(self, resolution: float) -> list:
         """Split into slices no longer than ``resolution`` meters."""
+        raise NotImplementedError
+
+    # -- plotting ------------------------------------------------------------
+    def plot(self, ax, s: float) -> None:
+        """Draw a representation of this element at position ``s``."""
         raise NotImplementedError
 
     # -- equality ------------------------------------------------------------

@@ -40,5 +40,8 @@ class Marker(Element):
     def is_skippable(self) -> bool:
         return True
 
+    def plot(self, ax, s: float) -> None:
+        pass
+
     def split(self, resolution: float) -> list:
         return [self]

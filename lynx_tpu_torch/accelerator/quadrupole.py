@@ -6,7 +6,7 @@ from typing import Optional
 
 import torch
 
-from lynx_tpu_torch.accelerator.element import Element, as_field
+from lynx_tpu_torch.accelerator.element import Element, as_field, draw_patch, first_value
 from lynx_tpu_torch.ops.rmatrix import base_rmatrix, misalignment_matrix, sandwich
 from lynx_tpu_torch.utils import resolve_device
 
@@ -90,6 +90,10 @@ class Quadrupole(Element):
             )
             remaining -= piece
         return pieces
+
+    def plot(self, ax, s: float) -> None:
+        sign = float(torch.sign(self.k1.reshape(-1)[0])) if self.is_active else 1.0
+        draw_patch(ax, (s, 0), first_value(self.length), 0.8 * sign, "tab:red", self.is_active)
 
     @property
     def defining_features(self) -> list:

@@ -17,7 +17,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from lynx_tpu_torch.accelerator.element import Element, as_field
+from lynx_tpu_torch.accelerator.element import Element, as_field, draw_patch
 from lynx_tpu_torch.ops.histogram import screen_histogram_2d
 from lynx_tpu_torch.particles import Beam, ParameterBeam, ParticleBeam
 from lynx_tpu_torch.utils import resolve_device
@@ -320,6 +320,9 @@ class Screen(Element):
 
     def split(self, resolution: float) -> list:
         return [self]
+
+    def plot(self, ax, s: float) -> None:
+        draw_patch(ax, (s, -0.6), 0, 0.6 * 2, "tab:green", self.is_active)
 
     @property
     def defining_features(self) -> list:

@@ -30,6 +30,7 @@ from torch import nn
 from lynx_tpu_torch.accelerator.element import (
     Element,
     apply_transfer_map,
+    first_value,
     generate_unique_name,
     promoted_dtype,
 )
@@ -235,6 +236,116 @@ class Segment(Element):
 
     def split(self, resolution: float) -> list:
         return [piece for element in self.elements for piece in element.split(resolution)]
+
+    # -- plotting ------------------------------------------------------------
+    # matplotlib is imported inside these methods (and the elements' plot).
+    def plot(self, ax, s: float) -> None:
+        """Draw the segment's elements on ``ax``, the first at position ``s``
+        (m), over a dashed beam line."""
+        element_ss = [s]
+        for element in self.elements:
+            element_ss.append(element_ss[-1] + first_value(element.length))
+
+        ax.plot([0, element_ss[-1]], [0, 0], "--", color="black")
+        for element, element_s in zip(self.elements, element_ss[:-1]):
+            element.plot(ax, element_s)
+        ax.set_ylim(-1, 1)
+        ax.set_xlabel("s (m)")
+        ax.set_yticks([])
+
+    def plot_reference_particle_traces(
+        self,
+        axx,
+        axy,
+        beam: Optional[Beam] = None,
+        num_particles: int = 10,
+        resolution: float = 0.01,
+    ) -> None:
+        """Plot the x and y traces of ``num_particles`` reference particles
+        (linspaced over ``beam``'s parameters, or the defaults) along the
+        segment, split into pieces of at most ``resolution`` m."""
+        splits = self.split(resolution)
+        ss = [0.0]
+        for split in splits:
+            ss.append(ss[-1] + first_value(split.length))
+
+        # On the segment's device, in make_linspaced's float32 as in the JAX
+        # package; tracking promotes the particles to the lattice's dtype.
+        parameters = {} if beam is None else beam.parameters
+        device = self.elements[0].length.device if len(self.elements) else None
+        initial = ParticleBeam.make_linspaced(num_particles=num_particles, **parameters,
+                                              device=device)
+        references = [initial]
+        for split in splits:
+            references.append(split.track(references[-1]))
+        references = [ref for ref in references if ref is not Beam.empty]
+
+        for ax, coordinate, label in ((axx, "xs", "x (m)"), (axy, "ys", "y (m)")):
+            traces = torch.stack(
+                [getattr(ref, coordinate).reshape(-1, num_particles)[0] for ref in references]
+            ).cpu()
+            for particle_index in range(num_particles):
+                ax.plot(ss[: len(references)], traces[:, particle_index].tolist())
+            ax.set_xlabel("s (m)")
+            ax.set_ylabel(label)
+            ax.grid()
+
+    def plot_overview(
+        self,
+        fig=None,
+        beam: Optional[Beam] = None,
+        n: int = 10,
+        resolution: float = 0.01,
+    ) -> None:
+        """The lattice's layout under its reference particle traces."""
+        import matplotlib.pyplot as plt
+
+        if fig is None:
+            fig = plt.figure()
+        gs = fig.add_gridspec(3, hspace=0, height_ratios=[2, 2, 1])
+        axs = gs.subplots(sharex=True)
+        axs[0].set_title("Reference Particle Traces")
+        self.plot_reference_particle_traces(axs[0], axs[1], beam, n, resolution)
+        self.plot(axs[2], 0)
+        plt.tight_layout()
+
+    def plot_twiss(self, beam: Beam, ax=None) -> None:
+        """beta_x and beta_y of ``beam`` along the segment, at each element
+        of non-zero length."""
+        import matplotlib.pyplot as plt
+
+        longitudinal_beams = [beam]
+        s_positions = [0.0]
+        for element in self.elements:
+            if bool(torch.all(element.length == 0)):
+                continue
+            longitudinal_beams.append(element.track(longitudinal_beams[-1]))
+            s_positions.append(s_positions[-1] + first_value(element.length))
+
+        beta_x = [first_value(b.beta_x) for b in longitudinal_beams]
+        beta_y = [first_value(b.beta_y) for b in longitudinal_beams]
+
+        if ax is None:
+            fig = plt.figure()
+            ax = fig.add_subplot(111)
+        ax.set_title("Twiss Parameters")
+        ax.set_xlabel("s (m)")
+        ax.set_ylabel(r"$\beta$ (m)")
+        ax.plot(s_positions, beta_x, label=r"$\beta_x$", c="tab:red")
+        ax.plot(s_positions, beta_y, label=r"$\beta_y$", c="tab:green")
+        ax.legend()
+        plt.tight_layout()
+
+    def plot_twiss_over_lattice(self, beam: Beam, figsize=(8, 4)) -> None:
+        """:meth:`plot_twiss` over the lattice's layout."""
+        import matplotlib.pyplot as plt
+
+        fig = plt.figure(figsize=figsize)
+        gs = fig.add_gridspec(2, hspace=0, height_ratios=[3, 1])
+        axs = gs.subplots(sharex=True)
+        self.plot_twiss(beam, ax=axs[0])
+        self.plot(axs[1], 0)
+        plt.tight_layout()
 
     @property
     def defining_features(self) -> list:

@@ -6,7 +6,7 @@ from typing import Optional
 
 import torch
 
-from lynx_tpu_torch.accelerator.element import Element, as_field
+from lynx_tpu_torch.accelerator.element import Element, as_field, draw_patch, first_value
 from lynx_tpu_torch.constants import REST_ENERGY_EV
 from lynx_tpu_torch.ops.rmatrix import build_rmatrix, misalignment_matrix, sandwich
 from lynx_tpu_torch.utils import resolve_device
@@ -106,6 +106,9 @@ class Solenoid(Element):
             )
             remaining -= piece
         return pieces or [self]
+
+    def plot(self, ax, s: float) -> None:
+        draw_patch(ax, (s, 0), first_value(self.length), 0.8, "tab:orange", self.is_active)
 
     @property
     def defining_features(self) -> list:

@@ -6,7 +6,7 @@ from typing import Optional
 
 import torch
 
-from lynx_tpu_torch.accelerator.element import Element
+from lynx_tpu_torch.accelerator.element import Element, draw_patch, first_value
 from lynx_tpu_torch.ops.rmatrix import build_rmatrix, igamma2_from_energy
 
 
@@ -62,6 +62,9 @@ class Undulator(Element):
             pieces.append(Undulator(torch.full_like(self.length, piece), is_active=self.is_active))
             remaining -= piece
         return pieces or [self]
+
+    def plot(self, ax, s: float) -> None:
+        draw_patch(ax, (s, 0), first_value(self.length), 0.4, "tab:purple", self.is_active)
 
     @property
     def defining_features(self) -> list:

@@ -63,12 +63,14 @@ def default_params(
     generator: Optional[torch.Generator] = None,
     dtype: torch.dtype = torch.float32,
     device=None,
+    batch_shape: Tuple[int, ...] = (),
 ) -> EnvParams:
     """Randomised-target default parameters (the ARES-EA task): a target
     position in [-2, 2] mm, a target size in [0.01, 1] mm and an incoming
     offset in [-0.1, 0.1] mm, drawn from ``generator`` (seed 0 on the CPU if
-    None).  They live on ``device``; without it, on the generator's device
-    if one is given, else on the card."""
+    None) for each of ``batch_shape`` instances (the JAX package vmaps its
+    ``default_params`` over keys instead).  They live on ``device``; without
+    it, on the generator's device if one is given, else on the card."""
     if device is None and generator is not None:
         device = generator.device
     device = resolve_device(device)
@@ -78,19 +80,23 @@ def default_params(
         u = torch.rand(shape, generator=generator, dtype=dtype, device=generator.device)
         return (low + (high - low) * u).to(device)
 
-    target_pos = uniform((2,), -2e-3, 2e-3)
-    target_size = uniform((2,), 1e-5, 1e-3)
-    target = torch.stack([target_pos[0], target_size[0], target_pos[1], target_size[1]])
+    target_pos = uniform((*batch_shape, 2), -2e-3, 2e-3)
+    target_size = uniform((*batch_shape, 2), 1e-5, 1e-3)
+    target = torch.stack(
+        [target_pos[..., 0], target_size[..., 0], target_pos[..., 1], target_size[..., 1]], dim=-1
+    )
+    sigma = torch.tensor([1.75e-4, 2e-5, 1.75e-4, 2e-5], dtype=dtype, device=device)
     return EnvParams(
         target=target,
-        incoming_mu=uniform((4,), -1e-4, 1e-4),
-        incoming_sigma=torch.tensor([1.75e-4, 2e-5, 1.75e-4, 2e-5], dtype=dtype, device=device),
+        incoming_mu=uniform((*batch_shape, 4), -1e-4, 1e-4),
+        incoming_sigma=sigma.expand(*batch_shape, 4),
     )
 
 
 class AresEATransverseTuning:
     """Functional ARES-EA tuning environment over ParameterBeam physics.
 
+    :param log_metrics: log each step's beam statistics and reward.
     :param energy: working-point beam energy in eV, shared by all instances.
     :param dtype, device: of the lattice and of the beams it builds; the
         device is the card unless given.
@@ -106,16 +112,14 @@ class AresEATransverseTuning:
         dtype: torch.dtype = torch.float32,
         device=None,
     ) -> None:
-        if log_metrics:
-            raise NotImplementedError(
-                "log_metrics=True emits through lynx_tpu.metrics, which is not"
-                " ported to lynx_tpu_torch yet"
-            )
         self.device = resolve_device(device)
         segment = ares_ea_segment(dtype=dtype, device=self.device)
         segment.AREABSCR1.is_active = False
         self._segment = segment
         self.energy = float(energy)
+        #: When True, every (batched) step logs the beam on the screen and
+        #: the reward (means over the batch) through ``lynx_tpu_torch.metrics``,
+        #: at the cost of one device sync a step.
         self.log_metrics = log_metrics
         self.dtype = dtype
         self._limits = torch.from_numpy(MAGNET_LIMITS).to(dtype=dtype, device=self.device)
@@ -253,6 +257,16 @@ class AresEATransverseTuning:
     def _observe(self, magnets: Tensor, beam: Tensor, target: Tensor) -> Tensor:
         return torch.cat([magnets, beam * 1e3, target * 1e3], dim=-1)
 
+    def _emit_metrics(self, beam: Tensor, rewards: Tensor, step_count: Tensor) -> None:
+        """The step's metric line: the beam on the screen and the reward,
+        means over any batch, at the first instance's step count."""
+        from lynx_tpu_torch.metrics import emit_metrics
+
+        names = ("mu_x", "sigma_x", "mu_y", "sigma_y")
+        metrics = {name: torch.mean(beam[..., i]) for i, name in enumerate(names)}
+        metrics["reward"] = torch.mean(rewards)
+        emit_metrics(metrics, step=step_count)
+
     def batched_step(
         self, states: EnvState, actions: Tensor, params: EnvParams
     ) -> Tuple[Tensor, EnvState, Tensor, Tensor]:
@@ -263,6 +277,8 @@ class AresEATransverseTuning:
         beam = self.batched_beam_parameters(magnets, params)
         rewards = -torch.sum(torch.abs(beam - params.target), dim=-1) * 1e3
         dones = next_states.step_count >= params.max_steps
+        if self.log_metrics:
+            self._emit_metrics(beam, rewards, next_states.step_count)
         return self._observe(magnets, beam, params.target), next_states, rewards, dones
 
     def batched_reset(
@@ -304,6 +320,8 @@ class AresEATransverseTuning:
         beam = self.beam_parameters(magnets, params)
         reward = -torch.sum(torch.abs(beam - params.target)) * 1e3
         done = next_state.step_count >= params.max_steps
+        if self.log_metrics:
+            self._emit_metrics(beam, reward, next_state.step_count)
         return self._observe(magnets, beam, params.target), next_state, reward, done
 
 
@@ -312,3 +330,77 @@ def make_env(
 ) -> AresEATransverseTuning:
     """The ARES-EA environment, on the card unless ``device`` says otherwise."""
     return AresEATransverseTuning(log_metrics=log_metrics, dtype=dtype, device=device)
+
+
+
+def _gym_env_class(gymnasium):
+    """The Gymnasium adapter, defined on first access (module
+    ``__getattr__``), so that importing the environment needs no
+    gymnasium."""
+
+    class AresEAGymEnv(gymnasium.Env):
+        """Gymnasium adapter around the functional environment, one instance.
+
+        :param params: the instance's ``EnvParams`` (``default_params()``
+            on ``device`` if None).
+        :param seed: seeds the ``torch.Generator`` the resets draw from.
+        :param dtype, device: of the environment; the card unless given.
+
+        Observations are numpy arrays, rewards ``float``; each step reads
+        the reward on the host, one device sync, as the Gym API needs.
+        """
+
+        metadata = {"render_modes": []}
+
+        def __init__(
+            self,
+            params: Optional[EnvParams] = None,
+            seed: int = 0,
+            dtype: torch.dtype = torch.float32,
+            device=None,
+        ):
+            self._env = make_env(dtype=dtype, device=device)
+            device = self._env.device
+            self._params = (
+                params if params is not None else default_params(dtype=dtype, device=device)
+            )
+            self._generator = torch.Generator(device=device).manual_seed(seed)
+            self._state = None
+            self.action_space = gymnasium.spaces.Box(
+                low=-1.0, high=1.0, shape=(self._env.num_actions,)
+            )
+            self.observation_space = gymnasium.spaces.Box(
+                low=-np.inf,
+                high=np.inf,
+                shape=(self._env.obs_size,),
+                dtype=torch.empty((), dtype=dtype).numpy().dtype,
+            )
+
+        def reset(self, *, seed=None, options=None):
+            super().reset(seed=seed)
+            if seed is not None:
+                self._generator.manual_seed(seed)
+            obs, self._state = self._env.reset(self._generator, self._params)
+            return obs.cpu().numpy(), {}
+
+        def step(self, action):
+            action = torch.as_tensor(
+                np.asarray(action), dtype=self._env.dtype, device=self._env.device
+            )
+            obs, self._state, reward, done = self._env.step(self._state, action, self._params)
+            return obs.cpu().numpy(), float(reward), bool(done), False, {}
+
+    return AresEAGymEnv
+
+
+def __getattr__(name: str):
+    """``AresEAGymEnv`` exists only where gymnasium imports (an optional
+    dependency); it is built on first access."""
+    if name == "AresEAGymEnv":
+        try:
+            import gymnasium
+        except ImportError:
+            raise AttributeError(f"{name} needs gymnasium, which does not import") from None
+        cls = globals()[name] = _gym_env_class(gymnasium)
+        return cls
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -158,8 +158,8 @@ def test_default_params_and_parts_not_ported(envs, monkeypatch):
     assert params.target.shape == params.incoming_mu.shape == (4,)
     assert -2e-3 <= float(params.target[0]) <= 2e-3 and 1e-5 <= float(params.target[1]) <= 1e-3
     assert bool((params.incoming_mu.abs() <= 1e-4).all())
-    with pytest.raises(NotImplementedError, match="metrics"):
-        torch_env_module.make_env(log_metrics=True, device="cpu")
+    # log_metrics is ported (tests/test_torch_metrics.py holds its lines).
+    assert torch_env_module.make_env(log_metrics=True, device="cpu").log_metrics
 
     # method="kernel", through B5's (8 settings) and B6's (48) plain versions,
     # agrees with method="moments" (exact for the linear EA) and with JAX's

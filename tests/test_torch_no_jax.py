@@ -21,6 +21,10 @@ def test_port_imports_no_jax():
         "import lynx_tpu_torch.benchmarks.hist_ab, lynx_tpu_torch.models.fodo\n"
         "import lynx_tpu_torch.checkpoint, lynx_tpu_torch.log, lynx_tpu_torch.random\n"
         "import lynx_tpu_torch.track_methods\n"
+        "import lynx_tpu_torch.metrics, lynx_tpu_torch.debug, lynx_tpu_torch.profiling\n"
+        "from lynx_tpu_torch.examples import emittance_measurement, gradient_tuning\n"
+        "from lynx_tpu_torch.examples import image_tuning, particle_fidelity_sweep\n"
+        "from lynx_tpu_torch.examples import ppo_ares_ea, simple\n"
         "from lynx_tpu_torch.converters import astra, bmad, nxtables, ocelot, ocelot_shim\n"
         "import chip_smoke\n"
         "from lynx_tpu_torch.models import ares_lattice\n"
@@ -45,6 +49,20 @@ def test_port_imports_no_jax():
         "assert lynx_tpu_torch.Segment.from_lattice_json(path, device='cpu') == lattice\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "assert 'lynx_tpu' not in sys.modules\n"
+    )
+    assert result.returncode == 0, result.stderr
+
+
+def test_port_and_chip_smoke_import_no_gymnasium_or_matplotlib():
+    """The GPU machine has neither: the Gym adapter and the plots import
+    them only when used."""
+    result = run(
+        "import sys\n"
+        "import lynx_tpu_torch, lynx_tpu_torch.envs, lynx_tpu_torch.profiling\n"
+        "import lynx_tpu_torch.debug, lynx_tpu_torch.metrics, lynx_tpu_torch.examples\n"
+        "import chip_smoke\n"
+        "for name in ('gymnasium', 'matplotlib'):\n"
+        "    assert name not in sys.modules, name\n"
     )
     assert result.returncode == 0, result.stderr
 
