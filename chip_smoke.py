@@ -99,7 +99,24 @@ Phases, each of which raises on failure (non-zero exit, no result line):
     held against the plain walk in double; R5, ``debug.validate_beam`` on
     R1's and R4's beams and ``debug.nan_debug`` on a clean card sweep and
     on one with a NaN setting;
-11. print the kernels' JSON line and, last, the ``{"ok": true, ...}`` line.
+11. path O, the ``optimize_speed`` example (``fodo_lattice(150)``, 1058
+    elements): ms per track at each of its four stages (as built; inactive
+    markers removed and inactive elements as drifts; the maps merged; the
+    merged lattice at B = 1000 settings, the dense route), then the merged
+    lattice at B = 1000 through B3 (the fused route forced), held against
+    the dense route in double, tracks/s of both;
+12. path M, the parallel layer (``lynx_tpu_torch.parallel``) in a one-rank
+    NCCL world on a 1 x 1 (batch, particles) mesh, at full width: the
+    flagship read of the 100,000-particle beam through ``shard_beam`` under
+    the particle context (B1, the image exactly the unsharded one), path
+    P's 100 x 10,000 push (B2), ``make_tuning_train_step`` over the env's
+    subcell at 100,000 settings for 10 Adam steps (B3, B4) against the
+    unsharded tuner, the settings-sharded particle moment sweep at B = 256
+    (B6), ``pipeline_track`` with one stage against ``functional.track``
+    and the ``multichip_tuning`` example; for each of the first four, the
+    kernels' launches equal to the unsharded call's, the NCCL kernels a call
+    (profiler kernel names) and both calls' ms;
+13. print the kernels' JSON line and, last, the ``{"ok": true, ...}`` line.
 
 Each kernel is timed at its path's shape beside its plain version and its
 bound (``bound``: the larger of its bytes over the card's memory rate and
@@ -2800,6 +2817,302 @@ def path_hist_ab(torch, hist, card):
     return launched, timing, float(worst)
 
 
+# -- path O, optimize_speed; path M, the parallel layer --------------------------
+
+OPTIMIZE_CELLS, OPTIMIZE_BATCH = 150, 1000  # the example's fodo_lattice(150) at 1000 settings
+# Calls timed a stage: stage 1 takes ~1.4 s a track on the card (1058 maps
+# built on the host), so fewer than the example's 20.
+OPTIMIZE_ITERS = 3
+TRAIN_MESH_STEPS = 10  # path M (b): path T's steps
+# The env's tuned magnets and their limits (k1 in 1/m^2, angles in rad).
+TUNED_MAGNETS = {"AREAMQZM1": ("k1", 30.0), "AREAMQZM2": ("k1", 30.0),
+                 "AREAMQZM3": ("k1", 30.0), "AREAMCVM1": ("angle", 6e-3),
+                 "AREAMCHM1": ("angle", 6e-3)}
+
+
+def nccl_kernels(launches):
+    """The NCCL kernels among ``device_launches``' names, and their count."""
+    names = {name: count for name, count in launches.items() if "nccl" in name.lower()}
+    return sum(names.values()), sorted(names)
+
+
+@contextlib.contextmanager
+def sweep_route(segment_module, fused, threshold=None):
+    """Force the ParameterBeam runs' route: the fused sweep (B3/B4) from
+    ``threshold`` settings, or the dense route."""
+    saved = segment_module.FUSED_SWEEP_PATH, segment_module.PALLAS_SWEEP_THRESHOLD
+    segment_module.FUSED_SWEEP_PATH = fused
+    if threshold is not None:
+        segment_module.PALLAS_SWEEP_THRESHOLD = threshold
+    try:
+        yield
+    finally:
+        segment_module.FUSED_SWEEP_PATH, segment_module.PALLAS_SWEEP_THRESHOLD = saved
+
+
+def path_optimize_speed(torch, ltt, ft, hist, segment_module, optimize_speed, card):
+    """Path O: the optimize_speed example at its own sizes (1058 elements,
+    stage 4 at B = 1000, the dense route below PALLAS_SWEEP_THRESHOLD), then
+    the merged lattice at B = 1000 through B3 (the fused route forced, its
+    threshold lowered to B), held against the dense route in double;
+    tracks/s of both."""
+    reset_counts(ft, hist)
+    results = optimize_speed.main(OPTIMIZE_CELLS, OPTIMIZE_BATCH, device="cuda",
+                                  iters=OPTIMIZE_ITERS)
+    torch.cuda.synchronize()
+    stage_launches = counts(ft)
+    for label, seconds, outgoing in results:
+        if not bool(torch.isfinite(outgoing._mu).all()):
+            raise AssertionError(f"path O: {label}: non-finite moments")
+    print(f"path O: {', '.join(f'{label} {seconds * 1e3:.4f} ms' for label, seconds, _ in results)}"
+          f" per track (CUDA events, profiling.benchmark, {OPTIMIZE_ITERS} calls); launches"
+          f" {stage_launches} (stage 4 at B={OPTIMIZE_BATCH} < PALLAS_SWEEP_THRESHOLD"
+          f" {segment_module.PALLAS_SWEEP_THRESHOLD}: the dense route); card {card}")
+    if any(stage_launches.values()):
+        raise AssertionError("path O: a kernel launched on the dense route")
+
+    lattice = optimize_speed.build_lattice(OPTIMIZE_CELLS, device="cuda")
+    beam = ltt.ParameterBeam.from_parameters(
+        sigma_x=torch.tensor([1.75e-4]), energy=torch.tensor([1e8]), device="cuda")
+    _, merged, batched_beam = optimize_speed.stages(lattice, beam, OPTIMIZE_BATCH)[3]
+
+    def track():
+        return merged.track(batched_beam)
+
+    with sweep_route(segment_module, True, OPTIMIZE_BATCH):
+        reset_counts(ft, hist)
+        with plain_on_cuda_guard(torch, ft) as plain:
+            fused = track()
+            torch.cuda.synchronize()
+        launched = counts(ft)
+        fused_ms = cuda_ms(track, iters=20)
+        device, b3 = device_ms(track, iters=5, kernel="moment_sweep_kernel")
+    if launched["B3"] != 1 or plain["count"]:
+        raise AssertionError("path O: the forced fused route did not run through kernel B3")
+    with sweep_route(segment_module, False):
+        dense_ms = cuda_ms(track, iters=20)
+        dense = merged.to(torch.float64).track(type(batched_beam)(
+            batched_beam._mu.double(), batched_beam._cov.double(), batched_beam.energy.double()))
+    error = max(relative_error(torch, getattr(fused, stat), getattr(dense, stat), per_setting=False)
+                for stat in ("mu_x", "sigma_x", "mu_y", "sigma_y"))
+    print(f"path O: the merged lattice ({len(merged.elements)} element) at B={OPTIMIZE_BATCH}:"
+          f" B3 (fused route forced) {fused_ms:.4f} ms a track"
+          f" ({OPTIMIZE_BATCH * 1000.0 / fused_ms:.1f} tracks/s), the dense route {dense_ms:.4f}"
+          f" ms ({OPTIMIZE_BATCH * 1000.0 / dense_ms:.1f} tracks/s) (CUDA events, 20 calls); B3's"
+          f" device time {b3:.5f} ms of the call's {device:.5f} ms (torch.profiler, 5 calls); B3"
+          f" (float) against the dense route in double {error:.2e} of each moment's largest"
+          f" |value| (bound {OBS_RTOL}); launches {launched}; card {card}")
+    if error > OBS_RTOL:
+        raise AssertionError("path O: B3 and the dense route disagree")
+    return launched
+
+
+def compare_parallel(torch, ft, hist, label, unsharded, sharded, mesh, card):
+    """Run ``unsharded()`` and, inside ``with mesh:``, ``sharded()`` with the
+    launch counts set to 0 before each; both runs' B1-B6 launches must be
+    equal.  For the sharded call, the collectives the layer issues (its own
+    count) and the NCCL kernels among the profiler's kernel names are
+    printed; both calls are timed in turns (unsharded, sharded, sharded,
+    unsharded; CUDA events).  Returns (unsharded result, sharded result,
+    the sharded run's launches)."""
+    from lynx_tpu_torch import _collectives
+
+    reset_counts(ft, hist)
+    with plain_on_cuda_guard(torch, ft) as plain:
+        expected = unsharded()
+        torch.cuda.synchronize()
+    alone = counts(ft)
+    alone["B1"] = hist.window_histogram.launches
+    with mesh:
+        reset_counts(ft, hist)
+        issued = _collectives.counts["all_reduce"]
+        with plain_on_cuda_guard(torch, ft) as plain_sharded:
+            actual = sharded()
+            torch.cuda.synchronize()
+        issued = _collectives.counts["all_reduce"] - issued
+        launched = counts(ft)
+        launched["B1"] = hist.window_histogram.launches
+        nccl, names = nccl_kernels(device_launches(sharded))
+    times = {"unsharded": [cuda_ms(unsharded, iters=5)]}
+    with mesh:
+        times["sharded"] = [cuda_ms(sharded, iters=5) for _ in range(2)]
+    times["unsharded"].append(cuda_ms(unsharded, iters=5))
+    sharded_ms, unsharded_ms = (sum(t) / 2 for t in (times["sharded"], times["unsharded"]))
+    print(f"path M ({label}): launches through the parallel layer {launched}, unsharded {alone};"
+          f" all-reduces issued by the layer {issued}, NCCL kernels {nccl}"
+          f" ({', '.join(names) or 'none'}; torch.profiler); {sharded_ms:.4f} ms a call through"
+          f" the parallel layer ({', '.join(f'{t:.4f}' for t in times['sharded'])}) against"
+          f" {unsharded_ms:.4f} ms unsharded ({', '.join(f'{t:.4f}' for t in times['unsharded'])})"
+          f" (CUDA events, 5 calls a turn, in turns; card {card})")
+    if launched != alone or plain["count"] or plain_sharded["count"]:
+        raise AssertionError(f"path M ({label}): the kernels' launches differ from the unsharded call's")
+    return expected, actual, launched
+
+
+def path_parallel(torch, ltt, ares, ft, hist, fused, functional, tuning, parallel,
+                  multichip_tuning, seg1, beam1, card):
+    """Path M: the parallel layer in a one-rank NCCL world on a 1 x 1
+    (batch, particles) mesh, at full width: (a) the flagship read of a
+    100,000-particle beam through shard_beam under the particle context
+    (B1); (a') path P's 100 x 10,000 push through shard_beam (B2); (b)
+    make_tuning_train_step over the env's subcell at 100,000 settings for 10
+    Adam steps (B3, B4), held to the unsharded tuner; (c) the
+    settings-sharded particle moment sweep at path A's B = 256 (B6); (d)
+    pipeline_track with one stage; (e) the multichip_tuning example."""
+    parallel.initialize(device_type="cuda")
+    mesh = parallel.make_mesh(device_type="cuda")
+    print(f"path M: world of {parallel.process_count()} rank (NCCL), mesh {mesh.shape} on"
+          f" {mesh.device}; card {card}")
+    launches = {}
+
+    # (a) the flagship read, its particle axis through shard_beam.
+    def read(beam):
+        return functional.track(seg1, beam)[1]["AREABSCR1"]
+
+    image, sharded_image, launched = compare_parallel(
+        torch, ft, hist, "a, the flagship read", lambda: read(beam1),
+        lambda: read(parallel.shard_beam(beam1, mesh)), mesh, card)
+    if launched["B1"] != hist.READ_LAUNCHES or not torch.equal(image, sharded_image):
+        raise AssertionError("path M (a): the sharded read differs from the unsharded one")
+    launches["B1"] = launched["B1"]
+
+    # (a') path P's push, beam and segment through the parallel layer.
+    segment, beam, _ = push_path_beam(torch, ares, ltt.ParticleBeam, PUSH_BATCH, PUSH_PARTICLES,
+                                      seed=43)
+    with torch.no_grad():
+        pushed, sharded_pushed, launched = compare_parallel(
+            torch, ft, hist, "a', the push", lambda: segment.track(beam).particles,
+            lambda: parallel.shard_segment(segment, mesh).track(
+                parallel.shard_beam(beam, mesh)).particles, mesh, card)
+    if launched["B2"] != 1 or not torch.equal(pushed, sharded_pushed):
+        raise AssertionError("path M (a'): the sharded push differs from the unsharded one")
+    launches["B2"] = launched["B2"]
+
+    # (b) the train step at path S's width against the unsharded tuner.
+    B = SWEEP_BATCH
+    gen = torch.Generator(device="cuda").manual_seed(51)
+
+    settings = {name: (torch.rand(B, generator=gen, device="cuda") - 0.5) * limit
+                for name, (_, limit) in TUNED_MAGNETS.items()}
+
+    def subcell():
+        segment = ares.ares_ea_segment(device="cuda")
+        segment.AREABSCR1.is_active = False
+        for name, (field, _) in TUNED_MAGNETS.items():
+            setattr(getattr(segment, name), field, settings[name].clone())
+        return segment
+    target = torch.rand((B, 4), generator=gen, device="cuda") * 1e-4
+    nominal = ltt.ParameterBeam.from_parameters(
+        sigma_x=torch.tensor([1.75e-4]), sigma_y=torch.tensor([1.75e-4]),
+        sigma_xp=torch.tensor([2e-5]), sigma_yp=torch.tensor([2e-5]),
+        energy=torch.tensor([1.073e8]), device="cuda")
+    train_beam = ltt.ParameterBeam(nominal._mu.expand(B, 7).contiguous(),
+                                   nominal._cov.expand(B, 7, 7).contiguous(), nominal.energy)
+
+    def loss_fn(segment, beam):
+        out, _ = functional.track(segment, beam)
+        observed = torch.stack([out.mu_x, out.sigma_x, out.mu_y, out.sigma_y], dim=-1)
+        return torch.mean(torch.abs(observed - target)) * 1e3
+
+    def tuned(segment):
+        return [getattr(getattr(segment, name), field).requires_grad_(True)
+                for name, (field, _) in TUNED_MAGNETS.items()]
+
+    def adam(segment):
+        # One step size per kind: k1 (O(10) 1/m^2), angles (O(1e-3) rad).
+        return torch.optim.Adam([
+            {"params": [getattr(segment, name).k1 for name in TUNED_MAGNETS
+                        if TUNED_MAGNETS[name][0] == "k1"], "lr": 5e-2},
+            {"params": [getattr(segment, name).angle for name in TUNED_MAGNETS
+                        if TUNED_MAGNETS[name][0] == "angle"], "lr": 5e-5},
+        ])
+
+    def unsharded():
+        segment = subcell()
+        tuned(segment)
+        optimizer = adam(segment)
+        _, losses = tuning.make_tuner(optimizer, loss_fn)(segment, TRAIN_MESH_STEPS, train_beam)
+        return losses, tuned(segment)
+
+    def sharded():
+        segment = parallel.shard_segment(subcell(), mesh)
+        tuned(segment)
+        optimizer = adam(segment)
+        step = parallel.make_tuning_train_step(optimizer, loss_fn)
+        losses = []
+        for _ in range(TRAIN_MESH_STEPS):
+            segment, loss = step(segment, parallel.shard_beam(train_beam, mesh))
+            losses.append(loss)
+        return torch.stack(losses), tuned(segment)
+
+    (losses, params), (sharded_losses, sharded_params), launched = compare_parallel(
+        torch, ft, hist, "b, the train step", unsharded, sharded, mesh, card)
+    loss_error = relative_error(torch, sharded_losses, losses, per_setting=False)
+    setting_error = max(relative_error(torch, a.detach(), b.detach(), per_setting=False)
+                        for a, b in zip(sharded_params, params))
+    print(f"path M (b): {TRAIN_MESH_STEPS} Adam steps at B={B}: loss {float(losses[0]):.6e} ->"
+          f" {float(losses[-1]):.6e}; through the parallel layer against the unsharded tuner:"
+          f" losses {loss_error:.2e}, final settings {setting_error:.2e} of the largest |value|"
+          f" (bounds {OBS_RTOL}, {GRAD_RTOL}: path T's)")
+    if launched["B3"] != TRAIN_MESH_STEPS or launched["B4"] != TRAIN_MESH_STEPS:
+        raise AssertionError("path M (b): the train step did not run through kernels B3 and B4")
+    if loss_error > OBS_RTOL or setting_error > GRAD_RTOL or not losses[-1] < losses[0]:
+        raise AssertionError("path M (b): the sharded train step differs from the tuner")
+    launches["B3"], launches["B4"] = launched["B3"], launched["B4"]
+
+    # (c) the settings-sharded particle moment sweep at path A's B = 256.
+    B = APERTURE_BATCHES[-1]
+    particles = moment_cloud(torch, ltt.ParticleBeam, MOMENT_PARTICLES, seed=92).particles[0]
+    weights = torch.ones(MOMENT_PARTICLES, device="cuda")
+    elements = aperture_lattice(torch, ltt, B, "rect", torch.float32)
+    entries, scalars = plan_of(torch, fused, elements, B, torch.float32)
+    local_slice = parallel.sharding.local_slice
+
+    with torch.no_grad():
+        moments, sharded_moments, launched = compare_parallel(
+            torch, ft, hist, "c, the settings-sharded sweep",
+            lambda: ft.sweep_particle_moments(entries, scalars, particles, weights),
+            lambda: ft.sweep_particle_moments(
+                entries, tuple(local_slice(s, mesh, "batch") for s in scalars), particles,
+                weights),
+            mesh, card)
+    if launched["B6"] != 1 or not all(torch.equal(a, b) for a, b in zip(moments, sharded_moments)):
+        raise AssertionError("path M (c): the settings-sharded sweep differs from the unsharded")
+    launches["B6"] = launched["B6"]
+
+    # (d) pipeline_track with one stage against functional.track.
+    pipe_mesh = parallel.make_pipeline_mesh(1, device_type="cuda")
+    segment = ares.ares_ea_segment(device="cuda")
+    segment.AREABSCR1.is_active = False
+    pipe_beam = ltt.ParameterBeam(train_beam._mu[:1024], train_beam._cov[:1024],
+                                  train_beam.energy.expand(1024).contiguous())
+    expected, _ = functional.track(segment, pipe_beam)
+    out = parallel.pipeline_track(parallel.split_into_stages(segment, 1), pipe_beam, pipe_mesh, 4)
+    error = max(relative_error(torch, getattr(out, stat), getattr(expected, stat))
+                for stat in ("_mu", "_cov"))
+    print(f"path M (d): pipeline_track, 1 stage, 4 microbatches of 256: against functional.track"
+          f" {error:.2e} per setting (bound {FLOAT_RTOL['B3']})")
+    if error > FLOAT_RTOL["B3"]:
+        raise AssertionError("path M (d): the pipeline differs from functional.track")
+
+    # (e) the multichip_tuning example at its own sizes, in this world.
+    start = time.perf_counter()
+    result = multichip_tuning.main(steps=30, device="cuda")
+    seconds = time.perf_counter() - start
+    tuner_error = relative_error(torch, torch.tensor(result["tuner_losses"]),
+                                 torch.tensor(result["losses"]), per_setting=False)
+    print(f"path M (e): multichip_tuning on mesh {result['mesh']}: loss {result['losses'][0]:.4e}"
+          f" -> {result['losses'][-1]:.4e} over 30 steps; the tuner's losses against the loop's"
+          f" {tuner_error:.2e} (bound {OBS_RTOL}); {seconds:.2f} s (host clock; card {card})")
+    if not result["losses"][-1] < result["losses"][0] or tuner_error > OBS_RTOL:
+        raise AssertionError("path M (e): the example did not tune, or its two loops disagree")
+
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    return launches
+
+
 def ptxas_report(log):
     """``kernel<args> R registers, S/L bytes spilled`` for each kernel of an
     nvcc -Xptxas -v report (spill stores / spill loads); template arguments
@@ -2845,10 +3158,13 @@ def main():
     from lynx_tpu_torch.accelerator import fused
     from lynx_tpu_torch.accelerator import segment as segment_module
     from lynx_tpu_torch.benchmarks import hist_ab
+    from lynx_tpu_torch import parallel
     from lynx_tpu_torch.examples import (
         emittance_measurement,
         gradient_tuning,
         image_tuning,
+        multichip_tuning,
+        optimize_speed,
         particle_fidelity_sweep,
         ppo_ares_ea,
     )
@@ -3006,25 +3322,36 @@ def main():
     }
     print(f"path R: launches {rl_launches}")
 
-    # -- 11. results ---------------------------------------------------------
+    # -- 11. path O, the optimize_speed example -----------------------------------
+    optimize_launches = path_optimize_speed(torch, ltt, ft, hist, segment_module, optimize_speed,
+                                            card)
+
+    # -- 12. path M, the parallel layer on a 1 x 1 mesh -----------------------------
+    mesh_launches = path_parallel(torch, ltt, ares, ft, hist, fused, functional, tuning,
+                                  parallel, multichip_tuning, seg1, beam1, card)
+    print(f"path O: launches {optimize_launches}; path M: launches {mesh_launches}")
+
+    # -- 13. results ---------------------------------------------------------
     timing["B1"] = dict(ms=read_ms, plain_ms=plain_ms, bound=b1_bound,
                         library_ms=bincount_ms)
     timing["B7 onehot"], timing["B7 twolevel"] = hist_timing["onehot"], hist_timing["twolevel"]
     kernels = []
     for name, label, source, replaces, launched, error in (
         ("window_histogram", "B1", "window_histogram.cu", "lynx_tpu/ops/histogram.py:250",
-         launches, max_abs_err),
+         launches + mesh_launches["B1"], max_abs_err),
         ("particle_apply", "B2", "particle_apply.cu", "lynx_tpu/ops/pallas_track.py:1439",
-         push_launches["B2"], push_abs_err),
+         push_launches["B2"] + mesh_launches["B2"], push_abs_err),
         ("moment_sweep", "B3", "moment_sweep.cu", "lynx_tpu/ops/pallas_track.py:72",
-         serving_launches["B3"] + rl_launches["B3"], sweep_abs_err["B3"]),
+         serving_launches["B3"] + rl_launches["B3"] + optimize_launches["B3"]
+         + mesh_launches["B3"], sweep_abs_err["B3"]),
         ("moment_sweep_bwd", "B4", "moment_sweep_bwd.cu", "lynx_tpu/ops/pallas_track.py:249",
-         training_launches["B4"], sweep_abs_err["B4"]),
+         training_launches["B4"] + mesh_launches["B4"], sweep_abs_err["B4"]),
         ("particle_moment_sweep", "B5", "particle_moment_sweep.cu",
          "lynx_tpu/ops/pallas_track.py:633", walk_launches + rl_launches["B5"],
          moment_abs_err["B5"]),
         ("packed_gram", "B6", "packed_gram.cu", "lynx_tpu/ops/pallas_track.py:823",
-         env_gram_launches + aperture_gram_launches + rl_launches["B6"], moment_abs_err["B6"]),
+         env_gram_launches + aperture_gram_launches + rl_launches["B6"] + mesh_launches["B6"],
+         moment_abs_err["B6"]),
         ("hist_onehot", "B7 onehot", "hist_ab.cu", "benchmarks/hist_ab.py:94",
          hist_launches["onehot"], hist_abs_err),
         ("hist_twolevel", "B7 twolevel", "hist_ab.cu", "benchmarks/hist_ab.py:50",

@@ -14,6 +14,7 @@ from typing import Optional
 
 import torch
 
+from lynx_tpu_torch._collectives import all_lost
 from lynx_tpu_torch.accelerator.element import Element, as_field, draw_patch
 from lynx_tpu_torch.particles import Beam, ParticleBeam
 from lynx_tpu_torch.utils import resolve_device
@@ -98,8 +99,8 @@ class Aperture(Element):
         self.lost_mask = outgoing.survival == 0
         self._last_particles = incoming.particles
         self._last_charges = incoming.particle_charges
-        if bool(self.lost_mask.all()):
-            return Beam.empty  # every particle lost
+        if all_lost(outgoing.survival):
+            return Beam.empty  # every particle lost (of every shard)
         return outgoing
 
     @property

@@ -17,6 +17,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from lynx_tpu_torch._collectives import particle_all_reduce
 from lynx_tpu_torch.accelerator.element import Element, as_field, draw_patch
 from lynx_tpu_torch.ops.histogram import screen_histogram_2d
 from lynx_tpu_torch.particles import Beam, ParameterBeam, ParticleBeam
@@ -78,12 +79,14 @@ def screen_reading_particle(
     dtype: torch.dtype = torch.float32,
     histogram_window=None,
 ) -> torch.Tensor:
-    """(..., H, W) histogram image of a particle beam."""
-    return screen_histogram_2d(
+    """(..., H, W) histogram image of a particle beam.  Over a sharded
+    particle axis each rank bins its own particles into the whole image
+    (its window placed for them) and one all-reduce sums the images."""
+    return particle_all_reduce(screen_histogram_2d(
         **screen_histogram_args(
             beam, resolution, pixel_size, binning, dtype, histogram_window
         )
-    )
+    ))
 
 
 def screen_reading_parameter(

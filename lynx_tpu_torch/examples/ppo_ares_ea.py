@@ -20,6 +20,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from lynx_tpu_torch import _collectives
 from lynx_tpu_torch.envs import make_env
 from lynx_tpu_torch.envs.ares_ea import EnvParams, EnvState, default_params
 from lynx_tpu_torch.utils import resolve_device
@@ -99,12 +100,27 @@ def make_collect_and_update(env, env_params: EnvParams, optimizer: torch.optim.O
     (obs, states, loss, mean_reward)``: the action noise is drawn from
     ``generator``, or taken from ``noise`` ``(rollout, B, act_size)``.
     After the call each parameter's ``.grad`` holds the update's gradient.
+
+    Inside ``with mesh:`` on env states, observations and params split over
+    the mesh's ``batch`` axis (``parallel.local_slice``), with the policy
+    replicated, the update is the global one: the advantages are
+    normalised, the losses and the reward averaged over every rank's
+    instances, and the gradients summed over ``batch`` before the step.
     """
     step = env.batched_step
 
     def collect_and_update(policy: MLPPolicy, obs: torch.Tensor, states: EnvState,
                            generator: Optional[torch.Generator] = None,
                            noise: Optional[torch.Tensor] = None):
+        group = _collectives.batch_group()
+        ranks = 1 if group is None else _collectives.group_size(group)
+
+        def global_sum(x):
+            return x if group is None else _collectives.all_reduce_sum(x, group)
+
+        def share_of_mean(x):  # this rank's part of the global mean
+            return x.sum() / (x.numel() * ranks)
+
         traj = []
         with torch.no_grad():
             for t in range(rollout):
@@ -135,26 +151,33 @@ def make_collect_and_update(env, env_params: EnvParams, optimizer: torch.optim.O
                 next_value = traj_val[t]
             advantages = torch.stack(advantages[::-1])
             returns = advantages + traj_val
-            # The population std, as jnp.std.
-            advantages = (advantages - advantages.mean()) / (
-                advantages.std(correction=0) + 1e-8
-            )
+            # The population std over every rank's instances, two-pass as
+            # jnp.std.
+            centre = global_sum(share_of_mean(advantages))
+            spread = torch.sqrt(global_sum(share_of_mean((advantages - centre) ** 2)))
+            advantages = (advantages - centre) / (spread + 1e-8)
 
         mean, log_std, value = policy(traj_obs)
         logp = gaussian_logp(mean, log_std, traj_act)
         ratio = torch.exp(logp - traj_logp)
-        pg = -torch.minimum(
+        pg = -share_of_mean(torch.minimum(
             ratio * advantages,
             torch.clamp(ratio, 1 - CLIP_EPS, 1 + CLIP_EPS) * advantages,
-        ).mean()
-        vf = 0.5 * ((value - returns) ** 2).mean()
+        ))
+        vf = 0.5 * share_of_mean((value - returns) ** 2)
         entropy = torch.sum(log_std + 0.5 * math.log(2 * math.pi * math.e))
-        loss = pg + 0.5 * vf - 0.001 * entropy
+        # The entropy is the replicated policy's: each rank takes its share.
+        loss = pg + 0.5 * vf - 0.001 * entropy / ranks
 
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if group is not None:
+            _collectives.all_reduce_flat(
+                [p.grad for g in optimizer.param_groups for p in g["params"]
+                 if p.grad is not None], group)
         optimizer.step()
-        return obs, states, loss.detach(), traj_rew.mean()
+        with torch.no_grad():
+            return obs, states, global_sum(loss.detach()), global_sum(share_of_mean(traj_rew))
 
     return collect_and_update
 

@@ -14,6 +14,11 @@ from typing import Optional
 import numpy as np
 import torch
 
+from lynx_tpu_torch._collectives import (
+    particle_all_reduce,
+    particle_count,
+    particle_sum,
+)
 from lynx_tpu_torch.particles.beam import (
     Beam,
     _common_shape,
@@ -24,34 +29,53 @@ from lynx_tpu_torch.particles.parameter_beam import ParameterBeam, _block_covari
 from lynx_tpu_torch.utils import resolve_device
 
 
-def _weighted_mean(values: torch.Tensor, weights: Optional[torch.Tensor]) -> torch.Tensor:
+# Every sum over the particle axis goes through ``particle_sum`` (or
+# ``particle_all_reduce``): the local sum, all-reduced over the active
+# particle group where ``parallel.shard_beam`` split the axis (``with
+# mesh:``), as XLA partitions these formulas.  Without a group it is the
+# plain local sum.
+
+
+def _weight_total(values: torch.Tensor, weights: Optional[torch.Tensor]):
+    """The weight sum over the whole particle axis; without weights, the
+    particle count (an int)."""
     if weights is None:
-        return values.mean(dim=-1)
-    total = weights.sum(dim=-1)
-    total = torch.where(total == 0, 1.0, total)
-    return (values * weights).sum(dim=-1) / total
+        return particle_count(values.shape[-1])
+    return particle_sum(weights)
+
+
+def _nonzero(total):
+    """``total`` with a zero weight sum read as one."""
+    return total if isinstance(total, int) else torch.where(total == 0, 1.0, total)
+
+
+def _weighted_mean(values: torch.Tensor, weights: Optional[torch.Tensor], total=None) -> torch.Tensor:
+    if total is None:
+        total = _weight_total(values, weights)
+    weighted = values if weights is None else values * weights
+    return particle_sum(weighted) / _nonzero(total)
 
 
 def _weighted_std(values: torch.Tensor, weights: Optional[torch.Tensor]) -> torch.Tensor:
-    """Std with Bessel correction (ddof=1) for uniform weights."""
+    """Std with Bessel correction (ddof=1) for uniform weights, in two
+    passes."""
+    total = _weight_total(values, weights)
+    squares = (values - _weighted_mean(values, weights, total)[..., None]) ** 2
     if weights is None:
-        return values.std(dim=-1, correction=1)
-    mean = _weighted_mean(values, weights)[..., None]
-    total = weights.sum(dim=-1)
+        return torch.sqrt(particle_sum(squares) / (total - 1))
     denom = torch.clamp(total - 1.0, min=1.0)
-    var = (weights * (values - mean) ** 2).sum(dim=-1) / denom
-    return torch.sqrt(var)
+    return torch.sqrt(particle_sum(weights * squares) / denom)
 
 
 def _weighted_cov(a: torch.Tensor, b: torch.Tensor, weights: Optional[torch.Tensor]) -> torch.Tensor:
     """Cross-covariance with ddof=0."""
-    mu_a = _weighted_mean(a, weights)[..., None]
-    mu_b = _weighted_mean(b, weights)[..., None]
-    if weights is None:
-        return ((a - mu_a) * (b - mu_b)).mean(dim=-1)
-    total = weights.sum(dim=-1)
-    total = torch.where(total == 0, 1.0, total)
-    return (weights * (a - mu_a) * (b - mu_b)).sum(dim=-1) / total
+    total = _weight_total(a, weights)
+    products = (a - _weighted_mean(a, weights, total)[..., None]) * (
+        b - _weighted_mean(b, weights, total)[..., None]
+    )
+    if weights is not None:
+        products = weights * products
+    return particle_sum(products) / _nonzero(total)
 
 
 class ParticleBeam(Beam):
@@ -493,7 +517,7 @@ class ParticleBeam(Beam):
     # -- charge / counts ---------------------------------------------------
     @property
     def total_charge(self) -> torch.Tensor:
-        return self.particle_charges.sum(dim=-1)
+        return particle_sum(self.particle_charges)
 
     @property
     def num_particles(self) -> int:
@@ -501,15 +525,16 @@ class ParticleBeam(Beam):
 
     @property
     def num_particles_survived(self) -> torch.Tensor:
-        """Number of alive particles (sum of survival weights)."""
+        """Number of alive particles (sum of survival weights), over the
+        whole particle axis where it is sharded."""
         if self.survival is None:
             return torch.full(
                 self.particles.shape[:-2],
-                self.num_particles,
+                particle_count(self.num_particles),
                 dtype=self.particles.dtype,
                 device=self.particles.device,
             )
-        return self.survival.sum(dim=-1)
+        return particle_sum(self.survival)
 
     # -- coordinates -------------------------------------------------------
     def _set_coordinate(self, index: int, value) -> None:
@@ -638,24 +663,18 @@ class ParticleBeam(Beam):
         Bessel (ddof=1) scaling as :attr:`sigma_x` and the others, so the
         ``sigma_*`` agree exactly; ``sigma_xxp``/``sigma_yyp`` use ddof=0
         and differ by ``(sum w - 1) / sum w``."""
-        particles = self.particles
-        weights = self.survival
+        particles, weights = self.particles, self.survival
+        total = _weight_total(particles[..., 0], weights)
         if weights is None:
-            total = torch.full(
-                particles.shape[:-2], self.num_particles,
-                dtype=particles.dtype, device=particles.device,
-            )
-            mu = particles.mean(dim=-2)
+            mu = particle_sum(particles, dim=-2) / total
+            denom = max(total - 1, 1)
         else:
-            total_raw = weights.sum(dim=-1)
-            total = torch.where(total_raw == 0, 1.0, total_raw)
-            mu = (particles * weights[..., None]).sum(dim=-2) / total[..., None]
+            mu = particle_sum(particles * weights[..., None], dim=-2) / _nonzero(total)[..., None]
+            denom = torch.clamp(total - 1.0, min=1.0)[..., None, None]
         centered = particles - mu[..., None, :]
-        denom = torch.clamp(total - 1.0, min=1.0)
         left = centered if weights is None else centered * weights[..., None]
-        cov = torch.matmul(left.transpose(-2, -1), centered)
-        cov = cov / denom[..., None, None]
-        return ParameterBeam(mu, cov, energy=self.energy, total_charge=self.total_charge)
+        gram = particle_all_reduce(torch.matmul(left.transpose(-2, -1), centered))
+        return ParameterBeam(mu, gram / denom, energy=self.energy, total_charge=self.total_charge)
 
     def __repr__(self) -> str:
         return f"{self.__class__.__name__}(n={self.num_particles!r}, {self._repr_fields()})"

@@ -20,6 +20,8 @@ from typing import Any, Callable, List, Optional
 
 import torch
 
+from lynx_tpu_torch import _collectives
+
 __all__ = ["make_tuner", "tune", "tune_until"]
 
 #: The default optimizer: Adam, learning rate 5e-2.
@@ -43,16 +45,19 @@ def make_tuner(optimizer: torch.optim.Optimizer, loss_fn: Callable[..., torch.Te
     iterations of ``optimizer``, which must already hold ``params`` (the
     trainable tensors themselves, updated in place), on ``loss_fn(params,
     *args)``.  ``losses`` is the ``(steps,)`` history, on the loss's device.
+
+    Inside ``with mesh:`` (``lynx_tpu_torch.parallel``) each step sums the
+    gradients over the ranks (``_collectives.backward``), and the history is
+    the global loss.
     """
+    tuned = [p for group in optimizer.param_groups for p in group["params"]]
 
     def tuner(params, steps: int, *args):
         losses = []
         for _ in range(steps):
             optimizer.zero_grad(set_to_none=True)
-            loss = loss_fn(params, *args)
-            loss.backward()
+            losses.append(_collectives.backward(loss_fn(params, *args), tuned))
             optimizer.step()
-            losses.append(loss.detach())
         return params, torch.stack(losses) if losses else torch.empty(0)
 
     return tuner

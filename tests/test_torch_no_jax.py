@@ -25,6 +25,8 @@ def test_port_imports_no_jax():
         "from lynx_tpu_torch.examples import emittance_measurement, gradient_tuning\n"
         "from lynx_tpu_torch.examples import image_tuning, particle_fidelity_sweep\n"
         "from lynx_tpu_torch.examples import ppo_ares_ea, simple\n"
+        "from lynx_tpu_torch.examples import multichip_tuning, optimize_speed\n"
+        "import lynx_tpu_torch.parallel, lynx_tpu_torch.benchmarks.layer_cost\n"
         "from lynx_tpu_torch.converters import astra, bmad, nxtables, ocelot, ocelot_shim\n"
         "import chip_smoke\n"
         "from lynx_tpu_torch.models import ares_lattice\n"
