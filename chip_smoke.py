@@ -116,7 +116,23 @@ Phases, each of which raises on failure (non-zero exit, no result line):
     and the ``multichip_tuning`` example; for each of the first four, the
     kernels' launches equal to the unsharded call's, the NCCL kernels a call
     (profiler kernel names) and both calls' ms;
-13. print the kernels' JSON line and, last, the ``{"ok": true, ...}`` line.
+13. path V, random element mixes through B1-B6: V1, the four lattices
+    of ``tests/resources/golden_tracking.npz`` in float64 through the dense
+    route and tiled to 16 settings through B2, held to the file at its
+    tolerances; then seeds 0-15 of ``tests/test_random_lattices.py``'s
+    generator (copied here as ``random_lattice``, 8 to 24 elements) with
+    every magnet's, corrector's and cavity's parameter drawn per setting:
+    V2, a float64 ParameterBeam at 100,000 settings through B3 and the
+    gradient of a scalar loss through B4, held against the dense route on
+    the card and, on the first 1,024 settings, against the CPU's plain
+    B3/B4; V3, (32, 10,000, 7) float64 ParticleBeams through B2 against
+    the dense push; V4, an aperture inserted mid-lattice (cavities off)
+    over one shared 100,000-particle cloud through B5 at B = 8 (float64)
+    and B6 at B = 256 (float32), each against its plain version on the card;
+    V5, a screen appended and read through B1 in count mode, the image
+    exactly the scatter's.  One JSON line per sub-phase: the lattices'
+    element kinds, the launches, the worst errors and their bounds;
+14. print the kernels' JSON line and, last, the ``{"ok": true, ...}`` line.
 
 Each kernel is timed at its path's shape beside its plain version and its
 bound (``bound``: the larger of its bytes over the card's memory rate and
@@ -146,7 +162,7 @@ import tempfile
 import time
 from pathlib import Path
 
-from lynx_tpu_torch.benchmarks.timing import cuda_ms, device_launches, device_ms
+from lynx_tpu_torch.benchmarks.timing import PROFILER_TALLY, cuda_ms, device_launches, device_ms
 
 N_PARTICLES = 100_000
 WINDOW = (952, 256)  # the flagship kernel window, after swap and rounding
@@ -1950,16 +1966,8 @@ def path_lattice_read(torch, ares, functional, hist, ParticleBeam, ParameterBeam
 def lattice_runs(fused, lattice, energy, B, torch):
     """The fused sweep's plans of a lattice's runs between its non-skippable
     elements, as ``segment._fused_flush`` builds them: (entries, values)."""
-    runs, run = [], []
-    for element in lattice.flattened().elements:
-        if element.is_skippable:
-            run.append(element)
-        elif run:
-            runs.append(run)
-            run = []
-    runs += [run] if run else []
     plans = []
-    for run in runs:
+    for run in skippable_runs(lattice.flattened().elements):
         plan = fused.plan_run([fused.element_map_builder(el) for el in run], energy,
                               lambda x: torch.broadcast_to(x, (B,)).reshape(B))
         plans.append((tuple((kind, meta, len(values)) for kind, meta, values in plan),
@@ -3113,6 +3121,715 @@ def path_parallel(torch, ltt, ares, ft, hist, fused, functional, tuning, paralle
     return launches
 
 
+# -- path V: random element mixes on kernels B1-B6 ------------------------------
+
+# The random-lattice generator of tests/test_random_lattices.py
+# (``_random_element``): each element's kind drawn from RANDOM_KINDS, then its
+# parameters from their ranges, all from one random.Random(seed) in the same
+# order, so that seed s gives the JAX suite's lattice of s
+# (tests/test_torch_random_lattices.py holds this copy to the JAX one).  Path
+# V runs seeds 0-15 at 8 to 24 elements.
+RANDOM_KINDS = ("drift", "quad", "dipole", "hcor", "vcor", "solenoid", "undulator", "cavity",
+                "marker")
+RANDOM_SEEDS = tuple(range(16))
+# The fields path V draws per setting, in the generator's own ranges:
+# every magnet's, corrector's and cavity's parameters (lengths stay fixed).
+RANDOM_FIELDS = {
+    "Quadrupole": {"k1": (-30.0, 30.0), "tilt": (-0.1, 0.1)},
+    "Dipole": {"angle": (-0.1, 0.1), "e1": (-0.02, 0.02), "e2": (-0.02, 0.02)},
+    "HorizontalCorrector": {"angle": (-5e-3, 5e-3)},
+    "VerticalCorrector": {"angle": (-5e-3, 5e-3)},
+    "Solenoid": {"k": (0.0, 5.0)},
+    "Cavity": {"voltage": (0.0, 2e6), "phase": (-30.0, 30.0)},
+}
+# The random lattices' nominal beam (tests/test_random_lattices.py's BEAM_PARAMS).
+RANDOM_BEAM = dict(mu_x=1e-5, mu_xp=2e-6, mu_y=-2e-5, mu_yp=-1e-6, sigma_x=1.75e-4,
+                   sigma_xp=2e-5, sigma_y=1.75e-4, sigma_yp=2e-5, sigma_s=8e-6, sigma_p=2e-3,
+                   energy=1e8)
+V_SLICE = 1024  # V2: the settings held against the CPU's plain B3/B4
+# V2's gradients.  The fields' units differ (a cavity's d/dvoltage is ~1e-12
+# of a corrector's d/dangle), so each is held on a scale of its own kind.
+# Against the plain B3/B4 (the slice, run on the CPU and on the card): each
+# field relative to its own largest |value|, as ``cotangent_errors`` holds
+# B4's, at FIELD_RTOL.  d/dvoltage and a dipole's d/dangle near angle 0 are
+# ill-conditioned in float64 (small differences of large terms, which an
+# ulp in the cotangents of the maps around them moves), so the plain
+# version differs from itself by up to 1.0e-10 of a field's largest between
+# the CPU and the card (seed 3's d/dvoltage; NVIDIA H100 80GB HBM3, 700 W:
+# PERF.md, path V); FIELD_RTOL is SPREAD_FACTOR times that, and the run
+# prints that spread beside each field's reading.  Against the dense
+# route (every setting): each field's cotangent times its range in
+# RANDOM_FIELDS (the loss's change over that range), relative to the
+# setting's largest such change, at ROUTE_RTOL: B4's dual numbers through
+# the table builders and autograd of the dense matrices cancel differently
+# near a zero strength (a cavity at a few kV, a dipole at a few urad).
+ROUTE_RTOL = 100 * DOUBLE_RTOL
+FIELD_RTOL = 1e-9
+V_PUSH_BATCH, V_PUSH_PARTICLES = 32, 10_000  # V3
+V_MOMENT_BATCHES = (8, 256)  # V4: B5 below _PACK_SETTINGS, B6 above
+V_APERTURE_SIGMAS = 1.5  # V4: the aperture's half-widths, |mu| + this many sigma
+V_READ_BATCH = 8  # V5: the flagship's B = 8
+V_READ_HALF_SIGMAS = 12.0  # V5: the screen's half-extent beyond the spots, in sigma
+V_READ_K_SIGMA = 6.0  # V5: the window, Screen.derive_histogram_window's default
+# V1: the JAX suite's pinned tracks (tests/test_golden_tracking.py) and its
+# tolerances; through the dense route at B = 1 and through B2 at its fewest
+# settings.
+GOLDEN = RESOURCES / "golden_tracking.npz"
+GOLDEN_RTOL, GOLDEN_ATOL, GOLDEN_ENERGY_RTOL = 1e-12, 1e-18, 1e-14
+GOLDEN_PUSH_BATCH = 16
+
+
+def random_length(seed):
+    """Elements of path V's lattice of ``seed``: 8 at seed 0 to 24 at seed 15."""
+    return 8 + 16 * seed // 15
+
+
+def random_lattice(torch, ltt, seed, n_elements, dtype=None, device="cuda"):
+    """tests/test_random_lattices.py's ``_random_segment(seed, n_elements)``
+    built on the port, float64 unless ``dtype`` says otherwise."""
+    import random
+
+    rng = random.Random(seed)
+    kw = dict(dtype=torch.float64 if dtype is None else dtype, device=device)
+
+    def a(value):
+        return torch.tensor([value], **kw)
+
+    elements = []
+    for index in range(n_elements):
+        kind = rng.choice(RANDOM_KINDS)
+        name = f"{kind}_{index}"
+        if kind == "drift":
+            element = ltt.Drift(length=a(rng.uniform(0.05, 1.0)), name=name, **kw)
+        elif kind == "quad":
+            element = ltt.Quadrupole(length=a(rng.uniform(0.05, 0.3)),
+                                     k1=a(rng.uniform(-30.0, 30.0)),
+                                     tilt=a(rng.uniform(-0.1, 0.1)), name=name, **kw)
+        elif kind == "dipole":
+            element = ltt.Dipole(length=a(rng.uniform(0.1, 0.5)), angle=a(rng.uniform(-0.1, 0.1)),
+                                 e1=a(rng.uniform(-0.02, 0.02)), e2=a(rng.uniform(-0.02, 0.02)),
+                                 name=name, **kw)
+        elif kind in ("hcor", "vcor"):
+            corrector = ltt.HorizontalCorrector if kind == "hcor" else ltt.VerticalCorrector
+            element = corrector(length=a(rng.uniform(0.01, 0.1)),
+                                angle=a(rng.uniform(-5e-3, 5e-3)), name=name, **kw)
+        elif kind == "solenoid":
+            element = ltt.Solenoid(length=a(rng.uniform(0.1, 0.5)), k=a(rng.uniform(0.0, 5.0)),
+                                   name=name, **kw)
+        elif kind == "undulator":
+            element = ltt.Undulator(length=a(rng.uniform(0.1, 0.5)), name=name, **kw)
+        elif kind == "cavity":
+            element = ltt.Cavity(length=a(rng.uniform(0.5, 1.5)),
+                                 voltage=a(rng.uniform(0.0, 2e6)),
+                                 phase=a(rng.uniform(-30.0, 30.0)), frequency=a(2.998e9),
+                                 name=name, **kw)
+        else:
+            element = ltt.Marker(name=name, **kw)
+        elements.append(element)
+    return ltt.Segment(elements, name=f"fuzz_{seed}")
+
+
+def random_settings(torch, lattice, B, seed, cavities=True):
+    """``{(element index, field): (B,) float64 host tensor}``: per-setting
+    values of RANDOM_FIELDS, drawn on the host from one seed (the same on
+    any device).  Without ``cavities`` every cavity's voltage is 0 (the
+    cavity then is a skippable, affine element); its phase is still drawn."""
+    gen = torch.Generator().manual_seed(seed)
+    settings = {}
+    for index, element in enumerate(lattice.elements):
+        for field, (low, high) in RANDOM_FIELDS.get(type(element).__name__, {}).items():
+            value = low + (high - low) * torch.rand(B, generator=gen, dtype=torch.float64)
+            settings[index, field] = torch.zeros_like(value) if (
+                field == "voltage" and not cavities) else value
+    return settings
+
+
+def apply_settings(lattice, settings, rows=slice(None), requires_grad=False):
+    """Set the lattice's fields to rows ``rows`` of ``settings``, in each
+    field's dtype and on its device; returns the new tensors."""
+    tensors = []
+    for (index, field), value in settings.items():
+        old = getattr(lattice.elements[index], field)
+        new = value[rows].to(dtype=old.dtype, device=old.device).requires_grad_(requires_grad)
+        setattr(lattice.elements[index], field, new)
+        tensors.append(new)
+    return tensors
+
+
+def random_parameter_beam(torch, ltt, B, device, dtype=None):
+    """B settings of the nominal ParameterBeam: moments (B, ...), energy (1,)."""
+    dtype = torch.float64 if dtype is None else dtype
+    nominal = ltt.ParameterBeam.from_parameters(
+        **{key: torch.tensor([value]) for key, value in RANDOM_BEAM.items()}, dtype=dtype,
+        device=device)
+    return ltt.ParameterBeam(nominal._mu.expand(B, 7).contiguous(),
+                             nominal._cov.expand(B, 7, 7).contiguous(), nominal.energy)
+
+
+def random_particle_beam(torch, ltt, B, n, seed, device, dtype=None):
+    """One cloud of ``n`` particles sampled from the nominal beam, tiled to B settings."""
+    dtype = torch.float64 if dtype is None else dtype
+    cloud = ltt.ParticleBeam.from_parameters(
+        num_particles=n, **{key: torch.tensor([value]) for key, value in RANDOM_BEAM.items()},
+        generator=torch.Generator(device=device).manual_seed(seed), dtype=dtype, device=device)
+    tiled = cloud.broadcast((B,))
+    return ltt.ParticleBeam(tiled.particles.contiguous(), tiled.energy.contiguous(),
+                            particle_charges=tiled.particle_charges.contiguous())
+
+
+def skippable_runs(elements):
+    """The maximal runs of skippable elements between the others."""
+    runs, run = [], []
+    for element in elements:
+        if element.is_skippable:
+            run.append(element)
+        elif run:
+            runs.append(run)
+            run = []
+    return runs + ([run] if run else [])
+
+
+def sweep_launches(torch, fused, lattice, beam):
+    """``(B3, B4)``: the launches of ``functional.track`` of the ParameterBeam
+    ``beam`` through ``lattice`` and its backward, from the planner: one B3
+    a run whose plan (``fused.plan_run`` at the energy the beam carries
+    there) is not empty, one B4 a such run with an input that requires grad
+    (a value of its plan, or the beam it takes in).  The elements between
+    the runs are tracked to carry the energy."""
+    b3 = b4 = 0
+    grad = any(t.requires_grad for t in (beam._mu, beam._cov, torch.as_tensor(beam.energy)))
+    run = []
+    for element in [*lattice.flattened().elements, None]:
+        if element is not None and element.is_skippable:
+            run.append(element)
+            continue
+        if run:
+            energy = torch.as_tensor(beam.energy)
+            B = beam._mu.shape[0]
+            plan = fused.plan_run([fused.element_map_builder(e) for e in run], energy,
+                                  lambda x: torch.broadcast_to(x, (B,)).reshape(B))
+            values = [v for _, _, vs in plan for v in vs]
+            if plan:
+                grad = grad or any(v.requires_grad for v in values)
+                b3, b4 = b3 + 1, b4 + int(grad)
+            run = []
+        if element is not None:
+            beam = element.track(beam)
+            grad = grad or any(t.requires_grad for t in (
+                beam._mu, beam._cov, torch.as_tensor(beam.energy)))
+    return b3, b4
+
+
+def kinds_of(lattices):
+    """Each lattice's element kinds, by seed: the JSON lines' record of the mixes."""
+    return {str(seed): [type(e).__name__ for e in lattice.elements]
+            for seed, lattice in lattices.items()}
+
+
+def path_v_golden(torch, ltt, ft, hist, card):
+    """V1: the four pinned lattices of tests/test_golden_tracking.py on the
+    card, float64: through the dense route at B = 1, and tiled to
+    GOLDEN_PUSH_BATCH settings through B2 (Segment.track's per-setting
+    push), each setting held to the file."""
+    import numpy as np
+
+    golden = np.load(GOLDEN)
+    beam = golden_beam(torch, ltt, "cuda")
+    incoming = relative_golden(torch, beam.particles, golden["incoming_particles"])
+    worst = {"dense": 0.0, "B2": 0.0, "energy": 0.0}
+    segments = golden_segments(torch, ltt, "cuda")
+    reset_counts(ft, hist)
+    with plain_on_cuda_guard(torch, ft) as plain:
+        for name, elements in segments.items():
+            segment = ltt.Segment(elements)
+            want = golden[f"{name}_particles"]
+            dense = segment.track(beam)  # B = 1: below the push's 16 settings
+            tiled = beam.broadcast((GOLDEN_PUSH_BATCH,))
+            pushed = segment.track(ltt.ParticleBeam(tiled.particles.contiguous(),
+                                                    tiled.energy.contiguous()))
+            worst["dense"] = max(worst["dense"], relative_golden(torch, dense.particles, want))
+            worst["B2"] = max(worst["B2"], relative_golden(
+                torch, pushed.particles, np.broadcast_to(want, (GOLDEN_PUSH_BATCH, *want.shape[1:]))))
+            for out in (dense, pushed):
+                energy = out.energy.detach().double().cpu().numpy()
+                expected = golden[f"{name}_energy"]
+                worst["energy"] = max(worst["energy"], float(np.max(
+                    np.abs(energy - expected) / np.abs(expected))))
+        torch.cuda.synchronize()
+    launched = counts(ft)
+    line = {"path": "V1", "what": "tests/resources/golden_tracking.npz's four lattices, dense"
+            f" route at B=1 and B2 at B={GOLDEN_PUSH_BATCH}, float64",
+            "lattices": {name: [type(e).__name__ for e in elements]
+                         for name, elements in segments.items()},
+            "launches": {"B2": launched["B2"]}, "plain_on_cuda": plain["count"],
+            "max_err": {"incoming": incoming, **worst},
+            "bounds": {"particles": f"rtol {GOLDEN_RTOL}, atol {GOLDEN_ATOL}",
+                       "energy": f"rtol {GOLDEN_ENERGY_RTOL}"},
+            "card": card}
+    print(json.dumps(line))
+    runs = sum(len(skippable_runs(elements)) for elements in segments.values())
+    if launched["B2"] != runs or plain["count"]:
+        raise AssertionError("V1: a golden lattice did not go through kernel B2")
+    if max(incoming, worst["dense"], worst["B2"]) > 1 or worst["energy"] > GOLDEN_ENERGY_RTOL:
+        raise AssertionError("V1: the card's tracks leave the golden file's tolerances")
+    return launched["B2"]
+
+
+def relative_golden(torch, actual, expected):
+    """The worst |actual - expected| in units of the golden tolerance
+    (GOLDEN_ATOL + GOLDEN_RTOL |expected|): at most 1 passes."""
+    import numpy as np
+
+    actual = actual.detach().double().cpu().numpy()
+    return float(np.max(np.abs(actual - expected) / (GOLDEN_ATOL + GOLDEN_RTOL * np.abs(expected))))
+
+
+def golden_beam(torch, ltt, device):
+    """tests/test_golden_tracking.py's linspaced float64 beam of 32 particles."""
+    f64 = torch.float64
+
+    def t(value):
+        return torch.tensor([value], dtype=f64)
+
+    return ltt.ParticleBeam.make_linspaced(
+        num_particles=32, mu_x=t(1e-4), mu_xp=t(-2e-5), mu_y=t(-5e-5), mu_yp=t(1e-5),
+        sigma_x=t(2e-4), sigma_xp=t(3e-5), sigma_y=t(1.5e-4), sigma_yp=t(2.5e-5),
+        sigma_s=t(1e-5), sigma_p=t(2e-3), energy=t(1.2e8), dtype=f64, device=device)
+
+
+def golden_segments(torch, ltt, device):
+    """tests/test_golden_tracking.py's four lattices, float64 on ``device``."""
+    kw = dict(dtype=torch.float64, device=device)
+
+    def t(value):
+        return torch.tensor([value], **kw)
+
+    return {
+        "dqd": [ltt.Drift(t(0.5), **kw), ltt.Quadrupole(t(0.23), k1=t(4.2), tilt=t(0.1), **kw),
+                ltt.Drift(t(0.5), **kw)],
+        "bend_line": [
+            ltt.Dipole(t(0.31), angle=t(0.12), e1=t(0.05), e2=t(0.03), fringe_integral=t(0.4),
+                       gap=t(0.05), tilt=t(0.2), **kw),
+            ltt.Drift(t(0.4), **kw),
+            ltt.RBend(t(0.25), angle=t(-0.08), **kw)],
+        "sol_und_corr": [
+            ltt.Solenoid(t(0.4), k=t(1.3), misalignment=torch.tensor([[1e-4, -2e-4]], **kw), **kw),
+            ltt.Undulator(t(0.35), **kw),
+            ltt.HorizontalCorrector(t(0.1), angle=t(3e-4), **kw),
+            ltt.VerticalCorrector(t(0.1), angle=t(-2e-4), **kw)],
+        "cavity_line": [
+            ltt.Drift(t(0.2), **kw),
+            ltt.Cavity(t(1.0377), voltage=t(1.815975e7), phase=t(-12.0), frequency=t(1.3e9),
+                       **kw),
+            ltt.Drift(t(0.2), **kw)],
+    }
+
+
+def random_sweep_loss(torch, outgoing):
+    return torch.sum(outgoing.sigma_x + outgoing.sigma_y + outgoing.mu_x + outgoing.mu_y)
+
+
+def random_sweep(torch, ltt, functional, seed, B, device, rows=slice(None), settings=None):
+    """Seed ``seed``'s lattice on ``device`` at ``B`` settings (rows
+    ``rows`` of ``settings`` if given): the tracked ParameterBeam, the
+    tuned tensors and their gradients of ``random_sweep_loss``."""
+    lattice = random_lattice(torch, ltt, seed, random_length(seed), device=device)
+    if settings is None:
+        settings = random_settings(torch, lattice, B, seed)
+    tuned = apply_settings(lattice, settings, rows, requires_grad=True)
+    outgoing, _ = functional.track(lattice, random_parameter_beam(torch, ltt, B, device))
+    grads = torch.autograd.grad(random_sweep_loss(torch, outgoing), tuned)
+    return lattice, settings, outgoing, tuned, grads
+
+
+def gradient_errors(torch, lattice, grads, expected, tuned, settings):
+    """``(common, own, worst d/dk1 at |k1| < K1_SMALL)``, each tuned field's
+    gradient against ``expected`` as ``{(index, field): error}`` on V2's two
+    scales: ``common`` its error times the field's range in RANDOM_FIELDS,
+    relative to the setting's largest |expected| times range over its
+    fields; ``own`` relative to the field's largest |expected|.  d/dk1
+    entries at |k1| < K1_SMALL are held apart (relative to the entry)."""
+    errors, scaled, own, small_worst = {}, [], {}, 0.0
+    for key, g, e, t in zip(settings, grads, expected, tuned):
+        g, e = g.detach().double(), e.detach().double().to(g.device)
+        error = (g - e).abs()
+        if key[1] == "k1":
+            small = t.detach().abs().to(g.device) < K1_SMALL
+            if bool(small.any()):
+                small_worst = max(small_worst, float(
+                    (error[small] / e.abs()[small].clamp_min(1e-300)).max()))
+            error = torch.where(small, 0.0, error)
+            e = torch.where(small, 0.0, e)
+        low, high = RANDOM_FIELDS[type(lattice.elements[key[0]]).__name__][key[1]]
+        own[key] = float(error.max() / e.abs().max().clamp_min(1e-300))
+        errors[key] = error * (high - low)
+        scaled.append(e.abs() * (high - low))
+    if not scaled:
+        return {}, {}, small_worst
+    scale = torch.stack(scaled).amax(dim=0).clamp_min(1e-300)
+    common = {key: float((error / scale).max()) for key, error in errors.items()}
+    return common, own, small_worst
+
+
+def slice_sweep(torch, ltt, ft, functional, segment_module, seed, settings, device):
+    """The first V_SLICE settings of ``settings`` through the plain B3/B4 on
+    ``device`` (``random_sweep``'s outputs): on the card the wrappers take
+    the plain versions for the call."""
+    saved = {name: getattr(ft, name) for name in ("_moment_sweep_cuda", "_moment_sweep_bwd_cuda")}
+    threshold = segment_module.PALLAS_SWEEP_THRESHOLD
+    segment_module.FUSED_SWEEP_PATH, segment_module.PALLAS_SWEEP_THRESHOLD = True, 1
+    ft._moment_sweep_cuda, ft._moment_sweep_bwd_cuda = (ft._table_reference_sweep,
+                                                        ft._reference_sweep_vjp)
+    try:
+        return random_sweep(torch, ltt, functional, seed, V_SLICE, device,
+                            rows=slice(0, V_SLICE), settings=settings)
+    finally:
+        segment_module.FUSED_SWEEP_PATH = None
+        segment_module.PALLAS_SWEEP_THRESHOLD = threshold
+        for name, function in saved.items():
+            setattr(ft, name, function)
+
+
+def path_v_sweep(torch, ltt, ft, hist, fused, functional, segment_module, card):
+    """V2: each random lattice at SWEEP_BATCH settings (RANDOM_FIELDS drawn
+    per setting), a float64 ParameterBeam through B3 and the gradient of
+    ``random_sweep_loss`` through B4, launched as the planner predicts
+    (``sweep_launches``).  The moments are held to DOUBLE_RTOL of each
+    setting's largest entry: all settings against the dense route on the
+    card, the first V_SLICE against the CPU's plain B3.  The gradients (see
+    FIELD_RTOL): the slice against the plain B3/B4 on the CPU and on the
+    card on each field's own scale at FIELD_RTOL, every setting against the
+    dense route on the loss's scale at ROUTE_RTOL; d/dk1 at |k1| < K1_SMALL
+    to K1_SMALL_RTOL of the entry."""
+    B = SWEEP_BATCH
+    launched_total = {"B3": 0, "B4": 0}
+    worst = dict(forward=0.0, slice_forward=0.0, gradient=0.0, field=0.0, plain_spread=0.0,
+                 small_k1=0.0)
+    by_field = {}  # field name -> the readings where it is worst on its own scale
+    lattices, worst_dense = {}, (-1.0, None)
+    for seed in RANDOM_SEEDS:
+        reset_counts(ft, hist)
+        with plain_on_cuda_guard(torch, ft) as plain:
+            lattice, settings, out, tuned, grads = random_sweep(
+                torch, ltt, functional, seed, B, "cuda")
+            torch.cuda.synchronize()
+        launched = counts(ft)
+        lattices[seed] = lattice
+        expected = sweep_launches(torch, fused, lattice,
+                                  random_parameter_beam(torch, ltt, B, "cuda"))
+        if ((launched["B3"], launched["B4"]) != expected or plain["count"]
+                or launched["B2"] + launched["B5"] + launched["B6"]):
+            raise AssertionError(f"V2 seed {seed}: {launched}, the planner's (B3, B4)"
+                                 f" {expected}, plain versions on CUDA tensors {plain['count']}")
+        for key in launched_total:
+            launched_total[key] += launched[key]
+
+        segment_module.FUSED_SWEEP_PATH = False
+        try:
+            _, _, dense, _, dense_grads = random_sweep(
+                torch, ltt, functional, seed, B, "cuda", settings=settings)
+        finally:
+            segment_module.FUSED_SWEEP_PATH = None
+        forward = max(relative_error(torch, a, b) for a, b in
+                      ((out._mu, dense._mu), (out._cov, dense._cov)))
+        against_dense, dense_own, small = gradient_errors(
+            torch, lattice, grads, dense_grads, tuned, settings)
+
+        # The first V_SLICE settings through the plain B3/B4, on the CPU and
+        # on the card; the plain version's own spread between the two, and
+        # between it and the dense route on the card.
+        _, _, host, host_tuned, host_grads = slice_sweep(
+            torch, ltt, ft, functional, segment_module, seed, settings, "cpu")
+        *_, card_grads = slice_sweep(torch, ltt, ft, functional, segment_module, seed, settings,
+                                     "cuda")
+        rows = slice(0, V_SLICE)
+        slice_forward = max(relative_error(torch, a[rows].cpu(), b) for a, b in
+                            ((out._mu, host._mu), (out._cov, host._cov)))
+        on_slice = [g[rows] for g in grads]
+        _, cpu_own, slice_small = gradient_errors(torch, lattice, on_slice, host_grads,
+                                                  host_tuned, settings)
+        _, card_own, _ = gradient_errors(torch, lattice, on_slice, card_grads, host_tuned,
+                                         settings)
+        _, devices, _ = gradient_errors(torch, lattice, card_grads, host_grads, host_tuned,
+                                        settings)
+        _, routes, _ = gradient_errors(torch, lattice, [g[rows] for g in dense_grads],
+                                       card_grads, host_tuned, settings)
+        field = {key: max(cpu_own[key], card_own[key]) for key in cpu_own}
+        spread = {key: max(devices[key], routes[key]) for key in cpu_own}
+        for key, value in (("forward", forward), ("slice_forward", slice_forward),
+                           ("gradient", max(against_dense.values(), default=0.0)),
+                           ("field", max(field.values(), default=0.0)),
+                           ("plain_spread", max(spread.values(), default=0.0)),
+                           ("small_k1", max(small, slice_small))):
+            worst[key] = max(worst[key], value)
+        for key, value in field.items():
+            index, name = key
+            at = f"seed {seed}, {type(lattice.elements[index]).__name__} {index}"
+            if against_dense[key] >= worst_dense[0]:
+                worst_dense = (against_dense[key], f"{at}, d/d{name}")
+            if value >= by_field.get(name, {}).get("field", -1.0):
+                by_field[name] = {"at": at, "field": value, "against_cpu_plain": cpu_own[key],
+                                  "against_card_plain": card_own[key],
+                                  "plain_cpu_vs_card": devices[key],
+                                  "plain_vs_dense": routes[key],
+                                  "against_dense_own_scale": dense_own[key]}
+        if (max(forward, slice_forward) > DOUBLE_RTOL
+                or max(against_dense.values(), default=0.0) > ROUTE_RTOL
+                or max(field.values(), default=0.0) > FIELD_RTOL
+                or max(small, slice_small) > K1_SMALL_RTOL):
+            raise AssertionError(
+                f"V2 seed {seed}: B3 against the dense route {forward}, against the CPU's plain"
+                f" B3 {slice_forward}; B4 against the dense route on the loss's scale"
+                f" {against_dense}; on each field's own scale against the plain B4 on the CPU"
+                f" {cpu_own} and on the card {card_own} (the plain version's own spread"
+                f" {spread}); d/dk1 at small k1 {small}, {slice_small}")
+    print(json.dumps({
+        "path": "V2", "what": f"random lattices at B={B} settings, float64 ParameterBeam: B3"
+        f" forward against the dense route on the card and, first {V_SLICE} settings, the"
+        " CPU's plain B3; B4's gradient against the dense route on the loss's scale (each"
+        " cotangent times its field's range, of the setting's largest) and, the slice, against"
+        " the plain B4 on the CPU and on the card on each field's own scale",
+        "lattices": kinds_of(lattices), "launches": launched_total, "max_err": worst,
+        "gradient_at": worst_dense[1], "bounds": {
+            "forward": DOUBLE_RTOL, "slice_forward": DOUBLE_RTOL, "gradient": ROUTE_RTOL,
+            "field": FIELD_RTOL, "small_k1": K1_SMALL_RTOL},
+        "by_field": by_field, "card": card}))
+    return launched_total
+
+
+def path_v_push(torch, ltt, ft, hist, segment_module, card):
+    """V3: each random lattice at V_PUSH_BATCH settings (RANDOM_FIELDS per
+    setting) over a (V_PUSH_BATCH, V_PUSH_PARTICLES, 7) float64 beam,
+    Segment.track through B2 (the cavities between the runs), held against
+    the dense push to DOUBLE_RTOL of each setting's largest entry."""
+    B, N = V_PUSH_BATCH, V_PUSH_PARTICLES
+    total, worst, lattices = 0, 0.0, {}
+    for seed in RANDOM_SEEDS:
+        lattice = random_lattice(torch, ltt, seed, random_length(seed))
+        apply_settings(lattice, random_settings(torch, lattice, B, seed))
+        beam = random_particle_beam(torch, ltt, B, N, seed, "cuda")
+        lattices[seed] = lattice
+        reset_counts(ft, hist)
+        with torch.no_grad(), plain_on_cuda_guard(torch, ft) as plain:
+            pushed = lattice.track(beam)
+            torch.cuda.synchronize()
+        launched = counts(ft)
+        runs = len(skippable_runs(lattice.elements))
+        if launched["B2"] != runs or plain["count"]:
+            raise AssertionError(f"V3 seed {seed}: B2 launches {launched['B2']} over {runs} runs,"
+                                 f" plain versions on CUDA tensors {plain['count']}")
+        total += launched["B2"]
+        segment_module.PARTICLE_SWEEP_PATH = False
+        try:
+            with torch.no_grad():
+                dense = lattice.track(beam)
+        finally:
+            segment_module.PARTICLE_SWEEP_PATH = None
+        error = relative_error(torch, pushed.particles, dense.particles)
+        worst = max(worst, error)
+        if error > DOUBLE_RTOL or not bool(torch.isfinite(pushed.particles).all()):
+            raise AssertionError(f"V3 seed {seed}: B2 and the dense push disagree: {error}")
+    print(json.dumps({
+        "path": "V3", "what": f"random lattices, ({B}, {N}, 7) float64 ParticleBeams,"
+        " Segment.track through B2 against the dense push",
+        "lattices": kinds_of(lattices), "launches": {"B2": total},
+        "max_err": {"particles": worst}, "bounds": {"particles": DOUBLE_RTOL}, "card": card}))
+    return total
+
+
+def aperture_of(torch, ltt, functional, elements, B, dtype, device="cuda"):
+    """An aperture for the end of ``elements`` (the first half of a random
+    lattice at B settings): its half-width in each plane the median over
+    the settings of |mu| + V_APERTURE_SIGMAS sigma there (the nominal
+    ParameterBeam, dense route), so that it cuts into most settings' spots
+    and closes on some."""
+    with torch.no_grad():
+        at, _ = functional.track(ltt.Segment(elements),
+                                 random_parameter_beam(torch, ltt, B, device))
+    kw = dict(dtype=dtype, device=device)
+    half_widths = [float((mu.abs() + V_APERTURE_SIGMAS * sigma).median())
+                   for mu, sigma in ((at.mu_x, at.sigma_x), (at.mu_y, at.sigma_y))]
+    return ltt.Aperture(x_max=torch.tensor([half_widths[0]], **kw),
+                        y_max=torch.tensor([half_widths[1]], **kw), name="aperture_mid", **kw)
+
+
+def band_errors(torch, ft, kernel_operands, plain_operands, got):
+    """B6's float sums ``got`` against its plain version in double on the
+    rounded inputs, each setting bounded by what flips can contribute.  A
+    particle flips across a rectangular aperture's edge only within the
+    band where the kernel's plane value can differ from the plain one's:
+    the float plane coefficients' difference from the double ones plus
+    float rounding of the plane's k-term sum (gamma_k of its |terms|), times
+    each aug row's largest |value|.  The plain version at the edges moved
+    out and in by that band gives the band's particles: their count n and
+    the diagonal D of their second-moment sums.  By Cauchy-Schwarz flips move
+    s2[r, c] by at most sqrt(D_r D_c) and s1[r] by sqrt(n D_r), on top of
+    MOMENT_FLOAT_RTOL on ``sum_errors``' scales; and each setting's
+    survivors lie between the two.  Returns (worst error in units of its
+    bound, the survivors outside the band, readings of the worst setting)."""
+    apertures, planes, bounds, aug, w0 = plain_operands
+    unit = torch.finfo(torch.float32).eps / 2
+    reach = aug.abs().amax(dim=1)  # each aug row's largest |value|
+    difference = (kernel_operands[1].double() - planes).abs()
+    wide, narrow = bounds.clone(), bounds.clone()
+    row = 0
+    for a, (shape, x_rows, y_rows) in enumerate(apertures):
+        if shape != "rectangular":
+            raise ValueError("band_errors: rectangular apertures only")
+        for plane, aug_rows in enumerate((x_rows, y_rows)):
+            k = len(aug_rows)
+            gamma = k * unit / (1 - k * unit)
+            rows = slice(row, row + k)
+            band = ((difference[rows] + gamma * planes[rows].abs()) * reach[list(aug_rows), None]
+                    ).sum(dim=0) + (kernel_operands[2][a, plane].double() - bounds[a, plane]).abs()
+            wide[a, plane] = bounds[a, plane] + band
+            narrow[a, plane] = (bounds[a, plane] - band).clamp_min(0.0)
+            row += k
+    want = gram_sums(ft.packed_gram_reference(apertures, planes, bounds, aug, w0))
+    outer = gram_sums(ft.packed_gram_reference(apertures, planes, wide, aug, w0))
+    inner = gram_sums(ft.packed_gram_reference(apertures, planes, narrow, aug, w0))
+    s1, s2, w = (t.detach().double() for t in got)
+    e1, e2, ew = want
+    n = outer[2] - inner[2]
+    D = (outer[1] - inner[1]).diagonal(dim1=1, dim2=2).clamp_min(0.0)
+    scale2 = e2.abs().amax(dim=(1, 2)).clamp_min(1e-300)
+    scale1 = (ew.clamp_min(1.0) * e2.diagonal(dim1=1, dim2=2).abs().amax(dim=1)).sqrt()
+    bound2 = MOMENT_FLOAT_RTOL * scale2[:, None, None] + (D[:, :, None] * D[:, None, :]).sqrt()
+    bound1 = MOMENT_FLOAT_RTOL * scale1[:, None] + (n[:, None] * D).sqrt()
+    error = torch.maximum(((s2 - e2).abs() / bound2.clamp_min(1e-300)).amax(dim=(1, 2)),
+                          ((s1 - e1).abs() / bound1.clamp_min(1e-300)).amax(dim=1))
+    outside = int(((w < inner[2]) | (w > outer[2])).sum())
+    worst = int(error.argmax())
+    return float(error[worst]), outside, {
+        "W": float(ew[worst]), "flips": float((w - ew)[worst]), "band": float(n[worst]),
+        "most_flips": float((w - ew).abs().max()), "largest_band": float(n.max())}
+
+
+def path_v_moments(torch, ltt, ft, hist, fused, functional, ParticleBeam, card):
+    """V4: each random lattice with its cavities switched off (voltage 0:
+    the plan takes affine maps only) and an aperture inserted mid-lattice,
+    over one shared MOMENT_PARTICLES cloud: B5 at B = 8 in float64 and B6 at
+    B = 256 in float32 (sweep_particle_moments), each against its plain
+    version on the card on the same operands (B5 to MOMENT_DOUBLE_RTOL with
+    equal weight sums; B6 against the double plain version on the rounded
+    inputs within ``band_errors``' bound, its survivors within the
+    apertures' rounding band, at most MAX_FLIPS net flips a setting)."""
+    totals = {"B5": 0, "B6": 0}
+    worst = {"B5": 0.0, "B6": 0.0, "B6 at": None, "B6 flips": 0.0, "B6 outside band": 0}
+    lattices, survivors = {}, {}
+    for B, kernel, dtype in ((V_MOMENT_BATCHES[0], "B5", torch.float64),
+                             (V_MOMENT_BATCHES[1], "B6", torch.float32)):
+        cloud = moment_cloud(torch, ParticleBeam, MOMENT_PARTICLES, seed=111, dtype=dtype)
+        particles = cloud.particles[0]
+        weights = torch.ones(MOMENT_PARTICLES, dtype=dtype, device="cuda")
+        for seed in RANDOM_SEEDS:
+            lattice = random_lattice(torch, ltt, seed, random_length(seed), dtype=dtype)
+            apply_settings(lattice, random_settings(torch, lattice, B, seed, cavities=False))
+            half = len(lattice.elements) // 2
+            elements = list(lattice.elements)
+            elements.insert(half, aperture_of(torch, ltt, functional, elements[:half], B, dtype))
+            lattices[seed] = ltt.Segment(elements)
+            reset_counts(ft, hist)
+            with torch.no_grad(), plain_on_cuda_guard(torch, ft) as plain:
+                entries, scalars = plan_of(torch, fused, elements, B, dtype)
+                _, _, w_sum = ft.sweep_particle_moments(entries, scalars, particles, weights)
+                torch.cuda.synchronize()
+            launched = counts(ft)
+            if launched[kernel] != 1 or launched["B5"] + launched["B6"] != 1 or plain["count"]:
+                raise AssertionError(f"V4 seed {seed}, B={B}: {launched}, plain versions on"
+                                     f" CUDA tensors {plain['count']}")
+            totals[kernel] += 1
+            survivors[f"{kernel} seed {seed}"] = [int(w_sum.min()), int(w_sum.max())]
+
+            ops = kernel_operands(torch, ft, fused, elements, B, particles)
+            with torch.no_grad():
+                if kernel == "B5":
+                    errors = sum_errors(torch, ft.particle_moment_sweep(*ops),
+                                        ft._moment_sweep_reference(*ops))
+                    worst["B5"] = max(worst["B5"], *errors[:2])
+                    failed = max(errors[:2]) > MOMENT_DOUBLE_RTOL or errors[2] != 0
+                else:
+                    rounded = (ops[0], tuple(v.double() for v in ops[1]), ops[2].double(),
+                               ops[3].double())
+                    packed = ft._packed_operands(*ops)[0]
+                    got = gram_sums(ft.packed_gram(*packed))
+                    error, outside, reading = band_errors(
+                        torch, ft, packed, ft._packed_operands(*rounded)[0], got)
+                    errors = (error, outside, reading)
+                    if error >= worst["B6"]:
+                        worst["B6"], worst["B6 at"] = error, {"seed": seed, **reading}
+                    worst["B6 flips"] = max(worst["B6 flips"], reading["most_flips"])
+                    worst["B6 outside band"] += outside
+                    failed = error > 1 or outside or reading["most_flips"] > MAX_FLIPS
+            if failed or not 0 < float(w_sum.max()) or float(w_sum.min()) == MOMENT_PARTICLES:
+                raise AssertionError(f"V4 seed {seed}, B={B}: {kernel} and its plain version"
+                                     f" disagree: {errors}; survivors {survivors}")
+    print(json.dumps({
+        "path": "V4", "what": "random lattices (cavities off) with an aperture mid-lattice over"
+        f" one {MOMENT_PARTICLES}-particle cloud: B5 at B={V_MOMENT_BATCHES[0]} float64, B6 at"
+        f" B={V_MOMENT_BATCHES[1]} float32, against their plain versions on the card",
+        "lattices": kinds_of(lattices), "launches": totals, "max_err": worst,
+        "bounds": {"B5": MOMENT_DOUBLE_RTOL, "B6": f"1: {MOMENT_FLOAT_RTOL} of the sums' scales"
+                   " plus what the particles in the apertures' rounding band can contribute",
+                   "B6 flips": MAX_FLIPS, "B6 outside band": 0},
+        "survivors": survivors, "card": card}))
+    return totals
+
+
+def path_v_read(torch, ltt, ft, hist, functional, card):
+    """V5: each random lattice at V_READ_BATCH settings with a 2448 x 2040
+    screen appended (its pixels sized so the spots and V_READ_HALF_SIGMAS
+    sigma fit, its window derived at V_READ_K_SIGMA sigma) read by one
+    MOMENT_PARTICLES cloud, float64, through B1 in count mode; the image
+    exactly the scatter's on the same particles."""
+    B, N = V_READ_BATCH, MOMENT_PARTICLES
+    total, lattices, windows = 0, {}, {}
+    for seed in RANDOM_SEEDS:
+        lattice = random_lattice(torch, ltt, seed, random_length(seed))
+        apply_settings(lattice, random_settings(torch, lattice, B, seed))
+        with torch.no_grad():
+            at, _ = functional.track(lattice, random_parameter_beam(torch, ltt, B, "cuda"))
+        pixel = [float(2 * ((mu.abs().max() + V_READ_HALF_SIGMAS * sigma.max()) / n))
+                 for mu, sigma, n in ((at.mu_x, at.sigma_x, 2448), (at.mu_y, at.sigma_y, 2040))]
+        screen = ltt.Screen(resolution=(2448, 2040),
+                            pixel_size=torch.tensor(pixel, dtype=torch.float64),
+                            is_active=True, name="random_screen", dtype=torch.float64,
+                            device="cuda")
+        screen.histogram_window = screen.derive_histogram_window(at, k_sigma=V_READ_K_SIGMA)
+        windows[str(seed)] = list(screen.histogram_window)
+        segment = ltt.Segment([*lattice.elements, screen])
+        lattices[seed] = segment
+        beam = random_particle_beam(torch, ltt, B, N, seed, "cuda")
+        reset_counts(ft, hist)
+        hist.reset_histogram_fallback_count()
+        with torch.no_grad():
+            _, diagnostics = functional.track(segment, beam)
+            image = diagnostics["random_screen"]
+            torch.cuda.synchronize()
+        launches, fallbacks = hist.window_histogram.launches, hist.histogram_fallback_count()
+        hist.SCREEN_WINDOWED_PATH = False
+        try:
+            with torch.no_grad():
+                _, diagnostics = functional.track(segment, beam)
+        finally:
+            hist.SCREEN_WINDOWED_PATH = None
+        scatter = diagnostics["random_screen"]
+        mass = image.sum(dim=(-2, -1))
+        if launches != hist.READ_LAUNCHES or fallbacks or not torch.equal(image, scatter):
+            raise AssertionError(f"V5 seed {seed}: B1 launches {launches}, fallbacks {fallbacks},"
+                                 f" the image {'equals' if torch.equal(image, scatter) else 'differs from'}"
+                                 f" the scatter's")
+        if tuple(image.shape) != (B, 2040, 2448) or not bool((mass == N).all()):
+            raise AssertionError(f"V5 seed {seed}: image {tuple(image.shape)}, mass {mass.tolist()}")
+        total += launches
+    print(json.dumps({
+        "path": "V5", "what": f"random lattices at B={B} settings with a screen appended, one"
+        f" {N}-particle float64 cloud read through B1 in count mode against the scatter",
+        "lattices": kinds_of(lattices), "launches": {"B1": total}, "windows": windows,
+        "max_err": {"image": 0.0}, "bounds": {"image": "exactly equal"}, "card": card}))
+    return total
+
+
 def ptxas_report(log):
     """``kernel<args> R registers, S/L bytes spilled`` for each kernel of an
     nvcc -Xptxas -v report (spill stores / spill loads); template arguments
@@ -3331,27 +4048,41 @@ def main():
                                   parallel, multichip_tuning, seg1, beam1, card)
     print(f"path O: launches {optimize_launches}; path M: launches {mesh_launches}")
 
-    # -- 13. results ---------------------------------------------------------
+    # -- 13. path V, random element mixes ------------------------------------------
+    start = time.perf_counter()
+    golden_launches = path_v_golden(torch, ltt, ft, hist, card)
+    random_launches = path_v_sweep(torch, ltt, ft, hist, fused, functional, segment_module,
+                                   card)
+    random_launches["B2"] = golden_launches + path_v_push(torch, ltt, ft, hist, segment_module,
+                                                          card)
+    random_launches.update(path_v_moments(torch, ltt, ft, hist, fused, functional, ParticleBeam,
+                                          card))
+    random_launches["B1"] = path_v_read(torch, ltt, ft, hist, functional, card)
+    print(f"path V: launches {random_launches} in {time.perf_counter() - start:.1f} s"
+          f" (host clock, V1-V5)")
+
+    # -- 14. results ---------------------------------------------------------
     timing["B1"] = dict(ms=read_ms, plain_ms=plain_ms, bound=b1_bound,
                         library_ms=bincount_ms)
     timing["B7 onehot"], timing["B7 twolevel"] = hist_timing["onehot"], hist_timing["twolevel"]
     kernels = []
     for name, label, source, replaces, launched, error in (
         ("window_histogram", "B1", "window_histogram.cu", "lynx_tpu/ops/histogram.py:250",
-         launches + mesh_launches["B1"], max_abs_err),
+         launches + mesh_launches["B1"] + random_launches["B1"], max_abs_err),
         ("particle_apply", "B2", "particle_apply.cu", "lynx_tpu/ops/pallas_track.py:1439",
-         push_launches["B2"] + mesh_launches["B2"], push_abs_err),
+         push_launches["B2"] + mesh_launches["B2"] + random_launches["B2"], push_abs_err),
         ("moment_sweep", "B3", "moment_sweep.cu", "lynx_tpu/ops/pallas_track.py:72",
          serving_launches["B3"] + rl_launches["B3"] + optimize_launches["B3"]
-         + mesh_launches["B3"], sweep_abs_err["B3"]),
+         + mesh_launches["B3"] + random_launches["B3"], sweep_abs_err["B3"]),
         ("moment_sweep_bwd", "B4", "moment_sweep_bwd.cu", "lynx_tpu/ops/pallas_track.py:249",
-         training_launches["B4"] + mesh_launches["B4"], sweep_abs_err["B4"]),
+         training_launches["B4"] + mesh_launches["B4"] + random_launches["B4"],
+         sweep_abs_err["B4"]),
         ("particle_moment_sweep", "B5", "particle_moment_sweep.cu",
-         "lynx_tpu/ops/pallas_track.py:633", walk_launches + rl_launches["B5"],
-         moment_abs_err["B5"]),
+         "lynx_tpu/ops/pallas_track.py:633",
+         walk_launches + rl_launches["B5"] + random_launches["B5"], moment_abs_err["B5"]),
         ("packed_gram", "B6", "packed_gram.cu", "lynx_tpu/ops/pallas_track.py:823",
-         env_gram_launches + aperture_gram_launches + rl_launches["B6"] + mesh_launches["B6"],
-         moment_abs_err["B6"]),
+         env_gram_launches + aperture_gram_launches + rl_launches["B6"] + mesh_launches["B6"]
+         + random_launches["B6"], moment_abs_err["B6"]),
         ("hist_onehot", "B7 onehot", "hist_ab.cu", "benchmarks/hist_ab.py:94",
          hist_launches["onehot"], hist_abs_err),
         ("hist_twolevel", "B7 twolevel", "hist_ab.cu", "benchmarks/hist_ab.py:50",
@@ -3371,6 +4102,9 @@ def main():
             "bound_by": t["bound"][1],
             "library_ms": t["library_ms"],
         })
+    print(f"torch.profiler sessions (benchmarks/timing.py): {PROFILER_TALLY['whole']} whole,"
+          f" {PROFILER_TALLY['taken again']} taken again; a whole one lost at most"
+          f" {PROFILER_TALLY['most lead markers lost']} of its lead markers; card {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

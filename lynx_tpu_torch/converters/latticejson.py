@@ -33,6 +33,14 @@ def feature_to_plain(value: Any) -> Any:
     return value
 
 
+def plain_to_feature(value: Any, device=None) -> Any:
+    """A plain JSON value as a feature: strings and booleans as they are,
+    anything else as a tensor, on the card unless ``device`` says otherwise."""
+    if isinstance(value, (str, bool)):
+        return value
+    return torch.as_tensor(value, device=resolve_device(device))
+
+
 def convert_element(element: Element) -> Tuple[str, str, dict]:
     """Deconstruct an element into (name, class name, parameter dict)."""
     params = {name: feature_to_plain(element.feature(name)) for name in element.defining_features}

@@ -1,7 +1,7 @@
 """ARES (DESY) lattice models (counterpart of ``lynx_tpu.models.ares``).
 
-The lattice is the JAX package's bundled LatticeJSON file, read by its path
-in the repository (``lynx_tpu`` itself is not imported: it imports JAX).
+The lattice is the bundled LatticeJSON file ``resources/ares_lattice.json``,
+a copy of the JAX package's, shipped with this package as package data.
 """
 
 from __future__ import annotations
@@ -17,10 +17,7 @@ from lynx_tpu_torch.functional import track
 from lynx_tpu_torch.particles import ParameterBeam
 from lynx_tpu_torch.utils import resolve_device
 
-ARES_LATTICE_JSON = (
-    Path(__file__).resolve().parents[2]
-    / "lynx_tpu" / "models" / "resources" / "ares_lattice.json"
-)
+ARES_LATTICE_JSON = Path(__file__).resolve().parent / "resources" / "ares_lattice.json"
 
 #: The flagship working point on the EA quadrupoles (k1 in 1/m^2).
 FLAGSHIP_K1 = {"AREAMQZM1": 4.2, "AREAMQZM2": -4.2, "AREAMQZM3": 2.1}

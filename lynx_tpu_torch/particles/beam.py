@@ -21,6 +21,23 @@ class Beam:
     #: Sentinel returned when a beam is entirely lost or absorbed.
     empty = "I'm an empty beam!"
 
+    # -- constructors (implemented by the subclasses) -----------------------
+    @classmethod
+    def from_parameters(cls, **kwargs) -> "Beam":
+        raise NotImplementedError
+
+    @classmethod
+    def from_twiss(cls, **kwargs) -> "Beam":
+        raise NotImplementedError
+
+    @classmethod
+    def from_ocelot(cls, parray, **kwargs) -> "Beam":
+        raise NotImplementedError
+
+    @classmethod
+    def from_astra(cls, path: str, **kwargs) -> "Beam":
+        raise NotImplementedError
+
     def transformed_to(
         self,
         mu_x=None,

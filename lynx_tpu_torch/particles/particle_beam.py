@@ -354,7 +354,13 @@ class ParticleBeam(Beam):
         def resolve(value, default):
             return _resolve(value, default, shape, dtype, device)
 
-        t = torch.linspace(0.0, 1.0, num_particles, dtype=dtype, device=device)
+        # numpy's (and JAX's) linspace: i * (1 / (n - 1)), the last point 1.
+        # torch.linspace steps back from the end over its second half, which
+        # moves some points by an ulp.
+        t = torch.arange(num_particles, dtype=dtype, device=device)
+        if num_particles > 1:
+            t = t * (torch.tensor(1.0, dtype=dtype, device=device) / (num_particles - 1))
+            t[-1] = 1.0
 
         def linspaced(mu, sigma):
             lo = (mu - sigma)[..., None]

@@ -17,7 +17,7 @@ from contextlib import contextmanager
 
 import torch
 
-from lynx_tpu_torch.benchmarks.timing import cuda_ms
+from lynx_tpu_torch.benchmarks.timing import cuda_ms, profiled_device_events
 
 
 def _tensors(out) -> list:
@@ -67,7 +67,7 @@ def benchmark(fn, *args, iters: int = 30, warmup: int = 2) -> float:
 
 def device_op_profile(fn, *args, iters: int = 10, top: int = 20) -> list:
     """Per-op time of ``fn(*args)`` over ``iters`` calls under
-    ``torch.profiler``, after one warm-up call.
+    ``torch.profiler``, after warm-up.
 
     Where the outputs are CUDA tensors the rows are the device's kernels,
     memsets and copies (self device time); where they are CPU tensors, the
@@ -80,23 +80,17 @@ def device_op_profile(fn, *args, iters: int = 10, top: int = 20) -> list:
     from torch.profiler import ProfilerActivity, profile
 
     card = _on_card(fn(*args))
-    activities = [ProfilerActivity.CUDA] if card else [ProfilerActivity.CPU]
     if card:
-        torch.cuda.synchronize()
-    with profile(activities=activities, record_shapes=not card) as prof:
-        for _ in range(iters):
-            fn(*args)
-        if card:
-            torch.cuda.synchronize()
+        events, iters = profiled_device_events(lambda: fn(*args), iters)
+    else:
+        with profile(activities=[ProfilerActivity.CPU], record_shapes=True) as prof:
+            for _ in range(iters):
+                fn(*args)
+        events = prof.key_averages(group_by_input_shape=True)
 
     rows = []
-    for event in prof.key_averages(group_by_input_shape=not card):
-        if card:
-            if event.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            total = event.self_device_time_total
-        else:
-            total = event.self_cpu_time_total
+    for event in events:
+        total = event.self_device_time_total if card else event.self_cpu_time_total
         shapes = getattr(event, "input_shapes", None)
         rows.append({
             "name": event.key,

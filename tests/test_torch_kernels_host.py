@@ -793,6 +793,44 @@ def test_new_builders_energy_cotangent_is_the_forward_mode(host_kernels, B, ener
         assert chip_smoke.energy_ratio(torch, got, reverse, RTOL)[0] > 1
 
 
+@pytest.mark.parametrize("seed", range(16))
+def test_backward_on_path_v_random_lattices(host_kernels, seed, monkeypatch):
+    """B4 in path V2's sweep on the CPU: ``chip_smoke.random_sweep`` of the
+    JAX suite's random lattice of ``seed`` at 64 settings, every field per
+    setting, with B4's source standing in for the plain version in each
+    run's backward, against the plain version's gradients: on the loss's
+    scale at ``DOUBLE_RTOL`` and per field at ``FIELD_RTOL``, V2's bounds."""
+    import chip_smoke
+    from lynx_tpu_torch import functional
+    from lynx_tpu_torch.accelerator import segment as segment_module
+
+    def host_vjp(entries, flat_values, energy, mu, cov, dmu, dcov):
+        B = mu.shape[0]
+        tape = fused_track._tape(entries, torch.device("cpu"))
+        params, consts = fused_track._tape_operands(
+            entries, [v.detach() for v in flat_values], tape, torch.float64, B)
+        out = run_backward(host_kernels, tape, params, consts, energy.detach().contiguous(),
+                           mu.detach().contiguous(), cov.detach().contiguous(),
+                           dmu.contiguous(), dcov.contiguous())
+        rows, sums = iter(out["d_params"]), iter(out["d_consts"].sum(dim=1))
+        d_flat = tuple(next(rows) if kind == "dyn" else next(sums)
+                       for kind, _, count in entries for _ in range(count))
+        return d_flat, out["d_energy"], out["d_mu"], out["d_cov"]
+
+    monkeypatch.setattr(segment_module, "FUSED_SWEEP_PATH", True)
+    monkeypatch.setattr(segment_module, "PALLAS_SWEEP_THRESHOLD", 1)
+    lattice, settings, _, tuned, plain = chip_smoke.random_sweep(
+        torch, ltt, functional, seed, 64, "cpu")
+    monkeypatch.setattr(fused_track, "_reference_sweep_vjp", host_vjp)
+    *_, kernel = chip_smoke.random_sweep(torch, ltt, functional, seed, 64, "cpu",
+                                         settings=settings)
+    common, own, small = chip_smoke.gradient_errors(torch, lattice, kernel, plain, tuned,
+                                                    settings)
+    assert max(common.values()) <= chip_smoke.DOUBLE_RTOL, common
+    assert max(own.values()) <= chip_smoke.FIELD_RTOL, own
+    assert small <= chip_smoke.K1_SMALL_RTOL
+
+
 def test_backward_past_the_shared_memory_walks_segments(host_kernels):
     """fodo_lattice(90) with every quadrupole batched plans to 541 entries:
     past the 514 whose prefix products fit one setting in double, so B4

@@ -76,3 +76,77 @@ def test_chip_smoke_fails_without_a_gpu():
     )
     assert result.returncode != 0
     assert '"ok"' not in result.stdout
+
+
+def test_port_and_chip_smoke_name_no_file_under_the_jax_package():
+    """No string in the port's modules or ``chip_smoke.py`` names a path
+    under ``lynx_tpu/``: a bare ``"lynx_tpu"`` path component, or a
+    ``lynx_tpu/...`` path other than a ``file.py:line`` reference to the
+    TPU kernel a CUDA kernel replaces."""
+    import re
+    import tokenize
+
+    reference = re.compile(r"lynx_tpu/[\w/]+\.py:\d+")
+    found = []
+    for path in sorted((REPO / "lynx_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]:
+        with open(path, "rb") as source:
+            for token in tokenize.tokenize(source.readline):
+                if token.type != tokenize.STRING:
+                    continue
+                text = token.string.strip("'\"")
+                if text == "lynx_tpu" or "lynx_tpu/" in reference.sub("", token.string):
+                    found.append(f"{path.relative_to(REPO)}:{token.start[0]}")
+    assert not found, found
+
+
+def test_port_opens_no_file_under_the_jax_package():
+    """Loading the lattices, the models and a LatticeJSON round trip opens
+    no file under ``lynx_tpu/`` (an audit hook sees every ``open``)."""
+    result = run(
+        "import sys, os\n"
+        f"jax_tree = os.path.join({str(REPO)!r}, 'lynx_tpu') + os.sep\n"
+        "opened = []\n"
+        "def hook(event, args):\n"
+        "    if event == 'open' and isinstance(args[0], (str, bytes, os.PathLike)):\n"
+        "        path = os.path.abspath(os.fsdecode(args[0]))\n"
+        "        if path.startswith(jax_tree):\n"
+        "            opened.append(path)\n"
+        "sys.addaudithook(hook)\n"
+        "import lynx_tpu_torch\n"
+        "from lynx_tpu_torch.models import ares_ea_segment, ares_lattice, fodo_lattice\n"
+        "lattice = ares_lattice(device='cpu')\n"
+        "ares_ea_segment(device='cpu')\n"
+        "fodo_lattice(num_cells=2, device='cpu')\n"
+        "assert not opened, opened\n"
+    )
+    assert result.returncode == 0, result.stderr
+
+
+def test_ares_lattice_loads_without_the_jax_package(tmp_path):
+    """A copy of ``lynx_tpu_torch`` alone, with ``lynx_tpu`` made
+    unimportable, loads the full ARES lattice and its EA subcell."""
+    import shutil
+
+    shutil.copytree(REPO / "lynx_tpu_torch", tmp_path / "lynx_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    result = subprocess.run(
+        [sys.executable, "-c",
+         "import sys\n"
+         "sys.modules['lynx_tpu'] = None  # import lynx_tpu raises\n"
+         "import lynx_tpu_torch\n"
+         f"assert lynx_tpu_torch.__file__.startswith({str(tmp_path)!r}), lynx_tpu_torch.__file__\n"
+         "from lynx_tpu_torch.models import ares_ea_segment, ares_lattice\n"
+         "lattice = ares_lattice(device='cpu')\n"
+         "assert len(lattice.elements) == 195, len(lattice.elements)\n"
+         "assert len(ares_ea_segment(device='cpu').elements) == 13\n"],
+        cwd=tmp_path, capture_output=True, text=True, timeout=300,
+    )
+    assert result.returncode == 0, result.stderr
+
+
+def test_lattice_file_is_the_jax_packages_byte_for_byte():
+    """The port ships its own copy of the ARES lattice file: it stays the
+    reference's, byte for byte."""
+    ours = REPO / "lynx_tpu_torch" / "models" / "resources" / "ares_lattice.json"
+    reference = REPO / "lynx_tpu" / "models" / "resources" / "ares_lattice.json"
+    assert ours.read_bytes() == reference.read_bytes()
