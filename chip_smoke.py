@@ -13,8 +13,9 @@ Phases, each of which raises on failure (non-zero exit, no result line):
 3. hold B1's (lx, ly) count core against its plain PyTorch version on the
    card at the flagship shapes and at the edge cases (count mode exactly
    equal, weighted mode within 1e-5 relative of the plain version in
-   float64); hold B1's fused read (``windowed_read``) against
-   ``windowed_read_reference`` on the same CUDA tensors at the flagship's
+   float64); hold B1's read (``windowed_read``: two passes and the
+   completion) against its plain versions (``windowed_read_reference``,
+   ``complete_read_reference``) on the same CUDA tensors at the flagship's
    B = 1 and 8, on path L's window, bin edges, NaN and +-inf with an
    all-dead row, a spot past its window, Python-float ranges and N =
    100,003 (the image exact in count mode, within 1e-5 relative weighted,
@@ -33,7 +34,7 @@ Phases, each of which raises on failure (non-zero exit, no result line):
 4. drive the flagship path, the ARES EA track of a 100k-particle beam and
    the 2448 x 2040 read of screen AREABSCR1, at B = 1 (``functional.track``
    and ``Segment.track`` + ``reading``) and B = 8; check the images, that
-   B1 served every read (two launches a read) and that no
+   B1 served every read (three launches a read) and that no
    read fell back, and hold the images against the port's CPU path on the
    same particles;
 5. time the flagship track + read with CUDA events; the windowed read's
@@ -41,7 +42,8 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    the composed read (the prologue in PyTorch, B1's count core,
    ``_place``) in turns, beside the full-image scatter, B1's kernels' own time, its bound
    and the read's floor (the image written once), and the device kernels a
-   read issues (at most 4) and a flagship call issues;
+   read issues (at most 4: the zeroing and B1's three, no host sync) and a
+   flagship call issues;
 6. path S, serving: the ARES-EA environment's ``batched_reset`` and 10
    ``batched_step``s at B = 100,000 settings through B3; path T, training:
    ``tuning.tune`` of (100,000, 5) settings for 10 Adam steps through B3
@@ -132,7 +134,21 @@ Phases, each of which raises on failure (non-zero exit, no result line):
     V5, a screen appended and read through B1 in count mode, the image
     exactly the scatter's.  One JSON line per sub-phase: the lattices'
     element kinds, the launches, the worst errors and their bounds;
-14. print the kernels' JSON line and, last, the ``{"ok": true, ...}`` line.
+14. path J, the JAX package's compiled entry points as CUDA graphs
+    (``lynx_tpu_torch.graphs``): J1, the flagship read through
+    ``functional.track_jit`` at B = 1 and 8, one capture each, the image
+    equal to eager ``track``'s, re-tuning k1 with no new capture, eager
+    against replay in turns, the graph's kernels and B1's among them; J2,
+    B1's fallback decided on the card (a spot wider than the window, eager
+    and replayed: the scatter's image, the device counter one a read, B1's
+    completion against its plain version); J3, path T's tuner graphed
+    against the eager loop; J4, ``tune_until`` with its device predicate,
+    the same stop step as the eager loop and its host reads; J5, a random
+    lattice with cavities captured at zero voltage and replayed at non-zero
+    voltages against eager ``track`` in float64; J6, the gradient through
+    ``track_jit`` (forward and backward captured) against eager; J7, the Gym
+    adapter's graphed step and reset against eager ones;
+15. print the kernels' JSON line and, last, the ``{"ok": true, ...}`` line.
 
 Each kernel is timed at its path's shape beside its plain version and its
 bound (``bound``: the larger of its bytes over the card's memory rate and
@@ -286,9 +302,9 @@ EMITTANCE_RTOL = 0.01
 METRIC_RTOL = 2e-5
 
 
-def flagship(torch, ares, ParticleBeam, batch, device, seed):
+def flagship(torch, ares, ParticleBeam, batch, device, seed, sigma_x=1.75e-4):
     """The flagship segment (screen active, working-point k1) and a
-    100k-particle beam for ``batch`` settings."""
+    100k-particle beam for ``batch`` settings (of ``sigma_x`` in m)."""
     segment = ares.ares_ea_segment(device=device)
     shape = (batch,)
     if batch > 1:
@@ -299,7 +315,7 @@ def flagship(torch, ares, ParticleBeam, batch, device, seed):
     generator = torch.Generator(device=device).manual_seed(seed)
     beam = ParticleBeam.from_parameters(
         num_particles=N_PARTICLES,
-        sigma_x=torch.full(shape, 1.75e-4),
+        sigma_x=torch.full(shape, sigma_x),
         sigma_y=torch.full(shape, 1.75e-4),
         sigma_xp=torch.full(shape, 2e-5),
         sigma_yp=torch.full(shape, 2e-5),
@@ -402,13 +418,20 @@ def read_edges(torch, bins):
     return x, torch.stack([y0, y0]), weights, (lo_x, hi_x, lo_y, hi_y)
 
 
+def plain_read(hist, x, y, weights, ranges, bins, window, binary):
+    """B1's plain versions: the two passes' and the completion's."""
+    image, ox, oy, fits = hist.windowed_read_reference(x, y, weights, ranges, bins, window, binary)
+    return hist.complete_read_reference(x, y, weights, ranges, bins, image, fits), ox, oy, fits
+
+
 def check_read(torch, hist, label, operands, bins, window, binary):
-    """B1's fused read against its plain version on the same CUDA tensors:
+    """B1's read against its plain version on the same CUDA tensors:
     origins and fits equal, the image exact in count mode (within
-    READ_RTOL per cell weighted); max |error|."""
+    READ_RTOL per cell weighted; the scatter's where a row misfits); max
+    |error|."""
     x, y, weights, ranges = operands
     image, ox, oy, fits = hist.windowed_read(x, y, weights, ranges, bins, window, binary)
-    ref = hist.windowed_read_reference(x, y, weights, ranges, bins, window, binary)
+    ref = plain_read(hist, x, y, weights, ranges, bins, window, binary)
     torch.cuda.synchronize()
     if not (torch.equal(ox, ref[1]) and torch.equal(oy, ref[2]) and torch.equal(fits, ref[3])):
         raise AssertionError(f"B1 read: origins or fits differ from the plain version: {label}")
@@ -486,8 +509,8 @@ def composed_forward(torch, hist):
     def forward(x, y, weights, ranges, bins, window, binary_weights):
         (x_lo, x_hi, y_lo, y_hi), (nx, ny), (win_x, win_y) = ranges, bins, window
         lx, ly, ox, oy, fits = hist.window_prologue(x, y, weights, ranges, bins, window)
-        if not bool(fits.all()):
-            hist._note_fallback()
+        if not bool(fits.all()):  # the composed read decides on the host
+            hist._fallback_counter(x.device).add_(1)
             return hist.weighted_histogram_2d(x, y, weights, (x_lo, x_hi), (y_lo, y_hi), bins)
         batch_shape, n = x.shape[:-1], x.shape[-1]
         w_b = torch.broadcast_to(weights, x.shape)
@@ -1103,7 +1126,8 @@ def path_serving(torch, ft, hist, envs, env, card):
 
 
 def path_training(torch, ft, hist, envs, env, tuning, card):
-    """Path T: tuning.tune of (SWEEP_BATCH, 5) settings for SWEEP_STEPS
+    """Path T: tuning.tune's eager loop (``graph=False``; path J3 holds the
+    graphed tuner to it) of (SWEEP_BATCH, 5) settings for SWEEP_STEPS
     Adam steps through B3 and B4; the loss must fall, and the first step's
     gradient is held against autograd of the plain version in double."""
     B = SWEEP_BATCH
@@ -1116,12 +1140,13 @@ def path_training(torch, ft, hist, envs, env, tuning, card):
         return torch.mean(torch.abs(observed - params.target))
 
     reset_counts(ft, hist)
-    with plain_on_cuda_guard(torch, ft) as plain:
-        tuned, losses = tuning.tune(loss_fn, start, params, steps=SWEEP_STEPS)
+    with plain_on_cuda_guard(torch, ft) as plain:  # the eager loop: path J3 graphs it
+        tuned, losses = tuning.tune(loss_fn, start, params, steps=SWEEP_STEPS, graph=False)
         torch.cuda.synchronize()
     launched = counts(ft)  # the path's own launches, before any timing
     losses = losses.tolist()
-    print(f"path T: tune of ({B}, 5) settings, {SWEEP_STEPS} Adam steps: loss {losses[0]:.6e}"
+    print(f"path T: tune of ({B}, 5) settings, {SWEEP_STEPS} Adam steps (the eager loop): loss"
+          f" {losses[0]:.6e}"
           f" -> {losses[-1]:.6e}; launches {launched}, plain versions on CUDA tensors"
           f" {plain['count']}")
     if launched["B3"] != SWEEP_STEPS or launched["B4"] != SWEEP_STEPS or plain["count"]:
@@ -2178,7 +2203,7 @@ TWISS = ("emittance_x", "emittance_y", "beta_x", "beta_y", "alpha_x", "alpha_y")
 
 def read_through_b1(torch, hist, functional, segment, screen, beam, label):
     """One read of ``screen`` (active, its window set) by ``beam`` through
-    B1: two launches and no fallback, image mass equal to the particle
+    B1: three launches and no fallback, image mass equal to the particle
     count, and within 2 x MAX_MOVED L1 of the CPU path's image on the same
     particles.  Returns the image and B1's launches."""
     hist.window_histogram.launches = 0
@@ -3039,7 +3064,8 @@ def path_parallel(torch, ltt, ares, ft, hist, fused, functional, tuning, paralle
         segment = subcell()
         tuned(segment)
         optimizer = adam(segment)
-        _, losses = tuning.make_tuner(optimizer, loss_fn)(segment, TRAIN_MESH_STEPS, train_beam)
+        tuner = tuning.make_tuner(optimizer, loss_fn, graph=False)  # as the sharded step runs
+        _, losses = tuner(segment, TRAIN_MESH_STEPS, train_beam)
         return losses, tuned(segment)
 
     def sharded():
@@ -3830,6 +3856,408 @@ def path_v_read(torch, ltt, ft, hist, functional, card):
     return total
 
 
+# -- path J: the compiled entry points (CUDA graphs) --------------------------------
+
+JIT_CALLS = 50  # J1: calls a turn (CUDA events), eager and replay alternated
+RETUNED_K1 = {"AREAMQZM1": 3.9, "AREAMQZM2": -4.4, "AREAMQZM3": 2.3}  # J1: new k1, same shape
+WIDE_SIGMA_X = 3e-3  # J2: a spot wider than the flagship window (m), most of it on the screen
+# J3/J4: the graphed tuner against the eager loop from the same start, in
+# float32, with the same Adam (capturable=True: its bias corrections formed
+# in float32 on the card): the same kernels on the same values, so float
+# rounding at most.  Losses are held relative to the first loss,
+# parameters relative to the largest distance a parameter travelled.  The
+# default Adam's eager loop forms its bias corrections in double on the
+# host: its losses are held to the same bound, its parameters not, since
+# the L1 loss's gradient is a sign, which such rounding flips for a
+# setting whose beam sits on its target.
+JIT_LOSS_RTOL = 1e-5
+JIT_PARAM_RTOL = 1e-5
+UNTIL_MAX_STEPS = 60  # J4
+UNTIL_STOP_FROM = 3  # J4: tol is chosen so that the loop stops at or after this step
+GYM_STEPS = 100  # J7
+
+
+def capturable_adam(params):
+    """The graphed tuner's optimizer, for its eager loop (J3, J4)."""
+    import torch
+
+    return torch.optim.Adam(params, lr=5e-2, capturable=True)
+
+
+def path_jit_read(torch, ares, functional, graphs, hist, ParticleBeam, card):
+    """J1: the flagship read through ``functional.track_jit`` at B = 1 and
+    8: one capture per B, the image equal to eager ``track``'s (count mode,
+    exactly), re-tuning AREAMQZM1-3 to new k1 (tensors of the same shape
+    and dtype) replays with no new capture and equals eager at the new k1;
+    ms a call eager against replay (CUDA events, in turns), the capture's
+    seconds, the graph's kernels and B1's among them (its DOT dump), B1's
+    kernels the profiler traced in a replay, and a replay's device time.
+    Returns B1's launches issued (the warm-ups' and the captures')."""
+    jit = functional.track_jit.graphed
+    issued = 0
+    for batch, seed in ((1, 0), (8, 8)):
+        segment, beam = flagship(torch, ares, ParticleBeam, batch, "cuda", seed)
+        captures = jit.captures
+        hist.window_histogram.launches = 0
+        image = functional.track_jit(segment, beam)[1]["AREABSCR1"]
+        torch.cuda.synchronize()
+        issued += hist.window_histogram.launches
+        if jit.captures != captures + 1 or hist.window_histogram.launches == 0:
+            raise AssertionError(f"J1 B={batch}: track_jit did not capture once through B1")
+        eager = functional.track(segment, beam)[1]["AREABSCR1"]
+        if not torch.equal(image, eager):
+            raise AssertionError(f"J1 B={batch}: the replayed image differs from eager track's")
+        for name, k1 in RETUNED_K1.items():
+            getattr(segment, name).k1 = torch.full((batch,), k1, device="cuda")
+        retuned = functional.track_jit(segment, beam)[1]["AREABSCR1"]
+        eager = functional.track(segment, beam)[1]["AREABSCR1"]
+        if jit.captures != captures + 1:
+            raise AssertionError(f"J1 B={batch}: re-tuning k1 captured again")
+        if not torch.equal(retuned, eager) or torch.equal(retuned, image):
+            raise AssertionError(f"J1 B={batch}: the re-tuned replay differs from eager track's")
+        graph = jit.graphs[-1]
+        kernels, b1_kernels = graphs.graph_kernel_count(graph), graphs.graph_kernel_count(
+            graph, "windowed_read_")
+        times = {"eager": [], "replay": []}
+        for mode in ("eager", "replay", "replay", "eager"):
+            track = functional.track if mode == "eager" else functional.track_jit
+            times[mode].append(cuda_ms(lambda: track(segment, beam), iters=JIT_CALLS))
+        replay_ms = cuda_ms(graph.replay, iters=JIT_CALLS)
+        traced = device_launches(lambda: functional.track_jit(segment, beam))
+        traced_b1 = sum(count for name, count in traced.items() if "windowed_read_" in name)
+        device = device_ms(lambda: functional.track_jit(segment, beam), iters=10)
+        print(f"J1 B={batch}: track_jit image equal to eager track's, and after re-tuning"
+              f" {list(RETUNED_K1)} (no new capture; {jit.captures} captures in all); a call:"
+              f" eager {times['eager'][0]:.4f} / {times['eager'][1]:.4f} ms, replay"
+              f" {times['replay'][0]:.4f} / {times['replay'][1]:.4f} ms (CUDA events,"
+              f" {JIT_CALLS} calls a turn, in turns: eager, replay, replay, eager); the graph"
+              f" alone {replay_ms:.4f} ms a replay; capture {jit.capture_seconds[-1]:.3f} s"
+              f" (warm-up included, host clock); the graph's kernels {kernels}, B1's {b1_kernels}"
+              f" (DOT dump); a replay's device time {device:.5f} ms and B1 kernels traced"
+              f" {traced_b1} (torch.profiler, with the inputs' copies and the outputs' clones;"
+              f" {sum(traced.values())} device events a call); card {card}")
+        if b1_kernels != hist.READ_LAUNCHES:
+            raise AssertionError(f"J1 B={batch}: the graph holds {b1_kernels} B1 kernels")
+    return issued
+
+
+def path_jit_fallback(torch, ares, functional, hist, ParticleBeam, card):
+    """J2: B1's fallback decided on the card.  A spot wider than the
+    window, eager and through ``track_jit``, whose capturing call (warm-ups
+    and capture) is on the wide spot: the image equals
+    ``weighted_histogram_2d``'s scatter on the card and the device counter
+    advances by one a read, the capturing call's too; a fitting spot does
+    not advance it and replays the same graph; B1's
+    completion against its plain version on the card (count and weighted
+    mode, wide and fitting spots); the eager read's call time beside the
+    scatter's.  Returns (B1's launches, max |error|)."""
+    segment, beam = flagship(torch, ares, ParticleBeam, 1, "cuda", seed=0)
+    _, wide = flagship(torch, ares, ParticleBeam, 1, "cuda", seed=3, sigma_x=WIDE_SIGMA_X)
+    args = screen_read_args(segment, wide)
+    scatter = hist.weighted_histogram_2d(args["x"], args["y"], args["weights"], args["x_range"],
+                                         args["y_range"], args["bins"])
+    captures = functional.track_jit.graphed.captures
+    hist.reset_histogram_fallback_count()
+    hist.window_histogram.launches = 0
+    image = functional.track_jit(segment, wide)[1]["AREABSCR1"]  # this segment's capture
+    fallbacks = hist.histogram_fallback_count()
+    if functional.track_jit.graphed.captures != captures + 1 or fallbacks != 1:
+        raise AssertionError(f"J2: the capturing call on the wide spot counted {fallbacks} reads")
+    if not torch.equal(image, scatter):
+        raise AssertionError("J2: the capturing call's image is not the scatter's")
+    captures += 1
+    for label, track in (("eager", functional.track), ("track_jit", functional.track_jit)):
+        before = hist.histogram_fallback_count()
+        image = track(segment, wide)[1]["AREABSCR1"]
+        if hist.histogram_fallback_count() != before + 1 or not torch.equal(image, scatter):
+            raise AssertionError(f"J2 {label}: the wide spot's read is not the counted scatter")
+        before = hist.histogram_fallback_count()
+        track(segment, beam)
+        if hist.histogram_fallback_count() != before:
+            raise AssertionError(f"J2 {label}: a fitting spot advanced the fallback counter")
+    launches = hist.window_histogram.launches
+    if functional.track_jit.graphed.captures != captures:
+        raise AssertionError("J2: a later call captured again")
+    worst = 0.0
+    read = screen_read_args(segment, beam)
+    for label, a in (("wide", args), ("fitting", read)):
+        x, y, w, bins = a["x"], a["y"], a["weights"], a["bins"]
+        ranges, window = (*a["x_range"], *a["y_range"]), hist._window_shape(a["window"], *bins)
+        for binary in (True, False):
+            image = hist.windowed_read(x, y, w, ranges, bins, window, binary)[0]
+            plain = plain_read(hist, x, y, w, ranges, bins, window, binary)[0]
+            torch.cuda.synchronize()
+            if binary and not torch.equal(image, plain):
+                raise AssertionError(f"J2 {label}: the completion differs from its plain version")
+            if not torch.allclose(image, plain, rtol=READ_RTOL, atol=0.0):
+                raise AssertionError(f"J2 {label}: the weighted completion past {READ_RTOL}")
+            worst = max(worst, float((image - plain).abs().max()))
+    x, y, w, bins = args["x"], args["y"], args["weights"], args["bins"]
+    ranges, window = (*args["x_range"], *args["y_range"]), hist._window_shape(args["window"], *bins)
+    read_ms = cuda_ms(lambda: hist.windowed_read(x, y, w, ranges, bins, window, True), iters=50)
+    scatter_ms = cuda_ms(lambda: hist.weighted_histogram_2d(x, y, w, args["x_range"],
+                                                            args["y_range"], bins), iters=50)
+    hist.reset_histogram_fallback_count()
+    print(f"J2: a spot of sigma_x {WIDE_SIGMA_X} m past the window {window}: eager and"
+          f" track_jit images equal the scatter's, the device counter one a read (the capturing"
+          f" call's, on the wide spot, too), none for a fitting spot; the completion against its"
+          f" plain version (count exact, weighted max"
+          f" |err| {worst:.3e}); the wide read {read_ms:.4f} ms a call (three B1 launches), the"
+          f" scatter {scatter_ms:.4f} ms (CUDA events, 50 calls; card {card})")
+    return launches, worst
+
+
+def path_tuning_problem(torch, envs, env, seed=31):
+    """Path T's problem: (SWEEP_BATCH, 5) settings, its loss and start."""
+    params = sweep_params(torch, envs, SWEEP_BATCH, "cuda", seed=seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    start = torch.rand((SWEEP_BATCH, 5), generator=gen, device="cuda") - 0.5
+
+    def loss_fn(magnets, params):
+        observed = env.batched_beam_parameters(magnets, params)
+        return torch.mean(torch.abs(observed - params.target))
+
+    return params, start, loss_fn
+
+
+def tuner_errors(torch, start, got, want, got_losses, want_losses):
+    """(loss error, parameter error) of a graphed run against the eager one."""
+    loss = float((got_losses.double() - want_losses.double()).abs().max()
+                 / want_losses[0].abs().double())
+    travelled = (want.detach() - start).abs().max().double()
+    param = float((got.detach() - want.detach()).abs().max().double() / travelled)
+    return loss, param
+
+
+def path_jit_tuner(torch, ft, hist, envs, env, tuning, card):
+    """J3: path T's tuner graphed (``tuning.tune``: one step captured, B3
+    and B4 in it) against the eager loop (``graph=False``) from the same
+    start, losses and parameters within JIT_LOSS_RTOL / JIT_PARAM_RTOL;
+    ms a step of each (a tuner's 10 steps, CUDA events) and the B3/B4
+    kernels the profiler traced in a replayed step.  Returns the launches
+    issued (the warm-up's and the capture's)."""
+    params, start, loss_fn = path_tuning_problem(torch, envs, env)
+    reset_counts(ft, hist)
+    with plain_on_cuda_guard(torch, ft) as plain:
+        tuned, losses = tuning.tune(loss_fn, start, params, steps=SWEEP_STEPS)
+        torch.cuda.synchronize()
+    launched = counts(ft)
+    eager, eager_losses = tuning.tune(loss_fn, start, params, steps=SWEEP_STEPS, graph=False,
+                                      optimizer=capturable_adam)
+    loss_error, param_error = tuner_errors(torch, start, tuned, eager, losses, eager_losses)
+    _, host_losses = tuning.tune(loss_fn, start, params, steps=SWEEP_STEPS, graph=False)
+    host_error = tuner_errors(torch, start, tuned, tuned, losses, host_losses)[0]
+    if launched["B3"] < 1 or launched["B4"] < 1 or plain["count"]:
+        raise AssertionError("J3: the captured step did not go through B3 and B4")
+    if max(loss_error, host_error) > JIT_LOSS_RTOL or param_error > JIT_PARAM_RTOL:
+        raise AssertionError(f"J3: graphed tuner off the eager loop ({loss_error:.2e},"
+                             f" {param_error:.2e}, {host_error:.2e})")
+    ms = {}
+    for graph in (True, False, False, True):
+        magnets = start.clone().requires_grad_(True)
+        tuner = tuning.make_tuner(torch.optim.Adam([magnets], lr=5e-2), loss_fn, graph=graph)
+        ms.setdefault(graph, []).append(
+            cuda_ms(lambda: tuner(magnets, SWEEP_STEPS, params), iters=3, warmup=1) / SWEEP_STEPS)
+    traced = device_launches(lambda: tuner(magnets, 1, params))
+    traced = {k: sum(c for n, c in traced.items() if k in n)
+              for k in ("moment_sweep_kernel", "moment_sweep_bwd_kernel")}
+    print(f"J3: tune of ({SWEEP_BATCH}, 5) settings, {SWEEP_STEPS} Adam steps, graphed against"
+          f" the eager loop with the same Adam (capturable=True): loss {float(losses[0]):.6e} ->"
+          f" {float(losses[-1]):.6e}, losses within {loss_error:.3e} of the first, parameters"
+          f" within {param_error:.3e} of the largest distance travelled (bounds {JIT_LOSS_RTOL},"
+          f" {JIT_PARAM_RTOL}); against the default Adam's eager loop, losses within"
+          f" {host_error:.3e};"
+          f" launches issued {launched}; a step: graphed {ms[True][0]:.4f} / {ms[True][1]:.4f} ms,"
+          f" eager {ms[False][0]:.4f} / {ms[False][1]:.4f} ms (CUDA events, 3 runs of"
+          f" {SWEEP_STEPS} steps a turn, in turns); B3/B4 kernels traced in a replayed step"
+          f" {traced} (torch.profiler); card {card}")
+    return launched
+
+
+def until_tol(torch, losses):
+    """``(tol, step)``: a tol at which JAX's test stops the loop at a step
+    between UNTIL_STOP_FROM and the history's end: the geometric mean of
+    the first improvement from UNTIL_STOP_FROM on below 0.9 of the least
+    before it and that least, far from both."""
+    history = losses.float().double()  # as the float32 history holds them
+    steps = history.numel()
+    deltas = {i: abs(float(history[i - 2]) - float(losses[i - 1])) for i in range(2, steps + 1)}
+    for i in range(UNTIL_STOP_FROM, steps):
+        least = min(deltas[j] for j in range(2, i))
+        if deltas[i] < 0.9 * least:  # a clear new minimum: rounding moves neither past tol
+            return math.sqrt(deltas[i] * least), i
+    raise AssertionError(f"J4: the eager losses give no stopping tol: improvements"
+                         f" {[f'{d:.3e}' for d in deltas.values()]}")
+
+
+def path_jit_until(torch, ft, hist, envs, env, tuning, card):
+    """J4: ``tune_until`` graphed on path T's problem with a tol at which
+    it stops between step 2 and UNTIL_MAX_STEPS: the same number of steps
+    as the eager loop, parameters within J3's bounds; the host reads of the
+    stop flag."""
+    params, start, loss_fn = path_tuning_problem(torch, envs, env)
+    _, eager_losses = tuning.tune(loss_fn, start, params, steps=UNTIL_MAX_STEPS, graph=False,
+                                  optimizer=capturable_adam)
+    tol, expected = until_tol(torch, eager_losses)
+    reset_counts(ft, hist)
+    tuned, history, steps = tuning.tune_until(loss_fn, start, params, tol=tol,
+                                              max_steps=UNTIL_MAX_STEPS)
+    reads = tuning.tune_until.host_reads
+    launched = counts(ft)
+    eager, eager_history, eager_steps = tuning.tune_until(
+        loss_fn, start, params, tol=tol, max_steps=UNTIL_MAX_STEPS, graph=False,
+        optimizer=capturable_adam)
+    if not (2 < steps < UNTIL_MAX_STEPS and steps == eager_steps):
+        raise AssertionError(f"J4: tune_until took {steps} steps graphed, {eager_steps} eager"
+                             f" (tol {tol:.4e}, the eager losses' test stops at {expected})")
+    loss_error, param_error = tuner_errors(torch, start, tuned, eager, history[:steps],
+                                           eager_history[:eager_steps])
+    print(f"J4: tune_until with tol {tol:.4e} (max_steps {UNTIL_MAX_STEPS}): {steps} steps"
+          f" graphed, {eager_steps} eager (the eager losses' test stops at {expected});"
+          f" {reads} host reads of the stop flag (one every {tuning.UNTIL_READ_EVERY} replays);"
+          f" losses within {loss_error:.3e}, parameters within {param_error:.3e} (bounds"
+          f" {JIT_LOSS_RTOL}, {JIT_PARAM_RTOL}); launches issued {launched}; card {card}")
+    if loss_error > JIT_LOSS_RTOL or param_error > JIT_PARAM_RTOL:
+        raise AssertionError("J4: graphed tune_until off the eager loop")
+    if not bool(torch.isnan(history[steps:]).all()):
+        raise AssertionError("J4: the history past the last step is not NaN")
+    return launched
+
+
+def path_jit_cavities(torch, ltt, ft, hist, functional, graphs, card):
+    """J5: the random lattice of path V's generator with the most cavities,
+    B = SWEEP_BATCH float64 settings of every field, captured with every
+    cavity at zero voltage (``graphs.graphed(functional.track)``: the
+    cavities take the active path under capture) and replayed at non-zero
+    voltages: against eager ``track`` at the same settings (the same
+    route, DOUBLE_RTOL per setting), and the zero-voltage replay against
+    eager track's folded route (ROUTE_RTOL)."""
+    cavities = {seed: sum(isinstance(e, ltt.Cavity) for e in random_lattice(
+        torch, ltt, seed, random_length(seed), device="cpu").elements) for seed in RANDOM_SEEDS}
+    seed = max(RANDOM_SEEDS, key=lambda s: (cavities[s], -s))
+    lattice = random_lattice(torch, ltt, seed, random_length(seed))
+    B = SWEEP_BATCH
+    beam = random_parameter_beam(torch, ltt, B, "cuda")
+    jitted = graphs.graphed(functional.track)
+    reset_counts(ft, hist)
+    errors = {}
+    for label, cavities_on, bound in (("zero voltage", False, ROUTE_RTOL),
+                                      ("non-zero voltages", True, DOUBLE_RTOL)):
+        apply_settings(lattice, random_settings(torch, lattice, B, seed + int(cavities_on),
+                                                cavities=cavities_on))
+        got = jitted(lattice, beam)[0]
+        want = functional.track(lattice, beam)[0]
+        errors[label] = max(relative_error(torch, got._mu, want._mu),
+                            relative_error(torch, got._cov, want._cov),
+                            relative_error(torch, got.energy, want.energy, per_setting=False))
+        if errors[label] > bound:
+            raise AssertionError(f"J5 {label}: replay against eager track {errors[label]:.2e}")
+    launched = counts(ft)
+    print(f"J5: seed {seed}'s lattice ({random_length(seed)} elements, {cavities[seed]}"
+          f" cavities), {B} float64 settings: captured at zero voltage, replayed at non-zero"
+          f" voltages ({jitted.captures} capture): against eager track"
+          f" {errors['non-zero voltages']:.3e}"
+          f" per setting (bound {DOUBLE_RTOL}), the zero-voltage replay against the folded route"
+          f" {errors['zero voltage']:.3e} (bound {ROUTE_RTOL}); launches issued {launched};"
+          f" card {card}")
+    if jitted.captures != 1 or launched["B3"] < 1:
+        raise AssertionError("J5: the lattice captured more than once or skipped B3")
+    return launched
+
+
+def path_jit_grad(torch, ft, hist, envs, env, functional, card):
+    """J6: d(loss)/d(settings) of the env's subcell at SWEEP_BATCH settings
+    through ``track_jit`` (forward and backward captured together: B3 and
+    B4 in the graphs) against eager ``track``, within path T's GRAD_RTOL of
+    each column's largest |value|."""
+    params, start, _ = path_tuning_problem(torch, envs, env, seed=61)
+
+    def gradient(track):
+        magnets = start.clone().requires_grad_(True)
+        segment = env._batched_tuned_segment(magnets)
+        beam = env._incoming(params.incoming_mu, params.incoming_sigma)
+        out = track(segment, beam)[0]
+        observed = torch.stack([out.mu_x, out.sigma_x, out.mu_y, out.sigma_y], dim=-1)
+        return torch.autograd.grad(torch.mean(torch.abs(observed - params.target)), magnets)[0]
+
+    captures = functional.track_jit.graphed.captures
+    reset_counts(ft, hist)
+    got = gradient(functional.track_jit)
+    again = gradient(functional.track_jit)  # a replay of both graphs
+    torch.cuda.synchronize()
+    launched = counts(ft)
+    want = gradient(functional.track)
+    error = max(float(((g.double() - want.double()).abs() / want.double().abs().amax(dim=0)).max())
+                for g in (got, again))
+    print(f"J6: d(loss)/d(settings) through track_jit at {SWEEP_BATCH} settings against eager"
+          f" track: max error {error:.3e} of each column's largest |value| (bound {GRAD_RTOL});"
+          f" captures {functional.track_jit.graphed.captures - captures}; launches issued"
+          f" {launched}; card {card}")
+    if error > GRAD_RTOL or launched["B4"] < 1 or not bool(torch.isfinite(got).all()):
+        raise AssertionError("J6: the graphed gradient differs from eager track's")
+    if functional.track_jit.graphed.captures != captures + 1:
+        raise AssertionError("J6: the second gradient captured again")
+    return launched
+
+
+def gym_stand_in():
+    """The two names of gymnasium that the Gym adapter uses (``Env`` with
+    ``reset(seed=...)``, ``spaces.Box``): the card's machine has no
+    gymnasium, and the adapter takes its module as an argument."""
+    import types
+
+    class Env:
+        def reset(self, *, seed=None, options=None):
+            return None
+
+    return types.SimpleNamespace(Env=Env, spaces=types.SimpleNamespace(Box=lambda **kw: kw))
+
+
+def path_jit_gym(torch, envs, card):
+    """J7: the Gym adapter's graphed step and reset (its generator
+    registered with the reset's graph): GYM_STEPS steps from
+    ``reset(seed=3)`` and then two resets without a seed (the generator
+    drawn on), against the same on an adapter whose step and reset are the
+    eager ``env.step`` and ``env.reset``, equal observations, rewards and
+    dones; ms a step of each (host clock: a step reads its reward)."""
+    import numpy as np
+
+    from lynx_tpu_torch.envs import ares_ea
+
+    adapter = ares_ea._gym_env_class(gym_stand_in())
+    graphed, eager = adapter(device="cuda"), adapter(device="cuda")
+    eager._step, eager._reset = eager._env.step, eager._env.reset
+    actions = np.random.default_rng(7).uniform(-1, 1, (GYM_STEPS, 5)).astype(np.float32)
+    seconds, results = {}, {}
+    for label, gym in (("graphed", graphed), ("eager", eager), ("graphed again", graphed)):
+        trail = [gym.reset(seed=3)[0]]
+        torch.cuda.synchronize()
+        begin = time.perf_counter()
+        for action in actions:
+            obs, reward, done, _, _ = gym.step(action)
+            trail.append((obs, reward, done))
+        seconds[label] = (time.perf_counter() - begin) / GYM_STEPS
+        trail += [gym.reset()[0], gym.reset()[0]]
+        results[label] = trail
+
+    def same(a, b):
+        if isinstance(a, tuple):
+            return np.array_equal(a[0], b[0]) and a[1:] == b[1:]
+        return np.array_equal(a, b)
+
+    equal = all(same(a, b) for a, b in zip(results["graphed"], results["eager"]))
+    again = all(same(a, b) for a, b in zip(results["graphed again"], results["eager"]))
+    print(f"J7: the Gym adapter, {GYM_STEPS} steps from reset(seed=3) and two resets after:"
+          f" graphed and eager observations, rewards and dones equal: {equal} (the graphed run"
+          f" again: {again}); captures: step {graphed._step.captures}, reset"
+          f" {getattr(graphed._reset, 'captures', 'eager')}; a step: graphed"
+          f" {seconds['graphed'] * 1e3:.4f} ms (again {seconds['graphed again'] * 1e3:.4f} ms),"
+          f" eager {seconds['eager'] * 1e3:.4f} ms (host clock; card {card})")
+    if not (equal and again) or graphed._step.captures != 1:
+        raise AssertionError("J7: the graphed Gym steps or resets differ from the eager ones")
+    if getattr(graphed._reset, "captures", 1) != 1:
+        raise AssertionError("J7: the Gym reset captured more than once")
+
 def ptxas_report(log):
     """``kernel<args> R registers, S/L bytes spilled`` for each kernel of an
     nvcc -Xptxas -v report (spill stores / spill loads); template arguments
@@ -3871,7 +4299,8 @@ def main():
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, cuda {torch.version.cuda}")
 
     import lynx_tpu_torch as ltt
-    from lynx_tpu_torch import ParticleBeam, _build, debug, envs, functional, profiling, tuning
+    from lynx_tpu_torch import (ParticleBeam, _build, debug, envs, functional, graphs, profiling,
+                                tuning)
     from lynx_tpu_torch.accelerator import fused
     from lynx_tpu_torch.accelerator import segment as segment_module
     from lynx_tpu_torch.benchmarks import hist_ab
@@ -3986,14 +4415,13 @@ def main():
     ranges = (*args["x_range"], *args["y_range"])
     bins = args["bins"]
     read_ms = cuda_ms(lambda: hist.windowed_read(x, y, w, ranges, bins, window, True), iters=50)
-    plain_ms = cuda_ms(lambda: hist.windowed_read_reference(x, y, w, ranges, bins, window, True),
-                       iters=50)
+    plain_ms = cuda_ms(lambda: plain_read(hist, x, y, w, ranges, bins, window, True), iters=50)
     b1_bound = bound(nbytes(x, y, w) + window[0] * window[1] * w.element_size(), x.numel())
     ix, vx = hist._bin_index(x, *args["x_range"], bins[0])
     iy, vy = hist._bin_index(y, *args["y_range"], bins[1])
     flat = (ix.long() * bins[1] + iy.long())[vx & vy & (w != 0)]
     bincount_ms = cuda_ms(lambda: torch.bincount(flat, minlength=bins[0] * bins[1]), iters=200)
-    print(f"B1 at the flagship read (B=1): the fused read {read_ms:.4f} ms a call (CUDA"
+    print(f"B1 at the flagship read (B=1): the read (three launches) {read_ms:.4f} ms a call (CUDA"
           f" events, 50 calls), its kernels {read_timing['B=1']['kernel_ms']:.5f} ms of device"
           f" time a read (previous design's count core {PARENT_DEVICE_MS['B1']:.5f} ms, PERF.md);"
           f" plain version {plain_ms:.4f} ms a call (CUDA events); bound"
@@ -4061,22 +4489,42 @@ def main():
     print(f"path V: launches {random_launches} in {time.perf_counter() - start:.1f} s"
           f" (host clock, V1-V5)")
 
-    # -- 14. results ---------------------------------------------------------
+    # -- 14. path J, the compiled entry points as CUDA graphs -------------------------
+    start = time.perf_counter()
+    jit_launches = {"B1": path_jit_read(torch, ares, functional, graphs, hist, ParticleBeam,
+                                        card)}
+    fallback_launches, fallback_abs_err = path_jit_fallback(torch, ares, functional, hist,
+                                                            ParticleBeam, card)
+    jit_launches["B1"] += fallback_launches
+    max_abs_err = max(max_abs_err, fallback_abs_err)
+    jit_launches["B3"] = jit_launches["B4"] = 0
+    for launched in (path_jit_tuner(torch, ft, hist, envs, env, tuning, card),
+                     path_jit_until(torch, ft, hist, envs, env, tuning, card),
+                     path_jit_cavities(torch, ltt, ft, hist, functional, graphs, card),
+                     path_jit_grad(torch, ft, hist, envs, env, functional, card)):
+        jit_launches["B3"] += launched["B3"]
+        jit_launches["B4"] += launched["B4"]
+    path_jit_gym(torch, envs, card)
+    print(f"path J: launches issued {jit_launches} (warm-ups and captures; a replay issues none"
+          f" from the host) in {time.perf_counter() - start:.1f} s (host clock, J1-J7)")
+
+    # -- 15. results ---------------------------------------------------------
     timing["B1"] = dict(ms=read_ms, plain_ms=plain_ms, bound=b1_bound,
                         library_ms=bincount_ms)
     timing["B7 onehot"], timing["B7 twolevel"] = hist_timing["onehot"], hist_timing["twolevel"]
     kernels = []
     for name, label, source, replaces, launched, error in (
         ("window_histogram", "B1", "window_histogram.cu", "lynx_tpu/ops/histogram.py:250",
-         launches + mesh_launches["B1"] + random_launches["B1"], max_abs_err),
+         launches + mesh_launches["B1"] + random_launches["B1"] + jit_launches["B1"],
+         max_abs_err),
         ("particle_apply", "B2", "particle_apply.cu", "lynx_tpu/ops/pallas_track.py:1439",
          push_launches["B2"] + mesh_launches["B2"] + random_launches["B2"], push_abs_err),
         ("moment_sweep", "B3", "moment_sweep.cu", "lynx_tpu/ops/pallas_track.py:72",
          serving_launches["B3"] + rl_launches["B3"] + optimize_launches["B3"]
-         + mesh_launches["B3"] + random_launches["B3"], sweep_abs_err["B3"]),
+         + mesh_launches["B3"] + random_launches["B3"] + jit_launches["B3"], sweep_abs_err["B3"]),
         ("moment_sweep_bwd", "B4", "moment_sweep_bwd.cu", "lynx_tpu/ops/pallas_track.py:249",
-         training_launches["B4"] + mesh_launches["B4"] + random_launches["B4"],
-         sweep_abs_err["B4"]),
+         training_launches["B4"] + mesh_launches["B4"] + random_launches["B4"]
+         + jit_launches["B4"], sweep_abs_err["B4"]),
         ("particle_moment_sweep", "B5", "particle_moment_sweep.cu",
          "lynx_tpu/ops/pallas_track.py:633",
          walk_launches + rl_launches["B5"] + random_launches["B5"], moment_abs_err["B5"]),

@@ -18,6 +18,7 @@ is the reference the port is held against; this package never imports JAX.
 
 from lynx_tpu_torch import converters  # noqa: F401
 from lynx_tpu_torch import functional  # noqa: F401
+from lynx_tpu_torch import graphs  # noqa: F401
 from lynx_tpu_torch.accelerator import (  # noqa: F401
     BPM,
     Aperture,

@@ -2,11 +2,13 @@
 
 from __future__ import annotations
 
+import warnings
 from typing import Optional
 
 import torch
 
 from lynx_tpu_torch.accelerator.element import Element, draw_patch
+from lynx_tpu_torch.graphs import capturing
 from lynx_tpu_torch.particles import Beam, ParameterBeam, ParticleBeam
 
 
@@ -50,7 +52,18 @@ class BPM(Element):
         if incoming is Beam.empty:
             self.reading = None
         elif isinstance(incoming, (ParameterBeam, ParticleBeam)):
-            self.reading = bpm_reading(incoming)
+            reading = bpm_reading(incoming)
+            if not capturing():
+                self.reading = reading
+            elif self.is_active:
+                # As Screen.track: a captured reading is a static buffer.
+                warnings.warn(
+                    f"BPM {self.name!r} was tracked inside a captured function"
+                    " (graphs.graphed, functional.track_jit): the stateful '.reading'"
+                    " is NOT updated. Use lynx_tpu_torch.functional.track_jit's"
+                    " diagnostics output instead.",
+                    stacklevel=2,
+                )
         else:
             raise TypeError(f"Parameter incoming is of invalid type {type(incoming)}")
         return incoming

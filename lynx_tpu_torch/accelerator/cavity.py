@@ -23,6 +23,7 @@ import torch
 
 from lynx_tpu_torch.accelerator.element import Element, as_field, draw_patch, first_value
 from lynx_tpu_torch.constants import ELECTRON_MASS_EV, SPEED_OF_LIGHT
+from lynx_tpu_torch.graphs import capturing
 from lynx_tpu_torch.ops.rmatrix import cavity_rmatrix
 from lynx_tpu_torch.particles import Beam, ParameterBeam, ParticleBeam
 from lynx_tpu_torch.utils import resolve_device
@@ -62,6 +63,12 @@ class Cavity(Element):
 
     @property
     def is_active(self) -> bool:
+        # Under a capture (graphs.graphed) the voltage's value is not known
+        # to the host, and a graph captured at zero voltage must serve any
+        # voltage: take the active path, whose per-entry where masking is
+        # exact for zero-voltage entries, as JAX's traced path does.
+        if capturing():
+            return True
         return bool(torch.any(self.voltage != 0))
 
     @property

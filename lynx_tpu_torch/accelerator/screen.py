@@ -12,6 +12,7 @@ are plain attributes, not buffers.
 from __future__ import annotations
 
 import math
+import warnings
 from typing import Optional, Tuple
 
 import numpy as np
@@ -19,6 +20,7 @@ import torch
 
 from lynx_tpu_torch._collectives import particle_all_reduce
 from lynx_tpu_torch.accelerator.element import Element, as_field, draw_patch
+from lynx_tpu_torch.graphs import capturing
 from lynx_tpu_torch.ops.histogram import screen_histogram_2d
 from lynx_tpu_torch.particles import Beam, ParameterBeam, ParticleBeam
 from lynx_tpu_torch.utils import resolve_device
@@ -288,7 +290,20 @@ class Screen(Element):
         if not self.is_active:
             return incoming
         read_beam = incoming if incoming is Beam.empty else self.misaligned_beam(incoming)
-        self.set_read_beam(read_beam)
+        if not capturing():
+            self.set_read_beam(read_beam)
+        else:
+            # A captured track's beam is a graph's static buffer, which every
+            # replay overwrites: the stateful reading cannot follow a replay.
+            # Warn, as the JAX package warns under tracing, and leave it.
+            warnings.warn(
+                f"Screen {self.name!r} was tracked inside a captured function"
+                " (graphs.graphed, functional.track_jit): the stateful '.reading'"
+                " is NOT updated and will not reflect this track. Use"
+                " lynx_tpu_torch.functional.track_jit(segment, beam) and read the"
+                " image from its diagnostics dict instead.",
+                stacklevel=2,
+            )
         return Beam.empty  # the screen absorbs the beam
 
     @property

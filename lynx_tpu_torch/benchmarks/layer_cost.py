@@ -15,7 +15,11 @@ session (parent, change, change, parent):
   screen active, a 100,000-particle beam, k1 at the working point;
 * the statistics of that beam: the six sigmas, ``sigma_xxp``,
   ``sigma_yyp`` and ``as_parameter_beam``;
-* path S's ``batched_step`` of the env at 100,000 settings (kernel B3).
+* path S's ``batched_step`` of the env at 100,000 settings (kernel B3);
+* the flagship screen's read alone: kernel B1's wrapper
+  (``ops.histogram.windowed_read``, count mode) and the read as the screen
+  calls it (``screen_histogram_2d``), on that beam's coordinates at the
+  screen.
 
 Each is CUDA events over ``--iters`` calls after warm-up; one JSON line.
 
@@ -63,10 +67,18 @@ def paths(args):
 
     import lynx_tpu_torch
     from lynx_tpu_torch import ParticleBeam, envs, functional
+    from lynx_tpu_torch.accelerator.screen import screen_histogram_args
     from lynx_tpu_torch.benchmarks.timing import cuda_ms
     from lynx_tpu_torch.models import ares
+    from lynx_tpu_torch.ops import histogram as hist
 
     segment, beam = flagship(torch, ares, ParticleBeam)
+    segment.track(beam)
+    screen = segment.AREABSCR1
+    read = screen_histogram_args(screen.get_read_beam(), screen.resolution, screen.pixel_size,
+                                 screen.binning, histogram_window=screen.histogram_window)
+    x, y, w, bins = read["x"], read["y"], read["weights"], read["bins"]
+    ranges, window = (*read["x_range"], *read["y_range"]), hist._window_shape(read["window"], *bins)
 
     def statistics():
         return (beam.sigma_x, beam.sigma_xp, beam.sigma_y, beam.sigma_yp, beam.sigma_s,
@@ -93,6 +105,9 @@ def paths(args):
         "statistics_ms": cuda_ms(statistics, args.iters),
         "path_s_step_ms": cuda_ms(lambda: env.batched_step(states, action, params),
                                   args.iters),
+        "windowed_read_ms": cuda_ms(
+            lambda: hist.windowed_read(x, y, w, ranges, bins, window, True), args.iters),
+        "screen_read_ms": cuda_ms(lambda: hist.screen_histogram_2d(**read), args.iters),
         "iters": args.iters,
     }
     print(json.dumps(record))
@@ -162,7 +177,7 @@ def step(args):
     def one_step(sharded):
         segment, _, optimizer = setup(sharded)
         if not sharded:
-            tuner = tuning.make_tuner(optimizer, loss_fn)
+            tuner = tuning.make_tuner(optimizer, loss_fn, graph=False)  # as the layer's step runs
             return lambda: tuner(segment, 1, beam)[1]
         train_step = parallel.make_tuning_train_step(optimizer, loss_fn)
         return lambda: train_step(segment, parallel.shard_beam(beam, mesh))[1]

@@ -33,6 +33,15 @@
 // held on the host), no contraction (the _rn intrinsics).  A bin that moved
 // would move the image and the routing audit.
 //
+// The scatter fallback (JAX's lax.cond at lynx_tpu/ops/histogram.py:539)
+// is decided on the card: a third launch, the completion, reads the B
+// misfit bytes the second pass wrote.  Where every row fits, each of its
+// blocks returns after that read.  Where any row misfits (one decision for
+// the batch, as lax.cond makes it), each live bin outside its row's window
+// adds 1 or its weight to its image cell, so that the image becomes the
+// exact scatter's (the window already holds the rest), and one thread adds
+// one to a device counter of fallen-back reads.  No host reads a flag.
+//
 // The (lx, ly) count core (lynx_window_histogram) is the yardstick of the
 // count-histogram A/B and of the read's timing.
 
@@ -236,6 +245,39 @@ __global__ void __launch_bounds__(kThreads) windowed_read_count_kernel(
   if (threadIdx.x == 0 && s_misfit) tail.misfit[row] = 1;
 }
 
+// Third pass, the completion (see the note at the top): where any of the
+// batch's rows misfits, each live packed bin outside its row's window adds 1
+// or its weight to the image cell, and block (0, 0) counts the read in
+// *counter.  Grid (blocks, B).
+template <typename W, bool kWeighted>
+__global__ void __launch_bounds__(kThreads) windowed_read_complete_kernel(
+    const int32_t* __restrict__ bins, const W* __restrict__ w, int64_t w_row, int64_t w_step,
+    W* __restrict__ image, Tail tail, int* __restrict__ counter, int64_t n, int64_t batch,
+    int nx, int ny, int win_x, int win_y) {
+  __shared__ int s_any;
+  if (threadIdx.x == 0) s_any = 0;
+  __syncthreads();
+  for (int64_t r = threadIdx.x; r < batch; r += blockDim.x) {
+    if (tail.misfit[r]) atomicMax(&s_any, 1);
+  }
+  __syncthreads();
+  if (!s_any) return;  // every row fits: the windowed image is the read
+  const int64_t row = blockIdx.y;
+  if (row == 0 && blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(counter, 1);
+  const int ox = tail.ox[row], oy = tail.oy[row];
+  W* plane = image + row * nx * static_cast<int64_t>(ny);
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t k = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; k < n;
+       k += stride) {
+    const int bin = bins[row * n + k];
+    if (bin < 0) continue;  // dead
+    const int ix = bin >> 16, iy = bin & 0xffff;
+    if (ix - ox < win_x && iy - oy < win_y) continue;  // already in the window
+    atomicAdd(plane + static_cast<int64_t>(ix) * ny + iy,
+              kWeighted ? w[row * w_row + k * w_step] : W(1));
+  }
+}
+
 template <typename T>
 Axis<T> make_axis(const void* lo_ptr, const void* hi_ptr, const long long* steps,
                   const double* values, int divide, int bins) {
@@ -287,6 +329,31 @@ int dispatch(const void* x, const void* y, const void* w, const long long* strid
         packed, p.w, p.w_row, p.w_step, out, t, n, nx, ny, win_x, win_y);
   }
   return 0;
+}
+
+template <typename W>
+int complete(const void* bins, const void* w, long long w_row, long long w_step, void* image,
+             void* tail, void* counter, long long batch, long long n, int nx, int ny, int win_x,
+             int win_y, int weighted, void* stream) {
+  int* ints = static_cast<int*>(tail);
+  const Tail t = {ints, ints + batch, ints + 2 * batch, ints + 3 * batch,
+                  reinterpret_cast<unsigned char*>(ints + 4 * batch)};
+  const auto* packed = static_cast<const int32_t*>(bins);
+  const auto* weights = static_cast<const W*>(w);
+  auto* out = static_cast<W*>(image);
+  auto* count = static_cast<int*>(counter);
+  auto s = static_cast<cudaStream_t>(stream);
+  const int64_t needed = (n + kThreads - 1) / kThreads;
+  const dim3 grid(static_cast<unsigned>(needed < kMaxBlocks ? needed : kMaxBlocks),
+                  static_cast<unsigned>(batch));
+  if (weighted) {
+    windowed_read_complete_kernel<W, true><<<grid, kThreads, 0, s>>>(
+        packed, weights, w_row, w_step, out, t, count, n, batch, nx, ny, win_x, win_y);
+  } else {
+    windowed_read_complete_kernel<W, false><<<grid, kThreads, 0, s>>>(
+        packed, weights, w_row, w_step, out, t, count, n, batch, nx, ny, win_x, win_y);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -348,6 +415,25 @@ int lynx_windowed_read(const void* x, const void* y, const void* w, const long l
   const int code = run(x, y, w, strides, bound_ptrs, bound_steps, bound_values, divide, image,
                        tail, bins, batch, n, nx, ny, win_x, win_y, weighted, stream);
   return code != 0 ? code : static_cast<int>(cudaGetLastError());
+}
+
+// The completion, launched after lynx_windowed_read on the same stream and
+// on its buffers (see the note at the top).  bins: the read's (batch, n)
+// packed bins; w: its weights (float32 if w_double == 0, else float64) with
+// their (row, element) strides; image and tail: the read's; counter: one
+// int32 on the card, the fallen-back reads.  Returns cudaErrorInvalidValue
+// for a read lynx_windowed_read refuses, else cudaGetLastError().
+int lynx_windowed_read_complete(const void* bins, const void* w, long long w_row,
+                                long long w_step, void* image, void* tail, void* counter,
+                                long long batch, long long n, int nx, int ny, int win_x,
+                                int win_y, int w_double, int weighted, void* stream) {
+  if (batch < 1 || batch > 65535 || n < 1 || nx < 1 || ny < 1 || nx > kMaxBins ||
+      ny > kMaxBins || win_x < 1 || win_y < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto run = w_double ? complete<double> : complete<float>;
+  return run(bins, w, w_row, w_step, image, tail, counter, batch, n, nx, ny, win_x, win_y,
+             weighted, stream);
 }
 
 const char* lynx_cuda_error_string(int code) {

@@ -28,6 +28,7 @@ import torch
 from lynx_tpu_torch.accelerator.fused import particle_moment_plan
 from lynx_tpu_torch.accelerator.segment import Segment
 from lynx_tpu_torch.functional import moment_sufficient, track
+from lynx_tpu_torch.graphs import graphed
 from lynx_tpu_torch.models import ares_ea_segment
 from lynx_tpu_torch.ops.fused_track import sweep_particle_moments
 from lynx_tpu_torch.particles import ParameterBeam, ParticleBeam
@@ -348,6 +349,14 @@ def _gym_env_class(gymnasium):
 
         Observations are numpy arrays, rewards ``float``; each step reads
         the reward on the host, one device sync, as the Gym API needs.
+        The step and the reset run through ``graphs.graphed(env.step)`` and
+        ``graphs.graphed(env.reset)``, as the JAX adapter's run through
+        ``jax.jit``: on the card one graph each, captured at the first call
+        and replayed after.  The reset draws from the adapter's
+        ``torch.Generator``, which ``graphed`` registers with its graph, so
+        a replay draws what an eager reset would, ``reset(seed=...)``'s
+        re-seeding included.  A torch that cannot register a generator with
+        a graph resets eagerly.
         """
 
         metadata = {"render_modes": []}
@@ -366,6 +375,9 @@ def _gym_env_class(gymnasium):
             )
             self._generator = torch.Generator(device=device).manual_seed(seed)
             self._state = None
+            self._step = graphed(self._env.step)
+            registers = hasattr(torch.cuda.CUDAGraph, "register_generator_state")
+            self._reset = graphed(self._env.reset) if registers else self._env.reset
             self.action_space = gymnasium.spaces.Box(
                 low=-1.0, high=1.0, shape=(self._env.num_actions,)
             )
@@ -380,14 +392,14 @@ def _gym_env_class(gymnasium):
             super().reset(seed=seed)
             if seed is not None:
                 self._generator.manual_seed(seed)
-            obs, self._state = self._env.reset(self._generator, self._params)
+            obs, self._state = self._reset(self._generator, self._params)
             return obs.cpu().numpy(), {}
 
         def step(self, action):
             action = torch.as_tensor(
                 np.asarray(action), dtype=self._env.dtype, device=self._env.device
             )
-            obs, self._state, reward, done = self._env.step(self._state, action, self._params)
+            obs, self._state, reward, done = self._step(self._state, action, self._params)
             return obs.cpu().numpy(), float(reward), bool(done), False, {}
 
     return AresEAGymEnv

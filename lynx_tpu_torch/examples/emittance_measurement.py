@@ -29,11 +29,12 @@ ENERGY = 1.5e8  # eV
 def make_beamline(k1: torch.Tensor) -> ltt.Segment:
     """The scanned quadrupole (``k1`` of shape ``(S,)``, one per setting)
     and the drift to the observation screen."""
+    # Lengths filled on the device: the tuner's captured step copies no host data.
     like = dict(dtype=k1.dtype, device=k1.device)
     return ltt.Segment(
         [
-            ltt.Quadrupole(length=torch.tensor([0.15], **like), k1=k1, name="scan_quad"),
-            ltt.Drift(length=torch.tensor([1.2], **like), name="to_screen"),
+            ltt.Quadrupole(length=torch.full((1,), 0.15, **like), k1=k1, name="scan_quad"),
+            ltt.Drift(length=torch.full((1,), 1.2, **like), name="to_screen"),
         ]
     )
 
@@ -60,7 +61,7 @@ def beam_from_params(params: torch.Tensor) -> ltt.ParameterBeam:
     cov[..., 0, 1] = s12
     cov[..., 1, 0] = s12
     cov[..., 1, 1] = s22
-    return ltt.ParameterBeam(mu, cov, energy=torch.tensor([ENERGY], **like),
+    return ltt.ParameterBeam(mu, cov, energy=torch.full((1,), ENERGY, **like),
                              total_charge=torch.zeros(1, **like))
 
 

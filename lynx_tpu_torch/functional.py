@@ -20,6 +20,7 @@ from lynx_tpu_torch.accelerator.screen import (
     screen_reading_particle,
 )
 from lynx_tpu_torch.accelerator.segment import Segment, _fused_flush, flush_run
+from lynx_tpu_torch.graphs import graphed
 from lynx_tpu_torch.particles import Beam, ParameterBeam, ParticleBeam
 
 Diagnostics = Dict[str, Any]
@@ -106,3 +107,17 @@ def moment_sufficient(segment: Segment, incoming: Beam) -> bool:
     if not isinstance(incoming, ParticleBeam):
         return False
     return all(element.is_skippable for element in segment.flattened().elements)
+
+
+def track_jit(segment: Segment, incoming: Beam):
+    """:func:`track` captured in a CUDA graph once per structure key and
+    replayed (``graphs.graphed``): the segment is an argument, so
+    re-tuning magnet strengths with tensors of the same shape and dtype
+    replays the graph; only structural changes capture again.  Outputs are
+    fresh tensors.  On CPU tensors :func:`track` runs eagerly under
+    ``graphs.capturing``.  ``track_jit.graphed`` is the ``GraphedFunction``
+    behind it (its ``captures``, ``graphs`` and ``capture_seconds``)."""
+    return track_jit.graphed(segment, incoming)
+
+
+track_jit.graphed = graphed(track)

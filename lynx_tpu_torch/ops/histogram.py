@@ -12,7 +12,9 @@ Two routes give the same image:
   hand-written CUDA kernel B1 (``csrc/window_histogram.cu``, wrapper
   :func:`windowed_read`, plain version :func:`windowed_read_reference`).
   When any live particle lands outside the window the read falls back to
-  the exact scatter, and :func:`histogram_fallback_count` counts it.
+  the exact scatter's image, decided on the card as the JAX package's
+  ``lax.cond`` decides it (B1's third launch, the completion), and
+  :func:`histogram_fallback_count` reads the device counter that counts it.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from typing import Optional, Tuple
 import torch
 
 from lynx_tpu_torch._build import check, load_library
+from lynx_tpu_torch.graphs import capturing
 
 Tensor = torch.Tensor
 
@@ -93,26 +96,38 @@ def weighted_histogram_2d(
 
 # -- Fallback instrumentation -----------------------------------------------
 
-#: Count of windowed reads that fell back to the exact scatter in this
-#: process: the fallback is a performance cliff unless counted.
-_FALLBACK_STATE = {"count": 0}
+#: One int32 counter a device of the windowed reads that fell back to the
+#: exact scatter: the fallback is a performance cliff unless counted.  The
+#: read adds to it where it decides (B1's completion on the card, a tensor
+#: op on the CPU), so counting reads no flag on the host.
+_COUNTERS: dict = {}
+#: The count at which the fallback was last logged.
+_FALLBACK_STATE = {"logged": 0}
 _log = logging.getLogger(__name__)
+
+
+def _fallback_counter(device: torch.device) -> Tensor:
+    """The device's fallback counter, made at the device's first read.  A
+    CUDA graph captures its address, so it must exist before a capture:
+    ``graphs.graphed`` runs the function eagerly first."""
+    counter = _COUNTERS.get(str(device))
+    if counter is None:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "windowed read: the first read on this device is inside a CUDA graph"
+                " capture; run one read eagerly first (graphs.graphed warms up)"
+            )
+        counter = _COUNTERS[str(device)] = torch.zeros((), dtype=torch.int32, device=device)
+    return counter
 
 
 def histogram_fallback_count() -> int:
     """How many windowed-histogram reads fell back to the scatter path in
-    this process."""
-    return _FALLBACK_STATE["count"]
-
-
-def reset_histogram_fallback_count() -> None:
-    _FALLBACK_STATE["count"] = 0
-
-
-def _note_fallback() -> None:
-    _FALLBACK_STATE["count"] += 1
-    count = _FALLBACK_STATE["count"]
-    if count & (count - 1) == 0:  # log at 1, 2, 4, 8, ...
+    this process.  Reads the device counters: one sync, here only.  Logs
+    when the count passes a power of two (1, 2, 4, 8, ...)."""
+    count = sum(int(counter) for counter in _COUNTERS.values())
+    logged = _FALLBACK_STATE["logged"]
+    if count > logged and 1 << (count.bit_length() - 1) > logged:  # passed a power of two
         _log.info(
             "windowed screen histogram fell back to the exact scatter path"
             " (spot larger than the window; occurrence %d in this process)."
@@ -120,6 +135,14 @@ def _note_fallback() -> None:
             " or a larger Screen.histogram_window.",
             count,
         )
+    _FALLBACK_STATE["logged"] = count
+    return count
+
+
+def reset_histogram_fallback_count() -> None:
+    for counter in _COUNTERS.values():
+        counter.zero_()  # in place: a captured graph holds the address
+    _FALLBACK_STATE["logged"] = 0
 
 
 #: Default window side in pixels.  Pass a per-axis ``(win_x, win_y)`` matched
@@ -210,9 +233,11 @@ def window_histogram_reference(
 
 
 #: C signatures of B1's entry points: the (lx, ly) count core (lx, ly,
-#: weights, out, batch, n, win_x, win_y, stream) and the fused read (x, y,
+#: weights, out, batch, n, win_x, win_y, stream), the fused read (x, y,
 #: w, strides[6], bound pointers[4], bound steps[4], bound values[6],
 #: divide[2], image, tail, bins, batch, n, nx, ny, win_x, win_y, t_double,
+#: w_double, weighted, stream) and its completion (bins, w, w's row and
+#: element strides, image, tail, counter, batch, n, nx, ny, win_x, win_y,
 #: w_double, weighted, stream).
 _I, _L, _P = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
 _B1_SIGNATURE = {
@@ -224,6 +249,7 @@ _B1_SIGNATURE = {
            ctypes.POINTER(ctypes.c_double), ctypes.POINTER(_I)]
         + [_P] * 3 + [_L, _L] + [_I] * 7 + [_P],
     ),
+    "lynx_windowed_read_complete": (_I, [_P, _P, _L, _L] + [_P] * 3 + [_L, _L] + [_I] * 6 + [_P]),
 }
 
 
@@ -360,17 +386,35 @@ def windowed_read_reference(x, y, weights, ranges, bins, window, binary_weights)
     return image, ox, oy, fits
 
 
+def complete_read_reference(x, y, weights, ranges, bins, image, fits, counter=None):
+    """Plain PyTorch version of B1's completion: the read's image where
+    every row fits, else the exact scatter's (:func:`weighted_histogram_2d`)
+    for the whole batch, chosen by ``torch.where`` on the batch's flag (no
+    host branch), and ``counter`` (a 0-d int32 tensor) advanced by one for a
+    read that fell back.  ``image`` and ``fits`` are
+    :func:`windowed_read_reference`'s."""
+    misfit = ~torch.all(fits)
+    scatter = weighted_histogram_2d(x, y, weights, ranges[:2], ranges[2:], bins)
+    if counter is not None:
+        counter.add_(misfit.to(counter.dtype))
+    return torch.where(misfit, scatter.to(image.dtype), image)
+
+
 _MAX_BINS = 32767  # the packed bins keep 15 bits an axis
 _EXACT_FLOAT_COUNTS = 1 << 24  # float32 counts stay exact below 2^24 a cell
-#: Kernel launches of one fused read: the packed bins, then the count.
-READ_LAUNCHES = 2
+#: Kernel launches of one screen read: the packed bins, the count and the
+#: completion.
+READ_LAUNCHES = 3
 
 
-def _read_launch(library, x, y, weights, ranges, bins, window, binary_weights, stream):
+def _read_launch(library, x, y, weights, ranges, bins, window, binary_weights, stream,
+                 counter=None):
     """Marshal one fused read for ``library``'s entry point and call it:
     ``(code, image, ox, oy, misfit)``.  A tensor bound on ``x``'s device is
-    read from its memory; any other bound is passed as a host value.  No
-    device checks: the caller's."""
+    read from its memory; any other bound is passed as a host value.  With
+    a ``counter`` (0-d int32 on the read's device) the completion follows on
+    the same stream: the image is then the scatter's where any row misfits,
+    and the counter counts it.  No device checks: the caller's."""
     (nx, ny), (win_x, win_y) = (int(b) for b in bins), window
     batch_shape, n = x.shape[:-1], x.shape[-1]
     weights = torch.broadcast_to(weights, x.shape)
@@ -439,25 +483,34 @@ def _read_launch(library, x, y, weights, ranges, bins, window, binary_weights, s
         int(dtype == torch.float64), int(weights.dtype == torch.float64),
         int(not binary_weights), stream,
     )
+    if code == 0 and counter is not None:
+        code = library.lynx_windowed_read_complete(
+            workspace.data_ptr(), w2.data_ptr(), w2.stride(0), w2.stride(1), image.data_ptr(),
+            tail.data_ptr(), counter.data_ptr(), B, n, nx, ny, win_x, win_y,
+            int(weights.dtype == torch.float64), int(not binary_weights), stream,
+        )
     image = image.reshape(*batch_shape, nx, ny)
     return code, image, tail_ints[2 * B: 3 * B], tail_ints[3 * B:], misfit
 
 
 def _windowed_read_cuda(x, y, weights, ranges, bins, window, binary_weights):
-    """Launch kernel B1's fused read on the current stream (no
-    synchronisation): ``(image, ox, oy, misfit)``, ``misfit`` the ``(B,)``
-    bool rows that do not fit their window.  The image and the small tail
-    that carries the origins and misfits come from one ``torch.zeros``."""
+    """Launch kernel B1's read, its two passes and the completion, on the
+    current stream (no synchronisation): ``(image, ox, oy, misfit)``,
+    ``misfit`` the ``(B,)`` bool rows that do not fit their window; the
+    device's fallback counter counts a read that fell back.  The image and
+    the small tail that carries the origins and misfits come from one
+    ``torch.zeros``."""
     weights = torch.broadcast_to(weights, x.shape)
     on_card = [b for b in ranges if isinstance(b, Tensor) and b.is_cuda]
     for t in [x, y, weights, *on_card]:
         if not t.is_cuda or t.device != x.device:
             raise ValueError("windowed_read: x, y, weights and ranges must share one CUDA device")
     library = window_histogram_library()
+    counter = _fallback_counter(x.device)
     with torch.cuda.device(x.device):
         code, image, ox, oy, misfit = _read_launch(
             library, x, y, weights, ranges, bins, window, binary_weights,
-            torch.cuda.current_stream(x.device).cuda_stream,
+            torch.cuda.current_stream(x.device).cuda_stream, counter,
         )
     check(library, code, "windowed_read")
     window_histogram.launches += READ_LAUNCHES
@@ -465,38 +518,42 @@ def _windowed_read_cuda(x, y, weights, ranges, bins, window, binary_weights):
 
 
 def windowed_read(x, y, weights, ranges, bins, window, binary_weights):
-    """Kernel B1, the fused windowed read: ``(image, ox, oy, fits)`` as
-    :func:`windowed_read_reference` gives them, from the coordinates (as
-    ``(*batch, N)`` views with their strides: no copy), the weights and the
-    ranges (0-d tensors as the screen passes them, one-a-row tensors, or
-    Python numbers), in two launches.
+    """Kernel B1, the screen read: ``(image, ox, oy, fits)``, from the
+    coordinates (as ``(*batch, N)`` views with their strides: no copy), the
+    weights and the ranges (0-d tensors as the screen passes them,
+    one-a-row tensors, or Python numbers), in three launches.  Origins and
+    fits are :func:`windowed_read_reference`'s; the image is
+    :func:`complete_read_reference`'s: the windows where every row fits,
+    else the scatter's (one decision for the batch, as JAX's ``lax.cond``
+    makes it, on the read's device), and the device's fallback counter
+    counts such a read.
 
     A CUDA tensor launches the kernel (or raises); a CPU tensor takes the
-    plain version.  ``window_histogram.launches`` counts B1's launches."""
+    plain versions: under ``graphs.capturing`` the completion's ``where``
+    form, as the graph computes it, else a host branch on ``fits`` (a sync
+    costs the CPU nothing), which scatters only where a row misfits.
+    ``window_histogram.launches`` counts B1's launches."""
     if not x.is_cuda:
-        return windowed_read_reference(x, y, weights, ranges, bins, window, binary_weights)
-    image, ox, oy, misfit = _windowed_read_cuda(
-        x, y, weights, ranges, bins, window, binary_weights
-    )
+        image, ox, oy, fits = windowed_read_reference(x, y, weights, ranges, bins, window,
+                                                      binary_weights)
+        counter = _fallback_counter(x.device)
+        if capturing():
+            image = complete_read_reference(x, y, weights, ranges, bins, image, fits, counter)
+        elif not bool(fits.all()):
+            counter.add_(1)
+            scatter = weighted_histogram_2d(x, y, weights, ranges[:2], ranges[2:], bins)
+            image = scatter.to(image.dtype)
+        return image, ox, oy, fits
+    image, ox, oy, misfit = _windowed_read_cuda(x, y, weights, ranges, bins, window,
+                                                binary_weights)
     return image, ox, oy, ~misfit
 
 
 def _windowed_forward(x, y, weights, ranges, bins, window, binary_weights):
-    (x_lo, x_hi, y_lo, y_hi) = ranges
+    """The screen read's image (no host sync)."""
     if x.is_cuda:
-        image, _, _, misfit = _windowed_read_cuda(x, y, weights, ranges, bins, window,
-                                                  binary_weights)
-        fits = not bool(misfit.any())
-    else:
-        image, _, _, fits = windowed_read_reference(x, y, weights, ranges, bins, window,
-                                                    binary_weights)
-        fits = bool(fits.all())
-    # One decision for the whole batch, as JAX's lax.cond makes it.  Unlike
-    # lax.cond this reads the flag on the host: one sync per read.
-    if not fits:
-        _note_fallback()
-        return weighted_histogram_2d(x, y, weights, (x_lo, x_hi), (y_lo, y_hi), bins)
-    return image
+        return _windowed_read_cuda(x, y, weights, ranges, bins, window, binary_weights)[0]
+    return windowed_read(x, y, weights, ranges, bins, window, binary_weights)[0]
 
 
 class _WindowedHistogram(torch.autograd.Function):

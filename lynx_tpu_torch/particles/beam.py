@@ -147,8 +147,11 @@ def _common_shape(args: Sequence, default: Tuple[int, ...] = (1,)) -> Tuple[int,
 
 
 def _resolve(value, default, shape, dtype, device) -> torch.Tensor:
-    out = torch.as_tensor(default if value is None else value, dtype=dtype, device=device)
-    return torch.broadcast_to(out, shape)
+    value = default if value is None else value
+    if isinstance(value, (int, float)):
+        # Filled on the device: no host copy, which a graph capture refuses.
+        return torch.full(shape, value, dtype=dtype, device=device)
+    return torch.broadcast_to(torch.as_tensor(value, dtype=dtype, device=device), shape)
 
 
 def _host_arrays_to_device(

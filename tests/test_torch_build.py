@@ -27,6 +27,7 @@ int lynx_window_histogram(const void* lx, const void* ly, const void* w, void* o
   return 0;
 }
 int lynx_windowed_read(void) { return 1; }
+int lynx_windowed_read_complete(void) { return 1; }
 const char* lynx_cuda_error_string(int code) { return "stub error"; }
 """
 

@@ -1496,6 +1496,42 @@ def test_windowed_read_weighted_double_and_refusals(host_kernels):
                                 (40_000, 10), window, True, None)
 
 
+
+@pytest.mark.parametrize("binary", [True, False], ids=["count", "weighted"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_windowed_read_completion_equals_the_scatter(host_kernels, binary, dtype):
+    """B1's completion (the third launch) against its plain version: where
+    rows misfit (one in x, one in y, one fits), the image becomes the scatter's for the whole
+    batch (count mode exactly, weighted within the float atomics' order) and
+    the device counter counts the read once; where every row fits, the
+    read's image stays and the counter does not move."""
+    library = host_kernels["window_histogram"]
+    window = torch_hist._window_shape((16, 128), *READ_BINS)
+    ranges = read_ranges("0-d", dtype, 3)
+    wide_x = read_spot(3, 1500, dtype, seed=11, sigma=(12.0, 8.0))
+    wide_y = read_spot(3, 1500, dtype, seed=13, sigma=(1.5, 60.0))
+    narrow = read_spot(3, 1500, dtype, seed=12, sigma=(1.5, 8.0))
+    mixed = tuple(torch.cat([a[:1], b[1:2], c[2:]]) for a, b, c in zip(wide_x, wide_y, narrow))
+    counter = torch.zeros((), dtype=torch.int32)
+    for (x, y, w), fell in ((mixed, 1), (narrow, 0)):
+        w = (w != 0).to(dtype) if binary else w.to(dtype)  # count mode's promise: 0/1 weights
+        before = int(counter)
+        code, image, _, _, misfit = torch_hist._read_launch(
+            library, x, y, w, ranges, READ_BINS, window, binary, None, counter)
+        assert code == 0 and bool(misfit.any()) == bool(fell)
+        ref_image, _, _, fits = torch_hist.windowed_read_reference(x, y, w, ranges, READ_BINS,
+                                                                   window, binary)
+        expected = torch_hist.complete_read_reference(x, y, w, ranges, READ_BINS, ref_image, fits)
+        assert int(counter) == before + fell
+        if binary:
+            assert torch.equal(image, expected)
+        else:
+            torch.testing.assert_close(image, expected, rtol=1e-5 if dtype == torch.float32
+                                       else 1e-12, atol=0.0)
+        if fell:
+            scatter = torch_hist.weighted_histogram_2d(x, y, w, ranges[:2], ranges[2:], READ_BINS)
+            assert torch.equal(expected, scatter)
+
 def host_read_code(library, rows, n, bins, window):
     """The entry point's code for a read of ``rows`` x ``n`` particles into
     ``bins``, marshalled by hand (no buffers: a refused read reads none)."""
