@@ -148,7 +148,20 @@ Phases, each of which raises on failure (non-zero exit, no result line):
     voltages against eager ``track`` in float64; J6, the gradient through
     ``track_jit`` (forward and backward captured) against eager; J7, the Gym
     adapter's graphed step and reset against eager ones;
-15. print the kernels' JSON line and, last, the ``{"ok": true, ...}`` line.
+15. path J continued, the JAX package's last jitted sites captured: J8,
+    PPO's ``collect_and_update`` as one graph at R1's 100,000 envs (16 B3
+    nodes) and at 512 (the dense route), against the eager step with the
+    same capturable Adam and the first update against R1's; J9, metrics
+    logged from a replay (``batched_step`` with ``log_metrics``, a PPO
+    update); J10, B5 and B6 captured (the env's kernel route, path A's
+    lattice); J11, the parallel layer captured on path M's 1 x 1 mesh
+    (``track_jit`` inside the mesh, the train step, ``pipeline_track``,
+    ``multichip_tuning``); J12, an active aperture captured (F4); J13, the
+    examples' jits (``image_tuning``'s loss and gradient,
+    ``emittance_measurement``'s measure, ``optimize_speed``'s stages,
+    ``profiling.benchmark``).  R1, R3's image_tuning, O and M keep their
+    eager forms (``graph=False``) as the records J replays against;
+16. print the kernels' JSON line and, last, the ``{"ok": true, ...}`` line.
 
 Each kernel is timed at its path's shape beside its plain version and its
 bound (``bound``: the larger of its bytes over the card's memory rate and
@@ -2489,7 +2502,7 @@ def ppo_update_on_cpu(torch, envs, ppo, policy, params, magnets, noise, dtype):
     with torch.no_grad():
         obs = env._observe(magnets, env.batched_beam_parameters(magnets, params), params.target)
     states = envs.EnvState(magnets, torch.zeros(magnets.shape[0], dtype=torch.int32), None)
-    update = ppo.make_collect_and_update(env, params, optimizer, PPO_ROLLOUT)
+    update = ppo.make_collect_and_update(env, params, optimizer, PPO_ROLLOUT, graph=False)
     _, _, loss, reward = update(policy, obs, states, noise=noise.to("cpu", dtype))
     return loss, reward, [p.grad for p in policy.parameters()]
 
@@ -2502,7 +2515,10 @@ def path_rl_ppo(torch, ft, hist, envs, ppo, profiling, card):
     times the CPU path's own float-against-double spread of it;
     env-transitions/s, the device's busy share and B3's, the
     top device ops; one update at the example's PPO_DEFAULT_ENVS (dense
-    route).  Returns (the launches, R1's env, params and states)."""
+    route).  R1 runs the eager step (``graph=False``); J8 replays it.
+    Returns (the launches, R1's env, params and states, and what J8 holds
+    its graph form to: the initial policy, the start, the noise, the first
+    update and the CPU's spreads)."""
     B = SWEEP_BATCH
     env = envs.make_env(device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(41)
@@ -2510,13 +2526,13 @@ def path_rl_ppo(torch, ft, hist, envs, ppo, profiling, card):
     policy = ppo.MLPPolicy(env.obs_size, env.num_actions, generator=gen, device="cuda")
     initial_policy = copy.deepcopy(policy)
     optimizer = torch.optim.Adam(policy.parameters(), lr=ppo.LEARNING_RATE)
-    update = ppo.make_collect_and_update(env, params, optimizer, PPO_ROLLOUT)
+    update = ppo.make_collect_and_update(env, params, optimizer, PPO_ROLLOUT, graph=False)
     noise = torch.randn((PPO_ROLLOUT, B, env.num_actions), generator=gen, device="cuda")
 
     reset_counts(ft, hist)
     with plain_on_cuda_guard(torch, ft) as plain:
         obs, states = env.batched_reset(gen, params)
-        magnets = states.magnets.clone()
+        magnets, obs0 = states.magnets.clone(), obs.clone()
         history = []
         for i in range(PPO_UPDATES):
             obs, states, loss, reward = update(policy, obs, states, gen,
@@ -2573,7 +2589,8 @@ def path_rl_ppo(torch, ft, hist, envs, ppo, profiling, card):
     # One update at the example's default width, on the dense route.
     small_gen = torch.Generator(device="cuda").manual_seed(42)
     small_params = envs.default_params(small_gen, device="cuda", batch_shape=(PPO_DEFAULT_ENVS,))
-    small_update = ppo.make_collect_and_update(env, small_params, optimizer, PPO_ROLLOUT)
+    small_update = ppo.make_collect_and_update(env, small_params, optimizer, PPO_ROLLOUT,
+                                               graph=False)
     small_obs, small_states = env.batched_reset(small_gen, small_params)
     reset_counts(ft, hist)
     _, _, small_loss, _ = small_update(policy, small_obs, small_states, small_gen)
@@ -2587,7 +2604,9 @@ def path_rl_ppo(torch, ft, hist, envs, ppo, profiling, card):
           f" {float(small_loss):.4f} (card {card})")
     if small_launched["B3"] or not math.isfinite(float(small_loss)):
         raise AssertionError("path R1: the default-width update left the dense route")
-    return launched, (env, params, states)
+    context = dict(policy=initial_policy, params=params, obs=obs0, magnets=magnets, noise=noise,
+                   first=first, spreads=spreads, ms=ms, small_ms=small_ms)
+    return launched, (env, params, states), context
 
 
 def path_rl_metrics(torch, envs, env_state, card):
@@ -2645,7 +2664,7 @@ def path_rl_tuning(torch, gradient_tuning, emittance_measurement, image_tuning, 
         ("gradient_tuning", lambda: gradient_tuning.main(TUNING_STEPS, device="cuda"),
          TUNING_STEPS),
         ("emittance_measurement", lambda: emittance_measurement.main(device="cuda"), 600),
-        ("image_tuning", lambda: image_tuning.main(device="cuda"), 200),
+        ("image_tuning", lambda: image_tuning.main(device="cuda", graph=False), 200),
     ):
         torch.cuda.synchronize()
         start = time.perf_counter()
@@ -2888,16 +2907,17 @@ def path_optimize_speed(torch, ltt, ft, hist, segment_module, optimize_speed, ca
     stage 4 at B = 1000, the dense route below PALLAS_SWEEP_THRESHOLD), then
     the merged lattice at B = 1000 through B3 (the fused route forced, its
     threshold lowered to B), held against the dense route in double;
-    tracks/s of both."""
+    tracks/s of both.  Returns the launches and the stages' results (J13
+    holds its replays to them)."""
     reset_counts(ft, hist)
     results = optimize_speed.main(OPTIMIZE_CELLS, OPTIMIZE_BATCH, device="cuda",
-                                  iters=OPTIMIZE_ITERS)
+                                  iters=OPTIMIZE_ITERS, graph=False)
     torch.cuda.synchronize()
     stage_launches = counts(ft)
-    for label, seconds, outgoing in results:
+    for label, seconds, outgoing, _ in results:
         if not bool(torch.isfinite(outgoing._mu).all()):
             raise AssertionError(f"path O: {label}: non-finite moments")
-    print(f"path O: {', '.join(f'{label} {seconds * 1e3:.4f} ms' for label, seconds, _ in results)}"
+    print(f"path O: {', '.join(f'{label} {seconds * 1e3:.4f} ms' for label, seconds, *_ in results)}"
           f" per track (CUDA events, profiling.benchmark, {OPTIMIZE_ITERS} calls); launches"
           f" {stage_launches} (stage 4 at B={OPTIMIZE_BATCH} < PALLAS_SWEEP_THRESHOLD"
           f" {segment_module.PALLAS_SWEEP_THRESHOLD}: the dense route); card {card}")
@@ -2937,7 +2957,7 @@ def path_optimize_speed(torch, ltt, ft, hist, segment_module, optimize_speed, ca
           f" |value| (bound {OBS_RTOL}); launches {launched}; card {card}")
     if error > OBS_RTOL:
         raise AssertionError("path O: B3 and the dense route disagree")
-    return launched
+    return launched, results
 
 
 def compare_parallel(torch, ft, hist, label, unsharded, sharded, mesh, card):
@@ -2991,7 +3011,10 @@ def path_parallel(torch, ltt, ares, ft, hist, fused, functional, tuning, paralle
     make_tuning_train_step over the env's subcell at 100,000 settings for 10
     Adam steps (B3, B4), held to the unsharded tuner; (c) the
     settings-sharded particle moment sweep at path A's B = 256 (B6); (d)
-    pipeline_track with one stage; (e) the multichip_tuning example."""
+    pipeline_track with one stage; (e) the multichip_tuning example.  Each
+    runs eagerly (``graph=False`` where the call has a graph form); path J's
+    J11 replays them.  Returns the launches and what J11 reuses; the world
+    stays up for J11."""
     parallel.initialize(device_type="cuda")
     mesh = parallel.make_mesh(device_type="cuda")
     print(f"path M: world of {parallel.process_count()} rank (NCCL), mesh {mesh.shape} on"
@@ -3072,7 +3095,7 @@ def path_parallel(torch, ltt, ares, ft, hist, fused, functional, tuning, paralle
         segment = parallel.shard_segment(subcell(), mesh)
         tuned(segment)
         optimizer = adam(segment)
-        step = parallel.make_tuning_train_step(optimizer, loss_fn)
+        step = parallel.make_tuning_train_step(optimizer, loss_fn, graph=False)  # eager: J11
         losses = []
         for _ in range(TRAIN_MESH_STEPS):
             segment, loss = step(segment, parallel.shard_beam(train_beam, mesh))
@@ -3121,7 +3144,8 @@ def path_parallel(torch, ltt, ares, ft, hist, fused, functional, tuning, paralle
     pipe_beam = ltt.ParameterBeam(train_beam._mu[:1024], train_beam._cov[:1024],
                                   train_beam.energy.expand(1024).contiguous())
     expected, _ = functional.track(segment, pipe_beam)
-    out = parallel.pipeline_track(parallel.split_into_stages(segment, 1), pipe_beam, pipe_mesh, 4)
+    out = parallel.pipeline_track(parallel.split_into_stages(segment, 1), pipe_beam, pipe_mesh, 4,
+                                  graph=False)
     error = max(relative_error(torch, getattr(out, stat), getattr(expected, stat))
                 for stat in ("_mu", "_cov"))
     print(f"path M (d): pipeline_track, 1 stage, 4 microbatches of 256: against functional.track"
@@ -3131,7 +3155,7 @@ def path_parallel(torch, ltt, ares, ft, hist, fused, functional, tuning, paralle
 
     # (e) the multichip_tuning example at its own sizes, in this world.
     start = time.perf_counter()
-    result = multichip_tuning.main(steps=30, device="cuda")
+    result = multichip_tuning.main(steps=30, device="cuda", graph=False)
     seconds = time.perf_counter() - start
     tuner_error = relative_error(torch, torch.tensor(result["tuner_losses"]),
                                  torch.tensor(result["losses"]), per_setting=False)
@@ -3140,11 +3164,10 @@ def path_parallel(torch, ltt, ares, ft, hist, fused, functional, tuning, paralle
           f" {tuner_error:.2e} (bound {OBS_RTOL}); {seconds:.2f} s (host clock; card {card})")
     if not result["losses"][-1] < result["losses"][0] or tuner_error > OBS_RTOL:
         raise AssertionError("path M (e): the example did not tune, or its two loops disagree")
-
-    import torch.distributed as dist
-
-    dist.destroy_process_group()
-    return launches
+    # The world stays up for J11, which main() ends with.
+    return launches, dict(mesh=mesh, subcell=subcell, tuned=tuned, adam=adam, loss_fn=loss_fn,
+                          beam=train_beam, losses=losses, params=params, pipe_beam=pipe_beam,
+                          pipe_mesh=pipe_mesh, example=result)
 
 
 # -- path V: random element mixes on kernels B1-B6 ------------------------------
@@ -3873,6 +3896,8 @@ WIDE_SIGMA_X = 3e-3  # J2: a spot wider than the flagship window (m), most of it
 JIT_LOSS_RTOL = 1e-5
 JIT_PARAM_RTOL = 1e-5
 UNTIL_MAX_STEPS = 60  # J4
+JAX_ADAM_STEPS = 20  # J3b
+GRAD_PARITY_RTOL = 1e-10  # J3b: float64 rounding over JAX_ADAM_STEPS steps
 UNTIL_STOP_FROM = 3  # J4: tol is chosen so that the loop stops at or after this step
 GYM_STEPS = 100  # J7
 
@@ -4074,6 +4099,44 @@ def path_jit_tuner(torch, ft, hist, envs, env, tuning, card):
     return launched
 
 
+def path_jit_float64_adam(torch, ltt, functional, tuning, card):
+    """J3b: the captured Adam in float64.  A capturable Adam forms its bias
+    corrections from its step tensor; the tuner makes it in the parameters'
+    precision, so a float64 tune step graphed agrees with the default
+    Adam's eager loop (corrections in double on the host) to rounding:
+    losses and parameters within GRAD_PARITY_RTOL of the first loss and of
+    the distance travelled (a float32 step count would put them ~1e-6
+    apart).  Two quadrupoles and two drifts tune a ParameterBeam's sigma_x
+    and sigma_y to targets, JAX_ADAM_STEPS steps."""
+    kw = dict(dtype=torch.float64, device="cuda")
+    mu = torch.zeros((1, 7), **kw)
+    mu[0, 6] = 1.0
+    cov = torch.diag(torch.tensor([1e-8, 4e-10, 1.2e-8, 3e-10, 1e-10, 1e-6, 0.0], **kw))[None]
+    beam = ltt.ParameterBeam(mu, cov, torch.full((1,), 1e8, **kw))
+    lengths = {k: torch.full((1,), v, **kw) for k, v in (("q", 0.2), ("d1", 0.4), ("d2", 1.5))}
+
+    def loss_fn(p, beam):
+        segment = ltt.Segment([
+            ltt.Quadrupole(lengths["q"], k1=p[:1] * 10, **kw), ltt.Drift(lengths["d1"], **kw),
+            ltt.Quadrupole(lengths["q"], k1=p[1:] * 10, **kw), ltt.Drift(lengths["d2"], **kw)],
+            name="j3b")
+        out, _ = functional.track(segment, beam)
+        return ((out.sigma_x[0] - 3e-4) * 1e4) ** 2 + ((out.sigma_y[0] - 1.5e-4) * 1e4) ** 2
+
+    start = torch.tensor([0.3, -0.25], **kw)
+    graphed, graphed_losses = tuning.tune(loss_fn, start, beam, steps=JAX_ADAM_STEPS)
+    eager, eager_losses = tuning.tune(loss_fn, start, beam, steps=JAX_ADAM_STEPS, graph=False)
+    loss_error, param_error = tuner_errors(torch, start, graphed, eager, graphed_losses,
+                                           eager_losses)
+    print(f"J3b: a float64 tune ({JAX_ADAM_STEPS} Adam steps) graphed (capturable Adam, its step"
+          f" count in float64) against the default Adam's eager loop: losses within"
+          f" {loss_error:.3e} of the first, parameters within {param_error:.3e} of the distance"
+          f" travelled (bound {GRAD_PARITY_RTOL}); loss {float(eager_losses[0]):.6e} ->"
+          f" {float(eager_losses[-1]):.6e}; card {card}")
+    if max(loss_error, param_error) > GRAD_PARITY_RTOL:
+        raise AssertionError("J3b: the captured float64 Adam differs from the eager one")
+
+
 def until_tol(torch, losses):
     """``(tol, step)``: a tol at which JAX's test stops the loop at a step
     between UNTIL_STOP_FROM and the history's end: the geometric mean of
@@ -4258,6 +4321,589 @@ def path_jit_gym(torch, envs, card):
     if getattr(graphed._reset, "captures", 1) != 1:
         raise AssertionError("J7: the Gym reset captured more than once")
 
+# -- path J, continued: the JAX package's last jitted sites (J8-J13) ----------------
+
+J_UPDATE_CALLS = 3  # J8: updates a turn (CUDA events), eager and replay alternated
+J_STEP_CALLS = 10  # J9, J11: calls a turn
+J_APERTURE_PARTICLES = 100_000  # J12
+J_APERTURE_BATCH = 8  # J12
+
+
+def relative_gap(torch, got, want, start=None):
+    """max |got - want| over the largest |want| (over the largest distance
+    from ``start``, where given), across a list of tensor pairs."""
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        a, b = a.detach().double(), b.detach().double()
+        scale = (b - start[i].detach().double()).abs().max() if start is not None else b.abs().max()
+        worst = max(worst, float((a - b).abs().max() / scale.clamp_min(1e-300)))
+    return worst
+
+
+def ppo_run(torch, envs, ppo, policy, params, obs, magnets, noise, gen_seed, graph,
+            capturable=True):
+    """PPO_UPDATES updates from ``(obs, magnets)``: the first on ``noise``,
+    the others drawing from a CUDA generator seeded ``gen_seed``.  Returns
+    (update, [(loss, reward, parameters, gradients) after each update],
+    policy, optimizer, generator, obs, states)."""
+    env = envs.make_env(device="cuda")
+    policy = copy.deepcopy(policy)
+    optimizer = torch.optim.Adam(policy.parameters(), lr=ppo.LEARNING_RATE,
+                                 capturable=capturable)
+    update = ppo.make_collect_and_update(env, params, optimizer, PPO_ROLLOUT, graph=graph)
+    gen = torch.Generator(device="cuda").manual_seed(gen_seed)
+    states = envs.EnvState(magnets.clone(), torch.zeros(magnets.shape[0], dtype=torch.int32,
+                                                        device="cuda"), gen)
+    obs = obs.clone()
+    history = []
+    for i in range(PPO_UPDATES):
+        obs, states, loss, reward = update(policy, obs, states, gen,
+                                           noise=noise if i == 0 else None)
+        history.append((loss.clone(), reward.clone(),
+                        [p.detach().clone() for p in policy.parameters()],
+                        [p.grad.clone() for p in policy.parameters()]))
+    torch.cuda.synchronize()
+    return update, history, policy, optimizer, gen, obs, states
+
+
+def path_jit_ppo(torch, ft, hist, graphs, envs, ppo, r1, card):
+    """J8: PPO's collect_and_update as one CUDA graph (``graph=True``: the
+    rollout's env steps, the GAE, the update's forward and backward and a
+    capturable Adam step), at R1's shape (SWEEP_BATCH envs, B3 every env
+    step) and at the example's PPO_DEFAULT_ENVS (the dense route), from R1's
+    start: the first update on R1's noise (a capture of its own), the others
+    drawing from a registered generator.  Held to the same step run eagerly
+    with the same capturable Adam (losses, rewards, parameters after each
+    update; predicted equal, the ceiling R1's bounds), and the first update
+    to R1's (default Adam, eager) within R1's SPREAD_FACTOR bounds.  The
+    graphs' B3 kernel nodes (DOT dump); ms an update and env-transitions/s
+    replayed against eager (CUDA events, in turns), a replay's device busy
+    share, capture seconds and whether the AccumulateGrad stream warning
+    appears.  Returns the B3 launches issued."""
+    import warnings
+
+    spreads, issued = r1["spreads"], 0
+    for B in (SWEEP_BATCH, PPO_DEFAULT_ENVS):
+        if B == SWEEP_BATCH:
+            policy, params, obs, magnets, noise = (r1[k] for k in ("policy", "params", "obs",
+                                                                   "magnets", "noise"))
+        else:
+            gen = torch.Generator(device="cuda").manual_seed(42)
+            params = envs.default_params(gen, device="cuda", batch_shape=(B,))
+            policy = ppo.MLPPolicy(13, 5, generator=gen, device="cuda")
+            env = envs.make_env(device="cuda")
+            obs, states = env.batched_reset(gen, params)
+            magnets = states.magnets
+            noise = torch.randn((PPO_ROLLOUT, B, 5), generator=gen, device="cuda")
+        reset_counts(ft, hist)
+        with warnings.catch_warnings(record=True) as caught, \
+                plain_on_cuda_guard(torch, ft) as plain:
+            warnings.simplefilter("always")
+            graphed = ppo_run(torch, envs, ppo, policy, params, obs, magnets, noise, 7, True)
+        launched = counts(ft)
+        issued += launched["B3"]
+        stream_warning = any("AccumulateGrad" in str(w.message) for w in caught)
+        eager = ppo_run(torch, envs, ppo, policy, params, obs, magnets, noise, 7, False)
+        update, history = graphed[0], graphed[1]
+        steps = update.cache.steps
+        if len(steps) != 2 or plain["count"]:
+            raise AssertionError(f"J8 B={B}: {len(steps)} captures, plain versions {plain}")
+        nodes = [graphs.graph_kernel_count(step.graph, "moment_sweep_kernel") for step in steps]
+        start = [p.detach() for p in policy.parameters()]
+        errors = {"loss": 0.0, "reward": 0.0, "parameters": 0.0}
+        for (loss, reward, ps, _), (e_loss, e_reward, e_ps, _) in zip(history, eager[1]):
+            errors["loss"] = max(errors["loss"], relative_gap(torch, [loss], [e_loss]))
+            errors["reward"] = max(errors["reward"], relative_gap(torch, [reward], [e_reward]))
+            errors["parameters"] = max(errors["parameters"],
+                                       relative_gap(torch, ps, e_ps, start))
+        bounds = {"loss": SPREAD_FACTOR * spreads["loss"],
+                  "reward": SPREAD_FACTOR * spreads["mean reward"],
+                  "parameters": SPREAD_FACTOR * spreads["gradient"]}
+        first = {}
+        if B == SWEEP_BATCH:  # the first update against R1's (default Adam, eager)
+            loss, reward, _, grads = history[0]
+            want = r1["first"]
+            first = {"loss": relative_gap(torch, [loss], [want[0]]),
+                     "mean reward": relative_gap(torch, [reward], [want[1]]),
+                     "gradient": max(relative_gap(torch, [g], [w]) for g, w in zip(grads, want[2]))}
+        e_update, e_policy, e_gen = eager[0], eager[2], eager[4]
+        g_update, g_policy, g_gen = graphed[0], graphed[2], graphed[4]
+        carry = {"eager": (eager[5], eager[6]), "replay": (graphed[5], graphed[6])}
+        ms = {"eager": [], "replay": []}
+        for mode in ("eager", "replay", "replay", "eager"):
+            run, pol, gen = ((e_update, e_policy, e_gen) if mode == "eager"
+                             else (g_update, g_policy, g_gen))
+
+            def one_update():
+                carry[mode] = run(pol, *carry[mode], gen)[:2]
+                return carry[mode][0]
+
+            ms[mode].append(cuda_ms(one_update, iters=J_UPDATE_CALLS, warmup=1))
+        replay = steps[-1]
+        device = device_ms(replay.graph.replay, iters=2)
+        replay_ms = cuda_ms(replay.graph.replay, iters=J_UPDATE_CALLS, warmup=1)
+        transitions = B * PPO_ROLLOUT * 1000.0
+        capture_s = [round(step.capture_seconds, 3) for step in steps]
+        print(f"J8 B={B}: collect_and_update captured ({len(steps)} graphs: R1's noise, then the"
+              f" registered generator; capture {capture_s} s, warm-up included), B3 kernel nodes"
+              f" {nodes} (DOT dump; expected {PPO_ROLLOUT if B >= 16384 else 0} each); against"
+              f" the eager step with the same capturable Adam over {PPO_UPDATES} updates: loss"
+              f" {errors['loss']:.3e}, mean reward {errors['reward']:.3e}, parameters"
+              f" {errors['parameters']:.3e} of the distance travelled (bounds {bounds['loss']:.2e},"
+              f" {bounds['reward']:.2e}, {bounds['parameters']:.2e}: R1's); "
+              + (f"the first update against R1's (default Adam, eager): "
+                 + ", ".join(f"{k} {v:.3e} (bound {SPREAD_FACTOR * spreads[k]:.2e})"
+                             for k, v in first.items()) + "; " if first else "")
+              + f"an update: replay {ms['replay'][0]:.4f} / {ms['replay'][1]:.4f} ms"
+              f" ({transitions / ms['replay'][0]:.1f} env-transitions/s), eager"
+              f" {ms['eager'][0]:.4f} / {ms['eager'][1]:.4f} ms"
+              f" ({transitions / ms['eager'][0]:.1f}) (CUDA events, {J_UPDATE_CALLS} updates a"
+              f" turn, in turns); the graph alone {replay_ms:.4f} ms a replay, device time"
+              f" {device:.4f} ms (busy share {device / replay_ms:.4f}; torch.profiler, 2"
+              f" replays); launches issued {launched}; AccumulateGrad stream warning:"
+              f" {stream_warning}; card {card}")
+        expected = PPO_ROLLOUT if B >= 16384 else 0
+        if nodes != [expected, expected]:
+            raise AssertionError(f"J8 B={B}: B3 kernel nodes {nodes}, expected {expected} each")
+        if any(errors[k] > bounds[k] for k in errors):
+            raise AssertionError(f"J8 B={B}: the replay differs from the eager step: {errors}")
+        if any(first[k] > SPREAD_FACTOR * spreads[k] for k in first):
+            raise AssertionError(f"J8: the first update differs from R1's: {first}")
+        if not all(math.isfinite(float(h[0])) for h in history):
+            raise AssertionError(f"J8 B={B}: non-finite losses")
+    return issued
+
+
+def metric_lines(logging):
+    """A handler on the metrics logger collecting its messages, and the
+    logger's level to put back."""
+    lines = []
+    handler = logging.Handler()
+    handler.emit = lambda record: lines.append(record.getMessage())
+    logger = logging.getLogger("lynx_tpu_torch.metrics")
+    level = logger.level
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+
+    def close():
+        logger.removeHandler(handler)
+        logger.setLevel(level)
+
+    return lines, close
+
+
+def line_values(line):
+    return dict(part.split("=") for part in line.split())
+
+
+#: J9: a process that replays a graphed env step three times, logging its
+#: metric lines to standard output, and exits without a flush.
+EXIT_LINES_SCRIPT = """
+import logging, sys
+import torch
+logging.basicConfig(level=logging.INFO, stream=sys.stdout, format="%(message)s")
+from lynx_tpu_torch import graphs
+from lynx_tpu_torch.envs import make_env
+from lynx_tpu_torch.envs.ares_ea import default_params
+env = make_env(log_metrics=True, device="cuda")
+gen = torch.Generator(device="cuda").manual_seed(0)
+params = default_params(gen, device="cuda", batch_shape=(64,))
+_, states = env.batched_reset(gen, params)
+step = graphs.graphed(env.batched_step)
+actions = torch.zeros((64, env.num_actions), device="cuda")
+for _ in range(3):
+    step(states, actions, params)
+"""
+
+
+def path_jit_metrics(torch, graphs, envs, ppo, metrics, r1, card):
+    """J9: metrics emitted inside a graph (JAX's ``jax.debug.callback``).
+    A graphed ``batched_step`` of ``make_env(log_metrics=True)`` at
+    SWEEP_BATCH logs one line a replay (after ``metrics.flush()``), equal to
+    the eager step's line (step=, the five keys; values within METRIC_RTOL
+    of each other); then a graphed PPO update with that env logs
+    PPO_ROLLOUT lines an update (the second update's read after
+    ``graphs.release()``, which flushes).  Meanwhile a process of its own
+    replays a graphed step three times and exits without a flush: its three
+    lines must appear (``metrics.flush`` at exit).  ms a step graphed and
+    eager."""
+    import logging
+
+    at_exit = subprocess.Popen([sys.executable, "-c", EXIT_LINES_SCRIPT], stdout=subprocess.PIPE,
+                               stderr=subprocess.PIPE, text=True,
+                               cwd=str(Path(__file__).resolve().parent))
+
+    env = envs.make_env(log_metrics=True, device="cuda")
+    params = r1["params"]
+    magnets = r1["magnets"]
+    start = envs.EnvState(magnets, torch.zeros(magnets.shape[0], dtype=torch.int32,
+                                               device="cuda"), None)
+    actions = torch.tanh(magnets * 2.0)
+    step = graphs.graphed(env.batched_step)
+    lines, close = metric_lines(logging)
+    try:
+        env.batched_step(start, actions, params)
+        eager_lines = list(lines)
+        del lines[:]
+        for _ in range(3):
+            step(start, actions, params)
+        metrics.flush()
+        replay_lines = list(lines)
+        del lines[:]
+        ms = {"eager": cuda_ms(lambda: env.batched_step(start, actions, params),
+                               iters=J_STEP_CALLS),
+              "graphed": cuda_ms(lambda: step(start, actions, params), iters=J_STEP_CALLS)}
+        metrics.flush()
+        del lines[:]
+        policy = copy.deepcopy(r1["policy"])
+        optimizer = torch.optim.Adam(policy.parameters(), lr=ppo.LEARNING_RATE)
+        update = ppo.make_collect_and_update(env, params, optimizer, PPO_ROLLOUT)
+        gen = torch.Generator(device="cuda").manual_seed(9)
+        obs, states = r1["obs"].clone(), envs.EnvState(magnets.clone(), start.step_count, gen)
+        per_update = []
+        for flush in (metrics.flush, graphs.release):
+            obs, states, _, _ = update(policy, obs, states, gen)
+            flush()
+            per_update.append(len(lines))
+            del lines[:]
+    finally:
+        close()
+        try:
+            out, err = at_exit.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            at_exit.kill()
+            out, err = at_exit.communicate()
+    exit_lines = [line for line in out.splitlines() if "sigma_x=" in line]
+    want = line_values(eager_lines[0]) if len(eager_lines) == 1 else {}
+    errors = []
+    for line in replay_lines:
+        got = line_values(line)
+        if sorted(got) != sorted(want) or got.get("step") != want.get("step"):
+            raise AssertionError(f"J9: replayed line {line!r} against eager {eager_lines}")
+        errors.append(max(abs(float(got[k]) - float(v)) / max(abs(float(v)), 1e-300)
+                          for k, v in want.items() if k != "step"))
+    print(f"J9: graphed batched_step with log_metrics at B={SWEEP_BATCH}: {len(replay_lines)}"
+          f" lines for 3 replays, equal to the eager line: {replay_lines == eager_lines * 3}"
+          f" (largest relative difference {max(errors) if errors else float('nan'):.2e},"
+          f" bound {METRIC_RTOL}); eager line {eager_lines}; a step: graphed"
+          f" {ms['graphed']:.4f} ms, eager {ms['eager']:.4f} ms (CUDA events, {J_STEP_CALLS}"
+          f" calls; lines logged after the replay, asynchronously); a graphed PPO update with"
+          f" that env logged {per_update} lines (expected {PPO_ROLLOUT} an update; the second"
+          f" flushed by graphs.release()); a process replaying a graphed step 3 times and"
+          f" exiting without a flush logged {len(exit_lines)} lines (rc {at_exit.returncode});"
+          f" card {card}")
+    if len(replay_lines) != 3 or max(errors) > METRIC_RTOL:
+        raise AssertionError("J9: the replays' metric lines differ from the eager line")
+    if per_update != [PPO_ROLLOUT] * 2:
+        raise AssertionError(f"J9: a graphed PPO update logged {per_update} lines")
+    if at_exit.returncode != 0 or len(exit_lines) != 3 or not all(
+            line.startswith("step=1 ") for line in exit_lines):
+        raise AssertionError(f"J9: the lines pending at exit were lost: {out!r} {err[-2000:]!r}")
+
+
+def moment_plan(torch, fused, elements, B, dtype):
+    """``plan_of`` inside a graph: the energy filled on the device."""
+    return fused.particle_moment_plan(
+        elements, torch.full((), 1.073e8, dtype=dtype, device="cuda"),
+        lambda x: torch.broadcast_to(torch.as_tensor(x).reshape(-1), (B,)),
+    )
+
+
+def path_jit_moments(torch, ltt, ft, hist, fused, graphs, envs, ParticleBeam, card):
+    """J10: kernels B5 and B6 captured for the first time.  Graphed
+    ``env.batched_particle_beam_parameters(method="kernel")`` over path K's
+    shared MOMENT_PARTICLES cloud at B = 8 (B5) and 256 (B6), and graphed
+    ``sweep_particle_moments`` over path A's aperture lattice at the same
+    B: each replay against the eager call (predicted equal; else within
+    path K's KERNEL_OBS_RTOL), the graph's B5 and B6 kernel nodes and its
+    memset nodes (DOT dump), ms a call replayed and eager.  Returns the B5
+    and B6 launches issued."""
+    env = envs.make_env(device="cuda")
+    beam = moment_cloud(torch, ParticleBeam, MOMENT_PARTICLES, seed=81)
+    particles = beam.particles[0]
+    weights = torch.ones(MOMENT_PARTICLES, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(83)
+    observe = graphs.graphed(lambda m, b: env.batched_particle_beam_parameters(m, b, "kernel"))
+
+    def sweep(elements, particles, weights):
+        entries, scalars = moment_plan(torch, fused, elements, elements[1].k1.shape[0],
+                                       particles.dtype)
+        return ft.sweep_particle_moments(entries, scalars, particles, weights)
+
+    swept = graphs.graphed(sweep)
+    issued, worst = {"B5": 0, "B6": 0}, 0.0
+    for B in reversed(ENV_KERNEL_BATCHES):
+        route = "B6" if B >= ft._PACK_SETTINGS else "B5"
+        name = "packed_gram_kernel" if route == "B6" else "moment_walk_kernel"
+        magnets = torch.rand((B, 5), generator=gen, device="cuda") - 0.5
+        elements = aperture_lattice(torch, ltt, B, "rect", torch.float32)
+        for label, jitted, args, eager in (
+            ("env kernel route", observe, (magnets, beam),
+             lambda: env.batched_particle_beam_parameters(magnets, beam, method="kernel")),
+            ("path A's aperture lattice", swept, (elements, particles, weights),
+             lambda: sweep(elements, particles, weights)),
+        ):
+            reset_counts(ft, hist)
+            got = jitted(*args)
+            torch.cuda.synchronize()
+            launched = counts(ft)
+            issued["B5"] += launched["B5"]
+            issued["B6"] += launched["B6"]
+            again = jitted(*args)
+            want = eager()
+            got = got if isinstance(got, tuple) else (got,)
+            again = again if isinstance(again, tuple) else (again,)
+            want = want if isinstance(want, tuple) else (want,)
+            equal = all(torch.equal(a, b) for a, b in zip(got + again, want + want))
+            error = max(relative_gap(torch, [a], [b]) for a, b in zip(got + again, want + want))
+            worst = max(worst, error)
+            graph = jitted.graphs[-1]
+            nodes = graphs.graph_kernel_count(graph, name)
+            memsets = graphs.graph_kernel_count(graph, kind="MEMSET")
+            kernels = graphs.graph_kernel_count(graph)
+            replay_ms = cuda_ms(lambda: jitted(*args), iters=J_STEP_CALLS)
+            eager_ms = cuda_ms(eager, iters=J_STEP_CALLS)
+            print(f"J10 B={B} {label}: {route} captured ({name} nodes {nodes}, memset nodes"
+                  f" {memsets}, kernel nodes {kernels}; DOT dump), the replays equal to the eager"
+                  f" call: {equal} (largest difference {error:.3e} of each output's largest"
+                  f" |value|, bound {KERNEL_OBS_RTOL}); launches issued {launched}; a call:"
+                  f" replay {replay_ms:.4f} ms, eager {eager_ms:.4f} ms (CUDA events,"
+                  f" {J_STEP_CALLS} calls); card {card}")
+            if nodes != 1 or launched[route] < 1 or error > KERNEL_OBS_RTOL:
+                raise AssertionError(f"J10 B={B} {label}: the captured {route} failed its check")
+    return issued, worst
+
+
+def path_jit_parallel(torch, ltt, ares, ft, hist, functional, graphs, tuning, parallel,
+                      multichip_tuning, m, seg1, beam1, card):
+    """J11: the parallel layer captured, on path M's 1 x 1 mesh in its
+    one-rank NCCL world: (a) the flagship read through ``track_jit`` inside
+    the mesh (its particle all-reduces in the graph) and (a') path P's push
+    through a graphed ``Segment.track`` (B2), against eager inside the mesh
+    and the unsharded call (equal);
+    (b) path M's train step (``make_tuning_train_step``, graph=True) at
+    SWEEP_BATCH settings for TRAIN_MESH_STEPS steps against the same step
+    eager with the same capturable Adam (equal), against the unsharded
+    tuner run eagerly with that capturable Adam (losses OBS_RTOL, final
+    settings GRAD_RTOL: path M (b)'s bounds) and its losses against path M
+    (b)'s unsharded tuner with the default Adam (OBS_RTOL), ms a step of
+    each form; (c) a
+    one-stage ``pipeline_track`` graphed against eager (equal); (d)
+    ``multichip_tuning`` graphed against path M (e)'s eager run (OBS_RTOL).
+    A one-rank all-reduce launches no NCCL kernel: this proves the
+    collectives' insertion in the graphs and equality, not bandwidth.
+    Returns the launches issued."""
+    from lynx_tpu_torch import _collectives
+
+    mesh, issued = m["mesh"], {}
+    # (a) the flagship read through track_jit, (a') path M's push through a
+    # graphed Segment.track (the route that launches B2).
+    segment, beam, _ = push_path_beam(torch, ares, ltt.ParticleBeam, PUSH_BATCH, PUSH_PARTICLES,
+                                      seed=43)
+    pushed = graphs.graphed(lambda s, b: s.track(b))
+    for label, seg, make_beam, jit, eager in (
+        ("a, the flagship read through track_jit", seg1, lambda: beam1,
+         lambda s, b: functional.track_jit(s, b)[1]["AREABSCR1"],
+         lambda s, b: functional.track(s, b)[1]["AREABSCR1"]),
+        ("a', the push through a graphed Segment.track", parallel.shard_segment(segment, mesh),
+         lambda: beam, lambda s, b: pushed(s, b).particles, lambda s, b: s.track(b).particles),
+    ):
+        reset_counts(ft, hist)
+        hist.window_histogram.launches = 0
+        with torch.no_grad():
+            unsharded = eager(seg, make_beam())
+            with mesh:
+                before = _collectives.counts["all_reduce"]
+                jitted = jit(seg, parallel.shard_beam(make_beam(), mesh))
+                inserted = _collectives.counts["all_reduce"] - before
+                in_mesh = eager(seg, parallel.shard_beam(make_beam(), mesh))
+                again = jit(seg, parallel.shard_beam(make_beam(), mesh))
+            torch.cuda.synchronize()
+        launched = counts(ft)
+        launched["B1"] = hist.window_histogram.launches
+        for k, v in launched.items():
+            issued[k] = issued.get(k, 0) + v
+        equal = all(torch.equal(x, in_mesh) for x in (jitted, again, unsharded))
+        print(f"J11 ({label}): inside the mesh equal to eager inside the mesh and to the"
+              f" unsharded call: {equal}; all-reduces issued while capturing {inserted}"
+              f" (warm-ups and capture; the read's particle sums, none in a push); launches"
+              f" issued {launched}; card {card}")
+        if not equal or (label.startswith("a,") and inserted < 1):
+            raise AssertionError(f"J11 ({label}): the captured call differs or holds no all-reduce")
+    if issued["B1"] < 1 or issued["B2"] < 1:
+        raise AssertionError(f"J11 (a, a'): the captures skipped B1 or B2: {issued}")
+
+    # (b) the train step, captured with its two all-reduces.
+    def train(graph, capturable=True):
+        segment = parallel.shard_segment(m["subcell"](), mesh)
+        m["tuned"](segment)
+        optimizer = m["adam"](segment)
+        for group in optimizer.param_groups:
+            group["capturable"] = capturable
+        step = parallel.make_tuning_train_step(optimizer, m["loss_fn"], graph=graph)
+        beam = parallel.shard_beam(m["beam"], mesh)
+        losses = []
+        with mesh:
+            for _ in range(TRAIN_MESH_STEPS):
+                segment, loss = step(segment, beam)
+                losses.append(loss)
+        torch.cuda.synchronize()
+        return torch.stack(losses), m["tuned"](segment), lambda: step(segment, beam)
+
+    reset_counts(ft, hist)
+    before = _collectives.counts["all_reduce"]
+    losses, params, graphed_step = train(True)
+    inserted = _collectives.counts["all_reduce"] - before
+    launched = counts(ft)
+    eager_losses, eager_params, eager_step = train(False)
+    equal = torch.equal(losses, eager_losses) and all(
+        torch.equal(a, b) for a, b in zip(params, eager_params))
+    loss_error = relative_error(torch, losses, m["losses"], per_setting=False)
+    # The unsharded tuner, eager, with the captured step's Adam (capturable).
+    segment = m["subcell"]()
+    m["tuned"](segment)
+    optimizer = m["adam"](segment)
+    graphs.make_capturable(optimizer)
+    unsharded_losses = tuning.make_tuner(optimizer, m["loss_fn"], graph=False)(
+        segment, TRAIN_MESH_STEPS, m["beam"])[1]
+    unsharded_loss_error = relative_error(torch, losses, unsharded_losses, per_setting=False)
+    setting_error = max(relative_error(torch, a.detach(), b.detach(), per_setting=False)
+                        for a, b in zip(params, m["tuned"](segment)))
+    ms = {"eager": [], "graphed": []}
+    with mesh:
+        for mode in ("eager", "graphed", "graphed", "eager"):
+            ms[mode].append(cuda_ms(graphed_step if mode == "graphed" else eager_step,
+                                    iters=J_STEP_CALLS))
+    for k in ("B3", "B4"):
+        issued[k] = issued.get(k, 0) + launched[k]
+    print(f"J11 (b, the train step): {TRAIN_MESH_STEPS} steps at B={SWEEP_BATCH} captured inside"
+          f" the mesh (all-reduces issued while capturing and replaying {inserted}): equal to the"
+          f" eager step with the same capturable Adam: {equal}; against the unsharded tuner"
+          f" run eagerly with that Adam: losses {unsharded_loss_error:.2e} (bound {OBS_RTOL}),"
+          f" final settings {setting_error:.2e} of the largest |value| (bound {GRAD_RTOL});"
+          f" against path M (b)'s unsharded tuner (the default Adam): losses {loss_error:.2e}"
+          f" (bound {OBS_RTOL}); a step: graphed {ms['graphed'][0]:.4f} /"
+          f" {ms['graphed'][1]:.4f} ms, eager {ms['eager'][0]:.4f} / {ms['eager'][1]:.4f} ms"
+          f" (CUDA events, {J_STEP_CALLS} steps a turn, in turns); launches issued {launched};"
+          f" card {card}")
+    if (not equal or max(loss_error, unsharded_loss_error) > OBS_RTOL
+            or setting_error > GRAD_RTOL):
+        raise AssertionError("J11 (b): the captured train step differs")
+    if launched["B3"] < 1 or launched["B4"] < 1:
+        raise AssertionError("J11 (b): the captured train step skipped B3 or B4")
+
+    # (c) the pipeline, graphed.
+    segment = ares.ares_ea_segment(device="cuda")
+    segment.AREABSCR1.is_active = False
+    stages = parallel.split_into_stages(segment, 1)
+    outs = [parallel.pipeline_track(stages, m["pipe_beam"], m["pipe_mesh"], 4, graph=graph)
+            for graph in (True, True, False)]
+    equal = all(torch.equal(a, b) for out in outs[:2] for a, b in
+                zip((out._mu, out._cov), (outs[2]._mu, outs[2]._cov)))
+    print(f"J11 (c, pipeline_track): one stage, 4 microbatches, graphed (captured once, replayed)"
+          f" equal to eager: {equal}; card {card}")
+    if not equal:
+        raise AssertionError("J11 (c): the graphed pipeline differs from eager")
+
+    # (d) the example, graphed.
+    start = time.perf_counter()
+    result = multichip_tuning.main(steps=30, device="cuda")
+    seconds = time.perf_counter() - start
+    errors = [relative_error(torch, torch.tensor(result[k]), torch.tensor(m["example"][k]),
+                             per_setting=False) for k in ("losses", "tuner_losses")]
+    print(f"J11 (d, multichip_tuning graphed): loss {result['losses'][0]:.4e} ->"
+          f" {result['losses'][-1]:.4e}; against path M (e)'s eager run: train step {errors[0]:.2e},"
+          f" tuner {errors[1]:.2e} (bound {OBS_RTOL}); {seconds:.2f} s (host clock); card {card}")
+    if not result["losses"][-1] < result["losses"][0] or max(errors) > OBS_RTOL:
+        raise AssertionError("J11 (d): the graphed example differs from the eager one")
+    return issued
+
+
+def path_jit_aperture(torch, ltt, ares, ft, hist, functional, graphs, card):
+    """J12: F4 on the card: an active aperture inside a graph.  A drift, a
+    quadrupole with k1 per setting, a 3e-4 x 4e-4 m aperture and a drift,
+    J_APERTURE_PARTICLES particles at B = J_APERTURE_BATCH: ``track_jit``
+    and a graphed ``Segment.track`` against eager ``Segment.track``
+    (particles, survival: equal), once and after re-tuning k1."""
+    kw = dict(device="cuda")
+    B = J_APERTURE_BATCH
+    segment = ltt.Segment([
+        ltt.Drift(torch.tensor([0.3], **kw), **kw),
+        ltt.Quadrupole(torch.tensor([0.12], **kw), k1=torch.linspace(-8.0, 8.0, B, **kw), **kw),
+        ltt.Aperture(x_max=torch.tensor(3e-4, **kw), y_max=torch.tensor(4e-4, **kw), **kw),
+        ltt.Drift(torch.tensor([0.4], **kw), **kw)], name="j12")
+    beam = moment_cloud(torch, ltt.ParticleBeam, J_APERTURE_PARTICLES, seed=121).broadcast((B,))
+    tracked = graphs.graphed(lambda s, b: s.track(b))
+    results = []
+    for k1 in (torch.linspace(-8.0, 8.0, B, **kw), torch.linspace(-4.0, 6.0, B, **kw)):
+        segment.elements[1].k1 = k1
+        with torch.no_grad():
+            want = segment.track(beam)
+            pairs = ((functional.track_jit(segment, beam)[0], functional.track(segment, beam)[0]),
+                     (tracked(segment, beam), want))
+        equal = all(torch.equal(o.particles, w.particles) and torch.equal(o.survival, w.survival)
+                    for o, w in pairs)
+        results.append((equal, int(want.survival.sum(dim=-1).min()),
+                        int(want.survival.sum(dim=-1).max())))
+    print(f"J12: an active aperture captured (track_jit and graphed Segment.track, {B} settings x"
+          f" {J_APERTURE_PARTICLES} particles): replays equal to eager Segment.track (particles,"
+          f" survival) [equal, fewest, most survivors] {results}; captures: track_jit"
+          f" {functional.track_jit.graphed.captures}, Segment.track {tracked.captures}; card {card}")
+    if not all(r[0] for r in results) or tracked.captures != 1:
+        raise AssertionError("J12: the captured aperture differs from eager")
+
+
+def path_jit_examples(torch, ares, ParticleBeam, functional, graphs, profiling, image_tuning,
+                      emittance_measurement, optimize_speed, eager_stages, card):
+    """J13: the examples' own jits as graphs: image_tuning's loss and
+    gradient (forward and backward captured, 200 steps, the loss must
+    collapse as the JAX example asserts); emittance_measurement's measure
+    against eager (equal); optimize_speed's stages replayed, with their
+    capture seconds, beside path O's eager stages, each replay's outgoing
+    beam equal to path O's; profiling.benchmark through a graph against
+    graph=False, the graph's value equal to the eager read's."""
+    start = time.perf_counter()
+    params, losses = image_tuning.main(device="cuda")
+    image_s = time.perf_counter() - start
+    print(f"J13 image_tuning graphed: loss {float(losses[0]):.3e} -> {float(losses[-1]):.3e}"
+          f" (collapsed below 1e-3 of the first), k = {[round(x, 4) for x in params.tolist()]};"
+          f" {image_s * 1000.0 / 200:.4f} ms per tune step (the example's wall time over 200"
+          f" steps, captures included, host clock); card {card}")
+    results = {graph: emittance_measurement.main(device="cuda", graph=graph)
+               for graph in (True, False)}
+    equal = torch.equal(results[True]["measured"], results[False]["measured"])
+    print(f"J13 emittance_measurement: the graphed measure equal to eager: {equal}; fitted"
+          f" emittance {results[True]['emittance']:.5e} against {results[True]['true_emittance']:.5e}"
+          f" m rad; card {card}")
+    if not equal:
+        raise AssertionError("J13: the graphed measurement differs from eager")
+    stages = optimize_speed.main(OPTIMIZE_CELLS, OPTIMIZE_BATCH, device="cuda",
+                                 iters=OPTIMIZE_ITERS)
+    stages_equal = [torch.equal(beam._mu, eager._mu) and torch.equal(beam._cov, eager._cov)
+                    for (_, _, beam, _), (_, _, eager, _) in zip(stages, eager_stages)]
+    print("J13 optimize_speed replayed: " + ", ".join(
+        f"{label} {seconds * 1e3:.4f} ms (capture {capture:.3f} s)"
+        for label, seconds, _, capture in stages)
+        + f" a track (CUDA events, profiling.benchmark, {OPTIMIZE_ITERS} replays); each replay's"
+        f" outgoing beam equal to path O's eager track: {stages_equal}; card {card}")
+    segment, beam = flagship(torch, ares, ParticleBeam, 1, "cuda", seed=0)
+
+    def read(segment, beam):
+        return functional.track(segment, beam)[1]["AREABSCR1"]
+
+    jitted = graphs.graphed(read)
+    seconds = {graph: profiling.benchmark(jitted if graph else read, segment, beam, iters=20,
+                                          graph=graph) for graph in (True, False)}
+    read_equal = torch.equal(jitted(segment, beam), read(segment, beam))
+    print(f"J13 profiling.benchmark of the flagship read: through a graph {seconds[True] * 1e3:.4f}"
+          f" ms, graph=False {seconds[False] * 1e3:.4f} ms a call (CUDA events, 20 calls); the"
+          f" graph's image equal to the eager read's: {read_equal}; card {card}")
+    if not seconds[True] > 0 or any(seconds <= 0 for _, seconds, _, _ in stages):
+        raise AssertionError("J13: a benchmark returned no positive time")
+    if not all(stages_equal) or not read_equal:
+        raise AssertionError("J13: a replay differs from its eager form")
+
+
 def ptxas_report(log):
     """``kernel<args> R registers, S/L bytes spilled`` for each kernel of an
     nvcc -Xptxas -v report (spill stores / spill loads); template arguments
@@ -4299,8 +4945,8 @@ def main():
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, cuda {torch.version.cuda}")
 
     import lynx_tpu_torch as ltt
-    from lynx_tpu_torch import (ParticleBeam, _build, debug, envs, functional, graphs, profiling,
-                                tuning)
+    from lynx_tpu_torch import (ParticleBeam, _build, debug, envs, functional, graphs, metrics,
+                                profiling, tuning)
     from lynx_tpu_torch.accelerator import fused
     from lynx_tpu_torch.accelerator import segment as segment_module
     from lynx_tpu_torch.benchmarks import hist_ab
@@ -4454,7 +5100,8 @@ def main():
     print(f"path I: launches {io_launches}")
 
     # -- 10. path R, the RL-training and tuning slice ----------------------------
-    rl_launches, env_state = path_rl_ppo(torch, ft, hist, envs, ppo_ares_ea, profiling, card)
+    rl_launches, env_state, r1 = path_rl_ppo(torch, ft, hist, envs, ppo_ares_ea, profiling,
+                                             card)
     path_rl_metrics(torch, envs, env_state, card)
     path_rl_tuning(torch, gradient_tuning, emittance_measurement, image_tuning, card)
     fidelity_launches, fidelity_beams = path_rl_fidelity(torch, ft, hist,
@@ -4468,12 +5115,13 @@ def main():
     print(f"path R: launches {rl_launches}")
 
     # -- 11. path O, the optimize_speed example -----------------------------------
-    optimize_launches = path_optimize_speed(torch, ltt, ft, hist, segment_module, optimize_speed,
-                                            card)
+    optimize_launches, optimize_stages = path_optimize_speed(torch, ltt, ft, hist, segment_module,
+                                                             optimize_speed, card)
 
     # -- 12. path M, the parallel layer on a 1 x 1 mesh -----------------------------
-    mesh_launches = path_parallel(torch, ltt, ares, ft, hist, fused, functional, tuning,
-                                  parallel, multichip_tuning, seg1, beam1, card)
+    mesh_launches, m_context = path_parallel(torch, ltt, ares, ft, hist, fused, functional,
+                                             tuning, parallel, multichip_tuning, seg1, beam1,
+                                             card)
     print(f"path O: launches {optimize_launches}; path M: launches {mesh_launches}")
 
     # -- 13. path V, random element mixes ------------------------------------------
@@ -4498,6 +5146,7 @@ def main():
     jit_launches["B1"] += fallback_launches
     max_abs_err = max(max_abs_err, fallback_abs_err)
     jit_launches["B3"] = jit_launches["B4"] = 0
+    path_jit_float64_adam(torch, ltt, functional, tuning, card)
     for launched in (path_jit_tuner(torch, ft, hist, envs, env, tuning, card),
                      path_jit_until(torch, ft, hist, envs, env, tuning, card),
                      path_jit_cavities(torch, ltt, ft, hist, functional, graphs, card),
@@ -4508,7 +5157,30 @@ def main():
     print(f"path J: launches issued {jit_launches} (warm-ups and captures; a replay issues none"
           f" from the host) in {time.perf_counter() - start:.1f} s (host clock, J1-J7)")
 
-    # -- 15. results ---------------------------------------------------------
+    # -- 15. path J, continued: the last jitted sites (J8-J13) --------------------------
+    start = time.perf_counter()
+    jit_launches["B3"] += path_jit_ppo(torch, ft, hist, graphs, envs, ppo_ares_ea, r1, card)
+    path_jit_metrics(torch, graphs, envs, ppo_ares_ea, metrics, r1, card)
+    moment_launches, moment_worst = path_jit_moments(torch, ltt, ft, hist, fused, graphs, envs,
+                                                     ParticleBeam, card)
+    jit_launches.update(moment_launches)
+    parallel_launches = path_jit_parallel(torch, ltt, ares, ft, hist, functional, graphs, tuning,
+                                          parallel, multichip_tuning, m_context, seg1, beam1,
+                                          card)
+    for k, v in parallel_launches.items():
+        jit_launches[k] = jit_launches.get(k, 0) + v
+    import torch.distributed as dist
+
+    graphs.release()  # NCCL keeps a communicator while a graph holds its collectives
+    dist.destroy_process_group()
+    path_jit_aperture(torch, ltt, ares, ft, hist, functional, graphs, card)
+    path_jit_examples(torch, ares, ParticleBeam, functional, graphs, profiling, image_tuning,
+                      emittance_measurement, optimize_speed, optimize_stages, card)
+    print(f"path J: launches issued {jit_launches} (J1-J13) in {time.perf_counter() - start:.1f}"
+          f" s (host clock, J8-J13); the largest replay-against-eager difference of B5/B6's"
+          f" captures {moment_worst:.3e}")
+
+    # -- 16. results ---------------------------------------------------------
     timing["B1"] = dict(ms=read_ms, plain_ms=plain_ms, bound=b1_bound,
                         library_ms=bincount_ms)
     timing["B7 onehot"], timing["B7 twolevel"] = hist_timing["onehot"], hist_timing["twolevel"]
@@ -4518,7 +5190,8 @@ def main():
          launches + mesh_launches["B1"] + random_launches["B1"] + jit_launches["B1"],
          max_abs_err),
         ("particle_apply", "B2", "particle_apply.cu", "lynx_tpu/ops/pallas_track.py:1439",
-         push_launches["B2"] + mesh_launches["B2"] + random_launches["B2"], push_abs_err),
+         push_launches["B2"] + mesh_launches["B2"] + random_launches["B2"]
+         + jit_launches.get("B2", 0), push_abs_err),
         ("moment_sweep", "B3", "moment_sweep.cu", "lynx_tpu/ops/pallas_track.py:72",
          serving_launches["B3"] + rl_launches["B3"] + optimize_launches["B3"]
          + mesh_launches["B3"] + random_launches["B3"] + jit_launches["B3"], sweep_abs_err["B3"]),
@@ -4527,10 +5200,11 @@ def main():
          + jit_launches["B4"], sweep_abs_err["B4"]),
         ("particle_moment_sweep", "B5", "particle_moment_sweep.cu",
          "lynx_tpu/ops/pallas_track.py:633",
-         walk_launches + rl_launches["B5"] + random_launches["B5"], moment_abs_err["B5"]),
+         walk_launches + rl_launches["B5"] + random_launches["B5"] + jit_launches["B5"],
+         moment_abs_err["B5"]),
         ("packed_gram", "B6", "packed_gram.cu", "lynx_tpu/ops/pallas_track.py:823",
          env_gram_launches + aperture_gram_launches + rl_launches["B6"] + mesh_launches["B6"]
-         + random_launches["B6"], moment_abs_err["B6"]),
+         + random_launches["B6"] + jit_launches["B6"], moment_abs_err["B6"]),
         ("hist_onehot", "B7 onehot", "hist_ab.cu", "benchmarks/hist_ab.py:94",
          hist_launches["onehot"], hist_abs_err),
         ("hist_twolevel", "B7 twolevel", "hist_ab.cu", "benchmarks/hist_ab.py:50",

@@ -16,6 +16,7 @@ import torch
 
 from lynx_tpu_torch._collectives import all_lost
 from lynx_tpu_torch.accelerator.element import Element, as_field, draw_patch
+from lynx_tpu_torch.graphs import capturing
 from lynx_tpu_torch.particles import Beam, ParticleBeam
 from lynx_tpu_torch.utils import resolve_device
 
@@ -96,6 +97,10 @@ class Aperture(Element):
         if not (isinstance(incoming, ParticleBeam) and self.is_active):
             return incoming
         outgoing = self.masked(incoming)
+        if capturing():
+            # As JAX's under a tracer: no host test, and no lost-particle
+            # state (a tensor made in a capture is rewritten by each replay).
+            return outgoing
         self.lost_mask = outgoing.survival == 0
         self._last_particles = incoming.particles
         self._last_charges = incoming.particle_charges

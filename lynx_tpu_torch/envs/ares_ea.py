@@ -234,8 +234,9 @@ class AresEATransverseTuning:
         plan = particle_moment_plan(
             tuned.flattened().elements,
             # Pin the energy to the particles' dtype: self.energy is a Python
-            # float and would otherwise promote the plan to float64.
-            torch.tensor(self.energy, dtype=particles.dtype, device=particles.device),
+            # float and would otherwise promote the plan to float64.  Filled
+            # on the device: a capture refuses a host-to-device copy.
+            torch.full((), self.energy, dtype=particles.dtype, device=particles.device),
             lambda x: torch.broadcast_to(torch.as_tensor(x).reshape(-1), (B,)),
         )
         if plan is None:

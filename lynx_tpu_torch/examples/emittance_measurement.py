@@ -20,6 +20,7 @@ import torch
 
 import lynx_tpu_torch as ltt
 from lynx_tpu_torch.functional import track
+from lynx_tpu_torch.graphs import graphed
 from lynx_tpu_torch.tuning import tune
 from lynx_tpu_torch.utils import resolve_device
 
@@ -65,11 +66,14 @@ def beam_from_params(params: torch.Tensor) -> ltt.ParameterBeam:
                              total_charge=torch.zeros(1, **like))
 
 
-def main(steps: int = 600, device=None, dtype: torch.dtype = torch.float32) -> dict:
+def main(steps: int = 600, device=None, dtype: torch.dtype = torch.float32,
+         graph: bool = True) -> dict:
     """Measure, fit for ``steps`` Adam steps (lr 5e-2) from a wrong guess
     (twice the emittance, no correlation) and print the result; return
-    ``{"true_emittance", "emittance", "losses", "sigma"}`` (the fitted
-    sigma_11, sigma_12, sigma_22)."""
+    ``{"true_emittance", "emittance", "losses", "sigma", "measured"}`` (the
+    fitted sigma_11, sigma_12, sigma_22; the scan's sigma_x).  With
+    ``graph`` (the default) the measurement and the fit's steps run as CUDA
+    graphs on the card; ``graph=False`` runs both eagerly."""
     like = dict(dtype=dtype, device=resolve_device(device))
     # The machine: an incoming beam we pretend not to know.
     twiss = dict(beta_x=8.0, alpha_x=-1.5, emittance_x=2.2e-9, beta_y=5.0, alpha_y=0.7,
@@ -81,8 +85,10 @@ def main(steps: int = 600, device=None, dtype: torch.dtype = torch.float32) -> d
 
     # The measurement: sigma_x(k1) over the scan.
     k1_scan = torch.linspace(-14.0, 14.0, 17, **like)
+    # One graphed call over the scan (the JAX example's jax.jit(jax.vmap(...))).
+    measure = graphed(simulated_sigma_x) if graph else simulated_sigma_x
     with torch.no_grad():
-        measured = simulated_sigma_x(k1_scan, true_beam)
+        measured = measure(k1_scan, true_beam)
     print(f"scan: {len(k1_scan)} settings, sigma_x "
           f"{float(measured.min()) * 1e6:.1f}-{float(measured.max()) * 1e6:.1f} um")
 
@@ -91,7 +97,7 @@ def main(steps: int = 600, device=None, dtype: torch.dtype = torch.float32) -> d
         return torch.mean((predicted / measured - 1.0) ** 2)
 
     params0 = torch.tensor([math.log(2.0), math.log(2.0), 0.0], **like)
-    params, losses = tune(loss_fn, params0, k1_scan, measured, steps=steps)
+    params, losses = tune(loss_fn, params0, k1_scan, measured, steps=steps, graph=graph)
 
     with torch.no_grad():
         fitted = beam_from_params(params)
@@ -103,7 +109,7 @@ def main(steps: int = 600, device=None, dtype: torch.dtype = torch.float32) -> d
           f"({100 * abs(emittance / true_emittance - 1):.2f}% error)")
     print(f"fitted sigma_11={s11:.3e}, sigma_12={s12:.3e}, sigma_22={s22:.3e}")
     return {"true_emittance": true_emittance, "emittance": emittance, "losses": losses,
-            "sigma": (s11, s12, s22)}
+            "sigma": (s11, s12, s22), "measured": measured}
 
 
 if __name__ == "__main__":

@@ -19,6 +19,7 @@ import torch
 
 import lynx_tpu_torch as ltt
 from lynx_tpu_torch.functional import track
+from lynx_tpu_torch.graphs import graphed
 from lynx_tpu_torch.models import ares_ea_segment
 from lynx_tpu_torch.utils import resolve_device
 
@@ -42,10 +43,13 @@ def reading(segment, k1: torch.Tensor, k2: torch.Tensor, beam: ltt.ParameterBeam
     return diagnostics["AREABSCR1"]
 
 
-def main(steps: int = 200, device=None, dtype: torch.dtype = torch.float32):
+def fit(steps: int = 200, device=None, dtype: torch.dtype = torch.float32, graph: bool = True):
     """Fit the two strengths for ``steps`` Adam steps (lr 0.1) from (1, -1);
-    return ``(params, losses)``.  The loss must fall below 1e-3 of its
-    first value."""
+    return ``(params, losses)``.  With ``graph`` (the default) the loss and
+    its gradient run through ``graphs.graphed`` with the parameters
+    requiring grad, the JAX example's ``@jax.jit @jax.value_and_grad``: on
+    the card the forward and the backward are captured once and replayed;
+    ``graph=False`` runs them eagerly."""
     like = dict(dtype=dtype, device=resolve_device(device))
     segment = make_segment(**like)
     beam = ltt.ParameterBeam.from_parameters(
@@ -59,16 +63,17 @@ def main(steps: int = 200, device=None, dtype: torch.dtype = torch.float32):
     # pixels to O(1) so that the float32 MSE and its gradients are well scaled.
     scale = 1.0 / torch.max(target)
 
-    def loss_fn(params):
+    def loss_fn(params, segment, beam, target, scale):
         image = reading(segment, params[0], params[1], beam)
         return torch.mean(((image - target) * scale) ** 2)
 
+    loss_of = graphed(loss_fn) if graph else loss_fn
     params = torch.tensor([1.0, -1.0], **like).requires_grad_(True)
     optimizer = torch.optim.Adam([params], lr=0.1)
     losses = []
     for step in range(steps):
         optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(params)
+        loss = loss_of(params, segment, beam, target, scale)
         loss.backward()
         optimizer.step()
         losses.append(loss.detach())
@@ -76,9 +81,13 @@ def main(steps: int = 200, device=None, dtype: torch.dtype = torch.float32):
             k = params.detach()
             print(f"step {step:3d}  loss {float(losses[-1]):.3e}"
                   f"  k = ({float(k[0]):+.3f}, {float(k[1]):+.3f})")
+    return params.detach(), torch.stack(losses)
 
-    params = params.detach()
-    losses = torch.stack(losses)
+
+def main(steps: int = 200, device=None, dtype: torch.dtype = torch.float32, graph: bool = True):
+    """:func:`fit`, then the JAX example's check: the loss must fall below
+    1e-3 of its first value.  Returns ``(params, losses)``."""
+    params, losses = fit(steps, device, dtype, graph)
     print(f"recovered k = ({float(params[0]):+.4f}, {float(params[1]):+.4f})"
           f"  true k = ({TRUE_K[0]:+.4f}, {TRUE_K[1]:+.4f})")
     if not float(losses[-1]) < 1e-3 * float(losses[0]):

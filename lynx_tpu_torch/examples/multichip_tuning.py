@@ -21,7 +21,7 @@ import argparse
 import torch
 
 import lynx_tpu_torch as ltt
-from lynx_tpu_torch import functional, parallel
+from lynx_tpu_torch import functional, graphs, parallel
 from lynx_tpu_torch.models import ares_ea_segment
 from lynx_tpu_torch.parallel.sharding import local_slice
 from lynx_tpu_torch.tuning import make_tuner
@@ -40,11 +40,13 @@ def trainable(segment) -> list:
     return [b.requires_grad_(True) for b in segment.buffers() if b.is_floating_point()]
 
 
-def main(steps: int = 30, device=None) -> dict:
+def main(steps: int = 30, device=None, graph: bool = True) -> dict:
     """Tune with ``make_tuning_train_step`` for ``steps`` steps, then again
     from the start with ``tuning.make_tuner``; print the losses (rank 0)
     and return ``{"mesh", "losses", "tuner_losses"}`` (global losses, host
-    floats)."""
+    floats).  With ``graph`` (the default) both run as CUDA graphs on the
+    card, the all-reduces captured with the step (JAX's jitted
+    ``train_step``); ``graph=False`` runs them eagerly."""
     device_type = resolve_device(device).type
     parallel.initialize(device_type=device_type)
     mesh = parallel.make_mesh(device_type=device_type)
@@ -75,7 +77,7 @@ def main(steps: int = 30, device=None) -> dict:
         beam = parallel.shard_beam(beam, mesh)
         segment = parallel.shard_segment(tuned_segment(batch, mesh.device), mesh)
         optimizer = torch.optim.Adam(trainable(segment), lr=5e-2)
-        train_step = parallel.make_tuning_train_step(optimizer, loss_fn)
+        train_step = parallel.make_tuning_train_step(optimizer, loss_fn, graph=graph)
         for i in range(steps):
             segment, loss = train_step(segment, beam)
             losses.append(float(loss))
@@ -85,7 +87,7 @@ def main(steps: int = 30, device=None) -> dict:
         # The same optimisation through the tuner, from the same start.
         segment2 = parallel.shard_segment(tuned_segment(batch, mesh.device), mesh)
         optimizer2 = torch.optim.Adam(trainable(segment2), lr=5e-2)
-        _, tuner_losses = make_tuner(optimizer2, loss_fn)(segment2, steps, beam)
+        _, tuner_losses = make_tuner(optimizer2, loss_fn, graph=graph)(segment2, steps, beam)
         tuner_losses = tuner_losses.tolist()
         say(f"tuner ({steps} steps): loss {tuner_losses[0]:.3e} -> {tuner_losses[-1]:.3e}")
     return {"mesh": dict(mesh.shape), "losses": losses, "tuner_losses": tuner_losses}
@@ -97,4 +99,5 @@ if __name__ == "__main__":
     parser.add_argument("--device", default=None, help="cuda (default, NCCL) or cpu (Gloo)")
     args = parser.parse_args()
     main(args.steps, args.device)
+    graphs.release()  # NCCL keeps a communicator while a graph holds its collectives
     torch.distributed.destroy_process_group()

@@ -19,6 +19,7 @@ import argparse
 import torch
 
 import lynx_tpu_torch as ltt
+from lynx_tpu_torch.graphs import graphed
 from lynx_tpu_torch.models.fodo import fodo_lattice
 from lynx_tpu_torch.profiling import benchmark
 from lynx_tpu_torch.utils import resolve_device
@@ -43,9 +44,15 @@ def stages(lattice: ltt.Segment, beam: ltt.ParameterBeam, batch: int) -> list:
 
 
 def main(num_cells: int = 150, batch: int = 1000, device=None,
-         dtype: torch.dtype = torch.float32, iters: int = 20) -> list:
+         dtype: torch.dtype = torch.float32, iters: int = 20, graph: bool = True) -> list:
     """Time the four stages; print ms per track, and at stage 4 us a sample
-    and tracks/s.  Return ``[(label, seconds, outgoing beam)]``."""
+    and tracks/s.  With ``graph`` (the default) the timed track is one
+    ``graphs.graphed`` function, the JAX example's ``jax.jit``: on the card
+    each stage is captured once and its replays are timed, the capture's
+    seconds printed beside them; ``graph=False`` times the eager track.
+    Return ``[(label, seconds, outgoing beam, capture seconds)]``: the beam
+    from the timed call (a replay in graph form), the capture seconds None
+    on the CPU or eager."""
     device = resolve_device(device)
     lattice = build_lattice(num_cells, dtype, device)
     print(f"lattice: {len(lattice.elements)} elements")
@@ -55,15 +62,20 @@ def main(num_cells: int = 150, batch: int = 1000, device=None,
     )
 
     def track(segment, incoming):
-        return segment.track(incoming)._mu
+        return segment.track(incoming)
 
+    timed = graphed(track) if graph else track
     results = []
     for label, segment, incoming in stages(lattice, beam, batch):
         if label == "transfer_maps_merged":
             print(f"merged lattice: {len(segment.elements)} elements")
-        seconds = benchmark(track, segment, incoming, iters=iters)
-        print(f"{label:45s} {seconds * 1e3:10.3f} ms")
-        results.append((label, seconds, segment.track(incoming)))
+        captured = len(timed.capture_seconds) if graph else 0
+        seconds = benchmark(timed, segment, incoming, iters=iters, graph=graph)
+        capture = timed.capture_seconds[captured] if graph and len(
+            timed.capture_seconds) > captured else None
+        note = "" if capture is None else f"  (capture {capture:.3f} s)"
+        print(f"{label:45s} {seconds * 1e3:10.3f} ms{note}")
+        results.append((label, seconds, timed(segment, incoming), capture))
     seconds = results[-1][1]
     print(f"{'':45s} {seconds / batch * 1e6:10.3f} us/sample  ({batch / seconds:,.0f} tracks/s)")
     return results

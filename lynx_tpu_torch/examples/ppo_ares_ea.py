@@ -4,7 +4,8 @@
 The environment steps all instances as one batch (``batched_step``): at
 16,384 settings and more each step is one launch of the moment-sweep
 kernel B3 on the card.  The rollout, the GAE and the PPO update stay on the
-device; the host reads the loss only where it prints.
+device, captured as one CUDA graph (the JAX example's one ``jax.jit``); the
+host reads the loss only where it prints.
 
 Run: python -m lynx_tpu_torch.examples.ppo_ares_ea [--updates 20]
 [--num-envs 512] [--rollout 16] [--device cuda]
@@ -20,7 +21,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from lynx_tpu_torch import _collectives
+from lynx_tpu_torch import _collectives, graphs
 from lynx_tpu_torch.envs import make_env
 from lynx_tpu_torch.envs.ares_ea import EnvParams, EnvState, default_params
 from lynx_tpu_torch.utils import resolve_device
@@ -91,7 +92,7 @@ def gaussian_logp(mean, log_std, action):
 
 
 def make_collect_and_update(env, env_params: EnvParams, optimizer: torch.optim.Optimizer,
-                            rollout: int):
+                            rollout: int, graph: bool = True):
     """Build the PPO step: a rollout of ``rollout`` batched env steps, GAE
     (gamma 0.99, lambda 0.95) and one clipped-surrogate update (epsilon
     0.2, 0.5 value loss, 0.001 entropy bonus) of ``optimizer``'s policy.
@@ -100,6 +101,23 @@ def make_collect_and_update(env, env_params: EnvParams, optimizer: torch.optim.O
     (obs, states, loss, mean_reward)``: the action noise is drawn from
     ``generator``, or taken from ``noise`` ``(rollout, B, act_size)``.
     After the call each parameter's ``.grad`` holds the update's gradient.
+
+    With ``graph`` (the default) the step is the JAX example's one jitted
+    program: on a CUDA policy it is captured in a CUDA graph
+    (``graphs.CapturedStep``) once per policy, generator and structure of
+    ``obs``, ``states`` and ``noise`` in the active mesh (the
+    ``graphs.StepCache`` in ``collect_and_update.cache``), and replayed: the
+    rollout's env steps (one B3 launch each at 16,384 envs and more), the
+    GAE, the update's forward and backward and a capturable Adam step (the
+    optimizer is set ``capturable=True``; any other optimizer raises on the
+    card).  The generator is registered with the graph, so a replay draws
+    the noise an eager step would; ``noise=`` captures a graph of its own.
+    The warm-up's update is undone: parameters, Adam's state, the generator
+    and the env states.  The returned ``obs`` and ``states`` are the graph's
+    carry (a ``lax.scan`` carry): passed back as they are, the next replay
+    needs no copy, and it rewrites them.  On CPU tensors the same step runs
+    eagerly under ``graphs.capturing``.  ``graph=False`` runs the eager
+    loop.
 
     Inside ``with mesh:`` on env states, observations and params split over
     the mesh's ``batch`` axis (``parallel.local_slice``), with the policy
@@ -175,24 +193,57 @@ def make_collect_and_update(env, env_params: EnvParams, optimizer: torch.optim.O
             _collectives.all_reduce_flat(
                 [p.grad for g in optimizer.param_groups for p in g["params"]
                  if p.grad is not None], group)
-        optimizer.step()
+        if graphs.capturing():
+            graphs.optimizer_step(optimizer)
+        else:
+            optimizer.step()
         with torch.no_grad():
             return obs, states, global_sum(loss.detach()), global_sum(share_of_mean(traj_rew))
 
-    return collect_and_update
+    if not graph:
+        return collect_and_update
+    cache = graphs.StepCache("collect_and_update")
+
+    def captured(policy, obs, states, generator=None, noise=None):
+        step = cache((policy, generator), (obs, states, noise), lambda static, generators:
+                     make_step(policy, static, generator, generators))
+        new_obs, magnets, step_count, loss, reward = step()
+        return (new_obs, EnvState(magnets, step_count, states.generator),
+                loss.clone(), reward.clone())
+
+    def make_step(policy, static, generator, generators):
+        obs, states, noise = static
+        carry = [obs, states.magnets, states.step_count]
+
+        def run():
+            new_obs, new_states, loss, reward = collect_and_update(policy, obs, states,
+                                                                   generator, noise)
+            # The carry, in place: the next replay starts from it.
+            torch._foreach_copy_(carry, [new_obs, new_states.magnets, new_states.step_count])
+            return (*carry, loss, reward)
+
+        return graphs.CapturedStep(run, obs.device, keep=list(policy.parameters()) + carry,
+                                   optimizer=optimizer, generators=generators)
+
+    captured.cache = cache
+    return captured
 
 
-def main(updates: int = 20, num_envs: int = 512, rollout: int = 16, device=None) -> list:
+def main(updates: int = 20, num_envs: int = 512, rollout: int = 16, device=None,
+         graph: bool = True) -> list:
     """Train for ``updates`` PPO updates; print progress every 5 and return
-    the ``(loss, mean_reward)`` of each update as host floats."""
+    the ``(loss, mean_reward)`` of each update as host floats.  With
+    ``graph`` the reset and the updates run as CUDA graphs on the card (the
+    JAX example's jits), and the host reads values only where it prints."""
     device = resolve_device(device)
     env = make_env(device=device)
     generator = torch.Generator(device=device).manual_seed(0)
     env_params = default_params(generator, device=device, batch_shape=(num_envs,))
     policy = MLPPolicy(env.obs_size, env.num_actions, generator=generator, device=device)
     optimizer = torch.optim.Adam(policy.parameters(), lr=LEARNING_RATE)
-    obs, states = env.batched_reset(generator, env_params)
-    collect_and_update = make_collect_and_update(env, env_params, optimizer, rollout)
+    reset = graphs.graphed(env.batched_reset) if graph else env.batched_reset
+    obs, states = reset(generator, env_params)
+    collect_and_update = make_collect_and_update(env, env_params, optimizer, rollout, graph)
 
     steps_per_update = num_envs * rollout
     history = []

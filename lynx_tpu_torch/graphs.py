@@ -48,6 +48,15 @@ On CPU leaves there is no graph: the same key and cache count the
 CPU computes what the graph computes.  :func:`host_read_guard` rehearses a
 capture's refusals on the CPU, for the tests and before a first capture.
 
+A training step (parameters and optimizer state updated in place, a carry
+threaded from step to step, as a ``lax.scan`` carry) is captured by
+:class:`CapturedStep` and kept by key in a :class:`StepCache`: the tuner
+(``tuning``) and PPO's update (``examples/ppo_ares_ea``) use both.
+``metrics.emit_metrics`` inside a graphed function or step writes a record
+the capture owns; the host logs it after each replay (JAX's
+``jax.debug.callback``).  The active mesh (``with mesh:``) is part of every
+key: a graph captured inside a mesh holds its collectives.
+
 Kernel launch counters (``window_histogram.launches`` and the like) count
 the launches *issued* from Python: the warm-up's and the capture's, never a
 replay's.  A replay's kernels are counted from the graph
@@ -59,27 +68,41 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import gc
 import os
 import tempfile
 import time
 import warnings
+import weakref
 from typing import Any, Callable, List, Tuple
 
 import torch
 from torch import nn
 from torch.overrides import TorchFunctionMode
 
-__all__ = ["capturing", "counters_kept", "flatten", "graphed", "host_read_guard", "HostReadError"]
+from lynx_tpu_torch import _collectives, metrics
+
+__all__ = ["CapturedStep", "capturing", "counters_kept", "flatten", "graphed", "host_read_guard",
+           "HostReadError", "make_capturable", "release", "StepCache"]
 
 Tensor = torch.Tensor
 
-_STATE = {"capturing": 0}
+_STATE = {"capturing": 0, "host": 0}
 #: Eager runs of a function on the card before its capture: the first
 #: builds the kernels' libraries and tapes, the second runs as the capture
 #: will, on warm caches.
 WARMUP = 2
 #: Structure keys a graphed function keeps (on the card, their graphs).
 CACHE_SIZE = 8
+#: Optimizers whose step runs captured (``capturable=True``) and whose fresh
+#: state is zeros, so that a warm-up's step can be undone in place.
+CAPTURABLE = (torch.optim.Adam, torch.optim.AdamW)
+#: The capture's ``cudaStreamCaptureMode``: only this thread's unsafe calls
+#: fail it, so that other threads (NCCL's watchdog, which queries its
+#: collectives' events) run on while a step with collectives is captured.
+CAPTURE_MODE = "thread_local"
+#: Every graphed function and step cache, for :func:`release`.
+_CACHES: "weakref.WeakSet" = weakref.WeakSet()
 
 
 def capturing() -> bool:
@@ -122,9 +145,23 @@ def _name(func) -> str:
     return getattr(func, "__qualname__", getattr(func, "__name__", repr(func)))
 
 
+@contextlib.contextmanager
+def host_side():
+    """Mark the enclosed code as the host's side of a graph, outside the
+    captured function (logging a replay's metric records): the
+    :func:`host_read_guard` lets its reads pass."""
+    _STATE["host"] += 1
+    try:
+        yield
+    finally:
+        _STATE["host"] -= 1
+
+
 class _HostReadGuard(TorchFunctionMode):
     def __torch_function__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if _STATE["host"]:
+            return func(*args, **kwargs)
         if func in _HOST_READS:
             raise HostReadError(
                 f"{_name(func)} reads a tensor on the host inside a graphed function; a CUDA"
@@ -178,8 +215,10 @@ def counters_kept():
 # -- flattening -------------------------------------------------------------------
 
 _PRIMITIVES = (type(None), bool, int, float, complex, str, bytes, torch.dtype, torch.device)
-#: nn.Module bookkeeping and stored readings: not part of an element's structure.
-_NOT_STRUCTURE = frozenset(vars(nn.Module())) | {"reading", "cached_reading", "_read_beam"}
+#: nn.Module bookkeeping, stored readings and an aperture's lost particles
+#: (the last eager track's): not part of an element's structure.
+_NOT_STRUCTURE = frozenset(vars(nn.Module())) | {
+    "reading", "cached_reading", "_read_beam", "lost_mask", "_last_particles", "_last_charges"}
 
 
 class _Identity:
@@ -290,6 +329,260 @@ def flatten(tree) -> Tuple[List[Tensor], tuple, Callable[[List[Tensor]], Any]]:
     return leaves, key, rebuild
 
 
+def mesh_key() -> "_Identity":
+    """The active mesh (``with mesh:``, or none), part of every structure
+    key: a function captured inside a mesh holds its collectives, one
+    captured outside holds none."""
+    return _Identity(_collectives._groups["mesh"])
+
+
+def run_eagerly(fn: Callable, *args, **kwargs):
+    """``fn`` run as a graph form runs on the CPU: eagerly under
+    :func:`capturing`, its metric records logged when it returns (outside
+    the function, as a replay's are)."""
+    with capture_scope(), metrics.recording() as records:
+        out = fn(*args, **kwargs)
+    with host_side():
+        metrics.log_records(records)
+    return out
+
+
+# -- a captured training step ---------------------------------------------------------
+
+
+def optimizer_step(optimizer) -> None:
+    """``optimizer.step()`` in a step's graph form.  On the card the
+    optimizer runs capturable (no host read).  On the CPU, where torch's
+    optimizers cannot run capturable, Adam reads its own step count on the
+    host: the host-read guard lets that read pass as the host's side."""
+    on_card = any(p.is_cuda for group in optimizer.param_groups for p in group["params"])
+    with contextlib.nullcontext() if on_card else host_side():
+        optimizer.step()
+
+
+def make_capturable(optimizer) -> None:
+    """Set Adam or AdamW ``capturable`` (any other optimizer raises
+    ``TypeError``, naming itself), its step counts on the parameters' device
+    in the parameters' precision: a capturable Adam forms its bias
+    corrections from its step tensor, which torch makes float32 (a float64
+    parameter would take them 2e-6 off the eager Adam's, which forms them
+    in double on the host).  A fresh state is made here as Adam makes it."""
+    if not isinstance(optimizer, CAPTURABLE):
+        raise TypeError(
+            f"captured step: {type(optimizer).__name__} does not run captured; use"
+            " torch.optim.Adam or AdamW, or graph=False"
+        )
+    for group in optimizer.param_groups:
+        group["capturable"] = True
+        for p in group["params"]:
+            state = optimizer.state[p]
+            dtype = torch.float64 if p.dtype == torch.float64 else torch.float32
+            if not state:
+                state["step"] = torch.zeros((), dtype=dtype, device=p.device)
+                state["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+                state["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+                if group["amsgrad"]:
+                    state["max_exp_avg_sq"] = torch.zeros_like(
+                        p, memory_format=torch.preserve_format)
+            elif isinstance(state.get("step"), Tensor):  # kept by an eager run
+                state["step"] = state["step"].to(p.device, dtype)
+
+
+def _optimizer_state(optimizer) -> dict:
+    """``{parameter: {name: copy}}`` of the optimizer's state tensors."""
+    if optimizer is None:
+        return {}
+    return {p: {k: v.clone() for k, v in optimizer.state[p].items() if isinstance(v, Tensor)}
+            for group in optimizer.param_groups for p in group["params"]}
+
+
+def _put_back(optimizer, kept: dict) -> None:
+    """The optimizer's state tensors as :func:`_optimizer_state` kept them,
+    in place; those made since are zeroed (a fresh Adam or AdamW state is
+    zeros)."""
+    for p, old in kept.items():
+        for k, v in optimizer.state[p].items():
+            if not isinstance(v, Tensor):
+                continue
+            if k in old:
+                v.copy_(old[k])
+            else:
+                v.zero_()
+
+
+class CapturedStep:
+    """One step of a training loop captured once and replayed: the
+    counterpart of a jitted step over the carry a ``lax.scan`` threads.
+
+    ``step()`` takes no arguments: it runs on tensors the caller keeps (the
+    graph's static inputs: parameters, the optimizer's state, the carried
+    observations and states), writes what it carries to the next step into
+    them in place, and returns its outputs.
+
+    On ``device`` CUDA the constructor makes the ``optimizer`` capturable
+    (:func:`make_capturable`: any but Adam and AdamW raises), runs ``step``
+    once on a side stream (the warm-up: kernels built, tapes and index
+    tensors made, the optimizer's state allocated, NCCL communicators
+    created by the first collective), then puts back, in place, the tensors
+    of ``keep`` (the parameters and the carry), the optimizer's state
+    (zeros where the warm-up made it), the state of each generator (the
+    device's default one and ``generators``, the CUDA ``torch.Generator``s
+    the step draws from) and the screen read's fallback counters, calls
+    ``reset()``, drops the gradients and captures one step.  The generators
+    are registered with the graph: a replay draws from their state then, as
+    an eager step would.  A call replays the graph, queues the step's
+    metric records for logging (``metrics.enqueue``) and returns the
+    captured outputs: the graph's own tensors, which the next replay
+    rewrites.
+
+    On the CPU a call runs ``step()`` eagerly under :func:`capturing` and
+    logs its metric records when it returns (:func:`run_eagerly`).
+
+    ``capture_seconds`` is the warm-up and capture's host time.
+    """
+
+    def __init__(self, step: Callable[[], Any], device, keep=(), optimizer=None,
+                 generators=(), reset: Callable[[], None] = None):
+        self.step = step
+        self.graph = None
+        self.outputs = None
+        self.records: list = []
+        self.capture_seconds = None
+        device = torch.device(device)
+        if device.type == "cuda":
+            if optimizer is not None:
+                make_capturable(optimizer)
+            self._capture(device, list(keep), optimizer, generators, reset)
+
+    def _capture(self, device, keep, optimizer, generators, reset) -> None:
+        default = torch.cuda.default_generators[
+            device.index if device.index is not None else torch.cuda.current_device()]
+        saved = [default]
+        for g in generators:
+            if not any(g is s for s in saved):
+                saved.append(g)
+        registered = saved[1:]  # the default generator is the capture's own
+        if registered and not hasattr(torch.cuda.CUDAGraph, "register_generator_state"):
+            raise TypeError("CapturedStep: this torch cannot register a generator with a graph")
+        start = time.perf_counter()
+        kept = [t.detach().clone() for t in keep]
+        kept_state = _optimizer_state(optimizer)
+        states = [g.get_state() for g in saved]
+        with counters_kept():
+            side = torch.cuda.Stream(device)
+            side.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(side), capture_scope():
+                self.step()
+            torch.cuda.current_stream(device).wait_stream(side)
+            torch.cuda.synchronize(device)
+        with torch.no_grad():
+            for t, old in zip(keep, kept):
+                t.copy_(old)
+            if optimizer is not None:
+                _put_back(optimizer, kept_state)
+        for generator, state in zip(saved, states):
+            generator.set_state(state)
+        if reset is not None:
+            reset()
+        if optimizer is not None:
+            optimizer.zero_grad(set_to_none=True)  # the capture's backward makes the grads
+        torch.cuda.synchronize(device)
+        graph = torch.cuda.CUDAGraph(keep_graph=True)  # kept for graph_kernel_count
+        for generator in registered:
+            graph.register_generator_state(generator)
+        with capture_scope(), metrics.recording() as records, \
+                torch.cuda.graph(graph, capture_error_mode=CAPTURE_MODE):
+            self.outputs = self.step()
+        graph.instantiate()
+        torch.cuda.synchronize(device)
+        self.graph, self.records = graph, records
+        self.capture_seconds = time.perf_counter() - start
+
+    def __call__(self):
+        if self.graph is None:
+            return run_eagerly(self.step)
+        self.graph.replay()
+        metrics.enqueue(self.records)
+        return self.outputs
+
+
+# -- captures kept by key -------------------------------------------------------------
+
+
+class _Captures:
+    """Captures kept by structure key: at most :data:`CACHE_SIZE`, the least
+    recently used evicted with a warning.  ``captures`` counts the keys seen,
+    evicted ones included."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.captures = 0
+        self._cache: collections.OrderedDict = collections.OrderedDict()
+        _CACHES.add(self)
+
+    def _entry(self, key, capture):
+        """``key``'s cache entry, made by ``capture()`` where missing."""
+        if key in self._cache:
+            self._cache.move_to_end(key)
+            return self._cache[key]
+        entry = self._cache[key] = capture()
+        self.captures += 1
+        if len(self._cache) > CACHE_SIZE:
+            if torch.cuda.is_initialized():
+                torch.cuda.synchronize()  # no replay of the evicted graph in flight
+            self._cache.popitem(last=False)
+            warnings.warn(
+                f"{self.name}: {self.captures} structure keys captured, the least recently used"
+                f" evicted (CACHE_SIZE {CACHE_SIZE}). A Segment or element built anew each call"
+                " without a name keys anew each call: build it once and re-tune its fields, or"
+                " name it.",
+                stacklevel=3,
+            )
+        return entry
+
+    def clear(self) -> None:
+        """Drop every capture: the next call captures again."""
+        self._cache.clear()
+
+
+class StepCache(_Captures):
+    """Captured training steps kept by key, as :func:`graphed` keeps its
+    graphs: ``tuning.make_tuner``'s and PPO's update's.  ``steps`` lists the
+    kept steps, the most recently used last."""
+
+    @property
+    def steps(self) -> list:
+        return [step for step, _ in self._cache.values()]
+
+    def __call__(self, owners, tree, make: Callable, stale: Callable = None):
+        """The step for ``owners`` (objects keyed by identity: the tuned
+        parameters, a policy, a generator) and the structure of ``tree`` (a
+        pytree of the step's inputs, :func:`flatten`) in the active mesh,
+        with ``tree``'s leaves in its static inputs.  Where none is kept for
+        that key, or ``stale(step)``, it is made by ``make(static,
+        generators)``: ``static`` is ``tree`` around copies of its leaves
+        (the graph's static inputs), ``generators`` the CUDA generators among
+        ``owners`` and ``tree``, for :class:`CapturedStep`.  A kept step gets
+        the current leaves copied into its static inputs, except those passed
+        back as they are (a carry the step returned)."""
+        leaves, tree_key, rebuild = flatten(tree)
+        key = (tuple(_Identity(o) for o in owners), tree_key, mesh_key())
+        if key in self._cache and stale is not None and stale(self._cache[key][0]):
+            del self._cache[key]
+        kept = key in self._cache
+
+        def capture():
+            static = [t.detach().clone() for t in leaves]
+            return make(rebuild(static), _generators(key)), static
+
+        step, static = self._entry(key, capture)
+        if kept:
+            moved = [(s, t) for s, t in zip(static, leaves) if s is not t]
+            if moved:
+                torch._foreach_copy_([s for s, _ in moved], [t.detach() for _, t in moved])
+        return step
+
+
 # -- the graphed callable ------------------------------------------------------------
 
 
@@ -307,46 +600,50 @@ class _FreshGradient(torch.autograd.Function):
         return grad.clone()
 
 
-def graph_kernel_count(graph: "torch.cuda.CUDAGraph", name: str = "") -> int:
-    """Kernel nodes of a captured graph whose node text (the kernel's
-    mangled name among it) holds ``name``, from the graph's DOT dump
-    (``CUDAGraph.debug_dump`` of a graph made with ``keep_graph=True``, as
-    :func:`graphed` makes them)."""
+def graph_kernel_count(graph: "torch.cuda.CUDAGraph", name: str = "", kind: str = "KERNEL") -> int:
+    """Kernel nodes (``kind`` "MEMSET": memset nodes) of a captured graph
+    whose node text (a kernel's mangled name among it) holds ``name``, from
+    the graph's DOT dump (``CUDAGraph.debug_dump`` of a graph made with
+    ``keep_graph=True``, as :func:`graphed` and :class:`CapturedStep` make
+    them)."""
     with tempfile.TemporaryDirectory() as directory:
         path = os.path.join(directory, "graph.dot")
         graph.debug_dump(path)
         with open(path) as dump:
             statements = dump.read().split("];")
-    return sum(1 for s in statements if "KERNEL" in s and name in s)
+    return sum(1 for s in statements if kind in s and name in s)
 
 
 class _Replay:
     """A captured graph: static inputs, static outputs and how to rebuild
     the outputs around fresh copies."""
 
-    def __init__(self, graph, static, outputs, rebuild):
+    def __init__(self, graph, static, outputs, rebuild, records):
         self.graph, self.static, self.outputs, self.rebuild = graph, static, outputs, rebuild
+        self.records = records  # metric records (metrics.emit_metrics) the capture made
 
     def __call__(self, leaves):
         if self.static:
             torch._foreach_copy_(self.static, [t.detach() for t in leaves])
         self.graph.replay()
+        metrics.enqueue(self.records)
         return self.rebuild([o.clone() for o in self.outputs])
 
 
 class _GradReplay:
     """A forward and backward captured together (``make_graphed_callables``)."""
 
-    def __init__(self, function, spec):
-        self.function, self.spec = function, spec
+    def __init__(self, function, spec, records):
+        self.function, self.spec, self.records = function, spec, records
 
     def __call__(self, leaves):
         inputs = [_FreshGradient.apply(t) if t.requires_grad else t for t in leaves]
         outputs = self.function(*inputs)
+        metrics.enqueue(self.records)
         return self.spec["rebuild"]([o.clone() for o in outputs])
 
 
-class GraphedFunction:
+class GraphedFunction(_Captures):
     """See :func:`graphed`.  ``captures`` counts the structure keys seen
     (graphs captured on the card, eager runs' keys on the CPU), evicted
     ones included; ``graphs`` lists the kept forward-only graphs, the most
@@ -354,11 +651,14 @@ class GraphedFunction:
     clock, warm-ups included), in order."""
 
     def __init__(self, fn: Callable):
+        super().__init__(f"graphed {getattr(fn, '__qualname__', fn)!r}")
         self.fn = fn
-        self.captures = 0
-        self._cache: collections.OrderedDict = collections.OrderedDict()
         self._pool = None  # the forward-only graphs' memory pool
         self.capture_seconds: List[float] = []
+
+    def clear(self) -> None:
+        super().clear()
+        self._pool = None
 
     @property
     def graphs(self) -> List["torch.cuda.CUDAGraph"]:
@@ -368,11 +668,10 @@ class GraphedFunction:
         leaves, key, rebuild = flatten((args, kwargs))
         devices = {t.device.type for t in leaves}
         grad = torch.is_grad_enabled() and any(t.requires_grad for t in leaves)
-        key = (key, grad)
+        key = (key, grad, mesh_key())
         if "cuda" not in devices:
             self._entry(key, lambda: None)
-            with capture_scope():
-                return self.fn(*args, **kwargs)
+            return run_eagerly(self.fn, *args, **kwargs)
         if devices != {"cuda"}:
             raise ValueError("graphed: the leaves mix CUDA and CPU tensors; move them to the card")
 
@@ -387,27 +686,6 @@ class GraphedFunction:
             return entry
 
         return self._entry(key, capture)(leaves)
-
-    def _entry(self, key, capture):
-        """``key``'s cache entry, made by ``capture()`` where missing; past
-        CACHE_SIZE keys the least recently used is evicted, with a warning."""
-        if key in self._cache:
-            self._cache.move_to_end(key)
-            return self._cache[key]
-        entry = self._cache[key] = capture()
-        self.captures += 1
-        if len(self._cache) > CACHE_SIZE:
-            if entry is not None:
-                torch.cuda.synchronize()  # no replay of the evicted graph in flight
-            self._cache.popitem(last=False)
-            warnings.warn(
-                f"graphed {getattr(self.fn, '__qualname__', self.fn)!r}: {self.captures}"
-                f" structure keys captured, the least recently used evicted (CACHE_SIZE"
-                f" {CACHE_SIZE}). A Segment or element built anew each call without a name"
-                " keys anew each call: build it once and re-tune its fields, or name it.",
-                stacklevel=3,
-            )
-        return entry
 
     def _call(self, rebuild, leaves):
         args, kwargs = rebuild(leaves)
@@ -438,19 +716,26 @@ class GraphedFunction:
             graph.register_generator_state(generator)
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
-        with capture_scope(), torch.no_grad(), torch.cuda.graph(graph, pool=self._pool):
+        with capture_scope(), metrics.recording() as records, torch.no_grad(), \
+                torch.cuda.graph(graph, pool=self._pool, capture_error_mode=CAPTURE_MODE):
             out = self._call(rebuild, static)
         graph.instantiate()
         outputs, _, out_rebuild = flatten(out)
-        return _Replay(graph, static, outputs, out_rebuild)
+        return _Replay(graph, static, outputs, out_rebuild, records)
 
     def _capture_grad(self, leaves, rebuild) -> _GradReplay:
         static = [t.detach().clone().requires_grad_(t.requires_grad) for t in leaves]
         spec = {}
 
+        records: list = []
+
         def flat(*flat_leaves):
-            with capture_scope():
+            # The capture's metric records are kept, the warm-ups' dropped.
+            recorded = (metrics.recording() if torch.cuda.is_current_stream_capturing()
+                        else contextlib.nullcontext([]))
+            with capture_scope(), recorded as made:
                 out = self._call(rebuild, list(flat_leaves))
+            records.extend(made)
             outputs, _, spec["rebuild"] = flatten(out)
             return tuple(outputs)
 
@@ -458,10 +743,27 @@ class GraphedFunction:
             function = torch.cuda.make_graphed_callables(
                 flat, tuple(static), num_warmup_iters=WARMUP, allow_unused_input=True
             )
-        return _GradReplay(function, spec)
+        return _GradReplay(function, spec, records)
 
 
 def graphed(fn: Callable) -> GraphedFunction:
     """``fn`` captured once per structure key and replayed (see the module's
     note)."""
     return GraphedFunction(fn)
+
+
+def release() -> None:
+    """Log the replays' pending metric lines (``metrics.flush``), then drop
+    every graphed function's graphs and every step cache's steps, and the
+    captured steps no longer referenced (a cycle through their step keeps
+    them until a collection).  Call it before
+    ``torch.distributed.destroy_process_group`` once graphs were captured
+    inside ``with mesh:``: NCCL does not destroy a communicator while a
+    graph that holds its collectives lives (on four H100s the destroy waited
+    forever).  A later call captures again."""
+    metrics.flush()
+    for captures in list(_CACHES):
+        captures.clear()
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()

@@ -33,6 +33,7 @@ from lynx_tpu_torch.accelerator.aperture import Aperture
 from lynx_tpu_torch.accelerator.bpm import BPM
 from lynx_tpu_torch.accelerator.screen import Screen
 from lynx_tpu_torch.accelerator.segment import Segment
+from lynx_tpu_torch.graphs import graphed
 from lynx_tpu_torch.parallel.sharding import Mesh, _device_mesh, _dist
 from lynx_tpu_torch.particles import Beam, ParameterBeam, ParticleBeam
 
@@ -100,18 +101,20 @@ def _like(template: Beam, tensors: Sequence[torch.Tensor]) -> Beam:
                         survival=survival[0] if survival else None)
 
 
-def _microbatch(beam: Beam, num_microbatches: int) -> List[Beam]:
-    """The beam's leading batch dim ``B`` cut into ``num_microbatches``
-    beams of ``B // M``."""
-    tensors = _tensors(beam)
-    for x in tensors:
+def _check_microbatches(beam: Beam, num_microbatches: int) -> None:
+    for x in _tensors(beam):
         if x.ndim == 0:
             raise ValueError("pipeline_track needs a batched beam (use beam.broadcast)")
         if x.shape[0] % num_microbatches:
             raise ValueError(
                 f"batch {x.shape[0]} not divisible by {num_microbatches} microbatches"
             )
-    pieces = [x.chunk(num_microbatches) for x in tensors]
+
+
+def _microbatch(beam: Beam, num_microbatches: int) -> List[Beam]:
+    """The beam's leading batch dim ``B`` cut into ``num_microbatches``
+    beams of ``B // M``."""
+    pieces = [x.chunk(num_microbatches) for x in _tensors(beam)]
     return [_like(beam, [piece[m] for piece in pieces]) for m in range(num_microbatches)]
 
 
@@ -207,6 +210,7 @@ def pipeline_track(
     beam: Beam,
     mesh: Mesh,
     num_microbatches: int,
+    graph: bool = True,
 ) -> Beam:
     """Track a batched beam through ``stages`` pipelined over ``mesh``'s
     ``"stage"`` axis with ``num_microbatches`` in flight.
@@ -214,9 +218,11 @@ def pipeline_track(
     Equal to tracking the whole batch through the stages in turn, but each
     rank runs only its own stage.  Every rank passes the same stages and
     beam (its leading batch dim divisible by ``num_microbatches``) and
-    gets the whole result."""
-    from lynx_tpu_torch.functional import track
-
+    gets the whole result.  With ``graph`` (the default) the schedule runs
+    through ``graphs.graphed``, JAX's ``lax.scan`` inside ``shard_map``: on
+    CUDA tensors captured once per structure, its sends, receives and the
+    final broadcast with it, and replayed; ``graph=False`` runs it
+    eagerly."""
     num_stages = mesh.shape[STAGE_AXIS]
     if len(stages) != num_stages:
         raise ValueError(f"{len(stages)} stages vs mesh axis of size {num_stages}")
@@ -227,11 +233,23 @@ def pipeline_track(
         )
     dtype = _common_dtype(stages, beam)
     beam = _like(beam, [x.to(dtype) for x in _tensors(beam)])
-    microbatches = _microbatch(beam, num_microbatches)
-
-    ranks = mesh.device_mesh.mesh.reshape(-1).tolist()
-    s = mesh.index(STAGE_AXIS)
+    _check_microbatches(beam, num_microbatches)
+    ranks = tuple(mesh.device_mesh.mesh.reshape(-1).tolist())
+    # The chain of this rank's sends and receives starts at an input, so that
+    # a captured backward (which differentiates with respect to the inputs)
+    # runs every rank's sends and receives, as loss.backward() does.
     link = torch.zeros((), dtype=dtype, device=mesh.device, requires_grad=torch.is_grad_enabled())
+    run = _GRAPHED_SCHEDULE if graph else _schedule
+    return run(list(stages), beam, link, ranks, mesh.index(STAGE_AXIS), num_microbatches)
+
+
+def _schedule(stages, beam: Beam, link, ranks: tuple, s: int, num_microbatches: int) -> Beam:
+    """Rank ``s``'s part of the pipeline (:func:`pipeline_track`): its stage
+    over every microbatch, then the last stage's result broadcast."""
+    from lynx_tpu_torch.functional import track
+
+    num_stages = len(stages)
+    microbatches = _microbatch(beam, num_microbatches)
     outputs = []
     for m in range(num_microbatches):
         incoming = microbatches[m]
@@ -251,3 +269,6 @@ def pipeline_track(
     mine = [torch.cat(column) for column in zip(*outputs)] if outputs else []
     result = _Broadcast.apply(link, ranks[-1], specs, *mine)
     return _like(beam, list(result))
+
+
+_GRAPHED_SCHEDULE = graphed(_schedule)

@@ -246,7 +246,7 @@ def shard_segment(segment, mesh: Mesh):
     return local
 
 
-def make_tuning_train_step(optimizer: torch.optim.Optimizer, loss_fn):
+def make_tuning_train_step(optimizer: torch.optim.Optimizer, loss_fn, graph: bool = True):
     """Build a full training step for gradient-based lattice tuning.
 
     ``loss_fn(segment, beam) -> scalar`` is a mean over the beam's batch, as
@@ -258,8 +258,11 @@ def make_tuning_train_step(optimizer: torch.optim.Optimizer, loss_fn):
     The step is one step of ``tuning.make_tuner``: inside ``with mesh:``
     on beams and segments from :func:`shard_beam` and :func:`shard_segment`
     it writes out what XLA inserts, the gradients' all-reduce
-    (``_collectives.backward``), and the loss returned is the global one."""
-    tuner = tuning.make_tuner(optimizer, loss_fn)
+    (``_collectives.backward``), and the loss returned is the global one.
+    With ``graph`` (the default) it is JAX's ``@jax.jit`` step: on CUDA
+    tensors captured once, its all-reduces with it, and replayed;
+    ``graph=False`` runs it eagerly."""
+    tuner = tuning.make_tuner(optimizer, loss_fn, graph=graph)
 
     def train_step(segment, beam):
         segment, losses = tuner(segment, 1, beam)

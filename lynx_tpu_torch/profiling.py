@@ -17,6 +17,7 @@ from contextlib import contextmanager
 
 import torch
 
+from lynx_tpu_torch import graphs
 from lynx_tpu_torch.benchmarks.timing import cuda_ms, profiled_device_events
 
 
@@ -49,11 +50,18 @@ def trace(log_dir: str):
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
-def benchmark(fn, *args, iters: int = 30, warmup: int = 2) -> float:
+def benchmark(fn, *args, iters: int = 30, warmup: int = 2, graph: bool = True) -> float:
     """Steady-state seconds per call of ``fn(*args)``: CUDA events around
     ``iters`` calls when the outputs are CUDA tensors (device timeline, host
     launch cost included where the device waits on it), else the host's
-    ``perf_counter``."""
+    ``perf_counter``.
+
+    With ``graph`` (the default) ``fn`` runs through ``graphs.graphed``, as
+    the JAX package jits it: on CUDA arguments captured in the first warm-up
+    call and replayed after (a function already graphed is taken as it is);
+    ``graph=False`` times ``fn`` itself."""
+    if graph and not isinstance(fn, graphs.GraphedFunction):
+        fn = graphs.graphed(fn)
     out = None
     for _ in range(max(warmup, 1)):
         out = fn(*args)

@@ -13,16 +13,17 @@ history as they were, and the host reads the stop flag once every
 :data:`UNTIL_READ_EVERY` replays.
 
 The captured step needs an optimizer that runs captured: Adam or AdamW,
-which the tuner sets ``capturable=True`` on; any other raises on CUDA
-parameters.  The graph is made once per ``params`` object and structure of
-``args`` (``graphs.flatten``); later calls copy ``args`` into it.  Before
-the capture one step runs eagerly (the warm-up), and the parameters and
-the optimizer's state (and the screen read's fallback counters) are then
-put back as they were.  On CPU parameters the same step runs eagerly,
+which the capture sets ``capturable=True`` on (``graphs.make_capturable``);
+any other raises on CUDA parameters.  The graph is made once per ``params``
+object and structure of ``args`` (``graphs.StepCache``); later calls copy
+``args`` into it.  Before the capture one step runs eagerly (the warm-up),
+and the parameters and the optimizer's state (and the screen read's
+fallback counters) are then put back as they were
+(``graphs.CapturedStep``).  On CPU parameters the same step runs eagerly,
 under ``graphs.capturing``: the CPU computes what the graph computes.
-``graph=False`` runs the same step eagerly with no capture anywhere; so
-does ``with mesh:`` (the parallel layer's collectives are not captured
-yet).
+``graph=False`` runs the same step eagerly with no capture anywhere.
+Inside ``with mesh:`` the captured step holds the parallel layer's
+all-reduces (NCCL collectives captured in the graph).
 
 ``params`` is a tensor or a list/tuple of tensors for :func:`tune` and
 :func:`tune_until`, which optimise a detached copy and return it in the same
@@ -33,22 +34,18 @@ torch.optim.Optimizer``; the default is Adam with learning rate 5e-2, as
 
 from __future__ import annotations
 
-import contextlib
 import functools
 from typing import Any, Callable, List, Optional
 
 import torch
 
 from lynx_tpu_torch import _collectives
-from lynx_tpu_torch.graphs import _Identity, capture_scope, counters_kept, flatten
+from lynx_tpu_torch.graphs import CapturedStep, StepCache, capturing, optimizer_step
 
 __all__ = ["make_tuner", "tune", "tune_until"]
 
 #: The default optimizer: Adam, learning rate 5e-2.
 DEFAULT_OPTIMIZER = functools.partial(torch.optim.Adam, lr=5e-2)
-#: Optimizers whose step runs captured (``capturable=True``) and whose fresh
-#: state is zeros, so that the warm-up's step can be undone in place.
-CAPTURABLE = (torch.optim.Adam, torch.optim.AdamW)
 #: ``tune_until`` replays this many steps between reads of its stop flag.
 UNTIL_READ_EVERY = 16
 
@@ -75,31 +72,17 @@ def _state_tensors(optimizer, tuned) -> List[torch.Tensor]:
             if isinstance(v, torch.Tensor)]
 
 
-def _make_capturable(optimizer) -> None:
-    if not isinstance(optimizer, CAPTURABLE):
-        raise TypeError(
-            f"graphed tuner: {type(optimizer).__name__} does not run captured; use"
-            " torch.optim.Adam or AdamW, or graph=False"
-        )
-    for group in optimizer.param_groups:
-        group["capturable"] = True
-    for state in optimizer.state.values():  # steps kept on the host by an eager run
-        if isinstance(state.get("step"), torch.Tensor) and not state["step"].is_cuda:
-            state["step"] = state["step"].to(next(p for p in _tuned(optimizer)).device)
-
-
 class _Loop:
     """One step of a tuning loop and its device state: the ``args``, the
     loss ``history``, the step ``index`` and, for ``tune_until``, the last
-    loss and the stop flag.  ``graph_form`` runs the step as a graph runs
-    it: captured on CUDA parameters (:meth:`capture`), else eagerly under
-    ``capture_scope``; without it the step runs plainly eagerly."""
+    loss and the stop flag.  After :meth:`capture` the step runs as a
+    graph runs it: captured on CUDA parameters, else eagerly under
+    ``graphs.capturing``; without it the step runs plainly eagerly."""
 
-    def __init__(self, optimizer, loss_fn, params, args, capacity, until=None, graph_form=True):
+    def __init__(self, optimizer, loss_fn, params, args, capacity, until=None):
         self.optimizer, self.loss_fn, self.params, self.until = optimizer, loss_fn, params, until
         self.tuned = _tuned(optimizer)
-        self.args, self.static = args, None  # static: the graph's copies of the args' leaves
-        self.scope = capture_scope if graph_form else contextlib.nullcontext
+        self.args = args
         device = self.tuned[0].device
         self.capacity = capacity
         self.index = torch.zeros((), dtype=torch.int64, device=device)
@@ -109,13 +92,7 @@ class _Loop:
             self.history = torch.full((capacity,), float("nan"), dtype=torch.float32,
                                       device=device)
             self.stop = torch.zeros((), dtype=torch.bool, device=device)
-        self.graph = None
-
-    def load(self, args) -> None:
-        if self.static is None:
-            self.args = args
-        elif self.static:
-            torch._foreach_copy_(self.static, [t.detach() for t in flatten(args)[0]])
+        self.captured = None  # the graph form's step (graphs.CapturedStep)
 
     def step(self) -> None:
         """One step: the loss, its gradient and the optimizer's update, the
@@ -130,9 +107,15 @@ class _Loop:
             self.last = torch.full((), float("inf"), dtype=loss.dtype, device=loss.device)
         if self.until is not None:
             return self._until_step(loss)
-        self.optimizer.step()
+        self._optimizer_step()
         self.history.index_copy_(0, self.index.view(1), loss.reshape(1).to(self.history.dtype))
         self.index.add_(1)
+
+    def _optimizer_step(self) -> None:
+        if capturing():
+            optimizer_step(self.optimizer)
+        else:
+            self.optimizer.step()
 
     def _until_step(self, loss) -> None:
         """``tune_until``'s step: it runs unless the stop flag is set, else
@@ -145,7 +128,7 @@ class _Loop:
         kept = [t.detach().clone() for t in self.tuned]
         state = _state_tensors(self.optimizer, self.tuned)
         kept_state = [t.clone() for t in state]
-        self.optimizer.step()
+        self._optimizer_step()
         with torch.no_grad():
             for t, old in zip(self.tuned + state, kept + kept_state):
                 t.copy_(torch.where(active, t, old))
@@ -159,43 +142,21 @@ class _Loop:
         going = (i < max_steps) & ((i < 2) | _improving(previous, self.last, tol))
         self.stop.copy_(~going)
 
-    def capture(self) -> None:
-        """Warm up (one step, then the parameters, the optimizer's state and
-        the fallback counters put back) and capture one step in a CUDA
-        graph, on static copies of the args."""
-        _make_capturable(self.optimizer)
-        leaves, _, rebuild = flatten(self.args)
-        self.static = [t.detach().clone() for t in leaves]
-        self.args = rebuild(self.static)
-        device = self.tuned[0].device
-        kept = [p.detach().clone() for p in self.tuned]
-        had_state = {p: {k: v.clone() for k, v in self.optimizer.state[p].items()
-                         if isinstance(v, torch.Tensor)} for p in self.tuned}
-        with counters_kept():
-            side = torch.cuda.Stream(device)
-            side.wait_stream(torch.cuda.current_stream(device))
-            with torch.cuda.stream(side), capture_scope():
-                self.step()
-            torch.cuda.current_stream(device).wait_stream(side)
-            torch.cuda.synchronize(device)
-        with torch.no_grad():
-            for p, old in zip(self.tuned, kept):
-                p.copy_(old)
-            for p in self.tuned:  # fresh Adam and AdamW state is zeros
-                for k, v in self.optimizer.state[p].items():
-                    if not isinstance(v, torch.Tensor):
-                        continue
-                    if k in had_state[p]:
-                        v.copy_(had_state[p][k])
-                    else:
-                        v.zero_()
-        self.reset()
-        self.optimizer.zero_grad(set_to_none=True)
-        torch.cuda.synchronize(device)
-        self.graph = torch.cuda.CUDAGraph()
-        with capture_scope(), torch.cuda.graph(self.graph):
-            self.step()
-        torch.cuda.synchronize(device)
+    def capture(self, generators=()) -> "_Loop":
+        """The graph form's step (``graphs.CapturedStep``): on CUDA
+        parameters, warmed up (one step, then the parameters, the
+        optimizer's state, the generators and the fallback counters put
+        back) and captured in a CUDA graph; on the CPU, run eagerly under
+        ``graphs.capturing``."""
+        self.captured = CapturedStep(self.step, self.tuned[0].device, keep=self.tuned,
+                                     optimizer=self.optimizer, generators=generators,
+                                     reset=self.reset)
+        return self
+
+    @property
+    def graph(self):
+        """The captured step's CUDA graph, or None."""
+        return None if self.captured is None else self.captured.graph
 
     def reset(self) -> None:
         self.index.zero_()
@@ -208,25 +169,10 @@ class _Loop:
     def run(self, steps: int) -> None:
         """``steps`` steps: graph replays, or the step run eagerly."""
         for _ in range(steps):
-            if self.graph is not None:
-                self.graph.replay()
+            if self.captured is not None:
+                self.captured()
             else:
-                with self.scope():
-                    self.step()
-
-
-def _graph_form(graph: bool) -> bool:
-    """Whether a loop runs as a graph: asked for, and outside ``with mesh:``
-    (the parallel layer's collectives are not captured yet)."""
-    return graph and _collectives._groups["mesh"] is None
-
-
-def _start(optimizer, loss_fn, params, args, capacity, graph, until=None) -> _Loop:
-    form = _graph_form(graph)
-    loop = _Loop(optimizer, loss_fn, params, args, capacity, until, graph_form=form)
-    if form and all(p.is_cuda for p in loop.tuned):
-        loop.capture()
-    return loop
+                self.step()
 
 
 def make_tuner(optimizer: torch.optim.Optimizer, loss_fn: Callable[..., torch.Tensor],
@@ -244,23 +190,22 @@ def make_tuner(optimizer: torch.optim.Optimizer, loss_fn: Callable[..., torch.Te
     eagerly, with no capture: for an optimizer that does not run captured,
     or as the eager reference.
 
-    Inside ``with mesh:`` (``lynx_tpu_torch.parallel``) the step runs
-    eagerly and sums the gradients over the ranks
-    (``_collectives.backward``); the history is the global loss.
+    Inside ``with mesh:`` (``lynx_tpu_torch.parallel``) the step sums the
+    gradients over the ranks (``_collectives.backward``), captured with its
+    all-reduces on CUDA (a graph captured inside a mesh is not replayed
+    outside it: the mesh is part of the key); the history is the global
+    loss.
     """
-    loops: dict = {}
+    loops = StepCache("make_tuner's step")
 
     def tuner(params, steps: int, *args):
-        if not _graph_form(graph):
-            loop = _start(optimizer, loss_fn, params, args, max(steps, 1), graph)
+        if not graph:
+            loop = _Loop(optimizer, loss_fn, params, args, max(steps, 1))
         else:
-            key = (_Identity(params), flatten(args)[1])
-            loop = loops.get(key)
-            if loop is None or loop.capacity < steps:
-                loop = loops[key] = _start(optimizer, loss_fn, params, args, max(steps, 1), graph)
-                tuner.captures += 1
-            else:
-                loop.load(args)
+            loop = loops((params,), args, lambda static, generators: _Loop(
+                optimizer, loss_fn, params, static, max(steps, 1)).capture(generators),
+                stale=lambda loop: loop.capacity < steps)
+            tuner.captures = loops.captures
             loop.reset()
         loop.run(steps)
         if loop.history is None:
@@ -340,9 +285,11 @@ def tune_until(
     """
     params = _detached(params)
     opt = (optimizer or DEFAULT_OPTIMIZER)(_leaves(params))
-    loop = _start(opt, loss_fn, params, args, max(max_steps, 1), graph, until=(tol, max_steps))
+    loop = _Loop(opt, loss_fn, params, args, max(max_steps, 1), until=(tol, max_steps))
+    if graph:
+        loop.capture()
     loop.reset()
-    every = UNTIL_READ_EVERY if _graph_form(graph) else 1
+    every = UNTIL_READ_EVERY if graph else 1
     done, reads = 0, 0
     while done < max_steps:
         burst = min(every, max_steps - done)

@@ -140,3 +140,15 @@ def test_multichip_tuning_example_alone():
     assert lines[0] == "mesh {'batch': 1, 'particles': 1}, batch=4, particles=2048"
     first = float(lines[1].split()[-1])
     assert lines[-1].startswith(f"tuner (3 steps): loss {first:.3e} -> ")
+
+
+def test_multichip_tuning_graph_form_equals_eager(ranks):
+    """The example's graph form (the default: the train step and the tuner
+    captured inside the mesh on the card, their CPU form run eagerly under
+    ``graphs.capturing``) equals ``graph=False`` on every rank: exactly on
+    the CPU; on the card, where the captured Adam runs ``capturable`` with
+    its bias corrections in float32 (the example's precision) against the
+    eager Adam's in double, to 1e-4 (``chip_smoke.py``'s OBS_RTOL)."""
+    for r in ranks:
+        np.testing.assert_allclose(r["example/losses"], r["example/eager_losses"], rtol=1e-4)
+        np.testing.assert_allclose(r["example/tuner"], r["example/eager_tuner"], rtol=1e-4)

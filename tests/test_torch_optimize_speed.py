@@ -49,11 +49,11 @@ def jax_stages():
 
 
 def test_stages_match_jax(port_stages):
-    labels = [label for label, _, _ in port_stages]
+    labels = [label for label, *_ in port_stages]
     assert labels[:3] == ["unoptimized track", "inactive markers removed, inactive as drifts",
                           "transfer_maps_merged"]
     reference = jax_stages()
-    for (_, seconds, ours), theirs in zip(port_stages[:3], reference):
+    for (_, seconds, ours, _), theirs in zip(port_stages[:3], reference):
         assert seconds > 0
         assert_close(ours._mu, theirs._mu)
         assert_close(ours._cov, theirs._cov)

@@ -228,3 +228,27 @@ def test_settings_sharded_particle_moment_sweep_matches(ranks):
         assert_close(gathered[key], ours.numpy())
         assert_close(gathered[key], theirs)
     assert all(int(r["sweep/collectives"]) == 0 for r in ranks)
+
+
+def test_graph_form_train_step_equals_the_eager_step(ranks):
+    """``make_tuning_train_step``'s graph form inside ``with mesh:`` (JAX's
+    jitted ``train_step``; its CPU form runs the step eagerly under
+    ``graphs.capturing``, its all-reduces with it) equals the eager step
+    (``graph=False``) on every rank: losses, first gradients and the tuned
+    k1, to the trained losses' GRAD_RTOL (exactly on the CPU; on the card
+    the captured Adam runs ``capturable``, which rounds otherwise).
+    ``test_sharded_train_step_improves_and_matches_unsharded_gradients``
+    holds the graph form to the unsharded port and to JAX."""
+    for r in ranks:
+        for key in ("losses", "grad0", "grad1", "grad2", "k1_0", "k1_1", "k1_2"):
+            assert_close(r[f"train/{key}"], r[f"train/eager_{key}"], GRAD_RTOL)
+
+
+def test_graph_form_sharded_sweep_equals_eager(ranks):
+    """JAX's ``jax.jit`` of the settings-sharded sweep
+    (``tests/test_parallel.py:286``): the port's ``graphs.graphed`` sweep on
+    each rank's settings equals its eager sweep, and so the unsharded port
+    and JAX (``test_settings_sharded_particle_moment_sweep_matches``)."""
+    for r in ranks:
+        for key in ("mu", "cov", "w"):
+            np.testing.assert_array_equal(r[f"sweep/graph_{key}"], r[f"sweep/{key}"], err_msg=key)

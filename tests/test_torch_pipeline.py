@@ -179,3 +179,17 @@ def test_pipeline_rejects_active_screen_and_bad_shapes():
         parallel.pipeline_track(good_stages, w.pipe_parameter_beam(ltt, torch, 5), mesh, 2)
     with pytest.raises(ValueError, match="stages vs mesh"):
         parallel.pipeline_track(good_stages[:3], beam, mesh, 2)
+
+
+@pytest.mark.parametrize("kind", ["parameter", "particle"])
+def test_pipeline_graph_form_equals_eager(ranks, kind):
+    """``pipeline_track``'s graph form (the default: JAX's ``lax.scan``
+    inside ``shard_map``, through ``graphs.graphed``) equals
+    ``graph=False`` exactly, on every rank, 4 microbatches;
+    ``test_pipeline_matches_sequential`` holds it to the sequential track
+    and JAX."""
+    for r in ranks:
+        eager = sorted(key for key in r if key.startswith(f"pipeline/eager/{kind}/"))
+        assert len(eager) >= 3
+        for key in eager:
+            np.testing.assert_array_equal(r[f"pipeline/{kind}/4/{key.rsplit('/', 1)[1]}"], r[key])

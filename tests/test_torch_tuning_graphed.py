@@ -142,10 +142,10 @@ def test_captured_tuner_needs_a_capturable_optimizer():
     ``capturable``; any other optimizer raises, naming itself."""
     p = start().requires_grad_(True)
     adam = torch.optim.Adam([p], lr=5e-2)
-    tuning._make_capturable(adam)
+    graphs.make_capturable(adam)
     assert all(group["capturable"] for group in adam.param_groups)
     with pytest.raises(TypeError, match="SGD"):
-        tuning._make_capturable(torch.optim.SGD([p], lr=1e-2))
+        graphs.make_capturable(torch.optim.SGD([p], lr=1e-2))
 
 
 def test_a_loss_that_reads_the_host_raises_in_the_captured_form():

@@ -188,23 +188,25 @@ def scenario_train(ctx):
     segment = flagship_segment(ltt, torch, TRACK_BATCH, broadcast=False)
     beam = ltt.ParticleBeam(torch.from_numpy(cloud((TRACK_BATCH, TRACK_PARTICLES), 1)),
                             torch.full((TRACK_BATCH,), ENERGY, dtype=torch.float64))
-    with mesh:
-        segment = parallel.shard_segment(segment, mesh)
-        beam = parallel.shard_beam(beam, mesh)
-        params = [p.requires_grad_(True) for p in train_params(segment)]
-        optimizer = torch.optim.Adam(params, lr=1e-1)
-        step = parallel.make_tuning_train_step(optimizer, train_loss(functional, torch))
-        losses, grads = [], None
-        for _ in range(TRAIN_STEPS):
-            segment, loss = step(segment, beam)
-            losses.append(float(loss))
-            if grads is None:
-                grads = [p.grad.clone() for p in params]
-    result = {"index": np.array([mesh.index("batch"), mesh.index("particles")]),
-              "losses": np.array(losses)}
-    for i, (p, g) in enumerate(zip(params, grads)):
-        result[f"grad{i}"] = host(g)
-        result[f"k1_{i}"] = host(p)
+    result = {"index": np.array([mesh.index("batch"), mesh.index("particles")])}
+    for form, graph in (("", True), ("eager_", False)):  # the graph form, then eager
+        with mesh:
+            local = parallel.shard_segment(segment, mesh)
+            local_beam = parallel.shard_beam(beam, mesh)
+            params = [p.requires_grad_(True) for p in train_params(local)]
+            optimizer = torch.optim.Adam(params, lr=1e-1)
+            step = parallel.make_tuning_train_step(optimizer, train_loss(functional, torch),
+                                                   graph=graph)
+            losses, grads = [], None
+            for _ in range(TRAIN_STEPS):
+                local, loss = step(local, local_beam)
+                losses.append(float(loss))
+                if grads is None:
+                    grads = [p.grad.clone() for p in params]
+        result[f"{form}losses"] = np.array(losses)
+        for i, (p, g) in enumerate(zip(params, grads)):
+            result[f"{form}grad{i}"] = host(g)
+            result[f"{form}k1_{i}"] = host(p)
     return result
 
 
@@ -354,6 +356,7 @@ def sweep_inputs(ltt, torch):
 
 
 def scenario_sweep(ctx):
+    from lynx_tpu_torch.graphs import graphed
     from lynx_tpu_torch.ops.fused_track import sweep_particle_moments
     from lynx_tpu_torch.parallel.sharding import local_slice
 
@@ -363,8 +366,11 @@ def scenario_sweep(ctx):
     before = ctx.collectives()
     mu, cov, w = sweep_particle_moments(entries, local, particles.to(mesh.device),
                                         weights.to(mesh.device))
-    return {"mu": host(mu), "cov": host(cov), "w": host(w),
-            "collectives": np.array(ctx.collectives() - before)}
+    inserted = ctx.collectives() - before
+    graph_form = graphed(lambda s, p, w: sweep_particle_moments(entries, s, p, w))(
+        local, particles.to(mesh.device), weights.to(mesh.device))
+    return {"mu": host(mu), "cov": host(cov), "w": host(w), "collectives": np.array(inserted),
+            **{f"graph_{k}": host(v) for k, v in zip(("mu", "cov", "w"), graph_form)}}
 
 
 def on(beam, device):
@@ -373,11 +379,11 @@ def on(beam, device):
     return _like(beam, [x.to(device) for x in _tensors(beam)])
 
 
-def pipe_run(ctx, make_beam, microbatches, aperture=False):
+def pipe_run(ctx, make_beam, microbatches, aperture=False, graph=True):
     lattice = pipe_lattice(ctx.ltt, ctx.torch, aperture).to(ctx.device)
     stages = ctx.parallel.split_into_stages(lattice, 4)
     out = ctx.parallel.pipeline_track(stages, on(make_beam(ctx.ltt, ctx.torch), ctx.device),
-                                      ctx.meshes["stage"], microbatches)
+                                      ctx.meshes["stage"], microbatches, graph=graph)
     from lynx_tpu_torch.parallel.pipeline import _tensors
 
     return [host(x) for x in _tensors(out)]
@@ -392,6 +398,9 @@ def scenario_pipeline(ctx):
     first = pipe_run(ctx, pipe_parameter_beam, 4)
     again = pipe_run(ctx, pipe_parameter_beam, 4)
     result["repeat_equal"] = np.array(all(np.array_equal(a, b) for a, b in zip(first, again)))
+    for kind, make_beam in (("parameter", pipe_parameter_beam), ("particle", pipe_particle_beam)):
+        for i, x in enumerate(pipe_run(ctx, make_beam, 4, graph=False)):
+            result[f"eager/{kind}/{i}"] = x
     aperture_beam = lambda ltt, torch: pipe_particle_beam(ltt, torch, 4)  # noqa: E731
     for i, x in enumerate(pipe_run(ctx, aperture_beam, 2, aperture=True)):
         result[f"aperture/{i}"] = x
@@ -444,8 +453,11 @@ def scenario_example(ctx):
     from lynx_tpu_torch.examples import multichip_tuning
 
     result = multichip_tuning.main(steps=EXAMPLE_STEPS, device=ctx.device)
+    eager = multichip_tuning.main(steps=EXAMPLE_STEPS, device=ctx.device, graph=False)
     return {"mesh": np.array(list(result["mesh"].values())),
-            "losses": np.array(result["losses"]), "tuner": np.array(result["tuner_losses"])}
+            "losses": np.array(result["losses"]), "tuner": np.array(result["tuner_losses"]),
+            "eager_losses": np.array(eager["losses"]),
+            "eager_tuner": np.array(eager["tuner_losses"])}
 
 
 SUITES = {
@@ -506,7 +518,10 @@ def main() -> None:
     np.savez(Path(outdir) / f"rank{rank}.npz", **results)
     import torch.distributed as dist
 
+    from lynx_tpu_torch import graphs
+
     dist.barrier()
+    graphs.release()  # the graphs that hold NCCL collectives, before the destroy
     dist.destroy_process_group()
 
 
