@@ -25,6 +25,8 @@ from contextlib import contextmanager
 
 import torch
 
+from lynx_tpu_torch import profiling
+
 #: The process group of the particle axis and of the batch axis while a
 #: mesh is active (``with mesh:``), else ``None``; the innermost mesh wins.
 _groups = {"particles": None, "batch": None, "mesh": None}
@@ -149,6 +151,11 @@ def backward(loss: torch.Tensor, params: list) -> torch.Tensor:
     (:data:`BATCH_SHARDED`) are then summed over ``particles``, those of
     replicated fields over every rank (one all-reduce each).  The loss
     returned is the global one, all-reduced over ``batch``."""
+    with profiling.span("backward"):
+        return _backward(loss, params)
+
+
+def _backward(loss: torch.Tensor, params: list) -> torch.Tensor:
     mesh = _groups["mesh"]
     if mesh is None:
         loss.backward()

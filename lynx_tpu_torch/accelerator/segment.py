@@ -27,6 +27,7 @@ from typing import List, Optional, Union
 import torch
 from torch import nn
 
+from lynx_tpu_torch import profiling
 from lynx_tpu_torch.accelerator.element import (
     Element,
     apply_transfer_map,
@@ -547,11 +548,12 @@ class Segment(Element):
         per-setting particle push, else the dense fold."""
         if not run or beam is Beam.empty:
             return beam
-        fused = _fused_flush(run, beam)
-        if fused is not None:
-            return fused
-        if _route_particle_sweep(beam):
-            fused = _fused_particle_flush(run, beam)
+        with profiling.span("track.plan"):
+            fused = _fused_flush(run, beam)
             if fused is not None:
                 return fused
-        return flush_run(run, beam)
+            if _route_particle_sweep(beam):
+                fused = _fused_particle_flush(run, beam)
+                if fused is not None:
+                    return fused
+            return flush_run(run, beam)

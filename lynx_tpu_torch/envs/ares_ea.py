@@ -25,6 +25,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from lynx_tpu_torch import profiling
 from lynx_tpu_torch.accelerator.fused import particle_moment_plan
 from lynx_tpu_torch.accelerator.segment import Segment
 from lynx_tpu_torch.functional import moment_sufficient, track
@@ -274,14 +275,15 @@ class AresEATransverseTuning:
     ) -> Tuple[Tensor, EnvState, Tensor, Tensor]:
         """:meth:`step` over ``(B, ...)`` states, actions and params, tracked
         as one batch."""
-        magnets = torch.clamp(actions, -1.0, 1.0)
-        next_states = EnvState(magnets, states.step_count + 1, states.generator)
-        beam = self.batched_beam_parameters(magnets, params)
-        rewards = -torch.sum(torch.abs(beam - params.target), dim=-1) * 1e3
-        dones = next_states.step_count >= params.max_steps
-        if self.log_metrics:
-            self._emit_metrics(beam, rewards, next_states.step_count)
-        return self._observe(magnets, beam, params.target), next_states, rewards, dones
+        with profiling.span("env.step"):
+            magnets = torch.clamp(actions, -1.0, 1.0)
+            next_states = EnvState(magnets, states.step_count + 1, states.generator)
+            beam = self.batched_beam_parameters(magnets, params)
+            rewards = -torch.sum(torch.abs(beam - params.target), dim=-1) * 1e3
+            dones = next_states.step_count >= params.max_steps
+            if self.log_metrics:
+                self._emit_metrics(beam, rewards, next_states.step_count)
+            return self._observe(magnets, beam, params.target), next_states, rewards, dones
 
     def batched_reset(
         self, generator: torch.Generator, params: EnvParams

@@ -21,7 +21,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from lynx_tpu_torch import _collectives, graphs
+from lynx_tpu_torch import _collectives, graphs, profiling
 from lynx_tpu_torch.envs import make_env
 from lynx_tpu_torch.envs.ares_ea import EnvParams, EnvState, default_params
 from lynx_tpu_torch.utils import resolve_device
@@ -188,7 +188,8 @@ def make_collect_and_update(env, env_params: EnvParams, optimizer: torch.optim.O
         loss = pg + 0.5 * vf - 0.001 * entropy / ranks
 
         optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        with profiling.span("backward"):
+            loss.backward()
         if group is not None:
             _collectives.all_reduce_flat(
                 [p.grad for g in optimizer.param_groups for p in g["params"]

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Tuple
 
+from lynx_tpu_torch import profiling
 from lynx_tpu_torch.accelerator.aperture import Aperture
 from lynx_tpu_torch.accelerator.bpm import BPM, bpm_reading
 from lynx_tpu_torch.accelerator.cavity import Cavity
@@ -50,10 +51,11 @@ def track(segment: Segment, incoming: Beam) -> Tuple[Optional[Beam], Diagnostics
     def flush(run: List[Element], beam: Beam) -> Beam:
         if not run:
             return beam
-        fused = _fused_flush(run, beam)
-        if fused is not None:
-            return fused
-        return flush_run(run, beam)
+        with profiling.span("track.plan"):
+            fused = _fused_flush(run, beam)
+            if fused is not None:
+                return fused
+            return flush_run(run, beam)
     for element in segment.flattened().elements:
         if element.is_skippable:
             run.append(element)

@@ -55,7 +55,13 @@ threaded from step to step, as a ``lax.scan`` carry) is captured by
 ``metrics.emit_metrics`` inside a graphed function or step writes a record
 the capture owns; the host logs it after each replay (JAX's
 ``jax.debug.callback``).  The active mesh (``with mesh:``) is part of every
-key: a graph captured inside a mesh holds its collectives.
+key: a graph captured inside a mesh holds its collectives.  So is whether
+the program's spans are traced (``profiling.tracing``): a graph captured
+while tracing is on holds stamps of its stages (``profiling.StampBook``),
+one captured while it is off holds none.  The host spans of a call:
+``graphs.key`` (flatten, key, lookup), ``graphs.replay`` (the copy in, the
+replay, the clones out) and ``graphs.capture``.  Each cache counts its
+``captures`` and its ``replays``.
 
 Kernel launch counters (``window_histogram.launches`` and the like) count
 the launches *issued* from Python: the warm-up's and the capture's, never a
@@ -68,6 +74,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import functools
 import gc
 import os
 import tempfile
@@ -80,7 +87,7 @@ import torch
 from torch import nn
 from torch.overrides import TorchFunctionMode
 
-from lynx_tpu_torch import _collectives, metrics
+from lynx_tpu_torch import _collectives, metrics, profiling
 
 __all__ = ["CapturedStep", "capturing", "counters_kept", "flatten", "graphed", "host_read_guard",
            "HostReadError", "make_capturable", "release", "StepCache"]
@@ -356,7 +363,7 @@ def optimizer_step(optimizer) -> None:
     optimizers cannot run capturable, Adam reads its own step count on the
     host: the host-read guard lets that read pass as the host's side."""
     on_card = any(p.is_cuda for group in optimizer.param_groups for p in group["params"])
-    with contextlib.nullcontext() if on_card else host_side():
+    with profiling.span("optimizer.step"), contextlib.nullcontext() if on_card else host_side():
         optimizer.step()
 
 
@@ -438,7 +445,9 @@ class CapturedStep:
     On the CPU a call runs ``step()`` eagerly under :func:`capturing` and
     logs its metric records when it returns (:func:`run_eagerly`).
 
-    ``capture_seconds`` is the warm-up and capture's host time.
+    ``capture_seconds`` is the warm-up and capture's host time; ``cache``
+    the :class:`StepCache` that keeps the step (it counts the replays), or
+    None; ``book`` the graph's stamps (captured while tracing), or None.
     """
 
     def __init__(self, step: Callable[[], Any], device, keep=(), optimizer=None,
@@ -448,6 +457,8 @@ class CapturedStep:
         self.outputs = None
         self.records: list = []
         self.capture_seconds = None
+        self.cache = None
+        self.book = None
         device = torch.device(device)
         if device.type == "cuda":
             if optimizer is not None:
@@ -455,6 +466,10 @@ class CapturedStep:
             self._capture(device, list(keep), optimizer, generators, reset)
 
     def _capture(self, device, keep, optimizer, generators, reset) -> None:
+        with profiling.span("graphs.capture"):
+            self._capture_step(device, keep, optimizer, generators, reset)
+
+    def _capture_step(self, device, keep, optimizer, generators, reset) -> None:
         default = torch.cuda.default_generators[
             device.index if device.index is not None else torch.cuda.current_device()]
         saved = [default]
@@ -490,19 +505,25 @@ class CapturedStep:
         graph = torch.cuda.CUDAGraph(keep_graph=True)  # kept for graph_kernel_count
         for generator in registered:
             graph.register_generator_state(generator)
+        book = profiling.stamp_book(device)
         with capture_scope(), metrics.recording() as records, \
-                torch.cuda.graph(graph, capture_error_mode=CAPTURE_MODE):
+                torch.cuda.graph(graph, capture_error_mode=CAPTURE_MODE), profiling.stamping(book):
             self.outputs = self.step()
         graph.instantiate()
         torch.cuda.synchronize(device)
-        self.graph, self.records = graph, records
+        self.graph, self.records, self.book = graph, records, book
         self.capture_seconds = time.perf_counter() - start
 
     def __call__(self):
         if self.graph is None:
             return run_eagerly(self.step)
-        self.graph.replay()
-        metrics.enqueue(self.records)
+        with profiling.span("graphs.replay"):
+            if self.book is not None:
+                self.book.replayed()
+            self.graph.replay()
+            metrics.enqueue(self.records)
+        if self.cache is not None:
+            self.cache.replays += 1
         return self.outputs
 
 
@@ -512,11 +533,12 @@ class CapturedStep:
 class _Captures:
     """Captures kept by structure key: at most :data:`CACHE_SIZE`, the least
     recently used evicted with a warning.  ``captures`` counts the keys seen,
-    evicted ones included."""
+    evicted ones included; ``replays`` the graphs' replays."""
 
     def __init__(self, name: str):
         self.name = name
         self.captures = 0
+        self.replays = 0
         self._cache: collections.OrderedDict = collections.OrderedDict()
         _CACHES.add(self)
 
@@ -525,7 +547,8 @@ class _Captures:
         if key in self._cache:
             self._cache.move_to_end(key)
             return self._cache[key]
-        entry = self._cache[key] = capture()
+        with profiling.span("graphs.capture"):
+            entry = self._cache[key] = capture()
         self.captures += 1
         if len(self._cache) > CACHE_SIZE:
             if torch.cuda.is_initialized():
@@ -564,22 +587,32 @@ class StepCache(_Captures):
         (the graph's static inputs), ``generators`` the CUDA generators among
         ``owners`` and ``tree``, for :class:`CapturedStep`.  A kept step gets
         the current leaves copied into its static inputs, except those passed
-        back as they are (a carry the step returned)."""
-        leaves, tree_key, rebuild = flatten(tree)
-        key = (tuple(_Identity(o) for o in owners), tree_key, mesh_key())
-        if key in self._cache and stale is not None and stale(self._cache[key][0]):
-            del self._cache[key]
-        kept = key in self._cache
+        back as they are (a carry the step returned).  The step's
+        :class:`CapturedStep` (``make``'s result, or its ``captured``)
+        counts its replays in this cache's ``replays``."""
+        with profiling.span("graphs.key"):
+            leaves, tree_key, rebuild = flatten(tree)
+            key = (tuple(_Identity(o) for o in owners), tree_key, mesh_key(),
+                   profiling.enabled())
+            if key in self._cache and stale is not None and stale(self._cache[key][0]):
+                del self._cache[key]
+            kept = key in self._cache
 
-        def capture():
-            static = [t.detach().clone() for t in leaves]
-            return make(rebuild(static), _generators(key)), static
+            def capture():
+                static = [t.detach().clone() for t in leaves]
+                step = make(rebuild(static), _generators(key))
+                captured = step if isinstance(step, CapturedStep) else getattr(step, "captured",
+                                                                               None)
+                if captured is not None:
+                    captured.cache = self
+                return step, static
 
-        step, static = self._entry(key, capture)
+            step, static = self._entry(key, capture)
         if kept:
-            moved = [(s, t) for s, t in zip(static, leaves) if s is not t]
-            if moved:
-                torch._foreach_copy_([s for s, _ in moved], [t.detach() for _, t in moved])
+            with profiling.span("graphs.replay"):
+                moved = [(s, t) for s, t in zip(static, leaves) if s is not t]
+                if moved:
+                    torch._foreach_copy_([s for s, _ in moved], [t.detach() for _, t in moved])
         return step
 
 
@@ -618,16 +651,20 @@ class _Replay:
     """A captured graph: static inputs, static outputs and how to rebuild
     the outputs around fresh copies."""
 
-    def __init__(self, graph, static, outputs, rebuild, records):
+    def __init__(self, graph, static, outputs, rebuild, records, book=None):
         self.graph, self.static, self.outputs, self.rebuild = graph, static, outputs, rebuild
         self.records = records  # metric records (metrics.emit_metrics) the capture made
+        self.book = book  # the graph's stamps (profiling.StampBook), or None
 
     def __call__(self, leaves):
-        if self.static:
-            torch._foreach_copy_(self.static, [t.detach() for t in leaves])
-        self.graph.replay()
-        metrics.enqueue(self.records)
-        return self.rebuild([o.clone() for o in self.outputs])
+        with profiling.span("graphs.replay"):
+            if self.static:
+                torch._foreach_copy_(self.static, [t.detach() for t in leaves])
+            if self.book is not None:
+                self.book.replayed()
+            self.graph.replay()
+            metrics.enqueue(self.records)
+            return self.rebuild([o.clone() for o in self.outputs])
 
 
 class _GradReplay:
@@ -637,16 +674,18 @@ class _GradReplay:
         self.function, self.spec, self.records = function, spec, records
 
     def __call__(self, leaves):
-        inputs = [_FreshGradient.apply(t) if t.requires_grad else t for t in leaves]
-        outputs = self.function(*inputs)
-        metrics.enqueue(self.records)
-        return self.spec["rebuild"]([o.clone() for o in outputs])
+        with profiling.span("graphs.replay"):
+            inputs = [_FreshGradient.apply(t) if t.requires_grad else t for t in leaves]
+            outputs = self.function(*inputs)
+            metrics.enqueue(self.records)
+            return self.spec["rebuild"]([o.clone() for o in outputs])
 
 
 class GraphedFunction(_Captures):
     """See :func:`graphed`.  ``captures`` counts the structure keys seen
     (graphs captured on the card, eager runs' keys on the CPU), evicted
-    ones included; ``graphs`` lists the kept forward-only graphs, the most
+    ones included; ``replays`` the calls on the card (each replays one
+    graph); ``graphs`` lists the kept forward-only graphs, the most
     recently used last; ``capture_seconds`` the captures' seconds (host
     clock, warm-ups included), in order."""
 
@@ -665,27 +704,31 @@ class GraphedFunction(_Captures):
         return [e.graph for e in self._cache.values() if isinstance(e, _Replay)]
 
     def __call__(self, *args, **kwargs):
-        leaves, key, rebuild = flatten((args, kwargs))
-        devices = {t.device.type for t in leaves}
-        grad = torch.is_grad_enabled() and any(t.requires_grad for t in leaves)
-        key = (key, grad, mesh_key())
-        if "cuda" not in devices:
-            self._entry(key, lambda: None)
+        with profiling.span("graphs.key"):
+            leaves, key, rebuild = flatten((args, kwargs))
+            devices = {t.device.type for t in leaves}
+            if "cuda" in devices and devices != {"cuda"}:
+                raise ValueError(
+                    "graphed: the leaves mix CUDA and CPU tensors; move them to the card")
+            grad = torch.is_grad_enabled() and any(t.requires_grad for t in leaves)
+            key = (key, grad, mesh_key(), profiling.enabled())
+            capture = (functools.partial(self._capture_key, leaves, rebuild, grad, key)
+                       if "cuda" in devices else lambda: None)
+            replay = self._entry(key, capture)
+        if replay is None:  # CPU leaves: no graph
             return run_eagerly(self.fn, *args, **kwargs)
-        if devices != {"cuda"}:
-            raise ValueError("graphed: the leaves mix CUDA and CPU tensors; move them to the card")
+        self.replays += 1
+        return replay(leaves)
 
-        def capture():
-            start = time.perf_counter()
-            if grad:
-                entry = self._capture_grad(leaves, rebuild)
-            else:
-                entry = self._capture(leaves, rebuild, _generators(key))
-            torch.cuda.synchronize()
-            self.capture_seconds.append(time.perf_counter() - start)
-            return entry
-
-        return self._entry(key, capture)(leaves)
+    def _capture_key(self, leaves, rebuild, grad, key):
+        start = time.perf_counter()
+        if grad:
+            entry = self._capture_grad(leaves, rebuild)
+        else:
+            entry = self._capture(leaves, rebuild, _generators(key))
+        torch.cuda.synchronize()
+        self.capture_seconds.append(time.perf_counter() - start)
+        return entry
 
     def _call(self, rebuild, leaves):
         args, kwargs = rebuild(leaves)
@@ -716,12 +759,14 @@ class GraphedFunction(_Captures):
             graph.register_generator_state(generator)
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
+        book = profiling.stamp_book(device)
         with capture_scope(), metrics.recording() as records, torch.no_grad(), \
-                torch.cuda.graph(graph, pool=self._pool, capture_error_mode=CAPTURE_MODE):
+                torch.cuda.graph(graph, pool=self._pool, capture_error_mode=CAPTURE_MODE), \
+                profiling.stamping(book):
             out = self._call(rebuild, static)
         graph.instantiate()
         outputs, _, out_rebuild = flatten(out)
-        return _Replay(graph, static, outputs, out_rebuild, records)
+        return _Replay(graph, static, outputs, out_rebuild, records, book)
 
     def _capture_grad(self, leaves, rebuild) -> _GradReplay:
         static = [t.detach().clone().requires_grad_(t.requires_grad) for t in leaves]

@@ -42,6 +42,7 @@ from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import torch
 
+from lynx_tpu_torch import profiling
 from lynx_tpu_torch._build import check, load_library
 from lynx_tpu_torch.constants import ELECTRON_MASS_EV, REST_ENERGY_EV
 from lynx_tpu_torch.ops import table as tbl
@@ -309,7 +310,7 @@ def _moment_sweep_cuda(entries, flat_values, energy, mu, cov):
     out_mu = torch.empty_like(mu)
     out_cov = torch.empty_like(cov)
     library = moment_sweep_library()
-    with torch.cuda.device(device):
+    with torch.cuda.device(device), profiling.span("kernel.moment_sweep"):
         code = library.lynx_moment_sweep(
             int(dtype == torch.float64), int(tape.full), tape.rows.data_ptr(), tape.rows.shape[0],
             params.data_ptr(), consts.data_ptr(), energy.data_ptr(), mu.data_ptr(),
@@ -387,14 +388,16 @@ def _moment_sweep_bwd_cuda(entries, flat_values, energy, mu, cov, dmu, dcov):
         saved = None
         if checkpoints:  # the segments' checkpoints (the tape does not fit whole)
             saved = torch.empty((B, checkpoints, 56), dtype=dtype, device=device)
-        code = library.lynx_moment_sweep_bwd(
-            is_double, int(tape.full), tape.rows.data_ptr(), n_entries,
-            None if saved is None else saved.data_ptr(),
-            tape.cell_pos.data_ptr(), params.data_ptr(), consts.data_ptr(), energy.data_ptr(),
-            mu.data_ptr(), cov.data_ptr(), dmu.data_ptr(), dcov.data_ptr(), d_params.data_ptr(),
-            d_consts.data_ptr(), d_energy.data_ptr(), d_mu.data_ptr(), d_cov.data_ptr(), B,
-            REST_ENERGY_EV, ELECTRON_MASS_EV, torch.cuda.current_stream(device).cuda_stream,
-        )
+        with profiling.span("kernel.moment_sweep_bwd"):
+            code = library.lynx_moment_sweep_bwd(
+                is_double, int(tape.full), tape.rows.data_ptr(), n_entries,
+                None if saved is None else saved.data_ptr(),
+                tape.cell_pos.data_ptr(), params.data_ptr(), consts.data_ptr(),
+                energy.data_ptr(), mu.data_ptr(), cov.data_ptr(), dmu.data_ptr(), dcov.data_ptr(),
+                d_params.data_ptr(), d_consts.data_ptr(), d_energy.data_ptr(), d_mu.data_ptr(),
+                d_cov.data_ptr(), B, REST_ENERGY_EV, ELECTRON_MASS_EV,
+                torch.cuda.current_stream(device).cuda_stream,
+            )
     check(library, code, "moment_sweep_bwd")
     moment_sweep_bwd.launches += 1
 
@@ -559,7 +562,7 @@ def _particle_apply_cuda(layout, matrix: Tensor, particles: Tensor) -> Tensor:
     zeros, ones = _layout_masks(layout)
     out = torch.empty_like(particles)
     library = particle_apply_library()
-    with torch.cuda.device(particles.device):
+    with torch.cuda.device(particles.device), profiling.span("kernel.particle_apply"):
         code = library.lynx_particle_apply(
             int(particles.dtype == torch.float64), matrix.data_ptr(), particles.data_ptr(),
             out.data_ptr(), B, N, zeros, ones,
@@ -917,7 +920,7 @@ def _particle_moment_sweep_cuda(entries, scalars, particles, weights):
     is_double = int(dtype == torch.float64)
     spans = library.lynx_particle_moment_spans(is_double, B, N)
     partials, arrived, out = _walk_workspace(B, spans, dtype, device)
-    with torch.cuda.device(device):
+    with torch.cuda.device(device), profiling.span("kernel.particle_moment_sweep"):
         code = library.lynx_particle_moment_sweep(
             is_double, tape.records.data_ptr(), tape.records.shape[0],
             literals.data_ptr(), stacked.data_ptr(), cloud.data_ptr(), weights.data_ptr(),
@@ -1116,7 +1119,7 @@ def _packed_gram_cuda(apertures, planes, bounds, aug, w0):
     is_double = int(dtype == torch.float64)
     splits = library.lynx_packed_gram_splits(is_double, B, N)
     partials, scratch, out = _moment_workspace(B, splits, dtype, device)
-    with torch.cuda.device(device):
+    with torch.cuda.device(device), profiling.span("kernel.packed_gram"):
         code = library.lynx_packed_gram(
             is_double, tape.records.data_ptr(), len(apertures),
             tape.row_index.data_ptr(), tape.row_index.shape[0], planes.data_ptr(),

@@ -25,6 +25,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from lynx_tpu_torch import profiling
 from lynx_tpu_torch._build import check, load_library
 from lynx_tpu_torch.graphs import capturing
 
@@ -284,7 +285,7 @@ def _window_histogram_cuda(
         dtype=torch.int32 if weights is None else torch.float32,
         device=lx.device,
     )
-    with torch.cuda.device(lx.device):
+    with torch.cuda.device(lx.device), profiling.span("kernel.window_histogram"):
         stream = torch.cuda.current_stream(lx.device).cuda_stream
         code = library.lynx_window_histogram(
             lx.data_ptr(),
@@ -507,7 +508,7 @@ def _windowed_read_cuda(x, y, weights, ranges, bins, window, binary_weights):
             raise ValueError("windowed_read: x, y, weights and ranges must share one CUDA device")
     library = window_histogram_library()
     counter = _fallback_counter(x.device)
-    with torch.cuda.device(x.device):
+    with torch.cuda.device(x.device), profiling.span("kernel.window_histogram"):
         code, image, ox, oy, misfit = _read_launch(
             library, x, y, weights, ranges, bins, window, binary_weights,
             torch.cuda.current_stream(x.device).cuda_stream, counter,

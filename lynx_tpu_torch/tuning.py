@@ -186,7 +186,9 @@ def make_tuner(optimizer: torch.optim.Optimizer, loss_fn: Callable[..., torch.Te
     with no host read (see the module's note); a call with more steps than
     the first, or with a new ``params`` object or new structure of
     ``args``, captures again.  ``tuner.captures`` counts the captures (the
-    eager runs' keys on the CPU).  ``graph=False`` runs the same step
+    eager runs' keys on the CPU); ``tuner.cache`` is the
+    ``graphs.StepCache`` that keeps the steps (its ``captures``,
+    ``replays`` and ``steps``).  ``graph=False`` runs the same step
     eagerly, with no capture: for an optimizer that does not run captured,
     or as the eager reference.
 
@@ -213,6 +215,7 @@ def make_tuner(optimizer: torch.optim.Optimizer, loss_fn: Callable[..., torch.Te
         return params, loop.history[:steps].clone()
 
     tuner.captures = 0
+    tuner.cache = loops
     return tuner
 
 
