@@ -207,7 +207,7 @@ LATTICE_CHECK_BATCH = 2048  # the full lattice's plan in the B3/B4 checks
 FODO_CELLS, FODO_BATCH = 150, 16_384  # fault C1: B4 on 901 entries in double
 PUSH_BATCH, PUSH_PARTICLES = 100, 10_000  # path P
 KERNEL_LIBRARIES = ("window_histogram", "particle_apply", "moment_sweep", "moment_sweep_bwd",
-                    "particle_moment_sweep", "packed_gram", "hist_ab")
+                    "particle_moment_sweep", "packed_gram", "hist_ab", "particle_push")
 
 # Bounds of B2-B4 against their plain versions.  Errors are relative to the
 # largest entry of the compared quantity: per setting for moments and
@@ -1023,7 +1023,7 @@ def plain_on_cuda_guard(torch, ft):
     inside the particle moment sweep's backward (``_moment_sweep_vjp``, the
     JAX package's design: autograd of the plain walk)."""
     names = ("_table_reference_sweep", "_reference_sweep_vjp", "particle_apply_reference",
-             "_moment_sweep_reference", "packed_gram_reference")
+             "_moment_sweep_reference", "packed_gram_reference", "particle_push_reference")
     originals = {name: getattr(ft, name) for name in (*names, "_moment_sweep_vjp")}
     hits = {"count": 0, "backward": 0}
     in_backward = [False]
@@ -1061,14 +1061,14 @@ def plain_on_cuda_guard(torch, ft):
 
 def reset_counts(ft, hist):
     for wrapper in (hist.window_histogram, ft.particle_apply, ft.moment_sweep, ft.moment_sweep_bwd,
-                    ft.particle_moment_sweep, ft.packed_gram):
+                    ft.particle_moment_sweep, ft.packed_gram, ft.particle_push):
         wrapper.launches = 0
 
 
 def counts(ft):
     return {"B2": ft.particle_apply.launches, "B3": ft.moment_sweep.launches,
             "B4": ft.moment_sweep_bwd.launches, "B5": ft.particle_moment_sweep.launches,
-            "B6": ft.packed_gram.launches}
+            "B6": ft.packed_gram.launches, "B8": ft.particle_push.launches}
 
 
 def sweep_params(torch, envs, B, device, seed):
@@ -3220,9 +3220,11 @@ V_APERTURE_SIGMAS = 1.5  # V4: the aperture's half-widths, |mu| + this many sigm
 V_READ_BATCH = 8  # V5: the flagship's B = 8
 V_READ_HALF_SIGMAS = 12.0  # V5: the screen's half-extent beyond the spots, in sigma
 V_READ_K_SIGMA = 6.0  # V5: the window, Screen.derive_histogram_window's default
+V_PUSH_FLAGSHIP = ((1, 100_000), (3, 20_000))  # V6: B8 on the flagship segment, (B, N)
+V_PUSH_RANDOM = (3, 4_096)  # V6: B8 on the random lattices, (B, N)
 # V1: the JAX suite's pinned tracks (tests/test_golden_tracking.py) and its
-# tolerances; through the dense route at B = 1 and through B2 at its fewest
-# settings.
+# tolerances; through B8 and the dense route at B = 1 and through B2 at its
+# fewest settings.
 GOLDEN = RESOURCES / "golden_tracking.npz"
 GOLDEN_RTOL, GOLDEN_ATOL, GOLDEN_ENERGY_RTOL = 1e-12, 1e-18, 1e-14
 GOLDEN_PUSH_BATCH = 16
@@ -3375,53 +3377,61 @@ def kinds_of(lattices):
             for seed, lattice in lattices.items()}
 
 
-def path_v_golden(torch, ltt, ft, hist, card):
+def path_v_golden(torch, ltt, ft, hist, segment_module, card):
     """V1: the four pinned lattices of tests/test_golden_tracking.py on the
-    card, float64: through the dense route at B = 1, and tiled to
-    GOLDEN_PUSH_BATCH settings through B2 (Segment.track's per-setting
-    push), each setting held to the file."""
+    card, float64: at B = 1 through B8 (the route there) and the dense route
+    (forced), and tiled to GOLDEN_PUSH_BATCH settings through B2
+    (Segment.track's per-setting push), each setting held to the file."""
     import numpy as np
 
     golden = np.load(GOLDEN)
     beam = golden_beam(torch, ltt, "cuda")
     incoming = relative_golden(torch, beam.particles, golden["incoming_particles"])
-    worst = {"dense": 0.0, "B2": 0.0, "energy": 0.0}
+    worst = {"B8": 0.0, "dense": 0.0, "B2": 0.0, "energy": 0.0}
     segments = golden_segments(torch, ltt, "cuda")
     reset_counts(ft, hist)
     with plain_on_cuda_guard(torch, ft) as plain:
         for name, elements in segments.items():
             segment = ltt.Segment(elements)
             want = golden[f"{name}_particles"]
-            dense = segment.track(beam)  # B = 1: below the push's 16 settings
+            built = segment.track(beam)  # B = 1: below the push's 16 settings
+            segment_module.PARTICLE_PUSH_PATH = False
+            try:
+                dense = segment.track(beam)
+            finally:
+                segment_module.PARTICLE_PUSH_PATH = None
             tiled = beam.broadcast((GOLDEN_PUSH_BATCH,))
             pushed = segment.track(ltt.ParticleBeam(tiled.particles.contiguous(),
                                                     tiled.energy.contiguous()))
+            worst["B8"] = max(worst["B8"], relative_golden(torch, built.particles, want))
             worst["dense"] = max(worst["dense"], relative_golden(torch, dense.particles, want))
             worst["B2"] = max(worst["B2"], relative_golden(
                 torch, pushed.particles, np.broadcast_to(want, (GOLDEN_PUSH_BATCH, *want.shape[1:]))))
-            for out in (dense, pushed):
+            for out in (built, dense, pushed):
                 energy = out.energy.detach().double().cpu().numpy()
                 expected = golden[f"{name}_energy"]
                 worst["energy"] = max(worst["energy"], float(np.max(
                     np.abs(energy - expected) / np.abs(expected))))
         torch.cuda.synchronize()
     launched = counts(ft)
-    line = {"path": "V1", "what": "tests/resources/golden_tracking.npz's four lattices, dense"
-            f" route at B=1 and B2 at B={GOLDEN_PUSH_BATCH}, float64",
+    line = {"path": "V1", "what": "tests/resources/golden_tracking.npz's four lattices, B8 and"
+            f" the dense route at B=1 and B2 at B={GOLDEN_PUSH_BATCH}, float64",
             "lattices": {name: [type(e).__name__ for e in elements]
                          for name, elements in segments.items()},
-            "launches": {"B2": launched["B2"]}, "plain_on_cuda": plain["count"],
+            "launches": {"B2": launched["B2"], "B8": launched["B8"]},
+            "plain_on_cuda": plain["count"],
             "max_err": {"incoming": incoming, **worst},
             "bounds": {"particles": f"rtol {GOLDEN_RTOL}, atol {GOLDEN_ATOL}",
                        "energy": f"rtol {GOLDEN_ENERGY_RTOL}"},
             "card": card}
     print(json.dumps(line))
     runs = sum(len(skippable_runs(elements)) for elements in segments.values())
-    if launched["B2"] != runs or plain["count"]:
-        raise AssertionError("V1: a golden lattice did not go through kernel B2")
-    if max(incoming, worst["dense"], worst["B2"]) > 1 or worst["energy"] > GOLDEN_ENERGY_RTOL:
+    if launched["B2"] != runs or launched["B8"] != runs or plain["count"]:
+        raise AssertionError("V1: a golden lattice did not go through kernels B2 and B8")
+    if (max(incoming, worst["B8"], worst["dense"], worst["B2"]) > 1
+            or worst["energy"] > GOLDEN_ENERGY_RTOL):
         raise AssertionError("V1: the card's tracks leave the golden file's tolerances")
-    return launched["B2"]
+    return launched["B2"], launched["B8"]
 
 
 def relative_golden(torch, actual, expected):
@@ -3668,12 +3678,12 @@ def path_v_push(torch, ltt, ft, hist, segment_module, card):
             raise AssertionError(f"V3 seed {seed}: B2 launches {launched['B2']} over {runs} runs,"
                                  f" plain versions on CUDA tensors {plain['count']}")
         total += launched["B2"]
-        segment_module.PARTICLE_SWEEP_PATH = False
+        segment_module.PARTICLE_SWEEP_PATH = segment_module.PARTICLE_PUSH_PATH = False
         try:
             with torch.no_grad():
                 dense = lattice.track(beam)
         finally:
-            segment_module.PARTICLE_SWEEP_PATH = None
+            segment_module.PARTICLE_SWEEP_PATH = segment_module.PARTICLE_PUSH_PATH = None
         error = relative_error(torch, pushed.particles, dense.particles)
         worst = max(worst, error)
         if error > DOUBLE_RTOL or not bool(torch.isfinite(pushed.particles).all()):
@@ -3879,9 +3889,135 @@ def path_v_read(torch, ltt, ft, hist, functional, card):
     return total
 
 
+@contextlib.contextmanager
+def plain_push_on_cuda(ft):
+    """B8's wrapper takes its plain version on CUDA tensors while the block
+    runs (the route and its operands unchanged)."""
+    launch = ft._particle_push_cuda
+    ft._particle_push_cuda = lambda entries, values, energy, particles: (
+        ft.particle_push_reference(entries, [v.to(particles.dtype) for v in values], energy,
+                                   particles))
+    try:
+        yield
+    finally:
+        ft._particle_push_cuda = launch
+
+
+def push_routes(torch, ft, hist, segment_module, segment, beam):
+    """``(B8's track, the plain version's, the dense route's, B8 launches,
+    plain versions on CUDA tensors)`` of ``Segment.track`` of ``beam``."""
+    reset_counts(ft, hist)
+    with torch.no_grad():
+        with plain_on_cuda_guard(torch, ft) as plain:
+            pushed = segment.track(beam)
+            torch.cuda.synchronize()
+        launched = ft.particle_push.launches
+        with plain_push_on_cuda(ft):
+            reference = segment.track(beam)
+        segment_module.PARTICLE_PUSH_PATH = False
+        try:
+            dense = segment.track(beam)
+        finally:
+            segment_module.PARTICLE_PUSH_PATH = None
+    return pushed, reference, dense, launched, plain["count"]
+
+
+def path_v_particle_push(torch, ltt, ares, ft, fused, hist, segment_module, ParticleBeam, card):
+    """V6: Segment.track of particle beams through B8 (each run's map built
+    on the card from B3's tape, then the push), float32 and float64: the
+    flagship segment (screen inactive, working-point k1 spread over the
+    settings) at V_PUSH_FLAGSHIP and the random lattices at V_PUSH_RANDOM
+    (every field per setting, cavities active on even seeds, inactive on odd
+    ones: the full instantiation), each held per setting against B8's plain
+    version on the same CUDA operands and against the dense route, to
+    DOUBLE_RTOL and FLOAT_RTOL["B2"]; B8's launches equal to the runs, no
+    plain version on CUDA tensors.  Then B8 at the screen read's shape
+    (B = 1, N = 100,000, float): call and device time, its plain version's
+    and the dense route's, and its bound.  Returns ``(launches, timing)``."""
+    rtol = {torch.float64: DOUBLE_RTOL, torch.float32: FLOAT_RTOL["B2"]}
+    cases = []
+    for B, N in V_PUSH_FLAGSHIP:
+        for dtype in (torch.float32, torch.float64):
+            segment, beam = flagship(torch, ares, ParticleBeam, B, "cuda", seed=60 + B)
+            segment.AREABSCR1.is_active = False
+            spread = torch.linspace(0.9, 1.1, B, device="cuda")
+            for name, k1 in ares.FLAGSHIP_K1.items():
+                getattr(segment, name).k1 = k1 * spread
+            segment = segment.to(dtype=dtype)
+            beam = ParticleBeam(beam.particles[..., :N, :].to(dtype).contiguous(),
+                                beam.energy.to(dtype))
+            cases.append((f"flagship ({B}, {N}) {str(dtype)[6:]}", segment, beam, dtype))
+    B, N = V_PUSH_RANDOM
+    for seed in RANDOM_SEEDS:
+        for dtype in (torch.float32, torch.float64):
+            lattice = random_lattice(torch, ltt, seed, random_length(seed), dtype=dtype)
+            apply_settings(lattice, random_settings(torch, lattice, B, seed,
+                                                    cavities=seed % 2 == 0))
+            beam = random_particle_beam(torch, ltt, B, N, seed, "cuda", dtype=dtype)
+            cases.append((f"seed {seed} {str(dtype)[6:]}", lattice, beam, dtype))
+    total, worst = 0, {"plain": {}, "dense": {}}
+    for label, segment, beam, dtype in cases:
+        pushed, reference, dense, launched, plain = push_routes(
+            torch, ft, hist, segment_module, segment, beam)
+        runs = len(skippable_runs(segment.flattened().elements))
+        if launched != runs or plain:
+            raise AssertionError(f"V6 {label}: B8 launches {launched} over {runs} runs, plain"
+                                 f" versions on CUDA tensors {plain}")
+        total += launched
+        key = str(dtype)[6:]
+        for name, other in (("plain", reference), ("dense", dense)):
+            error = relative_error(torch, pushed.particles, other.particles)
+            worst[name][key] = max(worst[name].get(key, 0.0), error)
+            if error > rtol[dtype] or pushed.particles.shape != other.particles.shape:
+                raise AssertionError(f"V6 {label}: B8 and the {name} route disagree: {error}")
+        if not bool(torch.isfinite(pushed.particles).all()):
+            raise AssertionError(f"V6 {label}: B8 pushed a particle to a non-finite value")
+    print(json.dumps({
+        "path": "V6", "what": f"B8 (Segment.track) on the flagship segment at {V_PUSH_FLAGSHIP}"
+        f" and the random lattices at {V_PUSH_RANDOM}, float32 and float64, against its plain"
+        " version on CUDA operands and the dense route", "launches": {"B8": total},
+        "max_err": worst, "bounds": {"float64": DOUBLE_RTOL, "float32": FLOAT_RTOL["B2"]},
+        "card": card}))
+
+    # B8 at the screen read's shape: the flagship run at B = 1, float.
+    segment, beam = flagship(torch, ares, ParticleBeam, 1, "cuda", seed=61)
+    run = list(segment.elements)[:-1]  # the screen, active, ends the run
+    builders = [fused.element_map_builder(el) for el in run]
+    entries = tuple(("dyn", fn, len(values)) for values, fn in builders)
+    values = [torch.broadcast_to(p, (1,)) for values, _ in builders for p in values]
+    energy, particles = beam.energy.reshape(1).contiguous(), beam.particles.contiguous()
+    zeros, _ = ft._push_masks(entries)
+    cells = 49 - bin(zeros).count("1")
+
+    def kernel():
+        return ft.particle_push(entries, values, energy, particles)
+
+    def plain():
+        return ft.particle_push_reference(entries, values, energy, particles)
+
+    def dense():
+        return segment_module.flush_run(run, beam)
+
+    timing = dict(ms=cuda_ms(kernel, iters=100), plain_ms=cuda_ms(plain, iters=20),
+                  bound=bound(nbytes(particles, particles), 2 * cells * particles.shape[1]),
+                  library_ms=cuda_ms(dense, iters=20))
+    device, own = device_ms(kernel, iters=5, kernel="particle_push_kernel")
+    plain_device = device_ms(plain, iters=2)
+    dense_device = device_ms(dense, iters=2)
+    print(f"B8 at the screen read's shape (B=1, N={particles.shape[1]}, float, {len(entries)}"
+          f" entries): kernel {timing['ms']:.5f} ms, plain {timing['plain_ms']:.4f} ms, the dense"
+          f" route {timing['library_ms']:.4f} ms per call (CUDA events, host launch cost"
+          f" included); device time per call: kernel {own:.5f} ms, all of the wrapper's GPU"
+          f" work {device:.5f} ms, plain {plain_device:.5f} ms, dense route {dense_device:.5f} ms"
+          f" (torch.profiler); bound {timing['bound'][0]:.5f} ms ({timing['bound'][1]}); card"
+          f" {card}")
+    return total, timing
+
+
 # -- path J: the compiled entry points (CUDA graphs) --------------------------------
 
 JIT_CALLS = 50  # J1: calls a turn (CUDA events), eager and replay alternated
+J1_GRAPH_KERNELS = 30  # J1: the read's graph at most, with the run's maps built by B8
 RETUNED_K1 = {"AREAMQZM1": 3.9, "AREAMQZM2": -4.4, "AREAMQZM3": 2.3}  # J1: new k1, same shape
 WIDE_SIGMA_X = 3e-3  # J2: a spot wider than the flagship window (m), most of it on the screen
 # J3/J4: the graphed tuner against the eager loop from the same start, in
@@ -3918,17 +4054,21 @@ def path_jit_read(torch, ares, functional, graphs, hist, ParticleBeam, card):
     seconds, the graph's kernels and B1's among them (its DOT dump), B1's
     kernels the profiler traced in a replay, and a replay's device time.
     Returns B1's launches issued (the warm-ups' and the captures')."""
+    from lynx_tpu_torch.ops import fused_track as ft
+
     jit = functional.track_jit.graphed
     issued = 0
     for batch, seed in ((1, 0), (8, 8)):
         segment, beam = flagship(torch, ares, ParticleBeam, batch, "cuda", seed)
         captures = jit.captures
-        hist.window_histogram.launches = 0
+        hist.window_histogram.launches = ft.particle_push.launches = 0
         image = functional.track_jit(segment, beam)[1]["AREABSCR1"]
         torch.cuda.synchronize()
         issued += hist.window_histogram.launches
         if jit.captures != captures + 1 or hist.window_histogram.launches == 0:
             raise AssertionError(f"J1 B={batch}: track_jit did not capture once through B1")
+        if ft.particle_push.launches == 0:
+            raise AssertionError(f"J1 B={batch}: the capture did not build the run's map in B8")
         eager = functional.track(segment, beam)[1]["AREABSCR1"]
         if not torch.equal(image, eager):
             raise AssertionError(f"J1 B={batch}: the replayed image differs from eager track's")
@@ -3958,11 +4098,13 @@ def path_jit_read(torch, ares, functional, graphs, hist, ParticleBeam, card):
               f" {JIT_CALLS} calls a turn, in turns: eager, replay, replay, eager); the graph"
               f" alone {replay_ms:.4f} ms a replay; capture {jit.capture_seconds[-1]:.3f} s"
               f" (warm-up included, host clock); the graph's kernels {kernels}, B1's {b1_kernels}"
-              f" (DOT dump); a replay's device time {device:.5f} ms and B1 kernels traced"
+              f" (DOT dump; B8's launches issued {ft.particle_push.launches}); a replay's device"
+              f" time {device:.5f} ms and B1 kernels traced"
               f" {traced_b1} (torch.profiler, with the inputs' copies and the outputs' clones;"
               f" {sum(traced.values())} device events a call); card {card}")
-        if b1_kernels != hist.READ_LAUNCHES:
-            raise AssertionError(f"J1 B={batch}: the graph holds {b1_kernels} B1 kernels")
+        if b1_kernels != hist.READ_LAUNCHES or kernels > J1_GRAPH_KERNELS:
+            raise AssertionError(f"J1 B={batch}: the graph holds {kernels} kernels, {b1_kernels}"
+                                 f" of B1's (at most {J1_GRAPH_KERNELS}, {hist.READ_LAUNCHES})")
     return issued
 
 
@@ -4971,7 +5113,7 @@ def main():
     for load in (hist.window_histogram_library, ft.particle_apply_library,
                  ft.moment_sweep_library, ft.moment_sweep_bwd_library,
                  ft.particle_moment_sweep_library, ft.packed_gram_library,
-                 hist_ab.hist_ab_library):
+                 hist_ab.hist_ab_library, ft.particle_push_library):
         load()
     print(f"build: {', '.join(KERNEL_LIBRARIES)} (one nvcc each, in parallel) in"
           f" {time.perf_counter() - start:.2f} s")
@@ -5126,7 +5268,7 @@ def main():
 
     # -- 13. path V, random element mixes ------------------------------------------
     start = time.perf_counter()
-    golden_launches = path_v_golden(torch, ltt, ft, hist, card)
+    golden_launches, golden_b8 = path_v_golden(torch, ltt, ft, hist, segment_module, card)
     random_launches = path_v_sweep(torch, ltt, ft, hist, fused, functional, segment_module,
                                    card)
     random_launches["B2"] = golden_launches + path_v_push(torch, ltt, ft, hist, segment_module,
@@ -5134,8 +5276,11 @@ def main():
     random_launches.update(path_v_moments(torch, ltt, ft, hist, fused, functional, ParticleBeam,
                                           card))
     random_launches["B1"] = path_v_read(torch, ltt, ft, hist, functional, card)
+    push_b8, timing["B8"] = path_v_particle_push(torch, ltt, ares, ft, fused, hist, segment_module,
+                                                 ParticleBeam, card)
+    random_launches["B8"] = golden_b8 + push_b8
     print(f"path V: launches {random_launches} in {time.perf_counter() - start:.1f} s"
-          f" (host clock, V1-V5)")
+          f" (host clock, V1-V6)")
 
     # -- 14. path J, the compiled entry points as CUDA graphs -------------------------
     start = time.perf_counter()
@@ -5209,6 +5354,8 @@ def main():
          hist_launches["onehot"], hist_abs_err),
         ("hist_twolevel", "B7 twolevel", "hist_ab.cu", "benchmarks/hist_ab.py:50",
          hist_launches["twolevel"], hist_abs_err),
+        ("particle_push", "B8", "particle_push.cu", "none: the dense route's PyTorch maps",
+         random_launches["B8"], None),
     ):
         t = timing[label]
         kernels.append({

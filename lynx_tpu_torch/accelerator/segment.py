@@ -3,24 +3,29 @@
 
 Tracking partitions the flattened elements into maximal runs of skippable
 (purely linear) elements, with the non-skippable elements (an active
-screen) tracked between the runs.  A run takes one of three routes
+screen) tracked between the runs.  A run takes one of four routes
 (:meth:`Segment._flush_run`):
 
 * the fused moment sweep, kernels B3/B4 (``ops/fused_track.py``), for a
   ``ParameterBeam`` over at least ``PALLAS_SWEEP_THRESHOLD`` settings;
 * the per-setting particle push, kernel B2, for a ``(B, N, 7)``
   ``ParticleBeam`` with B >= 16 and N < ``PARTICLE_SWEEP_N_THRESHOLD``;
+* the particle push with the run's maps built on the card, kernel B8, for
+  any other ``ParticleBeam`` that needs no gradient
+  (:func:`_particle_push_flush`, which ``functional.track`` takes too);
 * otherwise the dense route: the run's maps folded into one ``(..., 7, 7)``
   matrix (``ops.folding``) and applied at once.
 
-The fused routes are taken for CUDA tensors; ``FUSED_SWEEP_PATH`` and
-``PARTICLE_SWEEP_PATH`` force them on or off whatever the device (on the
-CPU they run the kernels' plain versions).  The JAX package's batch-last
-and table routes are TPU layout devices and are not ported.
+The fused routes are taken for CUDA tensors; ``FUSED_SWEEP_PATH``,
+``PARTICLE_SWEEP_PATH`` and ``PARTICLE_PUSH_PATH`` force them on or off
+whatever the device (on the CPU they run the kernels' plain versions).  The
+JAX package's batch-last and table routes are TPU layout devices and are not
+ported.
 """
 
 from __future__ import annotations
 
+import math
 from pathlib import Path
 from typing import List, Optional, Union
 
@@ -57,6 +62,11 @@ PARTICLE_SWEEP_N_THRESHOLD = 16384
 #: tensors, N < PARTICLE_SWEEP_N_THRESHOLD), ``True``/``False`` force it
 #: on/off whatever the device (still only for (B, N, 7) beams, B >= 16).
 PARTICLE_SWEEP_PATH = None
+
+#: Routing override for the particle push with the run's maps built on the
+#: card (kernel B8): ``None`` = by device (CUDA tensors), ``True``/``False``
+#: force it on/off whatever the device (on the CPU, its plain version).
+PARTICLE_PUSH_PATH = None
 
 
 def stacked_transfer_map(elements: List[Element], energy: torch.Tensor) -> torch.Tensor:
@@ -167,6 +177,57 @@ def _fused_particle_flush(run: List[Element], beam: ParticleBeam):
     out_particles = fused_particle_sweep(build_fns, element_params, vec(energy), beam.particles)
     return ParticleBeam(
         out_particles,
+        beam.energy,
+        particle_charges=beam.particle_charges,
+        survival=beam.survival,
+    )
+
+
+def _particle_push_flush(run: List[Element], beam: Beam):
+    """The particle push with the run's maps built on the card (kernel B8)
+    for a ``ParticleBeam``; ``None`` if it does not apply: an element
+    without a device builder, settings that would broadcast the particles,
+    an element of another dtype than the particles', or a gradient to take
+    (the dense route carries it)."""
+    from lynx_tpu_torch.accelerator.fused import element_map_builder
+    from lynx_tpu_torch.ops.fused_track import TAPE_CUSTOM, particle_push
+
+    if not isinstance(beam, ParticleBeam):
+        return None
+    use_push = PARTICLE_PUSH_PATH
+    if use_push is None:
+        use_push = beam.particles.is_cuda
+    if not use_push:
+        return None
+    builders = [element_map_builder(el) for el in run]
+    if any(b is None for b in builders):
+        return None
+    particles, energy = beam.particles, torch.as_tensor(beam.energy)
+    params = [p for values, _ in builders for p in values]
+    # The dense route's batch shape: its maps' parameters, and the energy for
+    # every map but a custom one (which does not depend on it).
+    shapes = [p.shape for p in params]
+    if any(fn.tape_kind != TAPE_CUSTOM for _, fn in builders):
+        shapes.append(energy.shape)
+    batch_shape = torch.broadcast_shapes(particles.shape[:-2], *shapes)
+    B = math.prod(batch_shape)
+    if B != math.prod(particles.shape[:-2]):
+        return None
+    tensors = params + [t for el in run for t in el.buffers() if t.is_floating_point()]
+    if any(t.dtype != particles.dtype for t in tensors):
+        return None
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (particles, energy, *params)):
+        return None
+
+    def vec(x):
+        return torch.broadcast_to(x, batch_shape).reshape(B)
+
+    N = particles.shape[-2]
+    entries = tuple(("dyn", fn, len(values)) for values, fn in builders)
+    out = particle_push(entries, [vec(p) for p in params], vec(energy).contiguous(),
+                        particles.reshape(B, N, 7).contiguous())
+    return ParticleBeam(
+        out.reshape(*batch_shape, N, 7),
         beam.energy,
         particle_charges=beam.particle_charges,
         survival=beam.survival,
@@ -545,15 +606,14 @@ class Segment(Element):
     @staticmethod
     def _flush_run(run: List[Element], beam: Beam) -> Beam:
         """One run of skippable elements: the fused moment sweep, else the
-        per-setting particle push, else the dense fold."""
+        per-setting particle push, else the push with the maps built on the
+        card, else the dense fold."""
         if not run or beam is Beam.empty:
             return beam
         with profiling.span("track.plan"):
             fused = _fused_flush(run, beam)
-            if fused is not None:
-                return fused
-            if _route_particle_sweep(beam):
+            if fused is None and _route_particle_sweep(beam):
                 fused = _fused_particle_flush(run, beam)
-                if fused is not None:
-                    return fused
-            return flush_run(run, beam)
+            if fused is None:
+                fused = _particle_push_flush(run, beam)
+            return flush_run(run, beam) if fused is None else fused

@@ -1,6 +1,7 @@
-// Shared device code of the fused moment sweep (kernels B3 and B4): the op
-// tape, one device builder per element type, and the products over
-// structural supports that the builders and B3's chain use.
+// Shared device code of the fused moment sweep (kernels B3 and B4) and the
+// particle push (kernel B8): the op tape, one device builder per element
+// type, the products over structural supports that the builders use, and the
+// composition of a tape entry onto a chain (B3's and B8's).
 //
 // Each builder repeats its PyTorch counterpart op for op
 // (lynx_tpu_torch/accelerator/fused.py over ops/rmatrix.py, the same
@@ -803,6 +804,74 @@ __device__ __forceinline__ void build_dynamic(int kind, const S* p, S energy, T 
   // Indices known at compile time, so that R stays in registers.
   if (kind == kHCor) R[1 * 7 + 6] = p[1];
   if (kind == kVCor) R[3 * 7 + 6] = p[1];
+}
+
+// -- a tape entry composed onto a chain (B3 and B8) -------------------------
+
+// total <- (the map of entry `entry` for setting b) @ total, over the entry's
+// structural support: a dynamic entry's from its builder, a const entry's
+// from its support class.
+template <bool kFull, typename T>
+__device__ __forceinline__ void compose_entry(const TapeEntry& entry,
+                                              const T* __restrict__ params,
+                                              const T* __restrict__ consts, int64_t batch,
+                                              int64_t b, T energy, T rest, T mass, T* total) {
+  if (entry.kind == kIdentity) return;
+  T R[49];
+  if (kFull && entry.kind == kCustom) {
+#pragma unroll
+    for (int c = 0; c < 49; ++c) R[c] = params[(entry.offset + c) * batch + b];
+    compose_support<kAllCells, 0>(R, total);
+    return;
+  }
+  if (entry.kind == kConst) {
+    const T* cells = consts + static_cast<int64_t>(entry.offset) * 49;
+#pragma unroll
+    for (int c = 0; c < 49; ++c) R[c] = cells[c];  // loads of cells off the support are dead
+    if (entry.support == kDriftConst) {
+      compose_support<kDriftCells, kIdentityCells>(R, total);
+    } else if (entry.support == kKickedDriftConst) {
+      compose_support<kDriftCells | kKickCells, kIdentityCells>(R, total);
+    } else {
+      compose_support<kAllCells, 0>(R, total);
+    }
+    return;
+  }
+  constexpr int kParams = kFull ? kMaxParams : 5;
+  T p[kParams];
+  const int n = tape_params<kFull>(entry.kind);
+#pragma unroll
+  for (int k = 0; k < kParams; ++k) p[k] = k < n ? params[(entry.offset + k) * batch + b] : T(0);
+  if (entry.kind == kQuad) {
+    build_quadrupole<T>(p, energy, rest, R);
+    compose_support<kQuadCells, kQuadOnes>(R, total);
+    return;
+  }
+  if constexpr (kFull) {
+    if (entry.kind == kCavity) {
+      build_cavity<T>(p, energy, rest, mass, R);
+      compose_support<kCavityCells, kLastOne>(R, total);
+      return;
+    }
+    if (entry.kind == kSolenoid) {
+      build_solenoid<T>(p, energy, rest, R);
+      compose_support<kSolenoidCells, kSolenoidOnes>(R, total);
+      return;
+    }
+    if (entry.kind == kDipole) {
+      build_dipole<T>(p, energy, rest, R);
+      compose_support<kDipoleCells, kDipoleOnes>(R, total);
+      return;
+    }
+  }
+  build_dynamic<kFull, T, T>(entry.kind, p, energy, rest, mass, R);
+  if (entry.kind == kDrift || (kFull && entry.kind == kUndulator)) {
+    compose_support<kDriftCells, kIdentityCells>(R, total);
+  } else if (entry.kind == kHCor) {
+    compose_support<kHCorCells, kIdentityCells>(R, total);
+  } else {
+    compose_support<kVCorCells, kIdentityCells>(R, total);
+  }
 }
 
 }  // namespace lynx

@@ -59,71 +59,6 @@ __device__ __forceinline__ void copy_block(const T* __restrict__ src, T* __restr
   }
 }
 
-// total <- (the map of entry `entry` for setting b) @ total.
-template <bool kFull, typename T>
-__device__ __forceinline__ void compose_entry(const lynx::TapeEntry& entry,
-                                              const T* __restrict__ params,
-                                              const T* __restrict__ consts, int64_t batch,
-                                              int64_t b, T energy, T rest, T mass, T* total) {
-  using namespace lynx;
-  if (entry.kind == kIdentity) return;
-  T R[49];
-  if (kFull && entry.kind == kCustom) {
-#pragma unroll
-    for (int c = 0; c < 49; ++c) R[c] = params[(entry.offset + c) * batch + b];
-    compose_support<kAllCells, 0>(R, total);
-    return;
-  }
-  if (entry.kind == kConst) {
-    const T* cells = consts + static_cast<int64_t>(entry.offset) * 49;
-#pragma unroll
-    for (int c = 0; c < 49; ++c) R[c] = cells[c];  // loads of cells off the support are dead
-    if (entry.support == kDriftConst) {
-      compose_support<kDriftCells, kIdentityCells>(R, total);
-    } else if (entry.support == kKickedDriftConst) {
-      compose_support<kDriftCells | kKickCells, kIdentityCells>(R, total);
-    } else {
-      compose_support<kAllCells, 0>(R, total);
-    }
-    return;
-  }
-  constexpr int kParams = kFull ? kMaxParams : 5;
-  T p[kParams];
-  const int n = tape_params<kFull>(entry.kind);
-#pragma unroll
-  for (int k = 0; k < kParams; ++k) p[k] = k < n ? params[(entry.offset + k) * batch + b] : T(0);
-  if (entry.kind == kQuad) {
-    build_quadrupole<T>(p, energy, rest, R);
-    compose_support<kQuadCells, kQuadOnes>(R, total);
-    return;
-  }
-  if constexpr (kFull) {
-    if (entry.kind == kCavity) {
-      build_cavity<T>(p, energy, rest, mass, R);
-      compose_support<kCavityCells, kLastOne>(R, total);
-      return;
-    }
-    if (entry.kind == kSolenoid) {
-      build_solenoid<T>(p, energy, rest, R);
-      compose_support<kSolenoidCells, kSolenoidOnes>(R, total);
-      return;
-    }
-    if (entry.kind == kDipole) {
-      build_dipole<T>(p, energy, rest, R);
-      compose_support<kDipoleCells, kDipoleOnes>(R, total);
-      return;
-    }
-  }
-  build_dynamic<kFull, T, T>(entry.kind, p, energy, rest, mass, R);
-  if (entry.kind == kDrift || (kFull && entry.kind == kUndulator)) {
-    compose_support<kDriftCells, kIdentityCells>(R, total);
-  } else if (entry.kind == kHCor) {
-    compose_support<kHCorCells, kIdentityCells>(R, total);
-  } else {
-    compose_support<kVCorCells, kIdentityCells>(R, total);
-  }
-}
-
 template <typename T, bool kFull>
 __global__ void __launch_bounds__(kSettings) moment_sweep_kernel(
     const lynx::TapeEntry* __restrict__ tape, int n_entries, const T* __restrict__ params,
@@ -149,7 +84,7 @@ __global__ void __launch_bounds__(kSettings) moment_sweep_kernel(
   T total[49];
   lynx::set_identity(total);
   for (int e = 0; e < n_entries; ++e) {
-    compose_entry<kFull>(tape[e], params, consts, batch, b, e_b, rest, mass, total);
+    lynx::compose_entry<kFull>(tape[e], params, consts, batch, b, e_b, rest, mass, total);
   }
   __syncthreads();  // mu and cov are staged
 

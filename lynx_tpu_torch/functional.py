@@ -20,7 +20,12 @@ from lynx_tpu_torch.accelerator.screen import (
     screen_reading_parameter,
     screen_reading_particle,
 )
-from lynx_tpu_torch.accelerator.segment import Segment, _fused_flush, flush_run
+from lynx_tpu_torch.accelerator.segment import (
+    Segment,
+    _fused_flush,
+    _particle_push_flush,
+    flush_run,
+)
 from lynx_tpu_torch.graphs import graphed
 from lynx_tpu_torch.particles import Beam, ParameterBeam, ParticleBeam
 
@@ -40,9 +45,11 @@ def track(segment: Segment, incoming: Beam) -> Tuple[Optional[Beam], Diagnostics
     track yet raises ``NotImplementedError``; it is never skipped.
 
     A run of linear elements tries the fused moment sweep first
-    (``segment._fused_flush``), then the dense fold.  Like the JAX
-    package's ``functional.track``, this never takes the per-setting
-    particle push: only ``Segment.track`` does.
+    (``segment._fused_flush``), then the particle push with the run's maps
+    built on the card (kernel B8, ``segment._particle_push_flush``), then
+    the dense fold.  Like the JAX package's ``functional.track``, this never
+    takes the per-setting particle push (kernel B2): only ``Segment.track``
+    does.
     """
     diagnostics: Diagnostics = {}
     beam = incoming
@@ -53,9 +60,9 @@ def track(segment: Segment, incoming: Beam) -> Tuple[Optional[Beam], Diagnostics
             return beam
         with profiling.span("track.plan"):
             fused = _fused_flush(run, beam)
-            if fused is not None:
-                return fused
-            return flush_run(run, beam)
+            if fused is None:
+                fused = _particle_push_flush(run, beam)
+            return flush_run(run, beam) if fused is None else fused
     for element in segment.flattened().elements:
         if element.is_skippable:
             run.append(element)

@@ -28,7 +28,13 @@ PyTorch version:
 :func:`fused_particle_moment_sweep` routes between B5 and B6; its backward
 is autograd of the plain walk, as in the JAX package.
 
-A plan (``accelerator/fused.plan_run``) reaches B3 and B4 as a small op
+* **B8** (``csrc/particle_push.cu``, wrapper :func:`particle_push`): a run's
+  7x7 map built per setting on the card from B3's op tape and the run's
+  parameters, and ``(B, N, 7)`` particles pushed through it, in one launch.
+  It has no TPU counterpart: it replaces the dense route's per-element maps
+  in PyTorch.  Plain version: :func:`particle_push_reference`.
+
+A plan (``accelerator/fused.plan_run``) reaches B3, B4 and B8 as a small op
 tape: one entry per plan entry, ``(kind, offset, cell_start, cell_count)``
 (:func:`_tape`).  A wrapper takes the plain version for CPU tensors and
 launches its kernel (or raises) for CUDA tensors; it never synchronises the
@@ -104,11 +110,11 @@ def _transpose_layout(layout):
 # -- Kernel B3's plain version ----------------------------------------------
 
 
-def _table_reference_sweep(entries, flat_values, energy, mu, cov):
-    """Plain PyTorch version of the fused sweep (same math, same builders):
-    ``entries`` are ``(kind, meta, count)`` plan entries, ``flat_values`` the
-    matching parameter/cell tensors in plan order, ``mu`` ``(B, 7)`` and
-    ``cov`` ``(B, 7, 7)``.  Differentiable."""
+def _compose_entries(entries, flat_values, energy):
+    """The composed table ``R_{E-1} ... R_0`` of a plan's ``(kind, meta,
+    count)`` entries, ``flat_values`` the matching parameter/cell tensors in
+    plan order: a dynamic entry's table from its builder, a const entry's
+    from its layout.  Differentiable."""
     total = None
     offset = 0
     for kind, meta, count in entries:
@@ -119,8 +125,15 @@ def _table_reference_sweep(entries, flat_values, energy, mu, cov):
         else:
             T = _table_from_layout(meta, values)
         total = T if total is None else tbl.compose(T, total)
-    if total is None:
-        total = tbl.identity_table()
+    return tbl.identity_table() if total is None else total
+
+
+def _table_reference_sweep(entries, flat_values, energy, mu, cov):
+    """Plain PyTorch version of the fused sweep (same math, same builders):
+    ``entries`` are ``(kind, meta, count)`` plan entries, ``flat_values`` the
+    matching parameter/cell tensors in plan order, ``mu`` ``(B, 7)`` and
+    ``cov`` ``(B, 7, 7)``.  Differentiable."""
+    total = _compose_entries(entries, flat_values, energy)
     mu_cells = [mu[:, i] for i in range(7)]
     out_mu_cells = tbl.matvec(total, mu_cells)
     cov_table = [[cov[:, i, j] for j in range(7)] for i in range(7)]
@@ -507,6 +520,16 @@ def _layout_masks(layout) -> Tuple[int, int]:
     return zeros, ones
 
 
+def _layout_and_matrix(total, B: int, dtype, device):
+    """A composed table as B2 takes it: its ``_split_table`` layout and its
+    cells as a ``(B, 49)`` row-major matrix."""
+    layout, _ = _split_table(total)
+    matrix = torch.stack(
+        [tbl.broadcast_cell(c, (B,), dtype, device) for row in total for c in row], dim=-1
+    )
+    return layout, matrix
+
+
 def particle_apply_reference(layout, matrix: Tensor, particles: Tensor) -> Tensor:
     """Plain PyTorch version of kernel B2: ``out[b, n, i] = sum_j
     T_b[i, j] p[b, n, j]`` with ``T_b`` row ``b`` of the ``(B, 49)``
@@ -622,20 +645,115 @@ def fused_particle_sweep(
     cells in PyTorch; kernel B2 then applies it to every particle.
     Differentiable: parameter gradients flow back through the table
     composition."""
-    B, N, _ = particles.shape
-    dtype, device = particles.dtype, particles.device
-    energy = energy.to(dtype)
-    total = None
-    for build, params in zip(build_fns, element_params):
-        T = build([p.to(dtype) for p in params], energy)
-        total = T if total is None else tbl.compose(T, total)
-    if total is None:
-        total = tbl.identity_table()
-    layout, _ = _split_table(total)
-    matrix = torch.stack(
-        [tbl.broadcast_cell(c, (B,), dtype, device) for row in total for c in row], dim=-1
-    )
+    dtype = particles.dtype
+    entries = tuple(("dyn", build, len(params)) for build, params in zip(build_fns, element_params))
+    flat_values = [p.to(dtype) for params in element_params for p in params]
+    total = _compose_entries(entries, flat_values, energy.to(dtype))
+    layout, matrix = _layout_and_matrix(total, particles.shape[0], dtype, particles.device)
     return _ParticleApply.apply(layout, matrix, particles.contiguous())
+
+
+# -- Kernel B8: the particle push with its maps built on the card --------------
+
+
+def particle_push_reference(entries, flat_values, energy: Tensor, particles: Tensor) -> Tensor:
+    """Plain PyTorch version of kernel B8: the plan's tables composed as
+    B3's plain version composes them (:func:`_compose_entries`), then B2's
+    plain push of the ``(B, N, 7)`` particles through each setting's map,
+    skipping the composed layout's structural zeros and ones."""
+    total = _compose_entries(entries, flat_values, energy)
+    layout, matrix = _layout_and_matrix(total, particles.shape[0], particles.dtype,
+                                        particles.device)
+    return particle_apply_reference(layout, matrix, particles)
+
+
+#: B8's structural masks by plan structure: the composed layout of the
+#: builders' tables, which is a property of the structure alone.
+_PUSH_MASKS: dict = {}
+
+
+def _push_masks(entries) -> Tuple[int, int]:
+    """``_layout_masks`` of the plan's composed layout (the one
+    :func:`particle_push_reference` skips over), found once per structure by
+    composing the builders' tables on stand-in values on the CPU."""
+    key = _tape_key(entries, "cpu")[0]
+    if key not in _PUSH_MASKS:
+        stand_in = [torch.full((1,), 0.5, dtype=torch.float64)] * sum(c for _, _, c in entries)
+        total = _compose_entries(entries, stand_in, torch.full((1,), 1e8, dtype=torch.float64))
+        _PUSH_MASKS[key] = _layout_masks(_split_table(total)[0])
+    return _PUSH_MASKS[key]
+
+
+#: C signature of B8's entry point: is_double, full, tape, n_entries, params,
+#: consts, energy, particles, out, batch, n, zero mask, one mask (64-bit),
+#: rest energy, electron mass, stream.
+_B8_SIGNATURE = {
+    "lynx_particle_push": (
+        ctypes.c_int,
+        [ctypes.c_int, ctypes.c_int, _P, ctypes.c_int] + [_P] * 5
+        + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_ulonglong, ctypes.c_ulonglong,
+           ctypes.c_double, ctypes.c_double, _P],
+    )
+}
+
+
+def particle_push_library() -> ctypes.CDLL:
+    """Kernel B8's library, built with nvcc at first use."""
+    return load_library("particle_push", _B8_SIGNATURE)
+
+
+def _particle_push_cuda(entries, flat_values, energy: Tensor, particles: Tensor) -> Tensor:
+    """Launch kernel B8 on the current stream (no synchronisation)."""
+    if particles.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"particle_push: particles must be float32 or float64, got {particles.dtype}")
+    for t in (energy, particles):
+        if not t.is_cuda or t.device != particles.device:
+            raise ValueError("particle_push: operands must share one CUDA device")
+        if t.dtype != particles.dtype or not t.is_contiguous():
+            raise ValueError(f"particle_push: operands must be contiguous {particles.dtype}")
+    if particles.ndim != 3 or particles.shape[-1] != 7:
+        raise ValueError(f"particle_push: particles must be (B, N, 7), got {tuple(particles.shape)}")
+    B, N, _ = particles.shape
+    if energy.shape != (B,):
+        raise ValueError(f"particle_push: energy must be ({B},), got {tuple(energy.shape)}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (energy, particles, *flat_values)):
+        raise ValueError("particle_push: the kernel has no backward; an input requires grad")
+    dtype, device = particles.dtype, particles.device
+    tape = _tape(entries, device)
+    params, consts = _tape_operands(entries, flat_values, tape, dtype, B)
+    zeros, ones = _push_masks(entries)
+    out = torch.empty_like(particles)
+    library = particle_push_library()
+    with torch.cuda.device(device), profiling.span("kernel.particle_push"):
+        code = library.lynx_particle_push(
+            int(dtype == torch.float64), int(tape.full), tape.rows.data_ptr(), tape.rows.shape[0],
+            params.data_ptr(), consts.data_ptr(), energy.data_ptr(), particles.data_ptr(),
+            out.data_ptr(), B, N, zeros, ones, REST_ENERGY_EV, ELECTRON_MASS_EV,
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    check(library, code, "particle_push")
+    particle_push.launches += 1
+    return out
+
+
+def particle_push(entries, flat_values, energy: Tensor, particles: Tensor) -> Tensor:
+    """Kernel B8: ``(B, N, 7)`` particles pushed through a plan's composed
+    map, built per setting from the ``(B,)`` flat values (``entries`` and
+    ``flat_values`` as :func:`moment_sweep` takes them) at the ``(B,)``
+    energy.  Not differentiable: a run that needs a gradient takes another
+    route.
+
+    ``energy`` and ``particles`` share one dtype (float32 or float64), which
+    the kernel computes in; the flat values are cast to it.  A CUDA tensor
+    launches the kernel (or raises); a CPU tensor takes the plain version,
+    :func:`particle_push_reference`."""
+    if particles.device.type == "cpu":
+        flat_values = [v.to(particles.dtype) for v in flat_values]
+        return particle_push_reference(entries, flat_values, energy, particles)
+    return _particle_push_cuda(entries, flat_values, energy, particles)
+
+
+particle_push.launches = 0
 
 
 # -- The particle moment sweep: kernels B5 and B6 ------------------------------

@@ -1,4 +1,4 @@
-"""The CUDA sources of kernels B1-B7, run on the CPU.
+"""The CUDA sources of kernels B1-B8, run on the CPU.
 
 There is no nvcc here, so each ``csrc/*.cu`` is compiled as host C++ by gcc
 against a stand-in ``cuda_runtime.h``: ``__device__`` and friends are
@@ -27,8 +27,10 @@ atomics sum in any order).  What it cannot check is the device
 itself (FMA contraction, memory, occupancy, registers): ``chip_smoke.py``
 does that on the card.
 
-Bounds, float64: B3 and B2 within 1e-12 of their plain versions relative to
-each setting's largest entry; B5 and B6 within 1e-12, second moments
+Bounds, float64: B3, B2 and B8 within 1e-12 of their plain versions relative
+to each setting's largest entry (B8 in float within 1e-5: the builders'
+transcendentals come from the host's libm there and from PyTorch's in the
+plain version); B5 and B6 within 1e-12, second moments
 relative to each setting's largest, first moments to ``sqrt(W max s2[r,
 r])``, weight sums exactly equal (``tests/test_torch_particle_moments.py``); B4 within 1e-12 relative to each cotangent's
 largest entry, except d/dk1 at settings where k1 is exactly 0.  There the
@@ -389,6 +391,7 @@ SIGNATURES = {
     "moment_sweep": fused_track._B3_SIGNATURE,
     "moment_sweep_bwd": fused_track._B4_SIGNATURE,
     "particle_apply": fused_track._B2_SIGNATURE,
+    "particle_push": fused_track._B8_SIGNATURE,
     "particle_moment_sweep": fused_track._B5_SIGNATURE,
     "packed_gram": fused_track._B6_SIGNATURE,
     "hist_ab": hist_ab._B7_SIGNATURE,
@@ -945,6 +948,108 @@ def test_particle_apply_skips_structural_zeros(host_kernels):
     )
     assert code == 0
     expected = fused_track.particle_apply_reference(layout, matrix, particles)
+    finite = torch.isfinite(expected)
+    assert bool(finite[1, 7, row]) and not bool(finite.all())
+    assert torch.equal(torch.isfinite(out), finite)
+    assert torch.equal(torch.isnan(out), torch.isnan(expected))
+    zero = torch.zeros_like(out)
+    kept = (torch.where(finite, out, zero), torch.where(finite, expected, zero))
+    assert per_setting_error(*kept) <= RTOL
+
+
+# -- B8: the particle push with its maps built on the card --------------------
+
+
+def push_plan(elements, B, dtype):
+    """An all-dynamic plan of ``elements`` as B8 takes it: ``(entries,
+    values, energy)`` with ``(B,)`` values and energy in ``dtype``."""
+    builders = [torch_fused.element_map_builder(el) for el in elements]
+    entries = tuple(("dyn", fn, len(params)) for params, fn in builders)
+    values = [torch.broadcast_to(p, (B,)).to(dtype) for params, _ in builders for p in params]
+    energy = torch.full((B,), 1.073e8, dtype=dtype) * torch.linspace(0.9, 1.1, B, dtype=dtype)
+    return entries, values, energy
+
+
+def run_push(host_kernels, entries, values, energy, particles):
+    """B8 on the host: the ``(B, N, 7)`` particles pushed through the plan."""
+    B, N, _ = particles.shape
+    dtype = particles.dtype
+    tape = fused_track._tape(entries, torch.device("cpu"))
+    params, consts = fused_track._tape_operands(entries, values, tape, dtype, B)
+    zeros, ones = fused_track._push_masks(entries)
+    out = torch.empty_like(particles)
+    code = host_kernels["particle_push"].lynx_particle_push(
+        int(dtype == torch.float64), int(tape.full), tape.rows.data_ptr(), tape.rows.shape[0],
+        params.data_ptr(), consts.data_ptr(), energy.data_ptr(), particles.data_ptr(),
+        out.data_ptr(), B, N, zeros, ones, REST_ENERGY_EV, ELECTRON_MASS_EV, None,
+    )
+    assert code == 0
+    return out
+
+
+def narrow_elements(B):
+    """A run of the narrow kinds, float64: a quadrupole with per-setting
+    tilt and misalignment and k1 = 0 on one setting, per-setting correctors
+    and drift, a static tilted quadrupole, a marker and a screen."""
+    rng = np.random.default_rng(11)
+    k1 = np.linspace(-5.0, 5.0, B)
+    k1[B // 2] = 0.0
+    f64 = dict(dtype=torch.float64)
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x, dtype=np.float64))
+
+    return [
+        ltt.Marker(**f64, device="cpu"),
+        ltt.Drift(t([0.5]), **f64),
+        ltt.Quadrupole(t(np.full(B, 0.23)), k1=t(k1), tilt=t(rng.uniform(-0.2, 0.2, B)),
+                       misalignment=t(rng.uniform(-2e-4, 2e-4, (B, 2))), **f64),
+        ltt.HorizontalCorrector(t([0.1]), angle=t(rng.uniform(-1e-3, 1e-3, B)), **f64),
+        ltt.VerticalCorrector(t([0.1]), angle=t(rng.uniform(-1e-3, 1e-3, B)), **f64),
+        ltt.Quadrupole(t([0.2]), k1=t([3.0]), tilt=t([0.05]), **f64),
+        ltt.Drift(t(rng.uniform(0.1, 0.6, B)), **f64),
+        ltt.Screen(**f64, device="cpu"),
+    ]
+
+
+@pytest.mark.parametrize(
+    "kind, B, N, dtype, shift",
+    [
+        ("narrow", 3, 700, torch.float64, 0),  # spans of 256: two whole, a ragged third
+        ("narrow", 2, 300, torch.float64, 1),  # off 16 bytes: every span value by value
+        ("narrow", 1, 1100, torch.float32, 0),  # float: spans of 512 as float4 vectors
+        ("full", 4, 300, torch.float64, 0),  # the full instantiation's builders
+        ("full", 2, 600, torch.float32, 0),
+    ],
+)
+def test_particle_push_matches_plain(host_kernels, kind, B, N, dtype, shift):
+    """B8 builds each setting's map from the tape in its block and pushes
+    the setting's spans through it: against its plain version (the tables
+    composed, then B2's plain push) over settings with their own fields and
+    energies, spans that end inside a setting, tensors off the 16-byte
+    alignment of its vectors, and both instantiations."""
+    elements = narrow_elements(B) if kind == "narrow" else new_kind_elements(B)
+    entries, values, energy = push_plan(elements, B, dtype)
+    assert fused_track._tape(entries, torch.device("cpu")).full == (kind == "full")
+    _, _, particles = push_inputs(B, N, dtype, shift)
+    assert (particles.data_ptr() % 16 != 0) == bool(shift)
+    out = run_push(host_kernels, entries, values, energy, particles)
+    expected = fused_track.particle_push_reference(entries, values, energy, particles)
+    assert per_setting_error(out, expected) <= (RTOL if dtype == torch.float64 else 1e-5)
+
+
+def test_particle_push_skips_structural_zeros(host_kernels):
+    """As B2: an infinite coordinate in a column that a row of the composed
+    map does not use leaves that row finite, as in the plain version."""
+    B, N = 2, 40
+    entries, values, energy = push_plan(narrow_elements(B), B, torch.float64)
+    _, _, particles = push_inputs(B, N, torch.float64)
+    zeros, _ = fused_track._push_masks(entries)
+    row, column = next((i, j) for j in range(7) for i in range(7) if zeros >> (7 * i + j) & 1)
+    particles = particles.clone()
+    particles[1, 7, column] = float("inf")
+    out = run_push(host_kernels, entries, values, energy, particles)
+    expected = fused_track.particle_push_reference(entries, values, energy, particles)
     finite = torch.isfinite(expected)
     assert bool(finite[1, 7, row]) and not bool(finite.all())
     assert torch.equal(torch.isfinite(out), finite)
