@@ -161,7 +161,17 @@ Phases, each of which raises on failure (non-zero exit, no result line):
     ``emittance_measurement``'s measure, ``optimize_speed``'s stages,
     ``profiling.benchmark``).  R1, R3's image_tuning, O and M keep their
     eager forms (``graph=False``) as the records J replays against;
-16. print the kernels' JSON line and, last, the ``{"ok": true, ...}`` line.
+16. path G, generative phase-space reconstruction (``ops.kde``,
+    ``reconstruction``): G1, the KDE at the GPSR cell's shape (16 settings
+    x 100,000 particles, 306 x 255 pixels, bandwidth 20 um), its blocked
+    route in float32 and in float64 on the card against the plain version
+    in float64 (images and the gradients of a random cotangent; bounds
+    ``KDE_RTOL``), timed at several block sizes with CUDA events; G2, the
+    captured reconstruction step on the ARES EA at that shape: one capture
+    over several calls, its graph's kernel count, and its losses and images
+    against the same step run eagerly (``graph=False``) with the same
+    capturable Adam;
+17. print the kernels' JSON line and, last, the ``{"ok": true, ...}`` line.
 
 Each kernel is timed at its path's shape beside its plain version and its
 bound (``bound``: the larger of its bytes over the card's memory rate and
@@ -303,6 +313,18 @@ APERTURE_RTOL = 1e-4
 # 512 envs (the dense route); the fidelity example at its B = 64 (B6) and at
 # B = 8 (B5) on its 20,000 particles.
 PPO_ROLLOUT = 16
+#: Path G: the GPSR cell's scan, particles, binning and bandwidth.
+GPSR_SETTINGS, GPSR_PARTICLES, GPSR_BINNING, GPSR_BANDWIDTH = 16, 100_000, 8, 2e-5
+GPSR_BLOCKS = (8192, 16384, 32768, 100_000)
+#: G1's bounds, of the largest pixel (images) and of the largest gradient:
+#: float32 kernel values and sums over 100,000 particles keep ~6 digits
+#: (1e-5 leaves ten times the room); float64 agrees with the plain version
+#: to its rounding.
+KDE_RTOL = {"float32": 1e-5, "float64": 1e-12}
+#: G2: the graph against the eager step with the same capturable Adam (the
+#: same kernels in the same order; the graph's replay may take other cuBLAS
+#: workspaces).
+GPSR_GRAPH_RTOL = 1e-5
 PPO_UPDATES = 3
 PPO_DEFAULT_ENVS = 512
 FIDELITY_BATCHES = (64, 8)
@@ -5046,6 +5068,100 @@ def path_jit_examples(torch, ares, ParticleBeam, functional, graphs, profiling, 
         raise AssertionError("J13: a replay differs from its eager form")
 
 
+def kde_operands(torch, dtype, seed=0):
+    """G1's particles (16, 100,000) on the screen (a 0.2 mm spot, x and y
+    correlated by setting), the binned pixels' centres and a cotangent."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    S, N = GPSR_SETTINGS, GPSR_PARTICLES
+    width, height = 2448 // GPSR_BINNING, 2040 // GPSR_BINNING
+    half_w, half_h = 2448 * 3.5488e-6 / 2, 2040 * 2.5003e-6 / 2
+    scale = torch.linspace(0.2, 2.0, S, device="cuda", dtype=torch.float64)[:, None]
+    x = torch.randn((S, N), generator=gen, device="cuda", dtype=torch.float64) * 2e-4 * scale
+    y = torch.randn((S, N), generator=gen, device="cuda", dtype=torch.float64) * 2e-4 / scale
+    columns = (torch.arange(width, device="cuda", dtype=torch.float64) + 0.5) / width
+    rows = (torch.arange(height, device="cuda", dtype=torch.float64) + 0.5) / height
+    cotangent = torch.randn((S, height, width), generator=gen, device="cuda",
+                            dtype=torch.float64)
+    return [t.to(dtype) for t in (x, y, -half_w + columns * 2 * half_w,
+                                  half_h - rows * 2 * half_h, cotangent)]
+
+
+def path_gpsr(torch, ltt, functional, graphs, card):
+    """Path G (see the module's note): G1 and G2."""
+    from lynx_tpu_torch import reconstruction
+    from lynx_tpu_torch.examples import phase_space_reconstruction
+    from lynx_tpu_torch.ops import kde
+
+    x64, y64, xc64, yc64, g64 = kde_operands(torch, torch.float64)
+    want_x, want_y = x64.clone().requires_grad_(True), y64.clone().requires_grad_(True)
+    want = kde.kde_sums_reference(want_x, want_y, None, xc64, yc64, GPSR_BANDWIDTH)
+    want_gx, want_gy = torch.autograd.grad(want, (want_x, want_y), g64)
+    for dtype, name in ((torch.float32, "float32"), (torch.float64, "float64")):
+        x, y, xc, yc, g = (t.to(dtype) for t in (x64, y64, xc64, yc64, g64))
+        x.requires_grad_(True)
+        y.requires_grad_(True)
+        got = kde.kde_sums(x, y, None, xc, yc, GPSR_BANDWIDTH)
+        gx, gy = torch.autograd.grad(got, (x, y), g)
+        image_err = float((got.double() - want).abs().max() / want.abs().max())
+        grad_err = max(float((a.double() - b).abs().max() / b.abs().max())
+                       for a, b in ((gx, want_gx), (gy, want_gy)))
+        print(f"G1 KDE {name} (16 x 100,000 particles, 255 x 306, blocks of {kde.BLOCK}) against"
+              f" the plain version in float64: image {image_err:.3e}, gradient {grad_err:.3e}"
+              f" of the largest (bound {KDE_RTOL[name]:.0e}); card {card}")
+        if not (image_err <= KDE_RTOL[name] and grad_err <= KDE_RTOL[name]):
+            raise AssertionError(f"G1: the KDE in {name} is off the plain version")
+    del want, want_x, want_y, want_gx, want_gy
+    x, y, xc, yc, g = kde_operands(torch, torch.float32)
+    x.requires_grad_(True)
+    y.requires_grad_(True)
+    timed = {}
+    for block in GPSR_BLOCKS:
+        def forward_backward():
+            torch.autograd.grad(kde.kde_sums(x, y, None, xc, yc, GPSR_BANDWIDTH, block), (x, y),
+                                g)
+
+        timed[block] = cuda_ms(forward_backward, iters=5, warmup=1)
+        torch.cuda.empty_cache()
+    least_ms = 3 * 2 * GPSR_SETTINGS * GPSR_PARTICLES * 255 * 306 / FP32_FLOPS_PER_S * 1e3
+    print("G1 KDE forward and backward, float32, by block: " + ", ".join(
+        f"{block} {ms:.4f} ms ({100 * least_ms / ms:.1f}% of the products' bound)"
+        for block, ms in timed.items())
+        + f"; bound {least_ms:.4f} ms (3 products at 67 TFLOP/s); card {card}")
+    del x, y, g
+    torch.cuda.empty_cache()
+
+    def reconstruct(graph):
+        segment = phase_space_reconstruction.make_segment("cuda")
+        k1 = torch.linspace(-10.0, 10.0, GPSR_SETTINGS, device="cuda")
+        truth = reconstruction.BeamGenerator(
+            GPSR_PARTICLES, generator=torch.Generator("cuda").manual_seed(1), device="cuda")
+        with torch.no_grad():
+            segment.AREAMQZM3.k1 = k1
+            targets = functional.track(segment, truth.beam())[1]["AREABSCR1"]
+        generator = reconstruction.BeamGenerator(
+            GPSR_PARTICLES, generator=torch.Generator("cuda").manual_seed(0), device="cuda")
+        optimizer = torch.optim.Adam(generator.parameters(), lr=1e-3, capturable=True)
+        step = reconstruction.make_reconstruction_step(segment, {"AREAMQZM3.k1": k1}, generator,
+                                                       optimizer, targets, graph=graph)
+        out = [[t.clone() for t in step()] for _ in range(4)]
+        torch.cuda.synchronize()
+        return step, out
+
+    step, graphed = reconstruct(True)
+    _, eager = reconstruct(False)
+    gap = max(float((a - b).abs().max() / b.abs().max())
+              for got, want in zip(graphed, eager) for a, b in zip(got, want))
+    nodes = graphs.graph_kernel_count(step.cache.steps[-1].graph)
+    losses = [float(loss) for loss, _ in graphed]
+    print(f"G2 reconstruction step captured: {step.cache.captures} capture over 4 calls,"
+          f" {step.cache.replays} replays, {nodes} kernel nodes, {step.blocks} KDE blocks a step;"
+          f" losses {losses}; graph against eager {gap:.3e} (bound {GPSR_GRAPH_RTOL:.0e});"
+          f" card {card}")
+    if step.cache.captures != 1 or not gap <= GPSR_GRAPH_RTOL or not losses[-1] < losses[0]:
+        raise AssertionError("G2: the captured reconstruction step is off its eager form")
+    graphs.release()
+
+
 def ptxas_report(log):
     """``kernel<args> R registers, S/L bytes spilled`` for each kernel of an
     nvcc -Xptxas -v report (spill stores / spill loads); template arguments
@@ -5325,7 +5441,12 @@ def main():
           f" s (host clock, J8-J13); the largest replay-against-eager difference of B5/B6's"
           f" captures {moment_worst:.3e}")
 
-    # -- 16. results ---------------------------------------------------------
+    # -- 16. path G, generative phase-space reconstruction ------------------------------
+    start = time.perf_counter()
+    path_gpsr(torch, ltt, functional, graphs, card)
+    print(f"path G: G1-G2 in {time.perf_counter() - start:.1f} s (host clock)")
+
+    # -- 17. results ---------------------------------------------------------
     timing["B1"] = dict(ms=read_ms, plain_ms=plain_ms, bound=b1_bound,
                         library_ms=bincount_ms)
     timing["B7 onehot"], timing["B7 twolevel"] = hist_timing["onehot"], hist_timing["twolevel"]

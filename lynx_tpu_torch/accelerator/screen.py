@@ -2,11 +2,13 @@
 ``lynx_tpu.accelerator.screen``).
 
 The reading of a ``ParticleBeam`` is a (survival-weighted) 2-D histogram of
-(x, y) over the pixel grid (``lynx_tpu_torch.ops.histogram``); that of a
+(x, y) over the pixel grid (``lynx_tpu_torch.ops.histogram``), or, with
+``method="kde"``, GPSR's normalised Gaussian kernel-density image, smooth
+and differentiable in the particles (``lynx_tpu_torch.ops.kde``); that of a
 ``ParameterBeam`` is the analytic Gaussian density on the pixel grid.
 Images are ``(..., H, W)`` with the vertical axis flipped like a camera
-image.  ``resolution``, ``binning``, ``is_active`` and ``histogram_window``
-are plain attributes, not buffers.
+image.  ``resolution``, ``binning``, ``is_active``, ``histogram_window``,
+``method`` and ``kde_bandwidth`` are plain attributes, not buffers.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from lynx_tpu_torch._collectives import particle_all_reduce
 from lynx_tpu_torch.accelerator.element import Element, as_field, draw_patch
 from lynx_tpu_torch.graphs import capturing
 from lynx_tpu_torch.ops.histogram import screen_histogram_2d
+from lynx_tpu_torch.ops.kde import kde_sums, normalised
 from lynx_tpu_torch.particles import Beam, ParameterBeam, ParticleBeam
 from lynx_tpu_torch.utils import resolve_device
 
@@ -91,6 +94,35 @@ def screen_reading_particle(
     ))
 
 
+def screen_reading_kde(
+    beam: ParticleBeam,
+    resolution: Tuple[int, int],
+    pixel_size: torch.Tensor,
+    binning: int,
+    bandwidth,
+) -> torch.Tensor:
+    """(..., H, W) normalised kernel-density image of a particle beam
+    (``ops.kde``): each particle's Gaussian of width ``bandwidth`` (m, a
+    number or a 0-d tensor) in x and in y, weighted by its survival, summed
+    on the binned pixels' centres, and each image divided by its sum.  Over
+    a sharded particle axis the ranks' sums are all-reduced before the
+    division."""
+    if pixel_size.shape != (2,):
+        raise ValueError(f"screen_reading_kde: one pixel size (2,), got {tuple(pixel_size.shape)}")
+    w_bins = int(resolution[0] // binning)
+    h_bins = int(resolution[1] // binning)
+    dtype, device = beam.particles.dtype, beam.particles.device
+    half_w = resolution[0] * pixel_size[0].to(dtype) / 2
+    half_h = resolution[1] * pixel_size[1].to(dtype) / 2
+    # Pixel-center grids (camera orientation: row 0 = +y, column 0 = -x).
+    tx = (torch.arange(w_bins, dtype=dtype, device=device) + 0.5) / w_bins
+    ty = (torch.arange(h_bins, dtype=dtype, device=device) + 0.5) / h_bins
+    x_centres = -half_w + tx * (2 * half_w)
+    y_centres = half_h - ty * (2 * half_h)
+    raw = kde_sums(beam.xs, beam.ys, beam.survival, x_centres, y_centres, bandwidth)
+    return normalised(particle_all_reduce(raw))
+
+
 def screen_reading_parameter(
     beam: ParameterBeam,
     resolution: Tuple[int, int],
@@ -136,6 +168,11 @@ class Screen(Element):
     :param misalignment: ``(..., 2)`` x/y misalignment in meters.
     :param is_active: If ``True`` the screen records (and absorbs) the beam.
     :param name: Unique identifier of the element.
+    :param method: A particle beam's reading: ``"histogram"`` (the default,
+        counts per pixel) or ``"kde"`` (GPSR's normalised kernel-density
+        image, differentiable in the particles).
+    :param kde_bandwidth: The KDE's bandwidth in meters (default: one binned
+        pixel's height).
     """
 
     # Plain attributes that an element rebuilt by ``from_fields`` falls back to.
@@ -145,6 +182,11 @@ class Screen(Element):
     #: (``None`` = the global default).  A performance knob: spots larger
     #: than the window fall back to the exact scatter.
     histogram_window = None
+    #: A particle beam's reading: ``"histogram"`` (counts) or ``"kde"`` (the
+    #: kernel-density image, differentiable in the particles).
+    method = "histogram"
+    #: The KDE's bandwidth in meters; ``None``: one binned pixel's height.
+    kde_bandwidth = None
 
     def __init__(
         self,
@@ -156,6 +198,8 @@ class Screen(Element):
         name: Optional[str] = None,
         dtype: torch.dtype = torch.float32,
         device=None,
+        method: str = "histogram",
+        kde_bandwidth: Optional[float] = None,
     ) -> None:
         device = resolve_device(device, pixel_size, misalignment)
         super().__init__(name=name, dtype=dtype, device=device)
@@ -175,6 +219,10 @@ class Screen(Element):
             self.misalignment.shape[:-1], dtype=dtype, device=self.misalignment.device
         )
         self.is_active = is_active
+        if method not in ("histogram", "kde"):
+            raise ValueError(f"Screen method {method!r}: 'histogram' or 'kde'")
+        self.method = method
+        self.kde_bandwidth = None if kde_bandwidth is None else float(kde_bandwidth)
         self._read_beam = None
         self.cached_reading = None
 
@@ -318,23 +366,37 @@ class Screen(Element):
             image = torch.zeros(
                 (*self.misalignment.shape[:-1], h, w), device=self.misalignment.device
             )
-        elif isinstance(read_beam, ParameterBeam):
-            image = screen_reading_parameter(
-                read_beam, self._resolution, self.pixel_size, self._binning
-            )
-        elif isinstance(read_beam, ParticleBeam):
-            image = screen_reading_particle(
-                read_beam,
-                self._resolution,
-                self.pixel_size,
-                self._binning,
-                histogram_window=self.histogram_window,
-            )
         else:
-            raise TypeError(f"Read beam is of invalid type {type(read_beam)}")
+            image = self.image(read_beam)
 
         self.cached_reading = image
         return image
+
+    def image(self, read_beam: Beam) -> torch.Tensor:
+        """The ``(..., H, W)`` image of a beam at the screen's plane (already
+        misaligned): a ``ParameterBeam``'s Gaussian density, a
+        ``ParticleBeam``'s histogram or, with ``method="kde"``, its
+        kernel-density image."""
+        if isinstance(read_beam, ParameterBeam):
+            return screen_reading_parameter(
+                read_beam, self._resolution, self.pixel_size, self._binning
+            )
+        if not isinstance(read_beam, ParticleBeam):
+            raise TypeError(f"Read beam is of invalid type {type(read_beam)}")
+        if self.method == "kde":
+            bandwidth = self.kde_bandwidth
+            if bandwidth is None:
+                bandwidth = self.effective_pixel_size[1]
+            return screen_reading_kde(
+                read_beam, self._resolution, self.pixel_size, self._binning, bandwidth
+            )
+        return screen_reading_particle(
+            read_beam,
+            self._resolution,
+            self.pixel_size,
+            self._binning,
+            histogram_window=self.histogram_window,
+        )
 
     def split(self, resolution: float) -> list:
         return [self]
@@ -365,6 +427,8 @@ class Screen(Element):
             name=self.name,
             dtype=self.misalignment.dtype,
             device=self.misalignment.device,
+            method=self.method,
+            kde_bandwidth=self.kde_bandwidth,
         )
         new_screen.length = torch.broadcast_to(self.length, shape).clone()
         # The window must survive broadcasting: without it every batched

@@ -15,11 +15,7 @@ from lynx_tpu_torch.accelerator.aperture import Aperture
 from lynx_tpu_torch.accelerator.bpm import BPM, bpm_reading
 from lynx_tpu_torch.accelerator.cavity import Cavity
 from lynx_tpu_torch.accelerator.element import Element
-from lynx_tpu_torch.accelerator.screen import (
-    Screen,
-    screen_reading_parameter,
-    screen_reading_particle,
-)
+from lynx_tpu_torch.accelerator.screen import Screen
 from lynx_tpu_torch.accelerator.segment import (
     Segment,
     _fused_flush,
@@ -38,7 +34,9 @@ def track(segment: Segment, incoming: Beam) -> Tuple[Optional[Beam], Diagnostics
     * ``outgoing`` is the beam leaving the segment, or ``None`` if an active
       screen absorbed it.
     * ``diagnostics`` maps an element's name to its reading: BPM ->
-      ``(2, ...)`` position, Screen -> ``(..., H, W)`` image, Aperture ->
+      ``(2, ...)`` position, Screen -> ``(..., H, W)`` image (a particle
+      beam's histogram, or its kernel-density image where the screen's
+      ``method`` is ``"kde"``), Aperture ->
       ``(..., N)`` survival mask after the aperture.
 
     No element state is touched.  An element type that this port does not
@@ -82,18 +80,8 @@ def track(segment: Segment, incoming: Beam) -> Tuple[Optional[Beam], Diagnostics
             continue
         if isinstance(element, Screen):
             read_beam = element.misaligned_beam(beam)
-            if isinstance(read_beam, ParticleBeam):
-                diagnostics[element.name] = screen_reading_particle(
-                    read_beam,
-                    element.resolution,
-                    element.pixel_size,
-                    element.binning,
-                    histogram_window=element.histogram_window,
-                )
-            elif isinstance(read_beam, ParameterBeam):
-                diagnostics[element.name] = screen_reading_parameter(
-                    read_beam, element.resolution, element.pixel_size, element.binning
-                )
+            if isinstance(read_beam, (ParticleBeam, ParameterBeam)):
+                diagnostics[element.name] = element.image(read_beam)
             # The screen absorbs the beam; everything downstream is dead.
             return None, diagnostics
         raise NotImplementedError(

@@ -31,7 +31,10 @@ Inside captured code: ``replay`` (the whole captured region), ``env.step``
 elements flushed: maps, plan and their kernels), ``kernel.<name>`` (a
 kernel's launch: ``moment_sweep`` B3, ``moment_sweep_bwd`` B4,
 ``window_histogram`` B1, ``particle_apply`` B2, ``particle_moment_sweep``
-B5, ``packed_gram`` B6), ``backward`` and ``optimizer.step``.
+B5, ``packed_gram`` B6; ``kde`` and ``kde_bwd``, the screen's KDE image and
+its backward, ``ops.kde``), ``reconstruct.generator`` (the GPSR beam
+generator's forward, ``reconstruction``), ``backward`` and
+``optimizer.step``.
 
 **Stamps.** Whether tracing is on is part of every structure key of
 ``graphs``, as the active mesh is: turning it on captures new graphs, which
