@@ -7,7 +7,7 @@ Phases, each of which raises on failure (non-zero exit, no result line):
 
 1. require a CUDA device, pin TF32 off (and say so), print the card and its
    power limit;
-2. build kernels B1-B7 (``lynx_tpu_torch/csrc/*.cu``), one nvcc each, all
+2. build kernels B1-B9 (``lynx_tpu_torch/csrc/*.cu``), one nvcc each, all
    started together, and print each build's seconds and, for each kernel
    and instantiation, its ptxas registers and spill-store/spill-load bytes;
 3. hold B1's (lx, ly) count core against its plain PyTorch version on the
@@ -162,15 +162,18 @@ Phases, each of which raises on failure (non-zero exit, no result line):
     ``profiling.benchmark``).  R1, R3's image_tuning, O and M keep their
     eager forms (``graph=False``) as the records J replays against;
 16. path G, generative phase-space reconstruction (``ops.kde``,
-    ``reconstruction``): G1, the KDE at the GPSR cell's shape (16 settings
-    x 100,000 particles, 306 x 255 pixels, bandwidth 20 um), its blocked
-    route in float32 and in float64 on the card against the plain version
-    in float64 (images and the gradients of a random cotangent; bounds
-    ``KDE_RTOL``), timed at several block sizes with CUDA events; G2, the
+    ``reconstruction``): G1, kernel B9 at the GPSR cell's shape (16 settings
+    x 100,000 particles, 306 x 255 pixels, bandwidth 20 um) in float32 and
+    in float64 against the plain version in float64 (images and the
+    gradients of a random cotangent, unweighted and weighted on a ragged
+    100,003 particles; bounds ``KDE_RTOL``), two calls equal bit for bit and
+    ``kde_sums.launches`` advanced by B9's launches; its forward and
+    backward timed with CUDA events against the products' bound, beside the
+    blocked cuBLAS route's forward and backward (the yardstick); G2, the
     captured reconstruction step on the ARES EA at that shape: one capture
-    over several calls, its graph's kernel count, and its losses and images
-    against the same step run eagerly (``graph=False``) with the same
-    capturable Adam;
+    over several calls, B9's launches at the capture, its graph's kernel
+    count, and its losses and images against the same step run eagerly
+    (``graph=False``) with the same capturable Adam;
 17. print the kernels' JSON line and, last, the ``{"ok": true, ...}`` line.
 
 Each kernel is timed at its path's shape beside its plain version and its
@@ -217,7 +220,7 @@ LATTICE_CHECK_BATCH = 2048  # the full lattice's plan in the B3/B4 checks
 FODO_CELLS, FODO_BATCH = 150, 16_384  # fault C1: B4 on 901 entries in double
 PUSH_BATCH, PUSH_PARTICLES = 100, 10_000  # path P
 KERNEL_LIBRARIES = ("window_histogram", "particle_apply", "moment_sweep", "moment_sweep_bwd",
-                    "particle_moment_sweep", "packed_gram", "hist_ab", "particle_push")
+                    "particle_moment_sweep", "packed_gram", "hist_ab", "particle_push", "kde")
 
 # Bounds of B2-B4 against their plain versions.  Errors are relative to the
 # largest entry of the compared quantity: per setting for moments and
@@ -315,7 +318,6 @@ APERTURE_RTOL = 1e-4
 PPO_ROLLOUT = 16
 #: Path G: the GPSR cell's scan, particles, binning and bandwidth.
 GPSR_SETTINGS, GPSR_PARTICLES, GPSR_BINNING, GPSR_BANDWIDTH = 16, 100_000, 8, 2e-5
-GPSR_BLOCKS = (8192, 16384, 32768, 100_000)
 #: G1's bounds, of the largest pixel (images) and of the largest gradient:
 #: float32 kernel values and sums over 100,000 particles keep ~6 digits
 #: (1e-5 leaves ten times the room); float64 agrees with the plain version
@@ -5068,11 +5070,12 @@ def path_jit_examples(torch, ares, ParticleBeam, functional, graphs, profiling, 
         raise AssertionError("J13: a replay differs from its eager form")
 
 
-def kde_operands(torch, dtype, seed=0):
-    """G1's particles (16, 100,000) on the screen (a 0.2 mm spot, x and y
-    correlated by setting), the binned pixels' centres and a cotangent."""
+def kde_operands(torch, dtype, seed=0, n=GPSR_PARTICLES):
+    """G1's particles (16, n) on the screen (a 0.2 mm spot, x and y
+    correlated by setting), the binned pixels' centres, a cotangent and
+    weights in [0, 1)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    S, N = GPSR_SETTINGS, GPSR_PARTICLES
+    S, N = GPSR_SETTINGS, n
     width, height = 2448 // GPSR_BINNING, 2040 // GPSR_BINNING
     half_w, half_h = 2448 * 3.5488e-6 / 2, 2040 * 2.5003e-6 / 2
     scale = torch.linspace(0.2, 2.0, S, device="cuda", dtype=torch.float64)[:, None]
@@ -5082,8 +5085,9 @@ def kde_operands(torch, dtype, seed=0):
     rows = (torch.arange(height, device="cuda", dtype=torch.float64) + 0.5) / height
     cotangent = torch.randn((S, height, width), generator=gen, device="cuda",
                             dtype=torch.float64)
+    weights = torch.rand((S, N), generator=gen, device="cuda", dtype=torch.float64)
     return [t.to(dtype) for t in (x, y, -half_w + columns * 2 * half_w,
-                                  half_h - rows * 2 * half_h, cotangent)]
+                                  half_h - rows * 2 * half_h, cotangent, weights)]
 
 
 def path_gpsr(torch, ltt, functional, graphs, card):
@@ -5092,41 +5096,65 @@ def path_gpsr(torch, ltt, functional, graphs, card):
     from lynx_tpu_torch.examples import phase_space_reconstruction
     from lynx_tpu_torch.ops import kde
 
-    x64, y64, xc64, yc64, g64 = kde_operands(torch, torch.float64)
-    want_x, want_y = x64.clone().requires_grad_(True), y64.clone().requires_grad_(True)
-    want = kde.kde_sums_reference(want_x, want_y, None, xc64, yc64, GPSR_BANDWIDTH)
-    want_gx, want_gy = torch.autograd.grad(want, (want_x, want_y), g64)
-    for dtype, name in ((torch.float32, "float32"), (torch.float64, "float64")):
-        x, y, xc, yc, g = (t.to(dtype) for t in (x64, y64, xc64, yc64, g64))
-        x.requires_grad_(True)
-        y.requires_grad_(True)
-        got = kde.kde_sums(x, y, None, xc, yc, GPSR_BANDWIDTH)
-        gx, gy = torch.autograd.grad(got, (x, y), g)
-        image_err = float((got.double() - want).abs().max() / want.abs().max())
-        grad_err = max(float((a.double() - b).abs().max() / b.abs().max())
-                       for a, b in ((gx, want_gx), (gy, want_gy)))
-        print(f"G1 KDE {name} (16 x 100,000 particles, 255 x 306, blocks of {kde.BLOCK}) against"
-              f" the plain version in float64: image {image_err:.3e}, gradient {grad_err:.3e}"
-              f" of the largest (bound {KDE_RTOL[name]:.0e}); card {card}")
-        if not (image_err <= KDE_RTOL[name] and grad_err <= KDE_RTOL[name]):
-            raise AssertionError(f"G1: the KDE in {name} is off the plain version")
-    del want, want_x, want_y, want_gx, want_gy
-    x, y, xc, yc, g = kde_operands(torch, torch.float32)
+    h = GPSR_BANDWIDTH
+    for weighted, n in ((False, GPSR_PARTICLES), (True, GPSR_PARTICLES + 3)):
+        x64, y64, xc64, yc64, g64, w64 = kde_operands(torch, torch.float64, n=n)
+        w64 = w64 if weighted else None
+        leaves = [t.clone().requires_grad_(True) for t in (x64, y64, w64) if t is not None]
+        want = kde.kde_sums_reference(*leaves[:2], leaves[2] if weighted else None, xc64, yc64, h)
+        want_grads = torch.autograd.grad(want, leaves, g64)
+        want = want.detach()
+        for dtype, name in ((torch.float32, "float32"), (torch.float64, "float64")):
+            x, y, xc, yc, g = (t.detach().to(dtype) for t in (x64, y64, xc64, yc64, g64))
+            w = None if w64 is None else w64.detach().to(dtype)
+            got_leaves = [t.requires_grad_(True) for t in (x, y, w) if t is not None]
+            launches = kde.kde_sums.launches
+            got = kde.kde_sums(x, y, w, xc, yc, h)
+            grads = torch.autograd.grad(got, got_leaves, g)
+            again = kde.kde_sums(x, y, w, xc, yc, h)
+            grads_again = torch.autograd.grad(again, got_leaves, g)
+            plan = kde.kde_plan(GPSR_SETTINGS, n, yc.shape[0], xc.shape[0],
+                                kde._sm_count(x.device), dtype)
+            per_call = 2 + (plan.splits > 1)
+            image_err = float((got.detach().double() - want).abs().max() / want.abs().max())
+            grad_err = max(float((a.double() - b).abs().max() / b.abs().max())
+                           for a, b in zip(grads, want_grads))
+            same_bits = torch.equal(got, again) and all(
+                torch.equal(a, b) for a, b in zip(grads, grads_again))
+            print(f"G1 B9 {name}, {'weighted' if weighted else 'unweighted'} ({GPSR_SETTINGS} x"
+                  f" {n:,} particles, 255 x 306, {plan.splits} splits of {plan.span}) against the"
+                  f" plain version in float64: image {image_err:.3e}, gradients of"
+                  f" {'x, y, w' if weighted else 'x, y'} {grad_err:.3e} of the largest (bound"
+                  f" {KDE_RTOL[name]:.0e}); two calls equal bits: {same_bits}; launches"
+                  f" {kde.kde_sums.launches - launches} (want {2 * per_call}); card {card}")
+            if not (image_err <= KDE_RTOL[name] and grad_err <= KDE_RTOL[name] and same_bits
+                    and kde.kde_sums.launches - launches == 2 * per_call):
+                raise AssertionError(f"G1: B9 in {name} is off the plain version")
+        del want, want_grads, leaves
+        torch.cuda.empty_cache()
+    x, y, xc, yc, g, w = kde_operands(torch, torch.float32)
+    library = kde.kde_library()
+    stream = torch.cuda.current_stream().cuda_stream
+    plan = kde.kde_plan(GPSR_SETTINGS, GPSR_PARTICLES, yc.shape[0], xc.shape[0],
+                        kde._sm_count(x.device))
+    forward_ms = cuda_ms(lambda: kde._image_call(library, x, y, None, xc, yc, h, plan, stream),
+                         iters=10, warmup=2)
+    backward_ms = cuda_ms(lambda: kde._grad_call(library, x, y, None, xc, yc, h, g, True, True,
+                                                 False, stream), iters=10, warmup=2)
     x.requires_grad_(True)
     y.requires_grad_(True)
-    timed = {}
-    for block in GPSR_BLOCKS:
-        def forward_backward():
-            torch.autograd.grad(kde.kde_sums(x, y, None, xc, yc, GPSR_BANDWIDTH, block), (x, y),
-                                g)
 
-        timed[block] = cuda_ms(forward_backward, iters=5, warmup=1)
-        torch.cuda.empty_cache()
+    def blocked():
+        raw = kde._BlockedSums.apply(x, y, None, xc, yc, h, kde.BLOCK)
+        torch.autograd.grad(raw, (x, y), g)
+
+    blocked_ms = cuda_ms(blocked, iters=5, warmup=1)
     least_ms = 3 * 2 * GPSR_SETTINGS * GPSR_PARTICLES * 255 * 306 / FP32_FLOPS_PER_S * 1e3
-    print("G1 KDE forward and backward, float32, by block: " + ", ".join(
-        f"{block} {ms:.4f} ms ({100 * least_ms / ms:.1f}% of the products' bound)"
-        for block, ms in timed.items())
-        + f"; bound {least_ms:.4f} ms (3 products at 67 TFLOP/s); card {card}")
+    b9_ms = forward_ms + backward_ms
+    print(f"G1 B9 float32 at the cell's shape: forward {forward_ms:.4f} ms, backward (x and y)"
+          f" {backward_ms:.4f} ms, together {b9_ms:.4f} ms = {100 * least_ms / b9_ms:.1f}% of the"
+          f" products' bound {least_ms:.4f} ms (3 products at 67 TFLOP/s); the blocked cuBLAS"
+          f" route (yardstick) {blocked_ms:.4f} ms; card {card}")
     del x, y, g
     torch.cuda.empty_cache()
 
@@ -5154,10 +5182,12 @@ def path_gpsr(torch, ltt, functional, graphs, card):
     nodes = graphs.graph_kernel_count(step.cache.steps[-1].graph)
     losses = [float(loss) for loss, _ in graphed]
     print(f"G2 reconstruction step captured: {step.cache.captures} capture over 4 calls,"
-          f" {step.cache.replays} replays, {nodes} kernel nodes, {step.blocks} KDE blocks a step;"
+          f" {step.cache.replays} replays, {nodes} kernel nodes, {step.launches} B9 launches a"
+          f" step (at the capture);"
           f" losses {losses}; graph against eager {gap:.3e} (bound {GPSR_GRAPH_RTOL:.0e});"
           f" card {card}")
-    if step.cache.captures != 1 or not gap <= GPSR_GRAPH_RTOL or not losses[-1] < losses[0]:
+    if (step.cache.captures != 1 or not gap <= GPSR_GRAPH_RTOL or not losses[-1] < losses[0]
+            or not step.launches):
         raise AssertionError("G2: the captured reconstruction step is off its eager form")
     graphs.release()
 
@@ -5221,6 +5251,7 @@ def main():
     from lynx_tpu_torch.models import ares
     from lynx_tpu_torch.ops import fused_track as ft
     from lynx_tpu_torch.ops import histogram as hist
+    from lynx_tpu_torch.ops import kde
     from lynx_tpu_torch.ops import table as tbl
 
     # -- 2. build ----------------------------------------------------------
@@ -5229,7 +5260,7 @@ def main():
     for load in (hist.window_histogram_library, ft.particle_apply_library,
                  ft.moment_sweep_library, ft.moment_sweep_bwd_library,
                  ft.particle_moment_sweep_library, ft.packed_gram_library,
-                 hist_ab.hist_ab_library, ft.particle_push_library):
+                 hist_ab.hist_ab_library, ft.particle_push_library, kde.kde_library):
         load()
     print(f"build: {', '.join(KERNEL_LIBRARIES)} (one nvcc each, in parallel) in"
           f" {time.perf_counter() - start:.2f} s")

@@ -112,8 +112,9 @@ def make_reconstruction_step(segment, scan_values: Mapping[str, torch.Tensor],
     replays it; the returned tensors are the graph's own, which the next
     call rewrites.  On the CPU the same step runs eagerly under
     ``graphs.capturing``; ``graph=False`` runs it plainly eagerly.
-    ``reconstruct.blocks`` holds the KDE's particle blocks a step issues
-    (forward and backward; counted at the capture on the card).
+    ``reconstruct.launches`` holds the KDE kernel B9's launches a step
+    issues on the card (forward and backward, counted at the capture),
+    ``reconstruct.blocks`` the blocked route's particle blocks on the CPU.
     """
     screen = _kde_screen(segment).name
 
@@ -132,9 +133,10 @@ def make_reconstruction_step(segment, scan_values: Mapping[str, torch.Tensor],
         return loss.detach(), images.detach()
 
     def counted(step):
-        blocks = kde.kde_sums.blocks
+        blocks, launches = kde.kde_sums.blocks, kde.kde_sums.launches
         out = step()
         reconstruct.blocks = kde.kde_sums.blocks - blocks
+        reconstruct.launches = kde.kde_sums.launches - launches
         return out
 
     cache = StepCache("reconstruction step")
@@ -150,5 +152,5 @@ def make_reconstruction_step(segment, scan_values: Mapping[str, torch.Tensor],
         return step()
 
     reconstruct.cache = cache
-    reconstruct.blocks = None
+    reconstruct.blocks = reconstruct.launches = None
     return reconstruct
