@@ -2027,7 +2027,7 @@ def path_lattice_read(torch, ares, functional, hist, ParticleBeam, ParameterBeam
 
 def lattice_runs(fused, lattice, energy, B, torch):
     """The fused sweep's plans of a lattice's runs between its non-skippable
-    elements, as ``segment._fused_flush`` builds them: (entries, values)."""
+    elements, as ``segment._sweep`` builds them: (entries, values)."""
     plans = []
     for run in skippable_runs(lattice.flattened().elements):
         plan = fused.plan_run([fused.element_map_builder(el) for el in run], energy,

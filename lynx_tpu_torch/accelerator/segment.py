@@ -3,24 +3,11 @@
 
 Tracking partitions the flattened elements into maximal runs of skippable
 (purely linear) elements, with the non-skippable elements (an active
-screen) tracked between the runs.  A run takes one of four routes
-(:meth:`Segment._flush_run`):
-
-* the fused moment sweep, kernels B3/B4 (``ops/fused_track.py``), for a
-  ``ParameterBeam`` over at least ``PALLAS_SWEEP_THRESHOLD`` settings;
-* the per-setting particle push, kernel B2, for a ``(B, N, 7)``
-  ``ParticleBeam`` with B >= 16 and N < ``PARTICLE_SWEEP_N_THRESHOLD``;
-* the particle push with the run's maps built on the card, kernel B8, for
-  any other ``ParticleBeam`` that needs no gradient
-  (:func:`_particle_push_flush`, which ``functional.track`` takes too);
-* otherwise the dense route: the run's maps folded into one ``(..., 7, 7)``
-  matrix (``ops.folding``) and applied at once.
-
-The fused routes are taken for CUDA tensors; ``FUSED_SWEEP_PATH``,
-``PARTICLE_SWEEP_PATH`` and ``PARTICLE_PUSH_PATH`` force them on or off
-whatever the device (on the CPU they run the kernels' plain versions).  The
-JAX package's batch-last and table routes are TPU layout devices and are not
-ported.
+screen) tracked between the runs.  Both trackers, :meth:`Segment.track` and
+``functional.track``, flush a run through :meth:`Segment._flush_run`, which
+takes the route :func:`_choose_route` picks: the route order, with each
+route's conditions, is written there.  The JAX package's batch-last and
+table routes are TPU layout devices and are not ported.
 """
 
 from __future__ import annotations
@@ -58,9 +45,14 @@ FUSED_SWEEP_PATH = None
 #: TPU; the H100's crossover is measured in PERF.md.
 PARTICLE_SWEEP_N_THRESHOLD = 16384
 
+#: Fewest settings B for which a (B, N, 7) ParticleBeam run takes kernel B2:
+#: with fewer, a per-setting launch does not pay off.
+_PARTICLE_SWEEP_MIN_SETTINGS = 16
+
 #: Routing override for the particle push: ``None`` = by device (CUDA
 #: tensors, N < PARTICLE_SWEEP_N_THRESHOLD), ``True``/``False`` force it
-#: on/off whatever the device (still only for (B, N, 7) beams, B >= 16).
+#: on/off whatever the device (still only for (B, N, 7) beams with at least
+#: _PARTICLE_SWEEP_MIN_SETTINGS settings).
 PARTICLE_SWEEP_PATH = None
 
 #: Routing override for the particle push with the run's maps built on the
@@ -87,43 +79,96 @@ def flush_run(run: List[Element], beam: Beam) -> Beam:
     return apply_transfer_map(stacked_transfer_map(run, beam.energy), beam)
 
 
-def _flat_batch_of(elements: List[Element], energy: torch.Tensor) -> tuple:
-    """The joint batch shape of the elements' lengths and the energy, and
-    its flat size."""
-    shapes = [energy.shape] + [element.length.shape for element in elements]
-    batch_shape = torch.broadcast_shapes(*shapes)
-    flat = 1
-    for dim in batch_shape:
-        flat *= dim
-    return batch_shape, flat
+def _joint_shape(elements: List[Element], energy: torch.Tensor) -> torch.Size:
+    """The joint batch shape of the elements' lengths and the energy."""
+    return torch.broadcast_shapes(energy.shape, *(element.length.shape for element in elements))
 
 
-def _fused_flush(run: List[Element], beam: Beam):
-    """Try the fused moment sweep (kernels B3/B4); ``None`` if it does not
-    apply."""
-    from lynx_tpu_torch.accelerator.fused import element_map_builder, plan_run
+def _choose_route(run: List[Element], beam: Beam, builders: Optional[list],
+                  per_setting_push: bool):
+    """The route of a run of skippable elements and the batch shape it runs
+    at, ``(route, batch_shape)``; ``route`` is ``None`` for the dense fold.
+    ``builders`` is the run's ``element_map_builder`` list, ``None`` where an
+    element has no builder (then only the dense fold applies).  The first
+    route whose every condition holds is taken:
+
+    1. the fused moment sweep, kernels B3/B4 (:func:`_sweep`): a
+       ``ParameterBeam``; ``FUSED_SWEEP_PATH`` where set, else the beam on
+       CUDA; the joint shape of the energy, the elements' lengths and ``mu``
+       at least ``PALLAS_SWEEP_THRESHOLD`` settings.
+    2. the per-setting particle push, kernel B2 (:func:`_particle_sweep`),
+       only where ``per_setting_push`` (``Segment.track``; like the JAX
+       package's, ``functional.track`` never takes it): a ``(B, N, 7)``
+       ``ParticleBeam``; ``PARTICLE_SWEEP_PATH`` where set, else the beam on
+       CUDA with N below ``PARTICLE_SWEEP_N_THRESHOLD``; B at least
+       ``_PARTICLE_SWEEP_MIN_SETTINGS``; the joint shape of the energy and
+       the elements' lengths broadcasting with ``(B,)`` to ``(B,)``.
+    3. the particle push with the run's maps built on the card, kernel B8
+       (:func:`_particle_push`): a ``ParticleBeam``; ``PARTICLE_PUSH_PATH``
+       where set, else the beam on CUDA; the run's parameters, and the
+       energy unless every element is a custom map (which does not depend
+       on it), not broadcasting the particles' batch; every parameter and
+       floating buffer of the particles' dtype; no gradient to take.
+    4. otherwise the dense route, :func:`flush_run`: the run's maps folded
+       into one ``(..., 7, 7)`` matrix (``ops.folding``) and applied at once;
+       it carries every gradient.
+
+    The switches force a route on or off whatever the device; on the CPU the
+    fused routes run their kernels' plain versions."""
+    from lynx_tpu_torch.ops.fused_track import TAPE_CUSTOM
+
+    if builders is None:
+        return None, None
+    energy = torch.as_tensor(beam.energy)
+    if isinstance(beam, ParameterBeam):
+        use_fused = FUSED_SWEEP_PATH
+        if use_fused is None:
+            use_fused = beam._mu.is_cuda
+        if use_fused:
+            batch_shape = torch.broadcast_shapes(_joint_shape(run, energy), beam._mu.shape[:-1])
+            if math.prod(batch_shape) >= PALLAS_SWEEP_THRESHOLD:
+                return _sweep, batch_shape
+        return None, None
+    if not isinstance(beam, ParticleBeam):
+        return None, None
+    particles = beam.particles
+    if per_setting_push and particles.ndim == 3:
+        use_sweep = PARTICLE_SWEEP_PATH
+        if use_sweep is None:
+            use_sweep = particles.is_cuda and particles.shape[-2] < PARTICLE_SWEEP_N_THRESHOLD
+        B = particles.shape[0]
+        if use_sweep and B >= _PARTICLE_SWEEP_MIN_SETTINGS:
+            batch_shape = torch.broadcast_shapes(_joint_shape(run, energy), (B,))
+            if batch_shape == (B,):
+                return _particle_sweep, batch_shape
+    use_push = PARTICLE_PUSH_PATH
+    if use_push is None:
+        use_push = particles.is_cuda
+    if not use_push:
+        return None, None
+    params = [p for values, _ in builders for p in values]
+    # The dense route's batch shape: its maps' parameters, and the energy for
+    # every map but a custom one (which does not depend on it).
+    shapes = [p.shape for p in params]
+    if any(fn.tape_kind != TAPE_CUSTOM for _, fn in builders):
+        shapes.append(energy.shape)
+    batch_shape = torch.broadcast_shapes(particles.shape[:-2], *shapes)
+    if math.prod(batch_shape) != math.prod(particles.shape[:-2]):
+        return None, None
+    tensors = params + [t for el in run for t in el.buffers() if t.is_floating_point()]
+    if any(t.dtype != particles.dtype for t in tensors):
+        return None, None
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (particles, energy, *params)):
+        return None, None
+    return _particle_push, batch_shape
+
+
+def _sweep(builders, beam: ParameterBeam, batch_shape) -> ParameterBeam:
+    """The fused moment sweep (kernels B3/B4)."""
+    from lynx_tpu_torch.accelerator.fused import plan_run
     from lynx_tpu_torch.ops.fused_track import fused_moment_sweep_plan
 
-    if not isinstance(beam, ParameterBeam):
-        # ParticleBeam routing happens in Segment._flush_run through
-        # _route_particle_sweep.
-        return None
-    use_fused = FUSED_SWEEP_PATH
-    if use_fused is None:
-        use_fused = beam._mu.is_cuda
-    if not use_fused:
-        return None
-    energy = torch.as_tensor(beam.energy)
-    batch_shape, _ = _flat_batch_of(run, energy)
-    batch_shape = torch.broadcast_shapes(batch_shape, beam._mu.shape[:-1])
-    flat = 1
-    for dim in batch_shape:
-        flat *= dim
-    if flat < PALLAS_SWEEP_THRESHOLD:
-        return None
-    builders = [element_map_builder(el) for el in run]
-    if any(b is None for b in builders):
-        return None
+    flat, energy = math.prod(batch_shape), torch.as_tensor(beam.energy)
 
     def vec(x):
         return torch.broadcast_to(x, batch_shape).reshape(flat)
@@ -140,41 +185,16 @@ def _fused_flush(run: List[Element], beam: Beam):
     )
 
 
-def _route_particle_sweep(beam: Beam) -> bool:
-    """Whether a run of ``beam`` takes the per-setting particle push."""
-    if not isinstance(beam, ParticleBeam) or beam.particles.ndim != 3:
-        return False
-    if PARTICLE_SWEEP_PATH is not None:
-        return PARTICLE_SWEEP_PATH
-    return beam.particles.is_cuda and beam.particles.shape[-2] < PARTICLE_SWEEP_N_THRESHOLD
-
-
-def _fused_particle_flush(run: List[Element], beam: ParticleBeam):
-    """The per-setting particle push (kernel B2) for (B, N, 7) beams;
-    ``None`` if it does not apply."""
-    from lynx_tpu_torch.accelerator.fused import element_map_builder
+def _particle_sweep(builders, beam: ParticleBeam, batch_shape) -> ParticleBeam:
+    """The per-setting particle push (kernel B2) of a ``(B, N, 7)`` beam."""
     from lynx_tpu_torch.ops.fused_track import fused_particle_sweep
 
-    if beam.particles.ndim != 3:
-        return None
-    B = beam.particles.shape[0]
-    if B < 16:  # too few settings for a per-setting launch to pay off
-        return None
-    energy = torch.as_tensor(beam.energy)
-    batch_shape, _ = _flat_batch_of(run, energy)
-    batch_shape = torch.broadcast_shapes(batch_shape, (B,))
-    if batch_shape != (B,):
-        return None
-    builders = [element_map_builder(el) for el in run]
-    if any(b is None for b in builders):
-        return None
-
     def vec(x):
-        return torch.broadcast_to(x, (B,))
+        return torch.broadcast_to(x, batch_shape)
 
     element_params = [[vec(p) for p in params] for params, _ in builders]
-    build_fns = [fn for _, fn in builders]
-    out_particles = fused_particle_sweep(build_fns, element_params, vec(energy), beam.particles)
+    out_particles = fused_particle_sweep([fn for _, fn in builders], element_params,
+                                         vec(torch.as_tensor(beam.energy)), beam.particles)
     return ParticleBeam(
         out_particles,
         beam.energy,
@@ -183,49 +203,19 @@ def _fused_particle_flush(run: List[Element], beam: ParticleBeam):
     )
 
 
-def _particle_push_flush(run: List[Element], beam: Beam):
-    """The particle push with the run's maps built on the card (kernel B8)
-    for a ``ParticleBeam``; ``None`` if it does not apply: an element
-    without a device builder, settings that would broadcast the particles,
-    an element of another dtype than the particles', or a gradient to take
-    (the dense route carries it)."""
-    from lynx_tpu_torch.accelerator.fused import element_map_builder
-    from lynx_tpu_torch.ops.fused_track import TAPE_CUSTOM, particle_push
+def _particle_push(builders, beam: ParticleBeam, batch_shape) -> ParticleBeam:
+    """The particle push with the run's maps built on the card (kernel B8)."""
+    from lynx_tpu_torch.ops.fused_track import particle_push
 
-    if not isinstance(beam, ParticleBeam):
-        return None
-    use_push = PARTICLE_PUSH_PATH
-    if use_push is None:
-        use_push = beam.particles.is_cuda
-    if not use_push:
-        return None
-    builders = [element_map_builder(el) for el in run]
-    if any(b is None for b in builders):
-        return None
     particles, energy = beam.particles, torch.as_tensor(beam.energy)
-    params = [p for values, _ in builders for p in values]
-    # The dense route's batch shape: its maps' parameters, and the energy for
-    # every map but a custom one (which does not depend on it).
-    shapes = [p.shape for p in params]
-    if any(fn.tape_kind != TAPE_CUSTOM for _, fn in builders):
-        shapes.append(energy.shape)
-    batch_shape = torch.broadcast_shapes(particles.shape[:-2], *shapes)
-    B = math.prod(batch_shape)
-    if B != math.prod(particles.shape[:-2]):
-        return None
-    tensors = params + [t for el in run for t in el.buffers() if t.is_floating_point()]
-    if any(t.dtype != particles.dtype for t in tensors):
-        return None
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (particles, energy, *params)):
-        return None
+    B, N = math.prod(batch_shape), particles.shape[-2]
 
     def vec(x):
         return torch.broadcast_to(x, batch_shape).reshape(B)
 
-    N = particles.shape[-2]
     entries = tuple(("dyn", fn, len(values)) for values, fn in builders)
-    out = particle_push(entries, [vec(p) for p in params], vec(energy).contiguous(),
-                        particles.reshape(B, N, 7).contiguous())
+    out = particle_push(entries, [vec(p) for values, _ in builders for p in values],
+                        vec(energy).contiguous(), particles.reshape(B, N, 7).contiguous())
     return ParticleBeam(
         out.reshape(*batch_shape, N, 7),
         beam.energy,
@@ -598,22 +588,24 @@ class Segment(Element):
             if element.is_skippable:
                 run.append(element)
                 continue
-            beam = self._flush_run(run, beam)
+            beam = self._flush_run(run, beam, per_setting_push=True)
             run = []
             beam = element.track(beam)
-        return self._flush_run(run, beam)
+        return self._flush_run(run, beam, per_setting_push=True)
 
     @staticmethod
-    def _flush_run(run: List[Element], beam: Beam) -> Beam:
-        """One run of skippable elements: the fused moment sweep, else the
-        per-setting particle push, else the push with the maps built on the
-        card, else the dense fold."""
+    def _flush_run(run: List[Element], beam: Beam, per_setting_push: bool) -> Beam:
+        """One run of skippable elements, by the route :func:`_choose_route`
+        picks: each element's map builder is made once and handed to it.
+        ``per_setting_push`` lets the run take kernel B2 (``Segment.track``);
+        ``functional.track`` passes ``False``."""
+        from lynx_tpu_torch.accelerator.fused import element_map_builder
+
         if not run or beam is Beam.empty:
             return beam
         with profiling.span("track.plan"):
-            fused = _fused_flush(run, beam)
-            if fused is None and _route_particle_sweep(beam):
-                fused = _fused_particle_flush(run, beam)
-            if fused is None:
-                fused = _particle_push_flush(run, beam)
-            return flush_run(run, beam) if fused is None else fused
+            builders = [element_map_builder(el) for el in run]
+            if any(b is None for b in builders):
+                builders = None
+            route, batch_shape = _choose_route(run, beam, builders, per_setting_push)
+            return flush_run(run, beam) if route is None else route(builders, beam, batch_shape)

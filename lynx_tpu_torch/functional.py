@@ -10,18 +10,12 @@ from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Tuple
 
-from lynx_tpu_torch import profiling
 from lynx_tpu_torch.accelerator.aperture import Aperture
 from lynx_tpu_torch.accelerator.bpm import BPM, bpm_reading
 from lynx_tpu_torch.accelerator.cavity import Cavity
 from lynx_tpu_torch.accelerator.element import Element
 from lynx_tpu_torch.accelerator.screen import Screen
-from lynx_tpu_torch.accelerator.segment import (
-    Segment,
-    _fused_flush,
-    _particle_push_flush,
-    flush_run,
-)
+from lynx_tpu_torch.accelerator.segment import Segment
 from lynx_tpu_torch.graphs import graphed
 from lynx_tpu_torch.particles import Beam, ParameterBeam, ParticleBeam
 
@@ -42,30 +36,20 @@ def track(segment: Segment, incoming: Beam) -> Tuple[Optional[Beam], Diagnostics
     No element state is touched.  An element type that this port does not
     track yet raises ``NotImplementedError``; it is never skipped.
 
-    A run of linear elements tries the fused moment sweep first
-    (``segment._fused_flush``), then the particle push with the run's maps
-    built on the card (kernel B8, ``segment._particle_push_flush``), then
-    the dense fold.  Like the JAX package's ``functional.track``, this never
-    takes the per-setting particle push (kernel B2): only ``Segment.track``
-    does.
+    A run of linear elements takes the route ``segment._choose_route``
+    picks, through ``Segment._flush_run``; like the JAX package's
+    ``functional.track``, this never takes the per-setting particle push
+    (kernel B2).
     """
     diagnostics: Diagnostics = {}
     beam = incoming
     run: List[Element] = []
 
-    def flush(run: List[Element], beam: Beam) -> Beam:
-        if not run:
-            return beam
-        with profiling.span("track.plan"):
-            fused = _fused_flush(run, beam)
-            if fused is None:
-                fused = _particle_push_flush(run, beam)
-            return flush_run(run, beam) if fused is None else fused
     for element in segment.flattened().elements:
         if element.is_skippable:
             run.append(element)
             continue
-        beam = flush(run, beam)
+        beam = Segment._flush_run(run, beam, per_setting_push=False)
         run = []
         if isinstance(element, Cavity):
             beam = element.track(beam)
@@ -88,7 +72,7 @@ def track(segment: Segment, incoming: Beam) -> Tuple[Optional[Beam], Diagnostics
             f"functional.track: {type(element).__name__} ({element.name!r}) is"
             " not ported to lynx_tpu_torch yet"
         )
-    return flush(run, beam), diagnostics
+    return Segment._flush_run(run, beam, per_setting_push=False), diagnostics
 
 
 def moment_sufficient(segment: Segment, incoming: Beam) -> bool:

@@ -302,6 +302,7 @@ def test_a_shared_cloud_under_settings_with_a_gradient_takes_the_dense_route(mon
     the run's ``(S, 7, 7)`` maps and pushes the shared cloud, and the
     gradient reaches the particles, under the host-read guard."""
     from lynx_tpu_torch.accelerator import segment as segment_module
+    from lynx_tpu_torch.accelerator.fused import element_map_builder
 
     monkeypatch.setattr(segment_module, "PARTICLE_PUSH_PATH", True)
     segment = ea_segment(torch.float64)
@@ -309,7 +310,8 @@ def test_a_shared_cloud_under_settings_with_a_gradient_takes_the_dense_route(mon
     run = list(segment.elements)[:-1]
     particles = particle_beam(torch.float64).particles.requires_grad_(True)
     beam = ParticleBeam(particles, torch.tensor(1.073e8, dtype=torch.float64))
-    assert segment_module._particle_push_flush(run, beam) is None
+    builders = [element_map_builder(el) for el in run]
+    assert segment_module._choose_route(run, beam, builders, per_setting_push=False) == (None, None)
     with graphs.host_read_guard():
         out = track(segment.subcell("AREASOLA1", "Drift_AREAMCHM1"), beam)[0]
     maps = segment_module.stacked_transfer_map(run, beam.energy)
