@@ -947,6 +947,14 @@ def check_sweep_kernels(torch, ltt, ft, fused, env):
                 or b4f[1] > bounds["B4 moments"] or energy32[0] > 1):
             raise AssertionError(f"B3/B4 in float exceed their bounds: {label}: {b3f}, {b4f},"
                                  f" energy {energy32}")
+        # The tuner's mask: the cotangents asked for equal the all-inputs
+        # launch's bit for bit, the others are None.
+        wanted = tuner_mask(entries)
+        masked = ft.moment_sweep_bwd(entries, *f32, wanted)
+        for flag, got, every in zip(wanted, (*masked[0], *masked[1:]),
+                                    (*kernel_bwd[0], *kernel_bwd[1:])):
+            if (got is not None) != flag or (flag and not torch.equal(got, every)):
+                raise AssertionError(f"B4 with the tuner's mask differs: {label}")
         if label.startswith("path S/T"):
             worst_abs["B3"] = max(float((k.double() - p).abs().max()) for k, p in zip(kernel, plain))
             # Over the cotangents the bounds hold (d/dk1 at |k1| < K1_SMALL apart).
@@ -1087,6 +1095,13 @@ def reset_counts(ft, hist):
     for wrapper in (hist.window_histogram, ft.particle_apply, ft.moment_sweep, ft.moment_sweep_bwd,
                     ft.particle_moment_sweep, ft.packed_gram, ft.particle_push):
         wrapper.launches = 0
+    ft.moment_sweep_bwd.cotangents = ft.moment_sweep_bwd.inputs = 0
+
+
+def cotangent_counts(ft, calls):
+    """B4's cotangents formed and its tapes' inputs, a call, since the last
+    reset_counts."""
+    return ft.moment_sweep_bwd.cotangents // calls, ft.moment_sweep_bwd.inputs // calls
 
 
 def counts(ft):
@@ -1181,13 +1196,17 @@ def path_training(torch, ft, hist, envs, env, tuning, card):
         tuned, losses = tuning.tune(loss_fn, start, params, steps=SWEEP_STEPS, graph=False)
         torch.cuda.synchronize()
     launched = counts(ft)  # the path's own launches, before any timing
+    cotangents, inputs = cotangent_counts(ft, SWEEP_STEPS)
     losses = losses.tolist()
     print(f"path T: tune of ({B}, 5) settings, {SWEEP_STEPS} Adam steps (the eager loop): loss"
           f" {losses[0]:.6e}"
           f" -> {losses[-1]:.6e}; launches {launched}, plain versions on CUDA tensors"
-          f" {plain['count']}")
+          f" {plain['count']}; B4 differentiated {cotangents} of its tape's {inputs} inputs a"
+          f" step (moment_sweep_bwd.cotangents, .inputs)")
     if launched["B3"] != SWEEP_STEPS or launched["B4"] != SWEEP_STEPS or plain["count"]:
         raise AssertionError("path T did not run every step through kernels B3 and B4")
+    if cotangents != 5:
+        raise AssertionError("path T: B4 did not differentiate the five tuned fields alone")
     if not losses[-1] < losses[0] or not bool(torch.isfinite(tuned).all()):
         raise AssertionError("path T: the loss did not fall")
 
@@ -1414,73 +1433,110 @@ def dynamic_support(ft, code):
     return s, o
 
 
-def sweep_flops(ft, entries):
+def tuner_mask(entries):
+    """The tuner's cotangents over a plan's values: one value of each
+    dynamic entry (a quadrupole's k1, a corrector's or dipole's angle, a
+    solenoid's k; the first of a one-value entry), no const cell, and
+    neither the energy nor the moments (wanted flags as
+    ``fused_track.moment_sweep_bwd`` takes them)."""
+    wanted = []
+    for kind, _, count in entries:
+        wanted += [kind == "dyn" and k == min(1, count - 1) for k in range(count)]
+    return wanted + [False, False, False]
+
+
+def upper_sandwich(support, ones):
+    """Flops of the upper triangle of P R^T for a dense P and a map R of
+    ``support`` and ``ones`` (B4's forward step of Sigma)."""
+    flops = 0
+    for i in range(7):
+        for l in range(i, 7):
+            terms = [k for k in range(7) if has(support, l, k)]
+            plain = [k for k in terms if not has(ones, l, k)]
+            flops += len(plain) + len(terms) - 1
+    return flops
+
+
+def sweep_flops(ft, entries, wanted=None):
     """Flops per setting that B3 and B4 need on one plan, counted on the
     structural supports of its maps (dynamic: the builders'; const: the
     cells that are not literal zeros), with dense moments and cotangents.
-    B3: the chain T = R_{E-1} .. R_0, T mu and T C T^T.  B4: the chain; T^T
-    dmu and T^T dcov T; dT = dmu mu^T + dcov T C^T + dcov^T T C; per entry
-    in reverse, the cells of dR_i = A M_i^T that its inputs reach, their
-    contraction with dR_i/dp for each dynamic input, and A <- R_i^T A; the
-    batch sum of the const cells' cotangents.  The builders' own arithmetic
-    is not counted."""
-    maps = []  # (support, ones, cells of dR, dynamic inputs) per entry
+    B3: the chain T = R_{E-1} .. R_0, T mu and T C T^T.  B4, with the
+    cotangents ``wanted`` (one flag per value, then the energy, mu and cov;
+    None: every input): the forward pass's steps, mu <- R mu and the upper
+    triangle of (R Sigma) R^T, up to the last entry with an input asked for;
+    per entry in reverse g <- R^T g and G <- R^T (G R); at an entry with an
+    input asked for, R Sigma, H = G + G^T, the cells of dR = g mu^T + H R
+    Sigma that its inputs reach (a dynamic entry's: the support less its
+    ones; a const or custom entry's: the cells asked for), a contraction
+    with dR/dp for each dynamic input asked for, and the batch sum of the
+    const cells asked for.  The builders' own arithmetic is not counted."""
+    n_values = sum(count for _, _, count in entries)
+    wanted = [True] * (n_values + 3) if wanted is None else list(wanted)
+    want_energy = wanted[n_values]
+    flags = iter(wanted[:n_values])
+    maps = []  # (support, ones, cells of dR, contractions, const cells summed) per entry
     for kind, meta, count in entries:
+        asked = [next(flags) for _ in range(count)]
         if kind == "dyn":
             code = meta.tape_kind
             if code == ft.TAPE_IDENTITY:
                 continue
             support, ones = dynamic_support(ft, code)
-            # A custom map's cells are its inputs: their cotangents are dR's.
-            inputs = 0 if code == ft.TAPE_CUSTOM else count + 1
-            maps.append((support, ones, support & ~ones, inputs))
+            if code == ft.TAPE_CUSTOM:  # its cells are its inputs: their cotangents are dR's
+                maps.append((support, ones, sum(asked), 0, 0))
+                continue
+            inputs = sum(asked) + int(want_energy)
+            maps.append((support, ones, bin(support & ~ones).count("1") if inputs else 0,
+                         inputs, 0))
         else:
             literal = [[isinstance(c, float) for c in row] for row in meta]
             support = mask_of((i, j) for i in range(7) for j in range(7)
-                            if not (literal[i][j] and meta[i][j] == 0.0))
+                              if not (literal[i][j] and meta[i][j] == 0.0))
             ones = mask_of((i, j) for i in range(7) for j in range(7)
-                         if literal[i][j] and meta[i][j] == 1.0)
-            free = mask_of((i, j) for i in range(7) for j in range(7) if not literal[i][j])
-            maps.append((support, ones, free, 0))
-    chain, prefixes = 0, []
+                           if literal[i][j] and meta[i][j] == 1.0)
+            maps.append((support, ones, sum(asked), 0, sum(asked)))
+    chain = 0
     m, m_ones = IDENTITY, IDENTITY
-    for support, ones, _, _ in maps:
-        prefixes.append((m, m_ones))
+    for support, ones, _, _, _ in maps:
         m, m_ones, flops = product(support, ones, m, m_ones)
         chain += flops
     t, t_ones = m, m_ones
     tt, tt_ones = transposed(t), transposed(t_ones)
-    tc, _, tc_flops = product(t, t_ones, DENSE, 0)  # T C, and T C^T alike
+    tc, _, tc_flops = product(t, t_ones, DENSE, 0)  # T C
     b3 = chain + product(t, t_ones, COLUMN, 0)[2] + tc_flops + product(tc, 0, tt, tt_ones)[2]
-    x, _, x_flops = product(DENSE, 0, t, t_ones)  # dcov T
-    b4 = (chain + product(tt, tt_ones, COLUMN, 0)[2] + x_flops + product(tt, tt_ones, x, 0)[2]
-          + 2 * tc_flops + 2 * product(DENSE, 0, tc, 0)[2] + 49 + 2 * 49)
-    for e in reversed(range(len(maps))):
-        support, ones, reached, inputs = maps[e]
-        m, m_ones = prefixes[e]
-        for c in range(7):  # dR_i[r, c] = sum_k A[r, k] M_i[c, k], A dense
-            row = [k for k in range(7) if has(m, c, k)]
-            plain = [k for k in row if not has(m_ones, c, k)]
-            n_cells = sum(has(reached, r, c) for r in range(7))
-            b4 += n_cells * (len(plain) + len(row) - 1)
-        n = bin(reached).count("1")
-        b4 += inputs * (2 * n - 1) if inputs else n  # contractions, or the batch sum
-        if e:
-            b4 += product(transposed(support), transposed(ones), DENSE, 0)[2]
+    last = max((e for e, entry in enumerate(maps) if entry[2] or entry[3]), default=-1)
+    b4 = 0
+    for e, (support, ones, cells, inputs, summed) in enumerate(maps):
+        if e < last:  # the forward pass's step
+            b4 += (product(support, ones, COLUMN, 0)[2] + product(support, ones, DENSE, 0)[2]
+                   + upper_sandwich(support, ones))
+        st, st_ones = transposed(support), transposed(ones)
+        b4 += (product(st, st_ones, COLUMN, 0)[2] + product(DENSE, 0, support, ones)[2]
+               + product(st, st_ones, DENSE, 0)[2])  # the pull-back
+        if cells or inputs:
+            b4 += product(support, ones, DENSE, 0)[2] + 28 + 15 * cells
+            b4 += inputs * (2 * cells - 1) + summed
     return b3, b4
 
 
-def sweep_bounds(ft, entries, values, full, mu, cov):
+def sweep_bounds(ft, entries, values, full, mu, cov, wanted=None):
     """Bounds of B3 and B4 on one plan: their operands as the wrappers pass
-    them, and the flops of :func:`sweep_flops`."""
+    them (B4: with the cotangents ``wanted``, its outputs the ones asked
+    for; its workspace of states is its own choice, not counted), and the
+    flops of :func:`sweep_flops`."""
     B = mu.shape[0]
     tape = ft._tape(entries, mu.device)
     params, consts = ft._tape_operands(entries, values, tape, mu.dtype, B)
-    b3_flops, b4_flops = sweep_flops(ft, entries)
+    b3_flops, b4_flops = sweep_flops(ft, entries, wanted)
     b3 = bound(nbytes(params, consts, full, mu, cov) + nbytes(mu, cov), B * b3_flops)
-    d_consts = tape.cell_pos.shape[0] * B * mu.element_size()
-    b4 = bound(nbytes(params, consts, full, mu, cov, mu, cov)
-               + nbytes(params, full, mu, cov) + d_consts, B * b4_flops)
+    n = len(values)
+    wanted = [True] * (n + 3) if wanted is None else list(wanted)
+    kinds = [kind for kind, _, count in entries for _ in range(count)]
+    asked_rows = sum(flag for flag, kind in zip(wanted, kinds) if kind == "dyn")
+    outputs = (asked_rows + wanted[n] + 7 * wanted[n + 1] + 49 * wanted[n + 2]) * B
+    b4 = bound(nbytes(params, consts, full, mu, cov, mu, cov) + outputs * mu.element_size(),
+               B * b4_flops)
     return b3, b4
 
 
@@ -1502,6 +1558,8 @@ def time_kernels(torch, ft, fused, tbl, env, card):
     dmu, dcov = torch.randn_like(mu), torch.randn_like(cov)
     args = (entries, values, full, mu, cov)
     b3_bound, b4_bound = sweep_bounds(ft, entries, [v.float() for v in values], full, mu, cov)
+    mask = tuner_mask(entries)  # the tuner's: the five tuned fields
+    tuner_bound = sweep_bounds(ft, entries, [v.float() for v in values], full, mu, cov, mask)[1]
     shape = f"B={SWEEP_BATCH}, {len(entries)} entries"
     timing = {
         "B3": dict(ms=cuda_ms(lambda: ft.moment_sweep(*args), iters=50),
@@ -1510,13 +1568,20 @@ def time_kernels(torch, ft, fused, tbl, env, card):
         "B4": dict(ms=cuda_ms(lambda: ft.moment_sweep_bwd(*args, dmu, dcov), iters=50),
                    plain_ms=cuda_ms(lambda: ft._reference_sweep_vjp(*args, dmu, dcov),
                                       iters=10),
-                   bound=b4_bound, library_ms=None, shape=shape),
+                   bound=b4_bound, library_ms=None, shape=f"{shape}, every input"),
+        "B4, the tuner's mask": dict(
+            ms=cuda_ms(lambda: ft.moment_sweep_bwd(*args, dmu, dcov, mask), iters=50),
+            plain_ms=cuda_ms(lambda: ft._reference_sweep_vjp(*args, dmu, dcov, mask), iters=10),
+            bound=tuner_bound, library_ms=None, shape=f"{shape}, the 5 tuned fields"),
     }
     calls = {
         "B3": (lambda: ft.moment_sweep(*args), lambda: ft._table_reference_sweep(*args),
                "moment_sweep_kernel"),
         "B4": (lambda: ft.moment_sweep_bwd(*args, dmu, dcov),
                lambda: ft._reference_sweep_vjp(*args, dmu, dcov), "moment_sweep_bwd_kernel"),
+        "B4, the tuner's mask": (lambda: ft.moment_sweep_bwd(*args, dmu, dcov, mask),
+                                 lambda: ft._reference_sweep_vjp(*args, dmu, dcov, mask),
+                                 "moment_sweep_bwd_kernel"),
     }
     # B2 at path P's shape (the JSON line's) and at the crossover's largest
     # N; the library call is one batched product of the same float operands
@@ -2066,13 +2131,17 @@ def path_lattice_sweep(torch, ltt, ares, ft, fused, hist, functional, segment_mo
         grads = torch.autograd.grad(loss_of(outgoing), tuned)
         torch.cuda.synchronize()
     launched = counts(ft)
+    cotangents, inputs = cotangent_counts(ft, 1)
     runs = lattice_runs(fused, lattice, beam.energy, B, torch)
     entries = [len(entries) for entries, _ in runs]
     print(f"path L (sweep): {len(lattice.elements)} elements at B={B}, {len(tuned)} tuned fields,"
           f" runs of {entries} tape entries; launches {launched}, plain versions on CUDA"
-          f" tensors {plain['count']}")
+          f" tensors {plain['count']}; B4 differentiated {cotangents} of its tapes' {inputs}"
+          f" inputs (moment_sweep_bwd.cotangents, .inputs)")
     if launched["B3"] != len(runs) or launched["B4"] != len(runs) or plain["count"]:
         raise AssertionError("path L did not run every run through kernels B3 and B4")
+    if cotangents != len(tuned):
+        raise AssertionError("path L: B4 did not differentiate the tuned fields alone")
     if outgoing._mu.shape != (B, 7) or not all(bool(torch.isfinite(g).all()) for g in grads):
         raise AssertionError("path L: bad output or gradient")
 
@@ -2123,14 +2192,51 @@ def path_lattice_sweep(torch, ltt, ares, ft, fused, hist, functional, segment_mo
     mu = torch.zeros((B, 7), device="cuda")
     cov = torch.zeros((B, 7, 7), device="cuda")
     full = torch.full((B,), 1.073e8, device="cuda")
-    b3_bound = b4_bound = 0.0
-    for run_entries, values in runs:
-        bounds = sweep_bounds(ft, run_entries, [v.float() for v in values], full, mu, cov)
-        b3_bound, b4_bound = b3_bound + bounds[0][0], b4_bound + bounds[1][0]
+
+    def bounds_over(runs):
+        """B3's and B4's bounds summed over a lattice's runs, B4 with the
+        tuned fields asked for (and the moments from the second run on)."""
+        b3_bound = b4_bound = 0.0
+        for k, (run_entries, values) in enumerate(runs):
+            wanted = tuner_mask(run_entries)[:-2] + [k > 0, k > 0]
+            bounds = sweep_bounds(ft, run_entries, [v.float() for v in values], full, mu, cov,
+                                  wanted)
+            b3_bound, b4_bound = b3_bound + bounds[0][0], b4_bound + bounds[1][0]
+        return b3_bound, b4_bound
+
+    b3_bound, b4_bound = bounds_over(runs)
     print(f"path L (sweep): forward {forward_ms:.4f} ms, value and gradient {both_ms:.4f} ms per"
           f" call (CUDA events, 5 calls); device time forward {device:.4f} ms, of it B3 {b3:.5f}"
           f" ms (bound {b3_bound:.5f} ms over the runs), value and gradient {device_both:.4f} ms,"
           f" of it B4 {b4:.5f} ms (bound {b4_bound:.5f} ms) (torch.profiler, 3 calls; card {card})")
+
+    # The full tuner's tape (portbench's ares_full.tune_100k): the lattice as
+    # a captured step sees it, its unpowered cavities on their active path,
+    # so that they and the active apertures end 8 runs.
+    from lynx_tpu_torch import graphs
+
+    def tuner_both():
+        with graphs.capture_scope():
+            out, _ = functional.track(lattice, beam)
+        torch.autograd.grad(loss_of(out), tuned)
+
+    reset_counts(ft, hist)
+    tuner_both()
+    torch.cuda.synchronize()
+    launches = ft.moment_sweep_bwd.launches
+    cotangents, inputs = cotangent_counts(ft, 1)
+    with graphs.capture_scope():
+        tuner_runs = lattice_runs(fused, lattice, beam.energy, B, torch)
+    device_tuner, b4_tuner = device_ms(tuner_both, iters=3, kernel="moment_sweep_bwd_kernel")
+    b4_tuner_bound = bounds_over(tuner_runs)[1]
+    print(f"path L (the full tuner's tape): runs of {[len(e) for e, _ in tuner_runs]} tape"
+          f" entries, B4 launched {launches} times and differentiated {cotangents} of its tapes'"
+          f" {inputs} inputs (moment_sweep_bwd.cotangents, .inputs); value and gradient device"
+          f" time {device_tuner:.4f} ms, of it B4 {b4_tuner:.5f} ms a step (bound"
+          f" {b4_tuner_bound:.5f} ms) (torch.profiler, 3 calls; card {card})")
+    if launches != len(tuner_runs) or cotangents != len(tuned):
+        raise AssertionError("path L: the full tuner's B4 did not differentiate one field an"
+                             " entry")
     return launched
 
 
@@ -2171,16 +2277,15 @@ def dense_total(torch, ft, tbl, entries, values, energy):
 
 def check_long_tape(torch, ft, fused, tbl, card):
     """Fault C1: B4 on fodo_lattice(FODO_CELLS) with every quadrupole batched,
-    FODO_BATCH settings, float64: past the prefix products that one
-    setting's share of shared memory holds, so it walks the tape in
-    segments; against the plain version.  Beside it, the plain version's
-    own spread: its moments' cotangents from the maps built on the host
-    against those built on the card (two math libraries, two matmuls)."""
+    FODO_BATCH settings, float64: a tape past the prefix products that one
+    setting's share of shared memory held (which the first design walked in
+    segments), its states kept in B4's device workspace; against the plain
+    version.  Beside it, the plain version's own spread: its moments'
+    cotangents from the maps built on the host against those built on the
+    card (two math libraries, two matmuls)."""
     B = FODO_BATCH
     entries, values, full = fodo_plan(torch, fused, B, "cuda")
-    library = ft.moment_sweep_bwd_library()
-    segment = library.lynx_moment_sweep_bwd_segment(1, len(entries))
-    tile = library.lynx_moment_sweep_bwd_tile(1, len(entries))
+    slots = ft._vjp_layout(entries, full.device, [True] * len(values), True).slots
     gen = torch.Generator(device="cuda").manual_seed(64)
     mu, cov = random_moments(torch, B, gen)
     dmu = torch.randn((B, 7), generator=gen, dtype=torch.float64, device="cuda")
@@ -2206,15 +2311,14 @@ def check_long_tape(torch, ft, fused, tbl, card):
     device, own = device_ms(lambda: ft.moment_sweep_bwd(*args), iters=3,
                                  kernel="moment_sweep_bwd_kernel")
     print(f"C1: B4 on fodo_lattice({FODO_CELLS}), every quadrupole batched, B={B}, double:"
-          f" {len(entries)} tape entries in segments of {segment}, {tile} settings a block;"
-          f" against the plain version values {errors[0]:.2e}, moments {errors[1]:.2e}, energy"
-          f" {errors[3]:.2e} per setting (bound {bound:.2e}: {SPREAD_FACTOR} times the plain"
+          f" {len(entries)} tape entries, {slots} states a setting in the workspace"
+          f" ({slots * ft.B4_STATE * B * 8 / 1e9:.2f} GB); against the plain version values"
+          f" {errors[0]:.2e}, moments {errors[1]:.2e}, energy {errors[3]:.2e} per setting (bound {bound:.2e}: {SPREAD_FACTOR} times the plain"
           f" version's own spread in the moments' cotangents, maps built on the host against the"
           f" card, {spread:.2e}); device time {own:.4f} ms (the wrapper's GPU work"
           f" {device:.4f} ms; torch.profiler, 3 calls; card {card})")
-    if (len(entries) <= 514 or segment >= len(entries) or max(errors[:2]) > bound
-            or errors[3] > bound):
-        raise AssertionError("C1: B4 past the shared memory disagrees or did not take segments")
+    if len(entries) <= 514 or max(errors[:2]) > bound or errors[3] > bound:
+        raise AssertionError("C1: B4 on the long tape disagrees with the plain version")
     return errors
 
 
@@ -5195,8 +5299,8 @@ def path_gpsr(torch, ltt, functional, graphs, card):
 def ptxas_report(log):
     """``kernel<args> R registers, S/L bytes spilled`` for each kernel of an
     nvcc -Xptxas -v report (spill stores / spill loads); template arguments
-    decoded from the mangled name (float, double, a bool, an int): B3's are
-    <T, kFull>, B4's <T, kFull, kSegmented>."""
+    decoded from the mangled name (float, double, a bool, an int): B3's and
+    B4's are <T, kFull>."""
     import re
 
     words = {"f": "float", "d": "double", "Lb0E": "false", "Lb1E": "true"}

@@ -2,493 +2,619 @@
 //
 // Replaces the TPU kernel lynx_tpu/ops/pallas_track.py:_bwd_kernel
 // (launched by _fused_moment_sweep_bwd_impl): the vector-Jacobian product
-// of kernel B3.  With T = R_{E-1} ... R_0, out_mu = T mu, out_cov = T C T^T:
+// of kernel B3.  B3 carries each setting's beam through the tape, mu_{i+1} =
+// R_i mu_i and Sigma_{i+1} = R_i Sigma_i R_i^T; with the cotangents g, G of
+// mu_{i+1}, Sigma_{i+1}, autograd's VJP of that step is
 //
-//   d_mu  = T^T dmu,   d_cov = T^T dcov T
-//   dT    = dmu mu^T + dcov T C^T + dcov^T T C
-//   dR_i  = L_i^T dT M_i^T,  L_i = R_{E-1} .. R_{i+1},  M_i = R_{i-1} .. R_0
+//   dR_i = g mu_i^T + (G + G^T) R_i Sigma_i      (Sigma_i symmetric)
+//   g   <- R_i^T g,   G <- R_i^T G R_i,
 //
-// A dynamic entry's parameter and energy cotangents contract dR_i with
-// dR_i/dp, which the kernel gets by evaluating the entry's builder in
-// forward-mode dual numbers, once per input (fused_builders.cuh).  A const
-// entry's cotangents are dR_i at its non-literal cells, written per setting
-// as (cells, B) rows; the caller sums them over the batch, as the JAX
-// package sums them outside its kernel.
+// and an input p of the entry's builder takes <dR_i, dR_i/dp>.  The kernel
+// gets dR_i/dp by evaluating the builder in forward-mode dual numbers,
+// seeded on p (fused_builders.cuh); a const entry's cells and a custom map's
+// are inputs themselves, their cotangents dR_i's cells.  d_mu is g after
+// the first entry; d_cov is T^T dcov T, T = R_{E-1} .. R_0 composed in the
+// forward pass, as autograd forms it through B3's composed map (G pulled
+// back entry by entry gathers ~40 times more rounding on the full
+// lattice's 96-entry plan).
 //
-// What bounds it on an H100: memory.  Its own input and output is ~720
-// bytes a setting in f32; per setting it does a forward pass of one 7x7
-// product per entry, a reverse pass of two, and one dual-number builder
-// evaluation per input of each dynamic entry.  Counted on the maps'
-// structural supports, the products are ~7e3 flops a setting on the path-T
-// plan of 11 entries (chip_smoke.py's sweep_flops; the builders' own
-// arithmetic uncounted), half the memory term at 3.35 TB/s and 67 TFLOP/s.
-// One thread per setting would keep ~10 49-cell arrays live, past the
-// 255-register limit, and its prefix products M_i would need an (E, 49, B)
-// device workspace: 215 MB each way at B = 100,000.
+// What bounds it on an H100.  Per setting it reads its parameters and its
+// moments and their cotangents (112 values), and writes the cotangents asked
+// for: ~0.5 KB a setting in f32 on path T's tape.  The state entering each
+// entry that has an input to differentiate (mu_i and Sigma_i's upper
+// triangle, 35 values) goes to a device workspace and comes back: 50 states
+// a setting on the full tuner's tape, 1.4 GB at B = 100,000, >= 0.42 ms at
+// 3.35 TB/s.  The arithmetic, counted on the maps' structural supports, is
+// ~1.5k FMAs a setting per dynamic entry (the forward step, dR_i, the pull
+// back and one dual pass) and ~0.4k per const entry, plus the builders'
+// transcendentals; one thread holds ~250 values, so registers (255, 8 warps
+// an SM) and the spills past them bound it more than the FMA rate.
 //
-// Design: a team of kLanes = 8 lanes per setting, four settings per warp.
-// Lane r < 7 owns row r of every 7x7 matrix and keeps it in 7 registers; it
-// reads the other operand's rows from shared memory, where each setting
-// keeps its prefix products and three scratch matrices (no device
-// workspace), rows padded to 8 cells so that a row moves in 16-byte loads.
-// The number of settings per block is sized at launch from the tape length
-// and the dtype to fit the device's shared memory; a ragged last block
-// computes on the last setting and stores nothing.  In the reverse pass
-// every lane evaluates the entry's builder in dual numbers, lane q seeded on
-// input q (parameters, then the energy), so one warp-wide pass gives up to 8
-// derivatives (a dipole's 9 take two passes); the value part of the same
-// pass is R_i.  A custom map's cells are its parameters: their cotangents
-// are dR_i's cells, as a const entry's.  The builders are
-// fused_builders.cuh's, inlined so that their maps stay in registers;
-// instantiated with the full lattice's kinds (kFull) only for a tape that
-// holds one.  Sums run in the same order as the one-thread-per-setting
-// kernel they replace, so the numbers differ from it only by FMA
-// contraction.  A team synchronises with __syncwarp: its lanes share one
-// warp.
+// The previous design ran a team of 8 lanes per setting that passed 7x7
+// matrices through shared memory: every product read the other operand's
+// whole rows (14 16-byte loads for 49 FMAs), which took a warp's share of
+// its SM's shared-memory pipe for ~224 cycles an entry, and every lane
+// evaluated each builder, once for its value and once per input of the
+// entry, whether autograd asked for it or not.  Its prefix products capped
+// the block at 32 settings and walked long tapes twice.
 //
-// A tape whose prefix products M_0 .. M_{E-1} would leave fewer than 32
-// settings a block (past 28 entries in float, 12 in double; past about 514
-// and 1,033 one setting would not fit at all) is cut into segments of K
-// entries: the forward pass keeps only each segment's first prefix product
-// (a checkpoint, in a device scratch buffer of (B, checkpoints, 56) values),
-// and the reverse pass recomputes a segment's prefix products from its
-// checkpoint into shared memory before it walks the segment backwards: one
-// more forward pass in all.  K is the longest segment that keeps 32 settings
-// (eight warps) a block, 28 entries in float and 12 in double.  Kept whole,
-// a 68-entry tape in float held 12 settings a block, three warps an SM.
-// Path T's tape of 11 entries stays whole: its forward pass stores every
-// prefix product and nothing is recomputed, in an instantiation without the
-// segments' bookkeeping (kSegmented false), which cost it 4% on the card.
-
-#include <atomic>
+// Design: one thread per setting, 64 settings a block.  The map R_i, the
+// beam's state and the cotangents stay in registers; every product runs on
+// the maps' compile-time supports (a drift's pull-back costs a few dozen
+// FMAs, a quadrupole's a few hundred), so structural zeros and ones cost
+// nothing.  The forward pass rebuilds each map and writes the state entering
+// each entry that needs one to the workspace, laid out (slots, 35, B) with
+// the settings innermost so that a warp's stores and loads are contiguous;
+// where d_cov is asked for it also composes T in the thread's own cells of
+// the block's staging buffer.  The reverse pass rebuilds each map again,
+// reads its state back, forms dR_i on the map's support into the thread's
+// staging cells (not registers: they would spill), pulls the cotangents
+// back, and runs one dual pass per input asked for.  The wrapper passes a
+// mask (EntryWants): which of each entry's inputs and whether the energy
+// want a cotangent, built from autograd's needs_input_grad, so a tuner that
+// tunes one field of an element runs one dual pass for it, and an entry with
+// nothing asked for needs no state and no dR_i.  Any tape length works: the
+// workspace grows with the entries that need a state, not with shared
+// memory.  The block stages its settings' moments and cotangents through
+// shared memory in contiguous 16-byte vectors, as B3 does; a ragged last
+// block's missing settings only reach the barriers.  Sums of a product run j
+// ascending, as a dense product's; the values differ from autograd's through
+// the composed map only in rounding order.  dR_i's cells, their contractions
+// and the energy's sum are formed in double: where the beam's offset term
+// g mu^T and its spread's term nearly cancel (the energy's cotangent on some
+// settings), float sums lost the difference (on the host at B = 100,000 the
+// float energy cotangent's worst error fell 2.5 times).  Templated on float
+// and double (double need not be fast: it spills) and on kFull, the full
+// lattice's builders, for a tape that holds one of its kinds.
 
 #include "fused_builders.cuh"
 
 namespace {
 
-constexpr int kLanes = 8;       // lanes per setting; lane r < 7 owns row r
-constexpr int kMaxTeams = 32;   // settings per block at most (256 threads)
-constexpr int kRow = 8;         // a row in shared memory: 7 cells and padding
-constexpr int kMatrix = 7 * kRow;
-constexpr int kScratch = 3;     // scratch matrices per setting
-constexpr int kDevices = 64;    // devices whose launch settings are cached
+constexpr int kSettings = 64;  // settings (threads) per block
+constexpr int kState = 35;     // mu and the upper triangle of Sigma
 
-// Shared-memory elements per setting: a segment of prefix products, T, the
-// scratch matrices and one slot, rounded so that a setting starts on 16
-// bytes and the four settings of a warp start in four other banks (a stride
-// of 4 mod 8).
-__host__ __device__ inline int setting_stride(int segment) {
-  return ((segment + 1 + kScratch) * kMatrix + 1 + 7) / 8 * 8 + 4;
-}
+template <typename T> struct Vector16;
+template <> struct Vector16<float> { using type = float4; };
+template <> struct Vector16<double> { using type = double2; };
 
-// Cell c of a 7x7 map in its padded place.
-__device__ __forceinline__ int padded(int c) { return c / 7 * kRow + c % 7; }
+// Per entry: which of its inputs want a cotangent.  Bit k of (hi, lo) is its
+// value k (a dynamic entry's parameter, a custom map's cell) or, for a const
+// entry, cell k of its 49; a dynamic entry's bit n (n its parameters) is the
+// energy.  row is its first output row (of d_params, or of d_consts for a
+// const entry); slot is its state's place in the workspace, -1 for none.
+struct EntryWants {
+  unsigned lo;
+  unsigned hi;
+  int row;
+  int slot;
+};
 
-// The lanes of this thread's warp that exist (a block need not fill its
-// last warp).
-__device__ __forceinline__ unsigned warp_mask() {
-  const unsigned first = threadIdx.x & ~31u;
-  const unsigned n = blockDim.x - first;
-  return n >= 32 ? 0xffffffffu : (1u << n) - 1u;
-}
-
-// A padded row in 16-byte loads and stores (the padding is written 0).
-__device__ __forceinline__ void load_row(const float* p, float (&x)[7]) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
-  x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w; x[4] = b.x; x[5] = b.y; x[6] = b.z;
-}
-__device__ __forceinline__ void load_row(const double* p, double (&x)[7]) {
-  const double2 a = reinterpret_cast<const double2*>(p)[0];
-  const double2 b = reinterpret_cast<const double2*>(p)[1];
-  const double2 c = reinterpret_cast<const double2*>(p)[2];
-  const double2 d = reinterpret_cast<const double2*>(p)[3];
-  x[0] = a.x; x[1] = a.y; x[2] = b.x; x[3] = b.y; x[4] = c.x; x[5] = c.y; x[6] = d.x;
-}
-__device__ __forceinline__ void store_row(float* p, const float (&x)[7]) {
-  reinterpret_cast<float4*>(p)[0] = make_float4(x[0], x[1], x[2], x[3]);
-  reinterpret_cast<float4*>(p)[1] = make_float4(x[4], x[5], x[6], 0.0f);
-}
-__device__ __forceinline__ void store_row(double* p, const double (&x)[7]) {
-  reinterpret_cast<double2*>(p)[0] = make_double2(x[0], x[1]);
-  reinterpret_cast<double2*>(p)[1] = make_double2(x[2], x[3]);
-  reinterpret_cast<double2*>(p)[2] = make_double2(x[4], x[5]);
-  reinterpret_cast<double2*>(p)[3] = make_double2(x[6], 0.0);
-}
-
-// out = l @ R for a row l and a padded 7x7 R, in the order of a dense
-// product (j ascending).
+// count values from src to dst, as 16-byte vectors where `vectors` holds.
 template <typename T>
-__device__ __forceinline__ void row_times(const T (&l)[7], const T* R, T (&out)[7]) {
-  T rows[7][7];
-#pragma unroll
-  for (int j = 0; j < 7; ++j) load_row(R + j * kRow, rows[j]);
-#pragma unroll
-  for (int k = 0; k < 7; ++k) {
-    T acc = l[0] * rows[0][k];
-#pragma unroll
-    for (int j = 1; j < 7; ++j) acc = acc + l[j] * rows[j][k];
-    out[k] = acc;
+__device__ __forceinline__ void copy_block(const T* __restrict__ src, T* __restrict__ dst,
+                                           int count, bool vectors) {
+  using V = typename Vector16<T>::type;
+  constexpr int kPer = 16 / static_cast<int>(sizeof(T));
+  if (vectors) {
+    for (int k = threadIdx.x; k < count / kPer; k += kSettings) {
+      reinterpret_cast<V*>(dst)[k] = reinterpret_cast<const V*>(src)[k];
+    }
+  } else {
+    for (int k = threadIdx.x; k < count; k += kSettings) dst[k] = src[k];
   }
 }
 
-// Column r of a padded 7x7 matrix.
-template <typename T>
-__device__ __forceinline__ void load_column(const T* M, int r, T (&x)[7]) {
-#pragma unroll
-  for (int j = 0; j < 7; ++j) x[j] = M[j * kRow + r];
+#ifndef LYNX_HOST_STAND_IN
+__device__ __forceinline__ int lynx_popcount(uint64_t x) { return __popcll(x); }
+#endif
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-// Row i of the map R (values) goes to shared memory from lane i: the whole
-// matrix from the team, without indexing registers at run time.
-template <typename S, typename T>
-__device__ __forceinline__ void scatter_rows(const S (&R)[49], T* out, int lane) {
+// Row i of a map with support S and ones O is the identity's row.
+__host__ __device__ constexpr bool identity_row(uint64_t S, uint64_t O, int i) {
+  return ((S >> (i * 7)) & 0x7full) == (1ull << i) && lynx::has(O, i, i);
+}
+
+// Column k of such a map is the identity's column.
+__host__ __device__ constexpr bool identity_column(uint64_t S, uint64_t O, int k) {
+  for (int i = 0; i < 7; ++i) {
+    if (lynx::has(S, i, k) != (i == k)) return false;
+  }
+  return lynx::has(O, k, k);
+}
+
+// Column c of P = R s over R's support (s dense), summed in A: a row of R
+// that is the identity's copies s's cell.
+template <uint64_t S, uint64_t O, typename A, typename T>
+__device__ __forceinline__ void state_column(const T* R, const T* s, int c, A* column) {
 #pragma unroll
   for (int i = 0; i < 7; ++i) {
-    if (i == lane) {
-      T x[7];
+    if (identity_row(S, O, i)) {
+      column[i] = s[i * 7 + c];
+      continue;
+    }
+    A acc = A(0);
+    bool started = false;
 #pragma unroll
-      for (int k = 0; k < 7; ++k) x[k] = lynx::value_of(R[i * 7 + k]);
-      store_row(out + i * kRow, x);
+    for (int j = 0; j < 7; ++j) {
+      if (!lynx::has(S, i, j)) continue;
+      lynx::add_term(acc, started,
+                     lynx::has(O, i, j) ? A(s[j * 7 + c]) : A(R[i * 7 + j]) * s[j * 7 + c]);
+    }
+    column[i] = acc;
+  }
+}
+
+// One step of the beam: m <- R m, s <- R s R^T, s symmetric (its upper
+// triangle formed, then mirrored).
+template <uint64_t S, uint64_t O, typename T>
+__device__ __forceinline__ void advance(const T* R, T* m, T* s) {
+  T x[7];
+#pragma unroll
+  for (int j = 0; j < 7; ++j) x[j] = m[j];
+#pragma unroll
+  for (int i = 0; i < 7; ++i) {
+    if (identity_row(S, O, i)) continue;
+    T acc = T(0);
+    bool started = false;
+#pragma unroll
+    for (int j = 0; j < 7; ++j) {
+      if (!lynx::has(S, i, j)) continue;
+      lynx::add_term(acc, started, lynx::has(O, i, j) ? x[j] : R[i * 7 + j] * x[j]);
+    }
+    m[i] = acc;
+  }
+  T P[49];  // R s
+#pragma unroll
+  for (int c = 0; c < 7; ++c) {
+    T column[7];
+    state_column<S, O, T>(R, s, c, column);
+#pragma unroll
+    for (int i = 0; i < 7; ++i) P[i * 7 + c] = column[i];
+  }
+#pragma unroll
+  for (int i = 0; i < 7; ++i) {
+#pragma unroll
+    for (int l = i; l < 7; ++l) {
+      T value;
+      if (identity_row(S, O, l)) {
+        value = P[i * 7 + l];
+      } else {
+        T acc = T(0);
+        bool started = false;
+#pragma unroll
+        for (int k = 0; k < 7; ++k) {
+          if (!lynx::has(S, l, k)) continue;
+          lynx::add_term(acc, started,
+                         lynx::has(O, l, k) ? P[i * 7 + k] : P[i * 7 + k] * R[l * 7 + k]);
+        }
+        value = acc;
+      }
+      s[i * 7 + l] = value;
+      s[l * 7 + i] = value;
     }
   }
 }
 
-// A dynamic entry's parameters for setting b (at most kP), loaded without a
-// run-time index into the register array.
-template <bool kFull, int kP, typename T>
-__device__ __forceinline__ void entry_params(const lynx::TapeEntry& entry,
-                                             const T* __restrict__ params, int64_t batch,
-                                             int64_t b, T (&p)[kP]) {
-  const int n = lynx::tape_params<kFull>(entry.kind);
+// The cotangents through one map: g <- R^T g, G <- R^T G R.
+template <uint64_t S, uint64_t O, typename T>
+__device__ __forceinline__ void pull_back(const T* R, T* g, T* G) {
+  T x[7];
 #pragma unroll
-  for (int k = 0; k < kP; ++k) p[k] = k < n ? params[(entry.offset + k) * batch + b] : T(0);
-}
-
-// One step of the forward pass: M (this entry's prefix product, in shared
-// memory) <- row, then row <- row r of R_i M.  S1 is scratch for a dynamic
-// entry's map; a const entry's and a custom map's rows are read directly.
-// The entry comes by value, a copy in registers: a reference into the tape
-// would be read again from device memory after each store.
-template <bool kFull, typename T>
-__device__ __forceinline__ void forward_step(const lynx::TapeEntry entry, T* M, T* checkpoint,
-                                             T* S1, const T* __restrict__ params,
-                                             const T* __restrict__ consts, int64_t batch,
-                                             int64_t b, T e_b, T rest, T mass, int r, int lane,
-                                             bool owner, unsigned mask, T (&row)[7]) {
-  constexpr int kP = kFull ? lynx::kMaxParams : 5;
-  if (owner) {
-    store_row(M + r * kRow, row);
-    if (checkpoint != nullptr) store_row(checkpoint + r * kRow, row);
+  for (int i = 0; i < 7; ++i) x[i] = g[i];
+#pragma unroll
+  for (int j = 0; j < 7; ++j) {
+    if (identity_column(S, O, j)) continue;
+    T acc = T(0);
+    bool started = false;
+#pragma unroll
+    for (int i = 0; i < 7; ++i) {
+      if (!lynx::has(S, i, j)) continue;
+      lynx::add_term(acc, started, lynx::has(O, i, j) ? x[i] : R[i * 7 + j] * x[i]);
+    }
+    g[j] = acc;
   }
-  T rrow[7];  // row r of R_i
-  const bool custom = kFull && entry.kind == lynx::kCustom;
-  if (entry.kind == lynx::kConst) {
-    const T* cells = consts + static_cast<int64_t>(entry.offset) * 49 + r * 7;
-#pragma unroll
-    for (int k = 0; k < 7; ++k) rrow[k] = cells[k];
-  } else if (custom) {
-#pragma unroll
-    for (int k = 0; k < 7; ++k) rrow[k] = params[(entry.offset + r * 7 + k) * batch + b];
-  } else {
-    T p[kP], R[49];
-    entry_params<kFull>(entry, params, batch, b, p);
-    lynx::build_dynamic<kFull, T, T>(entry.kind, p, e_b, rest, mass, R);
-    scatter_rows(R, S1, lane);
-  }
-  __syncwarp(mask);
-  if (entry.kind != lynx::kConst && !custom) load_row(S1 + r * kRow, rrow);
-  row_times(rrow, M, row);
-  __syncwarp(mask);
-}
-
-// One dual-number pass over a dynamic entry: lane q = base + lane is seeded
-// on input q (parameters, then the energy), contracts dR_i (M, in shared
-// memory) with dR_i/d(input q), and writes that input's cotangent (the
-// energy's to the slot); the pass that seeds the last input also scatters
-// R_i's rows to S1.
-template <bool kFull, int kP, typename T>
-__device__ __forceinline__ void dual_pass(const lynx::TapeEntry& entry, const T (&p)[kP], int base,
-                                          int n, const T* M, T* S1, T* slot,
-                                          T* __restrict__ d_params, int64_t batch, int64_t b,
-                                          bool active, T e_b, T rest, T mass, int lane) {
-  const int q = base + lane;  // the input this lane is seeded on
-  lynx::Dual<T> pd[kP];
-#pragma unroll
-  for (int k = 0; k < kP; ++k) pd[k] = lynx::Dual<T>(p[k], k == q ? T(1) : T(0));
-  const lynx::Dual<T> ed(e_b, q == n ? T(1) : T(0));
-  lynx::Dual<T> Rd[49];
-  lynx::build_dynamic<kFull, T, lynx::Dual<T>>(entry.kind, pd, ed, rest, mass, Rd);
-  T g = T(0);
+  T Q[49];  // G R
 #pragma unroll
   for (int i = 0; i < 7; ++i) {
-    T dri[7];
-    load_row(M + i * kRow, dri);
 #pragma unroll
-    for (int k = 0; k < 7; ++k) g = g + dri[k] * Rd[i * 7 + k].d;
+    for (int k = 0; k < 7; ++k) {
+      if (identity_column(S, O, k)) {
+        Q[i * 7 + k] = G[i * 7 + k];
+        continue;
+      }
+      T acc = T(0);
+      bool started = false;
+#pragma unroll
+      for (int j = 0; j < 7; ++j) {
+        if (!lynx::has(S, j, k)) continue;
+        lynx::add_term(acc, started,
+                       lynx::has(O, j, k) ? G[i * 7 + j] : G[i * 7 + j] * R[j * 7 + k]);
+      }
+      Q[i * 7 + k] = acc;
+    }
   }
-  if (q < n) {
-    if (active) d_params[(entry.offset + q) * batch + b] = g;
-  } else if (q == n) {
-    *slot = g;
+#pragma unroll
+  for (int j = 0; j < 7; ++j) {
+#pragma unroll
+    for (int k = 0; k < 7; ++k) {
+      if (identity_column(S, O, j)) {
+        G[j * 7 + k] = Q[j * 7 + k];
+        continue;
+      }
+      T acc = T(0);
+      bool started = false;
+#pragma unroll
+      for (int i = 0; i < 7; ++i) {
+        if (!lynx::has(S, i, j)) continue;
+        lynx::add_term(acc, started,
+                       lynx::has(O, i, j) ? Q[i * 7 + k] : R[i * 7 + j] * Q[i * 7 + k]);
+      }
+      G[j * 7 + k] = acc;
+    }
   }
-  if (!kFull || base + kLanes > n) scatter_rows(Rd, S1, lane);  // the last pass
 }
 
-template <typename T, bool kFull, bool kSegmented>
-__global__ void __launch_bounds__(kLanes * kMaxTeams) moment_sweep_bwd_kernel(
-    const lynx::TapeEntry* __restrict__ tape, int n_entries, int checkpoints, int segment,
-    T* __restrict__ saved_all, const int* __restrict__ cell_pos, const T* __restrict__ params,
+// A kernel's read-only operands and one thread's setting.
+template <typename T>
+struct Walk {
+  const T* __restrict__ params;
+  const T* __restrict__ consts;
+  T* __restrict__ states;
+  T* __restrict__ d_params;
+  T* __restrict__ d_consts;
+  int64_t batch;
+  int64_t b;
+  T energy;
+  T rest;
+  T mass;
+};
+
+// The state entering an entry, to its slot of the workspace and back:
+// value v of setting b at states[(slot * kState + v) * batch + b].
+template <typename T>
+__device__ __forceinline__ void store_state(const Walk<T>& w, int slot, const T* m, const T* s) {
+  T* out = w.states + static_cast<int64_t>(slot) * kState * w.batch + w.b;
+#pragma unroll
+  for (int j = 0; j < 7; ++j) out[j * w.batch] = m[j];
+  int v = 7;
+#pragma unroll
+  for (int i = 0; i < 7; ++i) {
+#pragma unroll
+    for (int l = i; l < 7; ++l) out[(v++) * w.batch] = s[i * 7 + l];
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void load_state(const Walk<T>& w, int slot, T* m, T* s) {
+  const T* in = w.states + static_cast<int64_t>(slot) * kState * w.batch + w.b;
+#pragma unroll
+  for (int j = 0; j < 7; ++j) m[j] = in[j * w.batch];
+  int v = 7;
+#pragma unroll
+  for (int i = 0; i < 7; ++i) {
+#pragma unroll
+    for (int l = i; l < 7; ++l) {
+      s[i * 7 + l] = in[(v++) * w.batch];
+      s[l * 7 + i] = s[i * 7 + l];
+    }
+  }
+}
+
+// Builds the map of a (non-identity) entry for this setting and calls
+// visit.template run<kKind, S, O>(R, p): its kind, support and ones as
+// compile-time values, its map and (a dynamic entry's) parameters.  The
+// builders are fused_builders.cuh's, as B3's compose_entry calls them.
+template <bool kFull, typename T, typename Visit>
+__device__ __forceinline__ void visit_map(const Walk<T>& w, const lynx::TapeEntry& entry,
+                                          Visit& visit) {
+  using namespace lynx;
+  constexpr int kP = kFull ? kMaxParams : 5;
+  T R[49];
+  T p[kP];
+  if (entry.kind == kConst) {
+    const T* cells = w.consts + static_cast<int64_t>(entry.offset) * 49;
+#pragma unroll
+    for (int c = 0; c < 49; ++c) R[c] = cells[c];  // loads of cells off the support are dead
+    if (entry.support == kDriftConst) {
+      visit.template run<kConst, kDriftCells, kIdentityCells>(R, p);
+    } else if (entry.support == kKickedDriftConst) {
+      visit.template run<kConst, kDriftCells | kKickCells, kIdentityCells>(R, p);
+    } else {
+      visit.template run<kConst, kAllCells, 0>(R, p);
+    }
+    return;
+  }
+  if (kFull && entry.kind == kCustom) {
+#pragma unroll
+    for (int c = 0; c < 49; ++c) R[c] = w.params[(entry.offset + c) * w.batch + w.b];
+    visit.template run<kCustom, kAllCells, 0>(R, p);
+    return;
+  }
+  const int n = tape_params<kFull>(entry.kind);
+#pragma unroll
+  for (int k = 0; k < kP; ++k) {
+    p[k] = k < n ? w.params[(entry.offset + k) * w.batch + w.b] : T(0);
+  }
+  if (entry.kind == kQuad) {
+    build_quadrupole<T>(p, w.energy, w.rest, R);
+    visit.template run<kQuad, kQuadCells, kQuadOnes>(R, p);
+    return;
+  }
+  if constexpr (kFull) {
+    if (entry.kind == kCavity) {
+      build_cavity<T>(p, w.energy, w.rest, w.mass, R);
+      visit.template run<kCavity, kCavityCells, kLastOne>(R, p);
+      return;
+    }
+    if (entry.kind == kSolenoid) {
+      build_solenoid<T>(p, w.energy, w.rest, R);
+      visit.template run<kSolenoid, kSolenoidCells, kSolenoidOnes>(R, p);
+      return;
+    }
+    if (entry.kind == kDipole) {
+      build_dipole<T>(p, w.energy, w.rest, R);
+      visit.template run<kDipole, kDipoleCells, kDipoleOnes>(R, p);
+      return;
+    }
+    if (entry.kind == kUndulator) {
+      build_dynamic<kFull, T, T>(kUndulator, p, w.energy, w.rest, w.mass, R);
+      visit.template run<kUndulator, kDriftCells, kIdentityCells>(R, p);
+      return;
+    }
+  }
+  if (entry.kind == kDrift) {
+    build_dynamic<kFull, T, T>(kDrift, p, w.energy, w.rest, w.mass, R);
+    visit.template run<kDrift, kDriftCells, kIdentityCells>(R, p);
+  } else if (entry.kind == kHCor) {
+    build_dynamic<kFull, T, T>(kHCor, p, w.energy, w.rest, w.mass, R);
+    visit.template run<kHCor, kHCorCells, kIdentityCells>(R, p);
+  } else {
+    build_dynamic<kFull, T, T>(kVCor, p, w.energy, w.rest, w.mass, R);
+    visit.template run<kVCor, kVCorCells, kIdentityCells>(R, p);
+  }
+}
+
+// The forward pass's step: the beam through the entry's map (while a later
+// entry needs a state), and the map onto the total T (where the moments'
+// cotangents are asked for).
+template <typename T>
+struct Advance {
+  T* m;
+  T* s;
+  T* total;
+  bool beam;
+  bool compose;
+  template <int kKind, uint64_t S, uint64_t O>
+  __device__ __forceinline__ void run(const T* R, const T*) {
+    if (beam) advance<S, O>(R, m, s);
+    if (compose) lynx::compose_support<S, O>(R, total);
+  }
+};
+
+// The reverse pass's step: the cotangents of the entry's inputs asked for,
+// then g and G pulled back through its map.
+template <bool kFull, typename T>
+struct Reverse {
+  const Walk<T>& w;
+  uint64_t want;
+  int row;
+  int slot;
+  T* g;
+  T* G;
+  double& d_energy;
+  T* dR;  // dR's cells: this thread's cells of the staging buffer, not registers
+
+  // dR's cell (r, c) from the entry's state m and column c of P, with
+  // H = G + G^T formed as it is read.
+  __device__ __forceinline__ T cotangent_cell(const T* m, const double* P, int r, int c) {
+    double acc = double(g[r]) * m[c];
+#pragma unroll
+    for (int k = 0; k < 7; ++k) acc = acc + (double(G[r * 7 + k]) + G[k * 7 + r]) * P[k];
+    return T(acc);
+  }
+
+  template <int kKind, uint64_t S, uint64_t O>
+  __device__ __forceinline__ void run(const T* R, const T* p) {
+    using namespace lynx;
+    constexpr bool kCells = kKind == kConst || kKind == kCustom;  // inputs are dR's cells
+    constexpr uint64_t kDerived = S & ~O;  // cells that depend on the builder's inputs
+    if (want != 0) {  // uniform over the block: the mask is the entry's
+      // dR column by column, its sums in double: where the beam's offset
+      // term g mu^T and its spread's H R Sigma nearly cancel, float sums
+      // would lose the difference.
+      T m[7], s[49];
+      load_state(w, slot, m, s);
+      T* out = kKind == kConst ? w.d_consts : w.d_params;
+#pragma unroll
+      for (int c = 0; c < 7; ++c) {
+        constexpr uint64_t kColumn = 0x40810204081ull;  // the cells of column 0
+        const uint64_t cells = (kCells ? want : kDerived) & (kColumn << c);
+        if (cells == 0) continue;
+        double P[7];
+        state_column<S, O, double>(R, s, c, P);
+#pragma unroll
+        for (int r = 0; r < 7; ++r) {
+          if constexpr (kCells) {
+            if ((want >> (r * 7 + c)) & 1ull) {
+              // Output rows follow the cells' order: the cells asked for
+              // before this one, counted.
+              const int before = lynx_popcount(want & ((1ull << (r * 7 + c)) - 1));
+              out[static_cast<int64_t>(row + before) * w.batch + w.b] =
+                  cotangent_cell(m, P, r, c);
+            }
+          } else {
+            if ((kDerived >> (r * 7 + c)) & 1ull) dR[r * 7 + c] = cotangent_cell(m, P, r, c);
+          }
+        }
+      }
+    }
+    pull_back<S, O>(R, g, G);
+    if constexpr (!kCells) {
+      if (want == 0) return;
+      // One dual pass per input asked for, seeded on it: <dR, dR/dp>.
+      constexpr int kP = kFull ? kMaxParams : 5;
+      const int n = tape_params<kFull>(kKind);
+      int q = row;
+#pragma unroll 1
+      for (int k = 0; k <= n; ++k) {
+        if (!((want >> k) & 1ull)) continue;
+        Dual<T> pd[kP];
+#pragma unroll
+        for (int j = 0; j < kP; ++j) pd[j] = Dual<T>(p[j], j == k ? T(1) : T(0));
+        const Dual<T> ed(w.energy, k == n ? T(1) : T(0));
+        Dual<T> Rd[49];
+        build_dynamic<kFull, T, Dual<T>>(kKind, pd, ed, w.rest, w.mass, Rd);
+        double acc = 0.0;
+        bool started = false;
+#pragma unroll
+        for (int c = 0; c < 49; ++c) {
+          if ((kDerived >> c) & 1ull) add_term(acc, started, double(dR[c]) * Rd[c].d);
+        }
+        if (k < n) {
+          w.d_params[static_cast<int64_t>(q) * w.batch + w.b] = T(acc);
+          ++q;
+        } else {
+          d_energy = d_energy + acc;
+        }
+      }
+    }
+  }
+};
+
+template <typename T, bool kFull>
+__global__ void __launch_bounds__(kSettings) moment_sweep_bwd_kernel(
+    const lynx::TapeEntry* __restrict__ tape, const EntryWants* __restrict__ wants, int n_entries,
+    int n_forward, T* __restrict__ states, T* __restrict__ totals, const T* __restrict__ params,
     const T* __restrict__ consts, const T* __restrict__ energy, const T* __restrict__ mu,
     const T* __restrict__ cov, const T* __restrict__ dmu, const T* __restrict__ dcov,
     T* __restrict__ d_params, T* __restrict__ d_consts, T* __restrict__ d_energy,
     T* __restrict__ d_mu, T* __restrict__ d_cov, int64_t batch, T rest, T mass) {
-  constexpr int kP = kFull ? lynx::kMaxParams : 5;
-  constexpr int kPasses = kFull ? 2 : 1;  // dual passes: up to kLanes inputs each
-  extern __shared__ __align__(16) unsigned char shared_raw[];
-  const int teams = blockDim.x / kLanes;
-  const int lane = threadIdx.x % kLanes;
-  const int r = lane < 7 ? lane : 6;  // lane 7 repeats row 6 and stores nothing
-  const bool owner = lane < 7;
-  const int64_t setting = static_cast<int64_t>(blockIdx.x) * teams + threadIdx.x / kLanes;
-  const bool active = setting < batch;
-  const int64_t b = active ? setting : batch - 1;
-  const unsigned mask = warp_mask();
+  __shared__ __align__(16) T s_mat[kSettings * 49];
+  __shared__ __align__(16) T s_vec[kSettings * 7];
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * kSettings;
+  const int count = batch - first < kSettings ? static_cast<int>(batch - first) : kSettings;
+  // A full block whose tensors start on 16 bytes moves as vectors (a block
+  // starts 64 * 49 values further on); anything else value by value.
+  const bool vectors = count == kSettings && aligned16(mu) && aligned16(cov) && aligned16(dmu) &&
+                       aligned16(dcov) && aligned16(d_mu) && aligned16(d_cov);
+  const int t = threadIdx.x;
+  const bool active = t < count;  // the others only reach the barriers
+  const Walk<T> w{params, consts, states, d_params, d_consts, batch, first + t,
+                  active ? energy[first + t] : T(0), rest, mass};
 
-  T* const saved = saved_all + b * checkpoints * kMatrix;  // this setting's checkpoints
-  T* const prefix = reinterpret_cast<T*>(shared_raw) +
-                    static_cast<int64_t>(threadIdx.x / kLanes) *
-                        setting_stride(segment);  // one segment's M_i
-  T* const Tm = prefix + segment * kMatrix;       // M_E = T
-  T* const S0 = Tm + kMatrix;                       // dcov, then T C, then A
-  T* const S1 = S0 + kMatrix;                       // cov, then dcov T, then R_i
-  T* const S2 = S1 + kMatrix;                       // T C^T
-  T* const slot = S2 + kMatrix;                     // an entry's energy cotangent
-  const T e_b = energy[b];
-  const int segments =
-      !kSegmented ? (n_entries > 0) : n_entries == 0 ? 0 : (n_entries + segment - 1) / segment;
-
-  // Forward pass: M_{i+1} = R_i M_i, each M_i to its place in the segment
-  // buffer (the last segment's stay there), and with checkpoints each
-  // segment's first.
-  T row[7];  // row r of M_i
+  // Forward pass: the state entering each entry with a slot, to the
+  // workspace (past the last such entry the state is not needed); with
+  // totals, T = R_{E-1} .. R_0 composed over the whole tape, to totals.
+  const int walk = totals != nullptr ? n_entries : n_forward;
+  if (walk > 0) {
+    copy_block(cov + first * 49, s_mat, count * 49, vectors);
+    copy_block(mu + first * 7, s_vec, count * 7, vectors);
+    __syncthreads();
+    if (active) {
+      T m[7], s[49];
 #pragma unroll
-  for (int k = 0; k < 7; ++k) row[k] = T(k == r ? 1 : 0);
-  for (int e = 0; e < n_entries; ++e) {
-    const int place = kSegmented ? e % segment : e;
-    // A ragged last block's repeated setting writes the same checkpoints.
-    T* checkpoint = kSegmented && place == 0 ? saved + (e / segment) * kMatrix : nullptr;
-    forward_step<kFull>(tape[e], prefix + place * kMatrix, checkpoint, S1, params, consts,
-                        batch, b, e_b, rest, mass, r, lane, owner, mask, row);
-  }
-  if (owner) store_row(Tm + r * kRow, row);
-
-  // d_mu = T^T dmu, d_cov = T^T (dcov T), dT = dmu mu^T + dcov (T C^T) +
-  // dcov^T (T C).
-  for (int c = lane; c < 49; c += kLanes) {
-    S0[padded(c)] = dcov[b * 49 + c];
-    S1[padded(c)] = cov[b * 49 + c];
-  }
-  __syncwarp(mask);
-  const T* g_mu = dmu + b * 7;
-  T grow[7], gcol[7], tcol[7], x[7], tct[7], tc[7];
-  load_row(S0 + r * kRow, grow);  // row r of dcov
-  load_column(S0, r, gcol);       // column r of dcov
-  load_column(Tm, r, tcol);       // column r of T
-  row_times(grow, Tm, x);         // row r of dcov T
-  row_times(row, S1, tc);         // row r of T C
+      for (int j = 0; j < 7; ++j) m[j] = s_vec[t * 7 + j];
 #pragma unroll
-  for (int k = 0; k < 7; ++k) {   // row r of T C^T
-    T c[7];
-    load_row(S1 + k * kRow, c);
-    T acc = row[0] * c[0];
+      for (int i = 0; i < 7; ++i) {
 #pragma unroll
-    for (int j = 1; j < 7; ++j) acc = acc + row[j] * c[j];
-    tct[k] = acc;
-  }
-  {
-    T acc = tcol[0] * g_mu[0];
+        for (int l = i; l < 7; ++l) {
+          s[i * 7 + l] = s_mat[t * 49 + i * 7 + l];
+          s[l * 7 + i] = s[i * 7 + l];
+        }
+      }
+      // T is composed in this thread's own cells of the staging buffer (its
+      // cov is in registers now), column by column: no registers held.
+      T* const total = s_mat + t * 49;
+      lynx::set_identity(total);
+      Advance<T> step{m, s, total, false, totals != nullptr};
+      for (int e = 0; e < walk; ++e) {
+        const lynx::TapeEntry entry = tape[e];  // by value: a copy in registers
+        const int slot = e < n_forward ? wants[e].slot : -1;
+        if (slot >= 0) store_state(w, slot, m, s);
+        step.beam = e + 1 < n_forward;
+        if ((step.beam || step.compose) && entry.kind != lynx::kIdentity) {
+          visit_map<kFull>(w, entry, step);
+        }
+      }
+      if (totals != nullptr) {
 #pragma unroll
-    for (int j = 1; j < 7; ++j) acc = acc + tcol[j] * g_mu[j];
-    if (owner && active) d_mu[b * 7 + r] = acc;
-  }
-  __syncwarp(mask);
-  if (owner) {
-    store_row(S1 + r * kRow, x);
-    store_row(S2 + r * kRow, tct);
-    store_row(S0 + r * kRow, tc);
-  }
-  __syncwarp(mask);
-  T a[7];  // row r of dT, then of the suffix-applied L_i^T dT
-  {
-    T dc[7], xs[7], ys[7];
-    row_times(tcol, S1, dc);  // row r of T^T (dcov T)
-    row_times(grow, S2, xs);  // row r of dcov (T C^T)
-    row_times(gcol, S0, ys);  // row r of dcov^T (T C)
-    const T* m = mu + b * 7;
-    const T g = g_mu[r];
-#pragma unroll
-    for (int l = 0; l < 7; ++l) {
-      if (owner && active) d_cov[b * 49 + r * 7 + l] = dc[l];
-      a[l] = g * m[l] + (xs[l] + ys[l]);
-    }
-  }
-  __syncwarp(mask);
-
-  // Reverse pass, segment by segment from the last: a segment's prefix
-  // products are recomputed from its checkpoint (the last segment's are in
-  // place); then per entry dR_i = A M_i^T replaces M_i, and A <- R_i^T A.
-  T d_e = T(0);
-  for (int s = segments - 1; s >= 0; --s) {
-    const int first = kSegmented ? s * segment : 0;
-    const int end = !kSegmented || first + segment >= n_entries ? n_entries : first + segment;
-    if (kSegmented && s != segments - 1) {
-      T m[7];
-      load_row(saved + s * kMatrix + r * kRow, m);
-      for (int e = first; e < end; ++e) {
-        forward_step<kFull>(tape[e], prefix + (e - first) * kMatrix, static_cast<T*>(nullptr), S1,
-                            params, consts, batch, b, e_b, rest, mass, r, lane, owner, mask, m);
+        for (int c = 0; c < 49; ++c) totals[c * batch + w.b] = total[c];
       }
     }
-    for (int e = end - 1; e >= first; --e) {
+    __syncthreads();  // the buffers take the cotangents next
+  }
+
+  // Reverse pass from the moments' cotangents.
+  copy_block(dcov + first * 49, s_mat, count * 49, vectors);
+  copy_block(dmu + first * 7, s_vec, count * 7, vectors);
+  __syncthreads();
+  T g[7], G[49];
+#pragma unroll
+  for (int j = 0; j < 7; ++j) g[j] = s_vec[t * 7 + j];
+#pragma unroll
+  for (int c = 0; c < 49; ++c) G[c] = s_mat[t * 49 + c];
+  double d_e = 0.0;
+  if (active) {
+    for (int e = n_entries - 1; e >= 0; --e) {
       const lynx::TapeEntry entry = tape[e];
-      T* M = prefix + (e - first) * kMatrix;
-      T dr[7];
+      if (entry.kind == lynx::kIdentity) continue;
+      const EntryWants wt = wants[e];
+      const uint64_t want = (static_cast<uint64_t>(wt.hi) << 32) | wt.lo;
+      Reverse<kFull, T> step{w, want, wt.row, wt.slot, g, G, d_e, s_mat + t * 49};
+      visit_map<kFull>(w, entry, step);
+    }
+    if (d_energy != nullptr) d_energy[w.b] = T(d_e);
+    if (d_cov != nullptr && n_entries > 0) {  // without entries T = I: d_cov = dcov
+      // d_cov = T^T dcov T from the composed total (see the note above).
+      T total[49];
 #pragma unroll
-      for (int c = 0; c < 7; ++c) {
-        T mc[7];
-        load_row(M + c * kRow, mc);
-        T acc = a[0] * mc[0];
+      for (int c = 0; c < 49; ++c) total[c] = totals[c * batch + w.b];
 #pragma unroll
-        for (int k = 1; k < 7; ++k) acc = acc + a[k] * mc[k];
-        dr[c] = acc;
-      }
-      if (owner) store_row(S0 + r * kRow, a);
-      __syncwarp(mask);
-      if (owner) store_row(M + r * kRow, dr);
-      __syncwarp(mask);
-
-      const bool custom = kFull && entry.kind == lynx::kCustom;
-      const bool dynamic =
-          entry.kind != lynx::kConst && entry.kind != lynx::kIdentity && !custom;
-      T rcol[7];  // column r of R_i
-      if (entry.kind == lynx::kConst) {
-        for (int q = lane; q < entry.cell_count; q += kLanes) {
-          const int cell = entry.cell_start + q;
-          if (active) d_consts[cell * batch + b] = M[padded(cell_pos[cell])];
-        }
-        const T* cells = consts + static_cast<int64_t>(entry.offset) * 49 + r;
+      for (int k = 0; k < 7; ++k) {
+        T x[7];  // column k of dcov T
 #pragma unroll
-        for (int j = 0; j < 7; ++j) rcol[j] = cells[j * 7];
-      } else if (custom) {
-        for (int q = lane; q < 49; q += kLanes) {
-          if (active) d_params[(entry.offset + q) * batch + b] = M[padded(q)];
+        for (int i = 0; i < 7; ++i) {
+          const T* row = dcov + w.b * 49 + i * 7;
+          T acc = row[0] * total[k];
+#pragma unroll
+          for (int j = 1; j < 7; ++j) acc = acc + row[j] * total[j * 7 + k];
+          x[i] = acc;
         }
 #pragma unroll
-        for (int j = 0; j < 7; ++j) rcol[j] = params[(entry.offset + j * 7 + r) * batch + b];
-      } else if (dynamic) {
-        // A pass's break is uniform over the team: n is the entry's.
-        const int n = lynx::tape_params<kFull>(entry.kind);
-        if constexpr (kFull && sizeof(T) == 8) {
-          // In double the full builders' dual numbers keep within 255
-          // registers only if the passes stay a loop and reload their
-          // parameters (measured with ptxas: unrolled, 764 bytes spill).
-#pragma unroll 1
-          for (int pass = 0; pass < kPasses; ++pass) {
-            if (pass * kLanes > n) break;
-            T p[kP];
-            entry_params<kFull>(entry, params, batch, b, p);
-            dual_pass<kFull>(entry, p, pass * kLanes, n, M, S1, slot, d_params, batch, b, active,
-                             e_b, rest, mass, lane);
-          }
-        } else {
-          T p[kP];
-          entry_params<kFull>(entry, params, batch, b, p);
-          for (int pass = 0; pass < kPasses; ++pass) {
-            if (pass > 0 && pass * kLanes > n) break;
-            dual_pass<kFull>(entry, p, pass * kLanes, n, M, S1, slot, d_params, batch, b, active,
-                             e_b, rest, mass, lane);
-          }
+        for (int j = 0; j < 7; ++j) {
+          T acc = total[j] * x[0];
+#pragma unroll
+          for (int i = 1; i < 7; ++i) acc = acc + total[i * 7 + j] * x[i];
+          G[j * 7 + k] = acc;
         }
       }
-      __syncwarp(mask);
-      if (dynamic) {
-        d_e = d_e + *slot;
-        load_column(S1, r, rcol);
-      }
-      if (entry.kind != lynx::kIdentity) row_times(rcol, S0, a);
-      __syncwarp(mask);
     }
   }
-  if (lane == 0 && active) d_energy[b] = d_e;
+  if (d_mu == nullptr && d_cov == nullptr) return;  // uniform: no barrier follows
+  __syncthreads();  // every thread has read its cotangents
+#pragma unroll
+  for (int j = 0; j < 7; ++j) s_vec[t * 7 + j] = g[j];
+#pragma unroll
+  for (int c = 0; c < 49; ++c) s_mat[t * 49 + c] = G[c];
+  __syncthreads();
+  if (d_cov != nullptr) copy_block(s_mat, d_cov + first * 49, count * 49, vectors);
+  if (d_mu != nullptr) copy_block(s_vec, d_mu + first * 7, count * 7, vectors);
 }
 
-// The current device and its shared memory per block (opt-in), read from
-// the driver once per device.
-int shared_limit(int* device) {
-  static std::atomic<int> limits[kDevices];  // 0: not read yet
-  cudaGetDevice(device);
-  int limit = *device < kDevices ? limits[*device].load(std::memory_order_relaxed) : 0;
-  if (limit == 0) {
-    cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, *device);
-    if (*device < kDevices) limits[*device].store(limit, std::memory_order_relaxed);
-  }
-  return limit;
-}
-
-// A launch's shape: settings per block, checkpoints a setting (0: one
-// segment) and the segment length.
-struct Layout {
-  int teams;
-  int checkpoints;
-  int segment;
-};
-
-// As many settings per block as `limit` bytes of shared memory hold, at most
-// kMaxTeams, whole warps where there are four or more: the whole tape in one
-// segment if that keeps kMaxTeams settings a block, else the longest
-// segments that do.
-template <typename T>
-Layout plan_layout(int n_entries, int limit) {
-  auto teams_for = [limit](int segment) {
-    const int64_t per_setting = static_cast<int64_t>(setting_stride(segment)) * sizeof(T);
-    int teams = static_cast<int>(limit / per_setting);
-    if (teams > kMaxTeams) teams = kMaxTeams;
-    if (teams >= 4) teams -= teams % 4;
-    return teams;
-  };
-  const int whole = teams_for(n_entries);
-  if (whole == kMaxTeams) return {whole, 0, n_entries};
-  int segment = n_entries;
-  while (segment > 1 && teams_for(segment) < kMaxTeams) --segment;
-  return {teams_for(segment), (n_entries + segment - 1) / segment, segment};
-}
-
-template <typename T, bool kFull, bool kSegmented>
-int launch(const void* tape, int n_entries, void* saved, const void* cell_pos,
-           const void* params, const void* consts, const void* energy, const void* mu,
+template <typename T, bool kFull>
+int launch(const void* tape, const void* wants, int n_entries, int n_forward, void* states,
+           void* totals, const void* params, const void* consts, const void* energy, const void* mu,
            const void* cov, const void* dmu, const void* dcov, void* d_params, void* d_consts,
            void* d_energy, void* d_mu, void* d_cov, long long batch, double rest, double mass,
            cudaStream_t stream) {
-  int device = 0;
-  const Layout layout = plan_layout<T>(n_entries, shared_limit(&device));
-  if (layout.teams < 1 || (layout.checkpoints && saved == nullptr)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int bytes = layout.teams * setting_stride(layout.segment) * static_cast<int>(sizeof(T));
-  // The kernel's dynamic shared-memory limit, raised only past the largest
-  // launch so far on this device.
-  static std::atomic<int> allowed[kDevices];  // one per instantiation
-  if (device >= kDevices || bytes > allowed[device].load(std::memory_order_relaxed)) {
-    cudaFuncSetAttribute(moment_sweep_bwd_kernel<T, kFull, kSegmented>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (device < kDevices) allowed[device].store(bytes, std::memory_order_relaxed);
-  }
-  const int64_t blocks = (batch + layout.teams - 1) / layout.teams;
-  moment_sweep_bwd_kernel<T, kFull, kSegmented><<<static_cast<unsigned>(blocks),
-                                                  layout.teams * kLanes, bytes, stream>>>(
-      static_cast<const lynx::TapeEntry*>(tape), n_entries, layout.checkpoints, layout.segment,
-      static_cast<T*>(saved), static_cast<const int*>(cell_pos), static_cast<const T*>(params),
+  const int64_t blocks = (batch + kSettings - 1) / kSettings;
+  moment_sweep_bwd_kernel<T, kFull><<<static_cast<unsigned>(blocks), kSettings, 0, stream>>>(
+      static_cast<const lynx::TapeEntry*>(tape), static_cast<const EntryWants*>(wants), n_entries,
+      n_forward, static_cast<T*>(states), static_cast<T*>(totals), static_cast<const T*>(params),
       static_cast<const T*>(consts), static_cast<const T*>(energy), static_cast<const T*>(mu),
       static_cast<const T*>(cov), static_cast<const T*>(dmu), static_cast<const T*>(dcov),
       static_cast<T*>(d_params), static_cast<T*>(d_consts), static_cast<T*>(d_energy),
@@ -498,77 +624,59 @@ int launch(const void* tape, int n_entries, void* saved, const void* cell_pos,
 }
 
 template <typename T>
-int launch(int full, const void* tape, int n_entries, void* saved, const void* cell_pos,
-           const void* params, const void* consts, const void* energy, const void* mu,
-           const void* cov, const void* dmu, const void* dcov, void* d_params, void* d_consts,
-           void* d_energy, void* d_mu, void* d_cov, long long batch, double rest, double mass,
-           cudaStream_t stream) {
-  int device = 0;
-  const bool segmented = plan_layout<T>(n_entries, shared_limit(&device)).checkpoints > 0;
+int launch(int full, const void* tape, const void* wants, int n_entries, int n_forward,
+           void* states, void* totals, const void* params, const void* consts, const void* energy,
+           const void* mu, const void* cov, const void* dmu, const void* dcov, void* d_params,
+           void* d_consts, void* d_energy, void* d_mu, void* d_cov, long long batch, double rest,
+           double mass, cudaStream_t stream) {
   auto run = [&](auto kernel_launch) {
-    return kernel_launch(tape, n_entries, saved, cell_pos, params, consts, energy, mu, cov, dmu,
-                         dcov, d_params, d_consts, d_energy, d_mu, d_cov, batch, rest, mass,
-                         stream);
+    return kernel_launch(tape, wants, n_entries, n_forward, states, totals, params, consts, energy,
+                         mu, cov, dmu, dcov, d_params, d_consts, d_energy, d_mu, d_cov, batch,
+                         rest, mass, stream);
   };
-  if (full) return segmented ? run(launch<T, true, true>) : run(launch<T, true, false>);
-  return segmented ? run(launch<T, false, true>) : run(launch<T, false, false>);
-}
-
-template <typename T>
-Layout layout_on_this_device(int n_entries) {
-  int device = 0;
-  return plan_layout<T>(n_entries, shared_limit(&device));
+  return full ? run(launch<T, true>) : run(launch<T, false>);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Settings per block of a launch with n_entries tape entries on the current
-// device.
-int lynx_moment_sweep_bwd_tile(int is_double, int n_entries) {
-  return is_double ? layout_on_this_device<double>(n_entries).teams
-                   : layout_on_this_device<float>(n_entries).teams;
-}
+// Settings per block: the tests hold a batch against it.
+int lynx_moment_sweep_bwd_block() { return kSettings; }
 
-// Entries per segment of such a launch: n_entries when the whole tape fits.
-int lynx_moment_sweep_bwd_segment(int is_double, int n_entries) {
-  return is_double ? layout_on_this_device<double>(n_entries).segment
-                   : layout_on_this_device<float>(n_entries).segment;
-}
+// Values of a state in the workspace: mu and the upper triangle of Sigma.
+int lynx_moment_sweep_bwd_state() { return kState; }
 
-// Checkpoints a setting of such a launch: 0 when the whole tape fits, else
-// the caller passes a scratch buffer of batch * checkpoints * 56 values.
-int lynx_moment_sweep_bwd_checkpoints(int is_double, int n_entries) {
-  return is_double ? layout_on_this_device<double>(n_entries).checkpoints
-                   : layout_on_this_device<float>(n_entries).checkpoints;
-}
-
-// tape: (n_entries, 5) int32; saved: (batch, checkpoints, 56) scratch, or
-// null where lynx_moment_sweep_bwd_checkpoints is 0; cell_pos: (C,) int32; params: (P, batch);
-// consts: (n_consts, 49); energy, d_energy: (batch,); mu, dmu, d_mu:
-// (batch, 7); cov, dcov, d_cov: (batch, 7, 7); d_params: (P, batch);
-// d_consts: (C, batch).  All float (is_double = 0) or double (is_double =
-// 1), contiguous.  full: 1 if the tape holds a kind from kFirstFullKind on.
-// rest, mass: the electron rest energy (m_e c^2 / e) and the CODATA electron
-// mass, in eV.  Returns cudaGetLastError(), or cudaErrorInvalidValue
-// without a scratch buffer where one is needed.
-int lynx_moment_sweep_bwd(int is_double, int full, const void* tape, int n_entries,
-                          void* saved, const void* cell_pos, const void* params,
-                          const void* consts,
-                          const void* energy, const void* mu, const void* cov, const void* dmu,
-                          const void* dcov, void* d_params, void* d_consts, void* d_energy,
-                          void* d_mu, void* d_cov, long long batch, double rest, double mass,
-                          void* stream) {
+// tape: (n_entries, 5) int32; wants: (n_entries, 4) int32, EntryWants;
+// n_forward: the entries the forward pass walks (through the last with a
+// slot; 0 for none); states: (slots, kState, batch) scratch, or null without
+// slots; totals: (49, batch) scratch for the composed map where d_cov is
+// asked for, else null; params: (P, batch); consts: (n_consts, 49); energy: (batch,); mu,
+// dmu: (batch, 7); cov, dcov: (batch, 7, 7), cov symmetric (only its upper
+// triangle is read); d_params: (rows, batch), the dynamic values and custom
+// cells asked for; d_consts: (rows, batch), the const cells asked for (the
+// caller sums them over the batch); d_energy (batch,), d_mu (batch, 7) and
+// d_cov (batch, 7, 7) each null where not asked for.  All float (is_double =
+// 0) or double (is_double = 1), contiguous.  full: 1 if the tape holds a
+// kind from kFirstFullKind on.  rest, mass: the electron rest energy (m_e
+// c^2 / e) and the CODATA electron mass, in eV.  Returns cudaGetLastError().
+int lynx_moment_sweep_bwd(int is_double, int full, const void* tape, const void* wants,
+                          int n_entries, int n_forward, void* states, void* totals,
+                          const void* params,
+                          const void* consts, const void* energy, const void* mu, const void* cov,
+                          const void* dmu, const void* dcov, void* d_params, void* d_consts,
+                          void* d_energy, void* d_mu, void* d_cov, long long batch, double rest,
+                          double mass, void* stream) {
   if (batch <= 0) return static_cast<int>(cudaGetLastError());
   auto s = static_cast<cudaStream_t>(stream);
   if (is_double) {
-    return launch<double>(full, tape, n_entries, saved, cell_pos, params, consts, energy, mu, cov,
-                          dmu, dcov, d_params, d_consts, d_energy, d_mu, d_cov, batch, rest, mass,
-                          s);
+    return launch<double>(full, tape, wants, n_entries, n_forward, states, totals, params, consts,
+                          energy, mu, cov, dmu, dcov, d_params, d_consts, d_energy, d_mu, d_cov,
+                          batch, rest, mass, s);
   }
-  return launch<float>(full, tape, n_entries, saved, cell_pos, params, consts, energy, mu, cov,
-                       dmu, dcov, d_params, d_consts, d_energy, d_mu, d_cov, batch, rest, mass, s);
+  return launch<float>(full, tape, wants, n_entries, n_forward, states, totals, params, consts,
+                       energy, mu, cov, dmu, dcov, d_params, d_consts, d_energy, d_mu, d_cov, batch,
+                       rest, mass, s);
 }
 
 const char* lynx_cuda_error_string(int code) {

@@ -153,15 +153,24 @@ def _table_reference_sweep(entries, flat_values, energy, mu, cov):
     return out_mu, out_cov
 
 
-def _reference_sweep_vjp(entries, flat_values, energy, mu, cov, dmu, dcov):
+def _reference_sweep_vjp(entries, flat_values, energy, mu, cov, dmu, dcov, wanted=None):
     """Plain version of B4: autograd of :func:`_table_reference_sweep`.
-    Returns ``(d_flat_values, d_energy, d_mu, d_cov)``."""
+    ``wanted`` (one flag per flat value, then the energy, mu and cov; None:
+    every input) names the cotangents asked for.  Returns ``(d_flat_values,
+    d_energy, d_mu, d_cov)``, None where not asked for."""
+    n = len(flat_values)
+    wanted = (True,) * (n + 3) if wanted is None else tuple(wanted)
     with torch.enable_grad():
-        inputs = [t.detach().requires_grad_(True) for t in (*flat_values, energy, mu, cov)]
-        n = len(flat_values)
+        inputs = [t.detach().requires_grad_(flag)
+                  for t, flag in zip((*flat_values, energy, mu, cov), wanted)]
         out = _table_reference_sweep(entries, inputs[:n], *inputs[n:])
-        grads = torch.autograd.grad(out, inputs, (dmu, dcov), allow_unused=True)
-    grads = [torch.zeros_like(x) if g is None else g for g, x in zip(grads, inputs)]
+        asked = [x for x in inputs if x.requires_grad]
+        found = iter(torch.autograd.grad(out, asked, (dmu, dcov), allow_unused=True)
+                     if asked else ())
+    grads = []
+    for x, flag in zip(inputs, wanted):
+        g = next(found) if flag else None
+        grads.append(torch.zeros_like(x) if flag and g is None else g)
     return tuple(grads[:n]), grads[n], grads[n + 1], grads[n + 2]
 
 
@@ -354,25 +363,94 @@ moment_sweep.launches = 0
 # -- Kernel B4: the sweep's backward -----------------------------------------
 
 #: C signatures of B4's entry points.  ``lynx_moment_sweep_bwd``: is_double,
-#: full, tape, n_entries, saved (the checkpoints' scratch), cell_pos, params,
-#: consts, energy, mu, cov, dmu, dcov, d_params, d_consts, d_energy, d_mu,
-#: d_cov, batch, rest energy, electron mass, stream; it returns a CUDA error
-#: code.  ``lynx_moment_sweep_bwd_tile``, ``_segment`` and ``_checkpoints``:
-#: is_double, n_entries -> settings per block, entries per segment and
-#: checkpoints per setting on the current device: a tape whose prefix
-#: products do not fit one setting's share of shared memory is walked in
-#: segments, each recomputed from a checkpoint kept in a (B, checkpoints,
-#: 56) scratch buffer that the wrapper allocates.
+#: full, tape, wants (:class:`VjpLayout`'s rows), n_entries, n_forward,
+#: states (the workspace), totals (the composed map, where d_cov is asked
+#: for), params, consts, energy, mu, cov, dmu, dcov,
+#: d_params, d_consts, d_energy, d_mu, d_cov (the last three null where not
+#: asked for), batch, rest energy, electron mass, stream; it returns a CUDA
+#: error code.  ``lynx_moment_sweep_bwd_block``: settings per block;
+#: ``lynx_moment_sweep_bwd_state``: values of a state in the workspace.
 _B4_SIGNATURE = {
     "lynx_moment_sweep_bwd": (
         ctypes.c_int,
-        [ctypes.c_int, ctypes.c_int, _P, ctypes.c_int] + [_P] * 14
+        [ctypes.c_int, ctypes.c_int, _P, _P, ctypes.c_int, ctypes.c_int] + [_P] * 14
         + [ctypes.c_longlong, ctypes.c_double, ctypes.c_double, _P],
     ),
-    "lynx_moment_sweep_bwd_tile": (ctypes.c_int, [ctypes.c_int, ctypes.c_int]),
-    "lynx_moment_sweep_bwd_segment": (ctypes.c_int, [ctypes.c_int, ctypes.c_int]),
-    "lynx_moment_sweep_bwd_checkpoints": (ctypes.c_int, [ctypes.c_int, ctypes.c_int]),
+    "lynx_moment_sweep_bwd_block": (ctypes.c_int, []),
+    "lynx_moment_sweep_bwd_state": (ctypes.c_int, []),
 }
+
+#: Values of a setting's state in B4's workspace: mu and the upper triangle
+#: of Sigma (``lynx_moment_sweep_bwd_state``).
+B4_STATE = 35
+
+
+class VjpLayout(NamedTuple):
+    """What one B4 launch differentiates, from a plan and the cotangents
+    asked for (:func:`_vjp_layout`).
+
+    ``wants`` is ``(E, 4)`` int32 on the tape's device, one ``(lo, hi, row,
+    slot)`` per entry (``EntryWants`` in ``csrc/moment_sweep_bwd.cu``): bit
+    k of the 64-bit ``hi:lo`` asks for the cotangent of the entry's value k
+    (a dynamic entry's parameter, a custom map's cell; a const entry's cell
+    at position k of the 49), a dynamic entry's bit ``count`` for the
+    energy; ``row`` is its first row in ``d_params`` (dynamic) or
+    ``d_consts`` (const); ``slot`` its state's place in the workspace (-1:
+    nothing asked, no state).  ``slots`` states a setting; ``forward`` the
+    entries the forward pass walks (through the last with a slot);
+    ``param_rows`` and ``const_rows`` the outputs' rows; ``cotangents`` the
+    inputs differentiated (values and the energy)."""
+
+    wants: Tensor
+    slots: int
+    forward: int
+    param_rows: int
+    const_rows: int
+    cotangents: int
+
+
+#: Layouts by plan structure, device and mask.
+_LAYOUTS: dict = {}
+
+
+def _vjp_layout(entries, device, wanted_values, want_energy: bool) -> VjpLayout:
+    """B4's :class:`VjpLayout` for a plan, ``wanted_values`` one flag per
+    flat value; built once per structure, device and mask."""
+    tape_key = _tape_key(entries, device)
+    key = (tape_key, tuple(wanted_values), want_energy)
+    if key in _LAYOUTS:
+        return _LAYOUTS[key]
+    flags = iter(wanted_values)
+    rows = []
+    slots = forward = cotangents = 0
+    counts = {"dyn": 0, "const": 0}  # output rows so far
+    for e, (code, (kind, meta, count)) in enumerate(zip(tape_key[0], entries)):
+        want = [bool(next(flags)) for _ in range(count)]
+        if kind == "dyn":
+            places = range(count)
+        else:  # a const entry's values are its non-literal cells
+            places = [7 * r + c for r in range(7) for c in range(7)
+                      if not isinstance(meta[r][c], float)]
+        bits = sum(1 << place for place, flag in zip(places, want) if flag)
+        if kind == "dyn" and want_energy and code not in (TAPE_IDENTITY, TAPE_CUSTOM):
+            bits |= 1 << count
+        slot = -1
+        if bits:
+            slot, slots, forward = slots, slots + 1, e + 1
+        lo, hi = bits & 0xFFFFFFFF, bits >> 32
+        rows.append((lo - (1 << 32) if lo >> 31 else lo, hi, counts[kind], slot))
+        counts[kind] += sum(want)
+        cotangents += sum(want)
+    layout = VjpLayout(
+        wants=torch.tensor(rows, dtype=torch.int32).reshape(-1, 4).to(device),
+        slots=slots,
+        forward=forward,
+        param_rows=counts["dyn"],
+        const_rows=counts["const"],
+        cotangents=cotangents + int(want_energy),
+    )
+    _LAYOUTS[key] = layout
+    return layout
 
 
 def moment_sweep_bwd_library() -> ctypes.CDLL:
@@ -380,72 +458,97 @@ def moment_sweep_bwd_library() -> ctypes.CDLL:
     return load_library("moment_sweep_bwd", _B4_SIGNATURE)
 
 
-def _moment_sweep_bwd_cuda(entries, flat_values, energy, mu, cov, dmu, dcov):
+def _pointer(t: Optional[Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _sweep_vjp_launch(library, entries, flat_values, energy, mu, cov, dmu, dcov, wanted, stream):
+    """B4 through ``library`` on ``stream`` (no synchronisation): the
+    marshalling of :func:`moment_sweep_bwd`'s kernel route, with ``wanted``
+    one flag per flat value, then the energy, mu and cov.  Counts the launch,
+    the cotangents it forms and the tape's inputs."""
+    B, dtype, device = mu.shape[0], mu.dtype, mu.device
+    n = len(flat_values)
+    tape = _tape(entries, device)
+    layout = _vjp_layout(entries, device, wanted[:n], bool(wanted[n]))
+    params, consts = _tape_operands(entries, flat_values, tape, dtype, B)
+    d_params = torch.empty((layout.param_rows, B), dtype=dtype, device=device)
+    d_consts = torch.empty((layout.const_rows, B), dtype=dtype, device=device)
+    d_energy = torch.empty_like(energy) if wanted[n] else None
+    d_mu = torch.empty_like(mu) if wanted[n + 1] else None
+    d_cov = torch.empty_like(cov) if wanted[n + 2] else None
+    states = totals = None
+    if layout.slots:  # the states entering the entries with something asked for
+        states = torch.empty((layout.slots, B4_STATE, B), dtype=dtype, device=device)
+    if d_cov is not None:  # the composed map, for d_cov = T^T dcov T
+        totals = torch.empty((49, B), dtype=dtype, device=device)
+    with profiling.span("kernel.moment_sweep_bwd"):
+        code = library.lynx_moment_sweep_bwd(
+            int(dtype == torch.float64), int(tape.full), tape.rows.data_ptr(),
+            layout.wants.data_ptr(), tape.rows.shape[0], layout.forward, _pointer(states),
+            _pointer(totals), params.data_ptr(), consts.data_ptr(), energy.data_ptr(),
+            mu.data_ptr(), cov.data_ptr(), dmu.data_ptr(), dcov.data_ptr(), d_params.data_ptr(),
+            d_consts.data_ptr(), _pointer(d_energy), _pointer(d_mu), _pointer(d_cov), B,
+            REST_ENERGY_EV, ELECTRON_MASS_EV, stream,
+        )
+    check(library, code, "moment_sweep_bwd")
+    moment_sweep_bwd.launches += 1
+    moment_sweep_bwd.cotangents += layout.cotangents
+    moment_sweep_bwd.inputs += n + 1
+
+    # Per-value cotangents: dynamic rows as they are, const cells summed
+    # over the batch (the kernel writes them per setting); None where not
+    # asked for.
+    rows = iter(d_params)
+    sums = iter(d_consts.sum(dim=1) if layout.const_rows else ())
+    flags = iter(wanted[:n])
+    d_flat = []
+    for kind, _, count in entries:
+        for _ in range(count):
+            d_flat.append((next(rows) if kind == "dyn" else next(sums)) if next(flags) else None)
+    return tuple(d_flat), d_energy, d_mu, d_cov
+
+
+def _moment_sweep_bwd_cuda(entries, flat_values, energy, mu, cov, dmu, dcov, wanted):
     """Launch kernel B4 on the current stream (no synchronisation)."""
     _check_sweep_operands("moment_sweep_bwd", energy, mu, cov, dmu, dcov)
     if dmu.shape != mu.shape or dcov.shape != cov.shape:
         raise ValueError("moment_sweep_bwd: cotangents must have the moments' shapes")
-    B, dtype, device = mu.shape[0], mu.dtype, mu.device
-    tape = _tape(entries, device)
-    n_entries = tape.rows.shape[0]
-    params, consts = _tape_operands(entries, flat_values, tape, dtype, B)
-    d_params = torch.empty((tape.n_params, B), dtype=dtype, device=device)
-    d_consts = torch.empty((tape.cell_pos.shape[0], B), dtype=dtype, device=device)
-    d_energy = torch.empty_like(energy)
-    d_mu = torch.empty_like(mu)
-    d_cov = torch.empty_like(cov)
     library = moment_sweep_bwd_library()
-    is_double = int(dtype == torch.float64)
-    with torch.cuda.device(device):
-        checkpoints = library.lynx_moment_sweep_bwd_checkpoints(is_double, n_entries)
-        saved = None
-        if checkpoints:  # the segments' checkpoints (the tape does not fit whole)
-            saved = torch.empty((B, checkpoints, 56), dtype=dtype, device=device)
-        with profiling.span("kernel.moment_sweep_bwd"):
-            code = library.lynx_moment_sweep_bwd(
-                is_double, int(tape.full), tape.rows.data_ptr(), n_entries,
-                None if saved is None else saved.data_ptr(),
-                tape.cell_pos.data_ptr(), params.data_ptr(), consts.data_ptr(),
-                energy.data_ptr(), mu.data_ptr(), cov.data_ptr(), dmu.data_ptr(), dcov.data_ptr(),
-                d_params.data_ptr(), d_consts.data_ptr(), d_energy.data_ptr(), d_mu.data_ptr(),
-                d_cov.data_ptr(), B, REST_ENERGY_EV, ELECTRON_MASS_EV,
-                torch.cuda.current_stream(device).cuda_stream,
-            )
-    check(library, code, "moment_sweep_bwd")
-    moment_sweep_bwd.launches += 1
-
-    # Per-value cotangents: dynamic rows as they are, const cells summed
-    # over the batch (the kernel writes them per setting).
-    rows = iter(d_params)
-    sums = iter(d_consts.sum(dim=1))
-    d_flat = tuple(
-        next(rows) if kind == "dyn" else next(sums)
-        for kind, _, count in entries
-        for _ in range(count)
-    )
-    return d_flat, d_energy, d_mu, d_cov
+    with torch.cuda.device(mu.device):
+        return _sweep_vjp_launch(library, entries, flat_values, energy, mu, cov, dmu, dcov, wanted,
+                                 torch.cuda.current_stream(mu.device).cuda_stream)
 
 
-def moment_sweep_bwd(entries, flat_values, energy, mu, cov, dmu, dcov):
+def moment_sweep_bwd(entries, flat_values, energy, mu, cov, dmu, dcov, wanted=None):
     """Kernel B4: the VJP of :func:`moment_sweep`, returning
     ``(d_flat_values, d_energy, d_mu, d_cov)`` in the moments' dtype:
     ``(B,)`` for dynamic values, batch-summed scalars for const cells.
+    ``wanted``, one flag per flat value, then the energy, mu and cov (None:
+    every input), names the cotangents asked for; the others come back None
+    and are not formed.
 
     A CUDA tensor launches the kernel (or raises); a CPU tensor takes the
-    plain version, autograd of :func:`_table_reference_sweep`."""
+    plain version, autograd of :func:`_table_reference_sweep`.
+    ``moment_sweep_bwd.cotangents`` counts the inputs the launches
+    differentiated (values and the energy), ``moment_sweep_bwd.inputs`` the
+    inputs of their tapes, both summed over the launches."""
     flat_values = [v.to(mu.dtype) for v in flat_values]
+    wanted = (True,) * (len(flat_values) + 3) if wanted is None else tuple(wanted)
     if mu.device.type == "cpu":
-        return _reference_sweep_vjp(entries, flat_values, energy, mu, cov, dmu, dcov)
-    return _moment_sweep_bwd_cuda(entries, flat_values, energy, mu, cov, dmu, dcov)
+        return _reference_sweep_vjp(entries, flat_values, energy, mu, cov, dmu, dcov, wanted)
+    return _moment_sweep_bwd_cuda(entries, flat_values, energy, mu, cov, dmu, dcov, wanted)
 
 
 moment_sweep_bwd.launches = 0
+moment_sweep_bwd.cotangents = 0
+moment_sweep_bwd.inputs = 0
 
 
 class _FusedMomentSweep(torch.autograd.Function):
-    """B3 forward, B4 backward.  Gradients flow to every flat plan value
+    """B3 forward, B4 backward.  Gradients flow to the flat plan values
     (const cells reduced to their own shape and dtype), the energy and the
-    moments."""
+    moments that autograd asks for; B4 forms only those."""
 
     @staticmethod
     def forward(ctx, entries, energy, mu, cov, *flat_values):
@@ -456,12 +559,15 @@ class _FusedMomentSweep(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dmu, dcov):
         energy, mu, cov, *flat_values = ctx.saved_tensors
+        needs = ctx.needs_input_grad  # entries, energy, mu, cov, flat values
         d_flat, d_energy, d_mu, d_cov = moment_sweep_bwd(
-            ctx.entries, flat_values, energy, mu, cov, dmu.contiguous(), dcov.contiguous()
+            ctx.entries, flat_values, energy, mu, cov, dmu.contiguous(), dcov.contiguous(),
+            wanted=(*needs[4:], *needs[1:4]),
         )
         # Const cells come back batch-summed as scalars: give each its value's
         # own shape and dtype.
-        d_flat = [d.reshape(v.shape).to(v.dtype) for d, v in zip(d_flat, flat_values)]
+        d_flat = [None if d is None else d.reshape(v.shape).to(v.dtype)
+                  for d, v in zip(d_flat, flat_values)]
         return (None, d_energy, d_mu, d_cov, *d_flat)
 
 

@@ -186,6 +186,8 @@ inline unsigned lynx_byte_perm(unsigned a, unsigned b, unsigned s) {
   for (int i = 0; i < 4; ++i) out |= ((pool >> (8 * ((s >> (4 * i)) & 7u))) & 0xffu) << (8 * i);
   return out;
 }
+// __popcll: the set bits of a 64-bit word.
+inline int lynx_popcount(unsigned long long x) { return __builtin_popcountll(x); }
 // cp.async: the copy is done at once, so commit and wait have nothing to do.
 template <typename T> inline void lynx_cp_async(T* shared_dst, const T* src) { *shared_dst = *src; }
 inline void lynx_cp_async_commit() {}
@@ -479,8 +481,8 @@ def per_setting_error(actual, expected):
 
 def sweep_plan(B, energy_batched, repeat=1):
     """The plan of :func:`run_and_inputs`'s run (its elements ``repeat``
-    times over) as B3 and B4 take it: ``(entries, values, tape, params,
-    consts, energy, mu, cov, k1_zero)``, float64."""
+    times over) as B3 and B4 take it: ``(entries, values, energy, mu, cov,
+    k1_zero)``, float64."""
     builders, energy, mu, cov, k1_zero = run_and_inputs(B, torch.float64)
     builders = builders * repeat
     if energy_batched:  # every element dynamic, markers and screens included
@@ -491,9 +493,7 @@ def sweep_plan(B, energy_batched, repeat=1):
         plan = torch_fused.plan_run(builders, energy[:1], lambda x: torch.broadcast_to(x, (B,)))
     entries = tuple((kind, meta, len(values)) for kind, meta, values in plan)
     values = [v for _, _, vs in plan for v in vs]
-    tape = fused_track._tape(entries, torch.device("cpu"))
-    params, consts = fused_track._tape_operands(entries, values, tape, torch.float64, B)
-    return entries, values, tape, params, consts, energy, mu, cov, k1_zero
+    return entries, values, energy, mu, cov, k1_zero
 
 
 def cotangents(B):
@@ -502,66 +502,83 @@ def cotangents(B):
     return torch.from_numpy(rng.normal(size=(B, 7))), torch.from_numpy(rng.normal(size=(B, 7, 7)))
 
 
-def run_backward(host_kernels, tape, params, consts, energy, mu, cov, dmu, dcov):
-    """B4 on the host, float64: its outputs by name."""
-    B = mu.shape[0]
-    outputs = {
-        "d_params": torch.empty((tape.n_params, B), dtype=torch.float64),
-        "d_consts": torch.empty((tape.cell_pos.shape[0], B), dtype=torch.float64),
-        "d_energy": torch.empty_like(energy),
-        "d_mu": torch.empty_like(mu),
-        "d_cov": torch.empty_like(cov),
-    }
-    library = host_kernels["moment_sweep_bwd"]
-    checkpoints = library.lynx_moment_sweep_bwd_checkpoints(1, tape.rows.shape[0])
-    saved = torch.empty((B, checkpoints, 56), dtype=torch.float64) if checkpoints else None
-    code = library.lynx_moment_sweep_bwd(
-        1, int(tape.full), tape.rows.data_ptr(), tape.rows.shape[0],
-        None if saved is None else saved.data_ptr(), tape.cell_pos.data_ptr(), params.data_ptr(),
-        consts.data_ptr(), energy.data_ptr(), mu.data_ptr(), cov.data_ptr(), dmu.data_ptr(),
-        dcov.data_ptr(), *(t.data_ptr() for t in outputs.values()), B, REST_ENERGY_EV,
-        ELECTRON_MASS_EV, None,
-    )
-    assert code == 0
-    return outputs
+def run_backward(host_kernels, entries, values, energy, mu, cov, dmu, dcov, wanted=None):
+    """B4 on the host, float64, through the wrapper's own marshalling
+    (``fused_track._sweep_vjp_launch``): ``(d_values, d_energy, d_mu,
+    d_cov)``, None where not asked for.  ``wanted``: one flag per value,
+    then the energy, mu and cov (None: every input)."""
+    if wanted is None:
+        wanted = (True,) * (len(values) + 3)
+    return fused_track._sweep_vjp_launch(host_kernels["moment_sweep_bwd"], entries, values,
+                                         energy, mu, cov, dmu, dcov, tuple(wanted), None)
 
 
-def check_backward(host_kernels, B, entries, values, tape, params, consts, energy, mu, cov,
-                   k1_zero, energy_rtol=RTOL, rtol=RTOL):
+def plain_value_forward(entries, values, energy, mu, cov, dmu, dcov, index):
+    """The plain version's cotangent of value ``index`` in forward mode: the
+    moments' derivatives along it, contracted with their cotangents per
+    setting (summed over the settings for a value they share)."""
+    import torch.autograd.forward_ad as fwAD
+
+    B = energy.shape[0]
+    values = [v.detach() for v in values]
+    with fwAD.dual_level():
+        values[index] = fwAD.make_dual(values[index], torch.ones_like(values[index]))
+        outputs = fused_track._table_reference_sweep(entries, values, energy, mu, cov)
+        tmu, tcov = (fwAD.unpack_dual(t).tangent for t in outputs)
+    total = (dmu * tmu).sum(dim=1) + (dcov * tcov).reshape(B, -1).sum(dim=1)
+    return total if values[index].shape[0] == B else total.sum().reshape(1)
+
+
+def check_backward(host_kernels, B, entries, values, energy, mu, cov, k1_zero,
+                   energy_rtol=RTOL, rtol=RTOL, wanted=None, forward=False):
     """B4 against autograd of the plain sweep, at the module's bounds (or
-    ``rtol``; the energy cotangent at ``energy_rtol``)."""
+    ``rtol``; the energy cotangent at ``energy_rtol``), with the cotangents
+    ``wanted`` asked for (None: all); the others None on both sides.  With
+    ``forward``, a value past the bound is held instead to the plain
+    version's forward mode (B4 differentiates its builders in forward
+    mode), where the plain version's own two modes differ by more than the
+    bound.  Returns B4's cotangents."""
     dmu, dcov = cotangents(B)
-    outputs = run_backward(host_kernels, tape, params, consts, energy, mu, cov, dmu, dcov)
-    ref_values, ref_energy, ref_mu, ref_cov = fused_track._reference_sweep_vjp(
-        entries, values, energy, mu, cov, dmu, dcov
+    got = run_backward(host_kernels, entries, values, energy, mu, cov, dmu, dcov, wanted)
+    ref_values, *ref_rest = fused_track._reference_sweep_vjp(
+        entries, values, energy, mu, cov, dmu, dcov, wanted
     )
-    rows, sums = iter(outputs["d_params"]), iter(outputs["d_consts"].sum(dim=1))
     offset = 0
     for kind, meta, count in entries:
         for k in range(count):
-            got = next(rows) if kind == "dyn" else next(sums)
-            want = ref_values[offset + k].reshape(got.shape)
+            got_value, want = got[0][offset + k], ref_values[offset + k]
+            assert (got_value is None) == (want is None), (kind, offset + k)
+            if want is None:
+                continue
+            want = want.reshape(got_value.shape)
             scale = float(want.abs().max())
-            error = (got - want).abs()
+            error = (got_value - want).abs()
             if meta is torch_fused._build_quadrupole and k == 1 and want.dim():
                 # d/dk1 at k1 == 0 is rounding-limited (module docstring).
                 zero = k1_zero if want.shape[0] == B else torch.zeros_like(k1_zero)
                 assert bool((error[zero] <= K1_ZERO_RTOL * want[zero].abs()).all())
                 error = error[~zero]
+            if forward and float(error.max()) > rtol * scale:
+                modes = plain_value_forward(entries, values, energy, mu, cov, dmu, dcov,
+                                            offset + k).reshape(got_value.shape)
+                assert float((modes - want).abs().max()) > rtol * scale, (kind, offset + k)
+                error = (got_value - modes).abs()
             assert float(error.max()) <= rtol * scale, (kind, offset + k)
         offset += count
-    for name, want, bound in (("d_energy", ref_energy, energy_rtol), ("d_mu", ref_mu, rtol),
-                              ("d_cov", ref_cov, rtol)):
-        got = outputs[name]
-        assert float((got - want).abs().max()) <= bound * float(want.abs().max()), name
+    for name, got_value, want, bound in zip(("d_energy", "d_mu", "d_cov"), got[1:], ref_rest,
+                                            (energy_rtol, rtol, rtol)):
+        assert (got_value is None) == (want is None), name
+        if want is not None:
+            assert float((got_value - want).abs().max()) <= bound * float(want.abs().max()), name
+    return got
 
 
 @pytest.mark.parametrize("energy_batched", [False, True])
 def test_moment_sweep_and_backward_match_plain(host_kernels, energy_batched):
-    B = 37  # ragged: neither a multiple of B3's 128-thread block nor of B4's tile
+    B = 37  # ragged: not a multiple of B3's and B4's 64-setting blocks
     plan = sweep_plan(B, energy_batched)
-    entries, values, tape, params, consts, energy, mu, cov, _ = plan
-    assert B % host_kernels["moment_sweep_bwd"].lynx_moment_sweep_bwd_tile(1, len(entries))
+    entries, values, energy, mu, cov, _ = plan
+    assert B % host_kernels["moment_sweep_bwd"].lynx_moment_sweep_bwd_block()
 
     out_mu, out_cov = run_sweep(host_kernels, entries, values, energy, mu, cov)
     ref_mu, ref_cov = fused_track._table_reference_sweep(entries, values, energy, mu, cov)
@@ -664,39 +681,230 @@ def test_const_support_classes():
     assert support(layout({(2, 2): 0.5})) == 0
 
 
-def test_backward_tile_follows_the_tape_and_the_dtype(host_kernels):
-    """B4 keeps each setting's prefix products in shared memory, 32
-    settings a block: a tape whose prefix products would leave fewer (past
-    28 entries in float, 12 in double, with the 227 KB of an H100 block) is
-    walked in segments, each from a checkpoint in a device scratch buffer:
-    the longest segments that keep 32 settings a block, 28 entries in float
-    and 12 in double."""
-    tile = host_kernels["moment_sweep_bwd"].lynx_moment_sweep_bwd_tile
-    segment = host_kernels["moment_sweep_bwd"].lynx_moment_sweep_bwd_segment
-    checkpoints = host_kernels["moment_sweep_bwd"].lynx_moment_sweep_bwd_checkpoints
-    for is_double, entries in ((0, 11), (1, 11), (0, 28), (1, 12)):
-        # Whole: path T's plan takes 3.4 / 6.8 KB a setting.
-        assert tile(is_double, entries) == 32 and segment(is_double, entries) == entries
-        assert checkpoints(is_double, entries) == 0
-    for is_double, entries, length in ((0, 29, 28), (1, 13, 12), (0, 68, 28), (1, 200, 12),
-                                       (0, 1034, 28), (1, 901, 12), (1, 60_000, 12)):
-        assert tile(is_double, entries) == 32 and segment(is_double, entries) == length
-        assert checkpoints(is_double, entries) == -(-entries // length)
-
-
-@pytest.mark.parametrize("B, repeat, segments", [(5, 4, 3), (37, 4, 3), (5, 25, 19)])
-def test_backward_on_a_tape_that_shrinks_the_tile(host_kernels, B, repeat, segments):
-    """The run ``repeat`` times over, every entry dynamic: 36 entries would
-    shrink the block to 12 settings in float64, so they are walked in 3
-    segments of 12 (B = 37 fills one block of 32 and part of a second, B = 5
-    part of one); 225 entries in 19 segments, the last of 9."""
-    plan = sweep_plan(B, energy_batched=True, repeat=repeat)
-    entries = plan[0]
-    assert len(entries) == 9 * repeat
+def test_backward_layout_follows_the_tape_and_the_mask(host_kernels):
+    """B4 keeps the state entering each entry that has an input asked for
+    (mu and Sigma's upper triangle, 35 values a setting) in a workspace
+    slot, in tape order, and its forward pass walks through the last such
+    entry only; its outputs have a row per value asked for, dynamic values
+    in ``d_params``, const cells in ``d_consts``; a dynamic entry's bit past
+    its parameters asks for the energy.  On :func:`sweep_plan`'s tape
+    (const, quadrupole, const, two correctors, const, drift), each mask."""
     library = host_kernels["moment_sweep_bwd"]
-    assert library.lynx_moment_sweep_bwd_tile(1, len(entries)) == 32
-    assert library.lynx_moment_sweep_bwd_checkpoints(1, len(entries)) == segments
+    assert library.lynx_moment_sweep_bwd_state() == fused_track.B4_STATE == 35
+    assert library.lynx_moment_sweep_bwd_block() == 64
+    entries, values, *_ = sweep_plan(8, energy_batched=False)
+    cpu = torch.device("cpu")
+    assert [kind if kind == "const" else meta.tape_kind for kind, meta, _ in entries] == [
+        "const", fused_track.TAPE_QUAD, "const", fused_track.TAPE_HCOR, fused_track.TAPE_VCOR,
+        "const", fused_track.TAPE_DRIFT]
+    counts = [count for _, _, count in entries]
+    assert counts == [3, 5, 3, 2, 2, 30, 1]
+
+    def rows(layout):
+        return [((hi << 32) | (lo & 0xFFFFFFFF), row, slot)
+                for lo, hi, row, slot in layout.wants.tolist()]
+
+    every = fused_track._vjp_layout(entries, cpu, (True,) * 46, True)
+    drift_cells = (1 << 1) | (1 << 17) | (1 << 33)  # (0, 1), (2, 3), (4, 5)
+    got = rows(every)
+    assert got[:5] == [(drift_cells, 0, 0), (0b111111, 0, 1), (drift_cells, 3, 2), (0b111, 5, 3),
+                       (0b111, 7, 4)]
+    assert bin(got[5][0]).count("1") == 30 and got[5][1:] == (6, 5)
+    assert got[6] == (0b11, 9, 6)
+    assert (every.slots, every.forward, every.param_rows, every.const_rows, every.cotangents) == (
+        7, 7, 10, 36, 47)
+
+    # The tuner's: k1 and the correctors' angles, nothing else.
+    tuner = [False] * 46
+    for index in (3 + 1, 11 + 1, 13 + 1):
+        tuner[index] = True
+    layout = fused_track._vjp_layout(entries, cpu, tuner, False)
+    assert rows(layout) == [(0, 0, -1), (0b10, 0, 0), (0, 0, -1), (0b10, 1, 1), (0b10, 2, 2),
+                            (0, 0, -1), (0, 3, -1)]
+    assert (layout.slots, layout.forward, layout.param_rows, layout.const_rows,
+            layout.cotangents) == (3, 5, 3, 0, 3)
+
+    # The energy alone: a bit past each dynamic entry's parameters.
+    layout = fused_track._vjp_layout(entries, cpu, [False] * 46, True)
+    assert [bits for bits, _, _ in rows(layout)] == [0, 1 << 5, 0, 1 << 2, 1 << 2, 0, 1 << 1]
+    assert (layout.slots, layout.forward, layout.param_rows, layout.cotangents) == (4, 7, 0, 1)
+
+    # The moments alone: no state, no forward pass.
+    layout = fused_track._vjp_layout(entries, cpu, [False] * 46, False)
+    assert (layout.slots, layout.forward, layout.param_rows, layout.const_rows,
+            layout.cotangents) == (0, 0, 0, 0, 0)
+
+
+@pytest.mark.parametrize("B, repeat", [(5, 4), (37, 4), (5, 25)])
+def test_backward_on_long_tapes(host_kernels, B, repeat):
+    """The run ``repeat`` times over, every entry dynamic: 36 and 225
+    entries, the markers' and screens' identity entries without a state, so
+    7 states a repeat in the workspace; B = 37 fills one block of 64
+    settings in part, B = 5 a few threads of it."""
+    plan = sweep_plan(B, energy_batched=True, repeat=repeat)
+    entries, values = plan[:2]
+    assert len(entries) == 9 * repeat
+    layout = fused_track._vjp_layout(entries, torch.device("cpu"), (True,) * len(values), True)
+    assert layout.slots == 7 * repeat and layout.forward == 9 * repeat - 1
     check_backward(host_kernels, B, *plan)
+
+
+def one_field_a_dynamic_entry(entries):
+    """The tuner's mask over a plan's values: one value of each dynamic
+    entry (a quadrupole's k1, a corrector's or dipole's angle, a solenoid's
+    k, a cavity's voltage, a drift's length, a custom map's cell (0, 1)),
+    no const cell, and neither the energy nor the moments."""
+    wanted = []
+    for kind, _, count in entries:
+        wanted += [kind == "dyn" and k == min(1, count - 1) for k in range(count)]
+    return wanted
+
+
+MASKS = {
+    "tuner": lambda entries, n: one_field_a_dynamic_entry(entries) + [False, False, False],
+    "energy": lambda entries, n: [False] * n + [True, False, False],
+    "const cells": lambda entries, n: [kind == "const" for kind, _, count in entries
+                                       for _ in range(count)] + [False, False, True],
+    "moments": lambda entries, n: [False] * n + [False, True, True],
+    "every other value": lambda entries, n: [k % 2 == 0 for k in range(n)] + [True, True, False],
+}
+
+
+@pytest.mark.parametrize("mask", sorted(MASKS))
+def test_backward_forms_only_the_cotangents_asked_for(host_kernels, mask):
+    """A mask asks B4 for some cotangents: those come back equal to the
+    all-inputs launch's, bit for bit, and within the module's bounds of the
+    plain version asked for the same; the others come back None.  On the
+    paths' plan and on the full kinds' (const groups between), ragged B."""
+    for entries, values, energy, mu, cov, k1_zero in (sweep_plan(37, False),
+                                                      new_kind_plan(37, False)):
+        B = mu.shape[0]
+        wanted = MASKS[mask](entries, len(values))
+        dmu, dcov = cotangents(B)
+        every = run_backward(host_kernels, entries, values, energy, mu, cov, dmu, dcov)
+        some = check_backward(host_kernels, B, entries, values, energy, mu, cov, k1_zero,
+                              energy_rtol=1e-9, wanted=wanted)
+        for flag, got, full in zip(wanted, (*some[0], *some[1:]), (*every[0], *every[1:])):
+            assert (got is not None) == flag
+            if flag:
+                assert torch.equal(got, full)
+
+
+def test_backward_asks_for_what_autograd_needs(host_kernels, monkeypatch):
+    """The tuner's case through autograd: only the quadrupoles' k1 and the
+    correctors' angles require a gradient, the energy and every static
+    element none.  ``_FusedMomentSweep.backward`` asks B4 (its host build
+    standing in for the CPU's plain version) for those cotangents and the
+    moments' alone, one a dynamic entry; the gradients equal the plain
+    version's within the module's bound; the counters count the tape's 46
+    inputs (its values and the energy) and the 3 differentiated."""
+    B = 37
+    entries, values, energy, mu, cov, k1_zero = sweep_plan(B, energy_batched=False)
+    tuned = {3 + 1, 11 + 1, 13 + 1}  # the quadrupole's k1 and the correctors' angles
+    leaves = [v.detach().clone().requires_grad_(i in tuned) for i, v in enumerate(values)]
+    mu_in = mu.clone().requires_grad_(True)
+    plan = []
+    offset = 0
+    for kind, meta, count in entries:
+        plan.append((kind, meta, leaves[offset:offset + count]))
+        offset += count
+    dmu, dcov = cotangents(B)
+
+    def gradients():
+        out_mu, out_cov = fused_track.fused_moment_sweep_plan(plan, energy, mu_in, cov)
+        asked = [leaves[i] for i in sorted(tuned)] + [mu_in]
+        return torch.autograd.grad((out_mu, out_cov), asked, (dmu, dcov))
+
+    want = gradients()
+    seen = []
+
+    def host_vjp(entries, flat_values, energy, mu, cov, dmu, dcov, wanted):
+        seen.append(wanted)
+        return run_backward(host_kernels, entries, [v.detach() for v in flat_values],
+                            energy.detach(), mu.detach(), cov.detach(), dmu, dcov, wanted)
+
+    monkeypatch.setattr(fused_track, "_reference_sweep_vjp", host_vjp)
+    counts = (fused_track.moment_sweep_bwd.launches, fused_track.moment_sweep_bwd.cotangents,
+              fused_track.moment_sweep_bwd.inputs)
+    got = gradients()
+    assert seen == [tuple(i in tuned for i in range(46)) + (False, True, False)]
+    assert (fused_track.moment_sweep_bwd.launches, fused_track.moment_sweep_bwd.cotangents,
+            fused_track.moment_sweep_bwd.inputs) == (counts[0] + 1, counts[1] + 3, counts[2] + 47)
+    for k, (g, w) in enumerate(zip(got, want)):
+        error = (g - w).abs()
+        if k == 0:  # d/dk1 at k1 == 0 is rounding-limited (module docstring)
+            assert bool((error[k1_zero] <= K1_ZERO_RTOL * w[k1_zero].abs()).all())
+            error = error[~k1_zero]
+        assert float(error.max()) <= RTOL * float(w.abs().max())
+
+
+def cycled_plan(B, n_entries):
+    """A tape of exactly ``n_entries`` entries at one energy: pairs of a
+    static drift (a const entry) and a batched element of each kind in turn
+    (the paths' quadrupole, correctors and drift, then the full lattice's
+    kinds of :func:`new_kind_elements`), a static drift last where the
+    count is odd, float64; ``(entries, values, energy, mu, cov, k1_zero)``."""
+    rng = np.random.default_rng(n_entries)
+    f64 = dict(dtype=torch.float64)
+
+    def u(low, high, *shape):
+        return torch.from_numpy(rng.uniform(low, high, shape or (B,)))
+
+    batched = []
+    cycle = 0
+    while len(batched) < n_entries // 2:
+        batched += [
+            ltt.Quadrupole(u(0.1, 0.3), k1=u(0.5, 5.0) * np.sign(cycle % 2 - 0.5),
+                           tilt=u(-0.1, 0.1), misalignment=u(-2e-4, 2e-4, B, 2), **f64),
+            ltt.HorizontalCorrector(u(0.05, 0.2), angle=u(-1e-3, 1e-3), **f64),
+            ltt.VerticalCorrector(u(0.05, 0.2), angle=u(-1e-3, 1e-3), **f64),
+            ltt.Drift(u(0.1, 0.5), **f64),
+            *new_kind_elements(B, seed=cycle)[1::2],
+        ]
+        cycle += 1
+    elements = []
+    for element in batched[:n_entries // 2]:
+        elements += [ltt.Drift(torch.tensor([float(rng.uniform(0.1, 0.5))], **f64), **f64),
+                     element]
+    if n_entries % 2:
+        elements.append(ltt.Drift(torch.tensor([0.25], **f64), **f64))
+    builders = [torch_fused.element_map_builder(el) for el in elements]
+    energy = torch.full((B,), 1.073e8, **f64)
+    plan = torch_fused.plan_run(builders, energy[:1], lambda x: torch.broadcast_to(x, (B,)))
+    entries = tuple((kind, meta, len(values)) for kind, meta, values in plan)
+    values = [v for _, _, vs in plan for v in vs]
+    assert len(entries) == n_entries
+    mu = torch.from_numpy(
+        np.concatenate([rng.normal(scale=1e-4, size=(B, 6)), np.ones((B, 1))], axis=1))
+    a = rng.normal(scale=1e-4, size=(B, 7, 7))
+    a[:, 6, :] = 0.0
+    return entries, values, energy, mu, torch.from_numpy(a @ np.swapaxes(a, 1, 2)), \
+        torch.zeros(B, dtype=bool)
+
+
+@pytest.mark.parametrize("n_entries", [0, 1, 11, 58, 225])
+def test_backward_on_tapes_of_any_length(host_kernels, n_entries):
+    """Tapes of 0 (the moments' cotangents pass through), 1 (one const
+    entry), 11 (path T's length), 58 (the full tuner's longest run) and 225
+    entries over every kind, the full kinds' builders from 11 on, at a
+    ragged B = 70 (a full 64-setting block and 6 settings of a second):
+    every input and the tuner's mask, against the plain version; the
+    counters count each launch's inputs and cotangents.  On 225 entries the
+    plain version's reverse mode loses digits on two dipoles' tilt (its own
+    forward mode differs from it by up to ~1e-10 of the largest there):
+    those are held to the forward mode."""
+    B = 70
+    plan = cycled_plan(B, n_entries)
+    entries, values = plan[:2]
+    n = len(values)
+    assert fused_track._tape(entries, torch.device("cpu")).full == (n_entries >= 11)
+    for wanted in (None, one_field_a_dynamic_entry(entries) + [False, True, True]):
+        before = (fused_track.moment_sweep_bwd.cotangents, fused_track.moment_sweep_bwd.inputs)
+        check_backward(host_kernels, B, *plan, energy_rtol=1e-9, wanted=wanted, forward=True)
+        asked = n + 1 if wanted is None else sum(wanted[:n + 1])
+        assert fused_track.moment_sweep_bwd.cotangents == before[0] + asked
+        assert fused_track.moment_sweep_bwd.inputs == before[1] + n + 1
+    assert sum(one_field_a_dynamic_entry(entries)) == n_entries // 2
 
 
 def new_kind_elements(B, seed=4):
@@ -733,7 +941,8 @@ def new_kind_elements(B, seed=4):
 
 def new_kind_plan(B, energy_batched):
     """The plan of :func:`new_kind_elements` as B3 and B4 take it (see
-    :func:`sweep_plan`); no quadrupole, so no k1 = 0 entry."""
+    :func:`sweep_plan`); no quadrupole, so no k1 = 0 entry.  Also returns the
+    tape."""
     builders = [torch_fused.element_map_builder(el) for el in new_kind_elements(B)]
     rng = np.random.default_rng(6)
     energy = torch.full((B,), 1.073e8, dtype=torch.float64)
@@ -743,14 +952,12 @@ def new_kind_plan(B, energy_batched):
                                 lambda x: torch.broadcast_to(x, (B,)))
     entries = tuple((kind, meta, len(values)) for kind, meta, values in plan)
     values = [v for _, _, vs in plan for v in vs]
-    tape = fused_track._tape(entries, torch.device("cpu"))
-    params, consts = fused_track._tape_operands(entries, values, tape, torch.float64, B)
     mu = torch.from_numpy(
         np.concatenate([rng.normal(scale=1e-4, size=(B, 6)), np.ones((B, 1))], axis=1))
     a = rng.normal(scale=1e-4, size=(B, 7, 7))
     a[:, 6, :] = 0.0
     cov = torch.from_numpy(a @ np.swapaxes(a, 1, 2))
-    return entries, values, tape, params, consts, energy, mu, cov, torch.zeros(B, dtype=bool)
+    return entries, values, energy, mu, cov, torch.zeros(B, dtype=bool)
 
 
 @pytest.mark.parametrize("B, energy_batched", [(37, False), (5, True)])
@@ -762,7 +969,8 @@ def test_new_builders_match_plain(host_kernels, B, energy_batched):
     which cancel to ~1e-17 here: the two summation orders agree to 1e-10 of
     it, 1e-12 of the contributions."""
     plan = new_kind_plan(B, energy_batched)
-    entries, values, tape, params, consts, energy, mu, cov, _ = plan
+    entries, values, energy, mu, cov, _ = plan
+    tape = fused_track._tape(entries, torch.device("cpu"))
     assert tape.full
     kinds = {row[0] for row in tape.rows.tolist()}
     assert {fused_track.TAPE_DIPOLE, fused_track.TAPE_SOLENOID, fused_track.TAPE_CAVITY,
@@ -784,9 +992,9 @@ def test_new_builders_energy_cotangent_is_the_forward_mode(host_kernels, B, ener
     import chip_smoke
 
     plan = new_kind_plan(B, energy_batched)
-    entries, values, tape, params, consts, energy, mu, cov, _ = plan
+    entries, values, energy, mu, cov, _ = plan
     dmu, dcov = cotangents(B)
-    got = run_backward(host_kernels, tape, params, consts, energy, mu, cov, dmu, dcov)["d_energy"]
+    got = run_backward(host_kernels, entries, values, energy, mu, cov, dmu, dcov)[1]
     forward = chip_smoke.plain_energy_forward(torch, fused_track, entries, values, energy, mu,
                                               cov, dmu, dcov)
     reverse = fused_track._reference_sweep_vjp(entries, values, energy, mu, cov, dmu, dcov)[1]
@@ -807,18 +1015,11 @@ def test_backward_on_path_v_random_lattices(host_kernels, seed, monkeypatch):
     from lynx_tpu_torch import functional
     from lynx_tpu_torch.accelerator import segment as segment_module
 
-    def host_vjp(entries, flat_values, energy, mu, cov, dmu, dcov):
-        B = mu.shape[0]
-        tape = fused_track._tape(entries, torch.device("cpu"))
-        params, consts = fused_track._tape_operands(
-            entries, [v.detach() for v in flat_values], tape, torch.float64, B)
-        out = run_backward(host_kernels, tape, params, consts, energy.detach().contiguous(),
-                           mu.detach().contiguous(), cov.detach().contiguous(),
-                           dmu.contiguous(), dcov.contiguous())
-        rows, sums = iter(out["d_params"]), iter(out["d_consts"].sum(dim=1))
-        d_flat = tuple(next(rows) if kind == "dyn" else next(sums)
-                       for kind, _, count in entries for _ in range(count))
-        return d_flat, out["d_energy"], out["d_mu"], out["d_cov"]
+    def host_vjp(entries, flat_values, energy, mu, cov, dmu, dcov, wanted):
+        return run_backward(host_kernels, entries, [v.detach() for v in flat_values],
+                            energy.detach().contiguous(), mu.detach().contiguous(),
+                            cov.detach().contiguous(), dmu.contiguous(), dcov.contiguous(),
+                            wanted)
 
     monkeypatch.setattr(segment_module, "FUSED_SWEEP_PATH", True)
     monkeypatch.setattr(segment_module, "PALLAS_SWEEP_THRESHOLD", 1)
@@ -836,11 +1037,12 @@ def test_backward_on_path_v_random_lattices(host_kernels, seed, monkeypatch):
 
 def test_backward_past_the_shared_memory_walks_segments(host_kernels):
     """fodo_lattice(90) with every quadrupole batched plans to 541 entries:
-    past the 514 whose prefix products fit one setting in double, so B4
-    walks 46 segments of up to 12 entries from their checkpoints, against
-    the plain version; B = 37 fills one block of 32 settings and part of a
-    second.  The chain of 541 maps grows cotangents to ~1e10 (the const
-    cells', summed over the settings): 1e-11 of the largest is their
+    past the 514 whose prefix products fit one setting's share of shared
+    memory in double, which once cut such a tape into segments.  B4 keeps
+    the state entering each entry in its device workspace instead, 541
+    states a setting, against the plain version; B = 37 fills part of one
+    64-setting block.  The chain of 541 maps grows cotangents to ~1e10 (the
+    const cells', summed over the settings): 1e-11 of the largest is their
     rounding."""
     from lynx_tpu_torch.models.fodo import fodo_lattice
 
@@ -857,18 +1059,14 @@ def test_backward_past_the_shared_memory_walks_segments(host_kernels):
     entries = tuple((kind, meta, len(values)) for kind, meta, values in plan)
     values = [v for _, _, vs in plan for v in vs]
     assert len(entries) == 541
-    library = host_kernels["moment_sweep_bwd"]
-    assert library.lynx_moment_sweep_bwd_segment(1, 541) == 12
-    assert library.lynx_moment_sweep_bwd_tile(1, 541) == 32
-    assert library.lynx_moment_sweep_bwd_checkpoints(1, 541) == 46
-    tape = fused_track._tape(entries, torch.device("cpu"))
-    params, consts = fused_track._tape_operands(entries, values, tape, torch.float64, B)
+    layout = fused_track._vjp_layout(entries, torch.device("cpu"), (True,) * len(values), True)
+    assert layout.slots == 541 and layout.forward == 541
     mu = torch.from_numpy(
         np.concatenate([rng.normal(scale=1e-4, size=(B, 6)), np.ones((B, 1))], axis=1))
     a = rng.normal(scale=1e-4, size=(B, 7, 7))
     a[:, 6, :] = 0.0
     cov = torch.from_numpy(a @ np.swapaxes(a, 1, 2))
-    check_backward(host_kernels, B, entries, values, tape, params, consts, energy, mu, cov,
+    check_backward(host_kernels, B, entries, values, energy, mu, cov,
                    torch.zeros(B, dtype=bool), rtol=1e-11)
 
 

@@ -83,43 +83,11 @@ VARIANTS = {
         "constexpr int kClusterThreads = 256;",
         "B7's twolevel cluster blocks of 256 threads",
     ),
-    "B4-inline-pass": (
+    "B4-32-settings": (
         "moment_sweep_bwd",
-        """          T p[kP];
-          entry_params<kFull>(entry, params, batch, b, p);
-          for (int pass = 0; pass < kPasses; ++pass) {
-            if (pass > 0 && pass * kLanes > n) break;
-            dual_pass<kFull>(entry, p, pass * kLanes, n, M, S1, slot, d_params, batch, b, active,
-                             e_b, rest, mass, lane);
-          }""",
-        """          T p[kP];
-          entry_params<kFull>(entry, params, batch, b, p);
-          for (int pass = 0; pass < kPasses; ++pass) {
-            const int base = pass * kLanes;
-            if (pass > 0 && base > n) break;
-            const int q = base + lane;
-            lynx::Dual<T> pd[kP];
-#pragma unroll
-            for (int k = 0; k < kP; ++k) pd[k] = lynx::Dual<T>(p[k], k == q ? T(1) : T(0));
-            const lynx::Dual<T> ed(e_b, q == n ? T(1) : T(0));
-            lynx::Dual<T> Rd[49];
-            lynx::build_dynamic<kFull, T, lynx::Dual<T>>(entry.kind, pd, ed, rest, mass, Rd);
-            T g = T(0);
-#pragma unroll
-            for (int i = 0; i < 7; ++i) {
-              T dri[7];
-              load_row(M + i * kRow, dri);
-#pragma unroll
-              for (int k = 0; k < 7; ++k) g = g + dri[k] * Rd[i * 7 + k].d;
-            }
-            if (q < n) {
-              if (active) d_params[(entry.offset + q) * batch + b] = g;
-            } else if (q == n) {
-              *slot = g;
-            }
-            if (!kFull || base + kLanes > n) scatter_rows(Rd, S1, lane);
-          }""",
-        "B4's dual passes written inline in the kernel, as before the pass function",
+        "constexpr int kSettings = 64;",
+        "constexpr int kSettings = 32;",
+        "B4 in blocks of 32 settings (one warp)",
     ),
 }
 
