@@ -9,6 +9,16 @@ a ParameterBeam run takes the fused moment sweep (kernel B3 on the card,
 B4 for its gradient), and the particle observation's ``method="kernel"``
 the particle moment sweep (kernels B5 and B6).
 
+Particle fidelity: an environment given a shared ``ParticleBeam``
+(``make_env(beam=...)``) observes that beam in ``batched_step`` and
+``batched_reset`` instead of each instance's ParameterBeam: the sample
+moments of the whole cloud at the screen for each instance's settings,
+through ``method`` (``"kernel"``, ``"moments"`` or ``"particles"``, as
+:meth:`AresEATransverseTuning.batched_particle_beam_parameters` takes it).
+The kernel route reads nothing back to the host, so such a step captures in
+a CUDA graph as the ParameterBeam step does.  Without a beam every step is
+the ParameterBeam step.
+
 Action: 5 settings ``(k1_Q1, k1_Q2, k1_Q3, angle_CV, angle_CH)``, normalised
 to [-1, 1].  Observation: the settings, the beam ``(mu_x, sigma_x, mu_y,
 sigma_y)`` on the screen and the target, both in mm.  Reward: minus the
@@ -40,6 +50,15 @@ Tensor = torch.Tensor
 #: Action scaling: max |k1| for quads (1/m^2), max |angle| for correctors
 #: (rad).  Float32, as in the JAX package, so that both scale alike.
 MAGNET_LIMITS = np.array([30.0, 30.0, 30.0, 6e-3, 6e-3], dtype=np.float32)
+
+#: The routes of a particle beam's observation.
+OBSERVATION_METHODS = ("auto", "moments", "particles", "kernel")
+
+
+def _checked_method(method: str) -> str:
+    if method not in OBSERVATION_METHODS:
+        raise ValueError(f"unknown method {method!r} ({' | '.join(OBSERVATION_METHODS)})")
+    return method
 
 
 class EnvParams(NamedTuple):
@@ -102,6 +121,13 @@ class AresEATransverseTuning:
     :param energy: working-point beam energy in eV, shared by all instances.
     :param dtype, device: of the lattice and of the beams it builds; the
         device is the card unless given.
+    :param beam: a shared ``ParticleBeam`` that the batched step and reset
+        observe for every instance (its ``incoming_mu`` and
+        ``incoming_sigma`` then go unused); None observes each instance's
+        ParameterBeam.
+    :param method: how the batched step and reset observe ``beam``:
+        ``"kernel"``, ``"moments"``, ``"particles"`` or ``"auto"``
+        (:meth:`batched_particle_beam_parameters`).
     """
 
     num_actions = 5
@@ -113,8 +139,12 @@ class AresEATransverseTuning:
         energy: float = 1.073e8,
         dtype: torch.dtype = torch.float32,
         device=None,
+        beam: Optional[ParticleBeam] = None,
+        method: str = "kernel",
     ) -> None:
         self.device = resolve_device(device)
+        self.beam = beam
+        self.method = _checked_method(method)
         segment = ares_ea_segment(dtype=dtype, device=self.device)
         segment.AREABSCR1.is_active = False
         self._segment = segment
@@ -207,20 +237,19 @@ class AresEATransverseTuning:
             the shared cloud (kernels B5/B6 on the card), which also serves
             lattices with interleaved active apertures.
         """
-        tuned = self._batched_tuned_segment(magnets)
-        if method == "auto":
-            method = "moments" if moment_sufficient(tuned, beam) else "particles"
-        if method == "moments":
-            outgoing, _ = track(tuned, beam.as_parameter_beam())
-        elif method == "particles":
-            outgoing, _ = track(tuned, beam)
-        elif method == "kernel":
-            return self._kernel_particle_beam_parameters(magnets, tuned, beam)
-        else:
-            raise ValueError(f"unknown method {method!r} (auto | moments | kernel | particles)")
-        return torch.stack(
-            [outgoing.mu_x, outgoing.sigma_x, outgoing.mu_y, outgoing.sigma_y], dim=-1
-        )
+        with profiling.span("env.observe"):
+            tuned = self._batched_tuned_segment(magnets)
+            if _checked_method(method) == "auto":
+                method = "moments" if moment_sufficient(tuned, beam) else "particles"
+            if method == "kernel":
+                return self._kernel_particle_beam_parameters(magnets, tuned, beam)
+            if method == "moments":
+                outgoing, _ = track(tuned, beam.as_parameter_beam())
+            else:
+                outgoing, _ = track(tuned, beam)
+            return torch.stack(
+                [outgoing.mu_x, outgoing.sigma_x, outgoing.mu_y, outgoing.sigma_y], dim=-1
+            )
 
     def _kernel_particle_beam_parameters(
         self, magnets: Tensor, tuned: Segment, beam: ParticleBeam
@@ -232,14 +261,16 @@ class AresEATransverseTuning:
         supported."""
         B = magnets.shape[0]
         particles = beam.particles
-        plan = particle_moment_plan(
-            tuned.flattened().elements,
-            # Pin the energy to the particles' dtype: self.energy is a Python
-            # float and would otherwise promote the plan to float64.  Filled
-            # on the device: a capture refuses a host-to-device copy.
-            torch.full((), self.energy, dtype=particles.dtype, device=particles.device),
-            lambda x: torch.broadcast_to(torch.as_tensor(x).reshape(-1), (B,)),
-        )
+        with profiling.span("track.plan"):
+            plan = particle_moment_plan(
+                tuned.flattened().elements,
+                # Pin the energy to the particles' dtype: self.energy is a
+                # Python float and would otherwise promote the plan to
+                # float64.  Filled on the device: a capture refuses a
+                # host-to-device copy.
+                torch.full((), self.energy, dtype=particles.dtype, device=particles.device),
+                lambda x: torch.broadcast_to(torch.as_tensor(x).reshape(-1), (B,)),
+            )
         if plan is None:
             raise ValueError("kernel method requires an affine-plus-apertures lattice")
         if particles.ndim == 3 and particles.shape[0] == 1:
@@ -256,6 +287,14 @@ class AresEATransverseTuning:
         return torch.stack(
             [mu[:, 0], torch.sqrt(cov[:, 0, 0]), mu[:, 2], torch.sqrt(cov[:, 2, 2])], dim=-1
         )
+
+    def _batched_observation(self, magnets: Tensor, params: EnvParams) -> Tensor:
+        """``(B, 4)`` beam on the screen for ``(B, 5)`` settings: the
+        shared particle beam's (``method``) where the environment has one,
+        else each instance's ParameterBeam."""
+        if self.beam is None:
+            return self.batched_beam_parameters(magnets, params)
+        return self.batched_particle_beam_parameters(magnets, self.beam, self.method)
 
     def _observe(self, magnets: Tensor, beam: Tensor, target: Tensor) -> Tensor:
         return torch.cat([magnets, beam * 1e3, target * 1e3], dim=-1)
@@ -278,7 +317,7 @@ class AresEATransverseTuning:
         with profiling.span("env.step"):
             magnets = torch.clamp(actions, -1.0, 1.0)
             next_states = EnvState(magnets, states.step_count + 1, states.generator)
-            beam = self.batched_beam_parameters(magnets, params)
+            beam = self._batched_observation(magnets, params)
             rewards = -torch.sum(torch.abs(beam - params.target), dim=-1) * 1e3
             dones = next_states.step_count >= params.max_steps
             if self.log_metrics:
@@ -295,7 +334,7 @@ class AresEATransverseTuning:
         states = EnvState(
             magnets, torch.zeros((B,), dtype=torch.int32, device=self.device), generator
         )
-        beam = self.batched_beam_parameters(magnets, params)
+        beam = self._batched_observation(magnets, params)
         return self._observe(magnets, beam, params.target), states
 
     # -- env API -----------------------------------------------------------
@@ -330,10 +369,17 @@ class AresEATransverseTuning:
 
 
 def make_env(
-    log_metrics: bool = False, dtype: torch.dtype = torch.float32, device=None
+    log_metrics: bool = False,
+    dtype: torch.dtype = torch.float32,
+    device=None,
+    beam: Optional[ParticleBeam] = None,
+    method: str = "kernel",
 ) -> AresEATransverseTuning:
-    """The ARES-EA environment, on the card unless ``device`` says otherwise."""
-    return AresEATransverseTuning(log_metrics=log_metrics, dtype=dtype, device=device)
+    """The ARES-EA environment, on the card unless ``device`` says
+    otherwise; given a shared particle ``beam``, its batched step and reset
+    observe that beam through ``method``."""
+    return AresEATransverseTuning(log_metrics=log_metrics, dtype=dtype, device=device,
+                                  beam=beam, method=method)
 
 
 

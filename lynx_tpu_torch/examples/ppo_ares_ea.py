@@ -5,7 +5,9 @@ The environment steps all instances as one batch (``batched_step``): at
 16,384 settings and more each step is one launch of the moment-sweep
 kernel B3 on the card.  The rollout, the GAE and the PPO update stay on the
 device, captured as one CUDA graph (the JAX example's one ``jax.jit``); the
-host reads the loss only where it prints.
+host reads the loss only where it prints.  ``make_rollout`` captures the
+rollout alone (a policy's evaluation or a collection of transitions, no
+update), through the same steps as the update's collect.
 
 Run: python -m lynx_tpu_torch.examples.ppo_ares_ea [--updates 20]
 [--num-envs 512] [--rollout 16] [--device cuda]
@@ -91,6 +93,81 @@ def gaussian_logp(mean, log_std, action):
     )
 
 
+def act_and_step(policy, step, env_params: EnvParams, obs: torch.Tensor, states: EnvState,
+                 rollout: int, generator: Optional[torch.Generator] = None,
+                 noise: Optional[torch.Tensor] = None, logp: bool = True):
+    """``rollout`` steps of ``policy`` through the batched env ``step``:
+    each action is the policy's mean plus ``exp(log_std)`` times the action
+    noise, drawn from ``generator`` or taken from ``noise[t]``.  Returns
+    ``(trajectory, obs, states)``: one ``(obs, action, logp, value, reward,
+    done)`` a step (``logp`` None unless asked for), and the last
+    observations and states.  Done instances step on, as in PPO's collect:
+    ``done`` records them."""
+    traj = []
+    for t in range(rollout):
+        mean, log_std, value = policy(obs)
+        eps = (noise[t] if noise is not None else
+               torch.randn(mean.shape, generator=generator, dtype=mean.dtype,
+                           device=mean.device))
+        action = mean + torch.exp(log_std) * eps
+        action_logp = gaussian_logp(mean, log_std, action) if logp else None
+        next_obs, states, reward, done = step(states, action, env_params)
+        traj.append((obs, action, action_logp, value, reward, done))
+        obs = next_obs
+    return traj, obs, states
+
+
+def make_rollout(env, env_params: EnvParams, rollout: int):
+    """Build a rollout of ``rollout`` batched env steps of a policy, without
+    an update: ``rollout_fn(policy, obs, states, noise) -> (trajectory, obs,
+    states)``.  Each step's action is the policy's mean plus
+    ``exp(log_std)`` times ``noise[t]`` (``noise`` ``(rollout, B,
+    act_size)``), then ``env.batched_step`` (:func:`act_and_step`, as in
+    PPO's collect); ``trajectory`` is ``(obs, actions, rewards, dones)``,
+    ``(rollout, B, ...)`` each, the observations those the policy saw.
+
+    On a CUDA policy the rollout is captured in a CUDA graph
+    (``graphs.CapturedStep``) once per policy, shared particle beam
+    (``env.beam``, by identity) and structure of ``obs``, ``states`` and
+    ``noise`` (the ``graphs.StepCache`` in ``rollout_fn.cache``), and
+    replayed: one replay a call.  The returned ``obs`` and ``states`` are
+    the graph's carry, which the next replay rewrites (pass them back as
+    they are); the trajectory is the caller's.  On CPU tensors the same
+    rollout runs eagerly under ``graphs.capturing``.  ``rollout_fn.runs``
+    counts the rollouts issued from Python: the capture's warm-up and the
+    capture on the card, every call on the CPU, never a replay."""
+    step = env.batched_step
+    cache = graphs.StepCache("rollout")
+
+    def rollout_fn(policy, obs, states, noise):
+        captured = cache((policy, env.beam), (obs, states, noise), lambda static, generators:
+                         make_step(policy, static))
+        new_obs, magnets, step_count, *traj = captured()
+        return (tuple(t.clone() for t in traj),
+                new_obs, EnvState(magnets, step_count, states.generator))
+
+    def make_step(policy, static):
+        obs, states, noise = static
+        carry = [obs, states.magnets, states.step_count]
+
+        def run():
+            rollout_fn.runs += 1
+            with torch.no_grad():
+                traj, new_obs, new_states = act_and_step(policy, step, env_params, obs, states,
+                                                         rollout, noise=noise, logp=False)
+                columns = [torch.stack([entry[i] for entry in traj]) for i in (0, 1, 4, 5)]
+                # The carry, in place (after the stack, which reads the first
+                # observations from it): the next replay starts from it.
+                torch._foreach_copy_(carry, [new_obs, new_states.magnets, new_states.step_count])
+                return (*carry, *columns)
+
+        return graphs.CapturedStep(run, obs.device, keep=list(policy.parameters()) + carry)
+
+    rollout_fn.cache = cache
+    rollout_fn.runs = 0
+    return rollout_fn
+
+
 def make_collect_and_update(env, env_params: EnvParams, optimizer: torch.optim.Optimizer,
                             rollout: int, graph: bool = True):
     """Build the PPO step: a rollout of ``rollout`` batched env steps, GAE
@@ -139,18 +216,9 @@ def make_collect_and_update(env, env_params: EnvParams, optimizer: torch.optim.O
         def share_of_mean(x):  # this rank's part of the global mean
             return x.sum() / (x.numel() * ranks)
 
-        traj = []
         with torch.no_grad():
-            for t in range(rollout):
-                mean, log_std, value = policy(obs)
-                eps = (noise[t] if noise is not None else
-                       torch.randn(mean.shape, generator=generator, dtype=mean.dtype,
-                                   device=mean.device))
-                action = mean + torch.exp(log_std) * eps
-                logp = gaussian_logp(mean, log_std, action)
-                next_obs, states, reward, done = step(states, action, env_params)
-                traj.append((obs, action, logp, value, reward, done))
-                obs = next_obs
+            traj, obs, states = act_and_step(policy, step, env_params, obs, states, rollout,
+                                             generator, noise)
             traj_obs, traj_act, traj_logp, traj_val, traj_rew, traj_done = (
                 torch.stack(column) for column in zip(*traj)
             )

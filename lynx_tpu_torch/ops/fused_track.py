@@ -1588,10 +1588,20 @@ def sweep_particle_moments(
     column off.  The centre's per-setting image through the maps gives each
     aperture its plane centre ``(cx, cy)`` (affine maps commute with ``x = c
     + delta``), and the result is ``mu = image + s1/W`` with the covariance
-    from the deviation sums."""
+    from the deviation sums.
+
+    The centre and its walk run in the span ``particle.center``;
+    ``sweep_particle_moments.particle_settings`` counts the settings times
+    the particles swept, summed over the calls issued (a replay issues
+    none), as the kernels' wrappers count their ``launches``."""
     scalars = _settings_axis(scalars, batch_size, particles)
-    kernel_entries, extra, delta, image = _centered_plan(entries, scalars, particles, weights)
+    with profiling.span("particle.center"):
+        kernel_entries, extra, delta, image = _centered_plan(entries, scalars, particles, weights)
     s1, s2, w_sum = fused_particle_moment_sweep(kernel_entries, extra, delta, weights)
+    sweep_particle_moments.particle_settings += scalars[0].shape[0] * particles.shape[0]
     # The deviation cloud's mean is the shift from the tracked image.
     shift, cov = particle_moments_from_sums(s1, s2, w_sum)
     return image + shift, cov, w_sum
+
+
+sweep_particle_moments.particle_settings = 0

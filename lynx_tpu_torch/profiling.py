@@ -27,8 +27,12 @@ arguments, the structure key and the cache lookup), ``graphs.replay`` (the
 copy into the static inputs, ``graph.replay()``, the metric records queued,
 the outputs cloned), ``graphs.capture`` (warm-ups, capture, instantiate).
 Inside captured code: ``replay`` (the whole captured region), ``env.step``
-(``AresEATransverseTuning.batched_step``), ``track.plan`` (a run of linear
-elements flushed: maps, plan and their kernels), ``kernel.<name>`` (a
+(``AresEATransverseTuning.batched_step``), ``env.observe`` (a particle
+beam's observation, ``batched_particle_beam_parameters``: its plan of the
+tuned maps over the settings runs as ``track.plan``), ``particle.center``
+(``ops.fused_track.sweep_particle_moments``: the cloud's centre and its walk
+through the plan), ``track.plan`` (a run of linear elements flushed, or a
+particle observation's plan: maps, plan and their kernels), ``kernel.<name>`` (a
 kernel's launch: ``moment_sweep`` B3, ``moment_sweep_bwd`` B4,
 ``window_histogram`` B1, ``particle_apply`` B2, ``particle_moment_sweep``
 B5, ``packed_gram`` B6; ``kde`` and ``kde_bwd``, the screen's KDE image and
