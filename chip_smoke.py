@@ -220,7 +220,8 @@ LATTICE_CHECK_BATCH = 2048  # the full lattice's plan in the B3/B4 checks
 FODO_CELLS, FODO_BATCH = 150, 16_384  # fault C1: B4 on 901 entries in double
 PUSH_BATCH, PUSH_PARTICLES = 100, 10_000  # path P
 KERNEL_LIBRARIES = ("window_histogram", "particle_apply", "moment_sweep", "moment_sweep_bwd",
-                    "particle_moment_sweep", "packed_gram", "hist_ab", "particle_push", "kde")
+                    "particle_moment_sweep", "packed_gram", "hist_ab", "particle_push", "kde",
+                    "map_fold")
 
 # Bounds of B2-B4 against their plain versions.  Errors are relative to the
 # largest entry of the compared quantity: per setting for moments and
@@ -1055,7 +1056,8 @@ def plain_on_cuda_guard(torch, ft):
     inside the particle moment sweep's backward (``_moment_sweep_vjp``, the
     JAX package's design: autograd of the plain walk)."""
     names = ("_table_reference_sweep", "_reference_sweep_vjp", "particle_apply_reference",
-             "_moment_sweep_reference", "packed_gram_reference", "particle_push_reference")
+             "_moment_sweep_reference", "packed_gram_reference", "particle_push_reference",
+             "map_fold_reference")
     originals = {name: getattr(ft, name) for name in (*names, "_moment_sweep_vjp")}
     hits = {"count": 0, "backward": 0}
     in_backward = [False]
@@ -1093,7 +1095,7 @@ def plain_on_cuda_guard(torch, ft):
 
 def reset_counts(ft, hist):
     for wrapper in (hist.window_histogram, ft.particle_apply, ft.moment_sweep, ft.moment_sweep_bwd,
-                    ft.particle_moment_sweep, ft.packed_gram, ft.particle_push):
+                    ft.particle_moment_sweep, ft.packed_gram, ft.particle_push, ft.map_fold):
         wrapper.launches = 0
     ft.moment_sweep_bwd.cotangents = ft.moment_sweep_bwd.inputs = 0
 
@@ -1107,7 +1109,8 @@ def cotangent_counts(ft, calls):
 def counts(ft):
     return {"B2": ft.particle_apply.launches, "B3": ft.moment_sweep.launches,
             "B4": ft.moment_sweep_bwd.launches, "B5": ft.particle_moment_sweep.launches,
-            "B6": ft.packed_gram.launches, "B8": ft.particle_push.launches}
+            "B6": ft.packed_gram.launches, "B8": ft.particle_push.launches,
+            "B10": ft.map_fold.launches}
 
 
 def sweep_params(torch, envs, B, device, seed):
@@ -1693,6 +1696,27 @@ def plan_of(torch, fused, elements, B, dtype):
     )
 
 
+def fold_error(torch, layout, actual, expected):
+    """B10's error on one ``("map", layout)`` entry: each setting's map
+    filled out from the layout's literals and the cells it indexes in
+    ``actual`` and ``expected`` (``(B,)`` rows), then per setting and row the
+    largest |difference| over the row's largest |cell|, as the other
+    kernels' errors are relative to each setting's largest entry."""
+    def maps(cells):
+        B = next(cells[c] for row in layout for c in row if not isinstance(c, float)).shape[0]
+        full = torch.empty((7, 7, B), dtype=torch.float64, device=cells[0].device)
+        for i, row in enumerate(layout):
+            for j, c in enumerate(row):
+                full[i, j] = c if isinstance(c, float) else cells[c].double()
+        return full
+
+    if all(isinstance(c, float) for row in layout for c in row):
+        return 0.0
+    a, e = maps(actual), maps(expected)
+    scale = e.abs().amax(dim=1).clamp_min(1e-300)
+    return float(((a - e).abs().amax(dim=1) / scale).max())
+
+
 def kernel_operands(torch, ft, fused, elements, B, particles):
     """What sweep_particle_moments hands the kernels for this lattice: the
     6-field entries, the scalars, the deviation cloud and its weights."""
@@ -1792,27 +1816,258 @@ def column_error(torch, actual, expected):
                   / expected.double().abs().amax(dim=0).clamp_min(1e-300)).max())
 
 
-def path_env_kernel(torch, ft, hist, env, ParticleBeam, card):
+MAP_FOLD_BATCHES = (1, 16, 256, 4096)  # B10: settings of its checks
+MAP_FOLD_CELL_BATCH = 256  # B10's row: ea_particles.fidelity_256's settings
+#: B10 in float against the table route in float64 on the same fields: within
+#: FLOAT_RTOL["B2"], or where B10's plain version in float strays further,
+#: within this multiple of its own error (the two round in different orders).
+FOLD_OWN_MULTIPLE = 2
+
+
+@contextlib.contextmanager
+def table_route(fused):
+    """particle_moment_plan with every run on the table algebra, whatever the
+    device (``fused._fold_batch`` declines every run)."""
+    original = fused._fold_batch
+    fused._fold_batch = lambda values, energy: None
+    try:
+        yield
+    finally:
+        fused._fold_batch = original
+
+
+def fold_plans(torch, ltt, envs, B, dtype, seed):
+    """B10's check cases at B settings: ``{label: (make_elements, energy,
+    field)}``, ``make_elements()`` giving the lattice's elements from its
+    current fields and ``field`` a tensor of per-setting fields to rewrite
+    (None for the random mixes).  The ARES-EA env's tuned segment on random settings of its five
+    magnets (the observation of ea_particles.fidelity_256), the
+    particle-fidelity example's aperture lattice (two runs) and path V's
+    random element mixes of seeds 0-15, every field per setting and the
+    cavities inactive (one run each; the dipoles, solenoids, undulators and
+    cavities take the full instantiation)."""
+    from lynx_tpu_torch.examples.particle_fidelity_sweep import aperture_lattice
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    env = envs.make_env(dtype=dtype, device="cuda")
+    magnets = torch.rand((B, 5), generator=gen, device="cuda", dtype=dtype) - 0.5
+    energy = torch.tensor(env.energy, dtype=dtype, device="cuda")
+    plans = {"ares_ea": (lambda: env._batched_tuned_segment(magnets).flattened().elements,
+                         energy, magnets)}
+    aperture = aperture_lattice(B, dtype=dtype, device="cuda")
+    plans["aperture"] = (lambda: aperture, energy, aperture[1].k1)
+    for seed in RANDOM_SEEDS:
+        lattice = random_lattice(torch, ltt, seed, random_length(seed), dtype=dtype)
+        apply_settings(lattice, random_settings(torch, lattice, B, seed, cavities=False))
+        plans[f"random {seed}"] = (lambda lattice=lattice: lattice.elements, energy, None)
+    return plans
+
+
+def fold_routes(torch, ft, fused, elements, energy, B):
+    """The plan of ``elements`` through B10 (the route on CUDA), through
+    B10's plain version on the same CUDA operands and through the table
+    algebra: ``{route: (entries, scalars)}``, and B10's launches."""
+    def vec(x):
+        return torch.broadcast_to(torch.as_tensor(x).reshape(-1), (B,))
+
+    launched = ft.map_fold.launches
+    routes = {"B10": fused.particle_moment_plan(elements, energy, vec)}
+    launched = ft.map_fold.launches - launched
+    original = ft.map_fold
+    try:
+        fused.map_fold = lambda entries, values, e: ft.map_fold_reference(
+            entries, [v.to(e.dtype) for v in values], e)
+        routes["plain"] = fused.particle_moment_plan(elements, energy, vec)
+    finally:
+        fused.map_fold = original
+    with table_route(fused):
+        routes["table"] = fused.particle_moment_plan(elements, energy, vec)
+    return routes, launched
+
+
+def plan_errors(torch, routes, against, of="B10"):
+    """The largest ``fold_error`` of ``routes[of]``'s plan over its map
+    entries against ``routes[against]``; raises where the entries differ."""
+    entries, scalars = routes[of]
+    if routes[against][0] != entries:
+        raise AssertionError(f"the {of} plan's entries differ from the {against} route's")
+    return max((fold_error(torch, e[1], scalars, routes[against][1])
+                for e in entries if e[0] == "map"), default=0.0)
+
+
+def path_map_fold(torch, ltt, ft, fused, envs, graphs, card):
+    """B10: the particle moment plan's runs folded per setting on the card
+    (``fused.particle_moment_plan``'s route for CUDA fields), at
+    MAP_FOLD_BATCHES settings in float32 and float64 on ``fold_plans``'s
+    lattices: the plan's entries equal on every route; B10's cells
+    (``fold_error``) in float64 within DOUBLE_RTOL of its plain version on
+    the same CUDA operands and of the table algebra; in float32 against the
+    table route in float64 on the same fields, within FLOAT_RTOL["B2"] or
+    FOLD_OWN_MULTIPLE times the plain float32 version's own error there
+    (path V's mixes of up to 24 maps with |k1| up to 30 round further than
+    the EA's 13), and beside it against the float32 plain version and table
+    route; B10's launches equal to the runs, and the table algebra and the
+    plain version run only where forced.  Then the env's and the aperture
+    lattice's plans captured in a CUDA graph and replayed on new fields,
+    against the eager B10 plan and its plain version on those fields (float32
+    within FLOAT_RTOL["B2"]), and the graph's kernel nodes on each route.
+    Then B10's row at ea_particles.fidelity_256's plan (the env's, B = 256,
+    float): call and device time, its plain version's and the table
+    route's.  Returns ``(launches, timing)``."""
+    rtol = {torch.float64: DOUBLE_RTOL, torch.float32: FLOAT_RTOL["B2"]}
+    total, worst = 0, {}
+    for dtype in (torch.float32, torch.float64):
+        key = str(dtype)[6:]
+        for B in MAP_FOLD_BATCHES:
+            for label, (elements, energy, _) in fold_plans(torch, ltt, envs, B, dtype,
+                                                           seed=120 + B).items():
+                if B != MAP_FOLD_CELL_BATCH and label.startswith("random"):
+                    continue  # the random mixes at the cell's batch only
+                runs = fused.particle_moment_plan.table_runs
+                with plain_on_cuda_guard(torch, ft) as plain:
+                    routes, launched = fold_routes(torch, ft, fused, elements(), energy, B)
+                table_runs = fused.particle_moment_plan.table_runs - runs
+                n_maps = sum(e[0] == "map" for e in routes["B10"][0])
+                # The plain version is called on purpose once (fold_routes).
+                if launched != n_maps or table_runs != n_maps or plain["count"] != n_maps:
+                    raise AssertionError(f"B10 {label} B={B} {key}: launches {launched} over"
+                                         f" {n_maps} runs, table runs {table_runs}, plain"
+                                         f" versions {plain['count']}")
+                total += launched
+                gated, limit = ("plain", "table"), rtol[dtype]
+                if dtype == torch.float32:
+                    with table_route(fused):
+                        routes["float64"] = fused.particle_moment_plan(
+                            elements(), energy.double(),
+                            lambda x, B=B: torch.broadcast_to(torch.as_tensor(x).reshape(-1), (B,)))
+                    own = plan_errors(torch, routes, "float64", of="plain")
+                    worst["plain's own", key] = max(worst.get(("plain's own", key), 0.0), own)
+                    gated, limit = ("float64",), max(limit, FOLD_OWN_MULTIPLE * own)
+                for against in ("plain", "table", "float64")[:2 + (dtype == torch.float32)]:
+                    error = plan_errors(torch, routes, against)
+                    worst[against, key] = max(worst.get((against, key), 0.0), error)
+                    if against in gated and error > limit:
+                        raise AssertionError(f"B10 {label} B={B} {key}: against the {against}"
+                                             f" route {error} (limit {limit})")
+    # Captured: the plan in a graph, replayed on new fields.
+    captured = {}
+    for dtype in (torch.float32, torch.float64):
+        for B in MAP_FOLD_BATCHES:
+            plans = fold_plans(torch, ltt, envs, B, dtype, seed=140 + B)
+            for label in ("ares_ea", "aperture"):
+                elements, energy, field = plans[label]
+                vec = (lambda x, B=B: torch.broadcast_to(torch.as_tensor(x).reshape(-1), (B,)))
+                nodes = {}
+                for route in ("B10", "table"):
+                    with table_route(fused) if route == "table" else contextlib.nullcontext():
+                        side = torch.cuda.Stream()
+                        side.wait_stream(torch.cuda.current_stream())
+                        with torch.cuda.stream(side):
+                            for _ in range(2):
+                                fused.particle_moment_plan(elements(), energy, vec)
+                        torch.cuda.current_stream().wait_stream(side)
+                        graph = torch.cuda.CUDAGraph(keep_graph=True)
+                        with graphs.capture_scope(), \
+                                torch.cuda.graph(graph, capture_error_mode=graphs.CAPTURE_MODE):
+                            replayed = fused.particle_moment_plan(elements(), energy, vec)
+                        graph.instantiate()
+                    nodes[route] = graphs.graph_kernel_count(graph)
+                    if route == "B10":
+                        kept = field.clone()
+                        field.copy_(field.flip(0) * 0.9)
+                        graph.replay()
+                        torch.cuda.synchronize()
+                        routes, _ = fold_routes(torch, ft, fused, elements(), energy, B)
+                        routes["replayed"] = replayed
+                        error = max(plan_errors(torch, routes, against, of="replayed")
+                                    for against in ("B10", "plain"))
+                        field.copy_(kept)
+                        key = str(dtype)[6:]
+                        worst["replayed", key] = max(worst.get(("replayed", key), 0.0), error)
+                        if error > rtol[dtype]:
+                            raise AssertionError(f"B10 captured {label} B={B} {key}: {error}")
+                    del graph
+                captured[f"{label} B={B} {str(dtype)[6:]}"] = nodes
+    print(json.dumps({
+        "path": "B10", "what": f"the particle moment plan's runs through B10 at {MAP_FOLD_BATCHES}"
+        " settings, float32 and float64 (the EA env, the aperture lattice; path V's random"
+        f" mixes at {MAP_FOLD_CELL_BATCH}), against its plain version on CUDA operands and the"
+        " table algebra, eagerly and replayed", "launches": {"B10": total},
+        "max_err": {f"{a} {k}": v for (a, k), v in worst.items()},
+        "bounds": {"float64": DOUBLE_RTOL, "float32 against float64": f"max({FLOAT_RTOL['B2']},"
+                   f" {FOLD_OWN_MULTIPLE} x plain's own)", "replayed float32": FLOAT_RTOL["B2"]},
+        "graph_kernel_nodes_a_plan": captured, "card": card}))
+
+    # B10 at ea_particles.fidelity_256's plan: the env's, B = 256, float.
+    B = MAP_FOLD_CELL_BATCH
+    elements, energy, _ = fold_plans(torch, ltt, envs, B, torch.float32, seed=160)["ares_ea"]
+    elements = elements()
+
+    def vec(x):
+        return torch.broadcast_to(torch.as_tensor(x).reshape(-1), (B,))
+
+    def kernel():
+        return fused.particle_moment_plan(elements, energy, vec)
+
+    run = tuple(("dyn", fn, len(values))
+                for values, fn in (fused.element_map_builder(el) for el in elements))
+    values = [vec(p) for el in elements for p in fused.element_map_builder(el)[0]]
+    run_energy = vec(energy).contiguous()
+
+    def plain():
+        return ft.map_fold_reference(run, values, run_energy)
+
+    def table():
+        with table_route(fused):
+            return fused.particle_moment_plan(elements, energy, vec)
+
+    n_cells = bin(ft._fold_layout(run)[1]).count("1")
+    # No bound: B threads each walk the tape's dependent chain, so neither
+    # HBM's bytes (~60 kB) nor the card's FP32 rate limits the kernel.
+    timing = dict(ms=cuda_ms(kernel, iters=200), plain_ms=cuda_ms(plain, iters=20),
+                  bound=(None, "none: one thread a setting walks the tape serially"),
+                  library_ms=cuda_ms(table, iters=20))
+    device, own = device_ms(kernel, iters=5, kernel="map_fold_kernel")
+    plain_device = device_ms(plain, iters=2)
+    table_device = device_ms(table, iters=2)
+    print(f"B10 at ea_particles.fidelity_256's plan (B={B}, float, {len(run)} entries,"
+          f" {len(values)} parameters, {n_cells} cells): the plan through B10 {timing['ms']:.5f}"
+          f" ms, B10's plain version {timing['plain_ms']:.4f} ms, the table route"
+          f" {timing['library_ms']:.4f} ms per call (CUDA events, host launch cost included);"
+          f" device time per call: B10 {own:.5f} ms, all of the plan's GPU work {device:.5f} ms,"
+          f" plain {plain_device:.5f} ms, table route {table_device:.5f} ms (torch.profiler);"
+          f" card {card}")
+    return total, timing
+
+
+def path_env_kernel(torch, ft, hist, fused, env, ParticleBeam, card):
     """Path K: the env's particle-fidelity observation, method="kernel",
-    with one shared MOMENT_PARTICLES cloud, at B = 256 (B6) and 8 (B5);
+    with one shared MOMENT_PARTICLES cloud, at B = 256 (B6) and 8 (B5),
+    its plan folded by one B10 launch and no run on the table algebra;
     held against method="moments"; env-steps/s of the three methods at
-    B = 256."""
+    B = 256.  Returns the launches of B5 at B = 8, of B6 at 256 and of B10
+    at both."""
     beam = moment_cloud(torch, ParticleBeam, MOMENT_PARTICLES, seed=81)
     gen = torch.Generator(device="cuda").manual_seed(82)
     launched = {}
     for B in ENV_KERNEL_BATCHES:
         magnets = torch.rand((B, 5), generator=gen, device="cuda") - 0.5
         reset_counts(ft, hist)
+        table_runs = fused.particle_moment_plan.table_runs
         with plain_on_cuda_guard(torch, ft) as plain:
             kernel = env.batched_particle_beam_parameters(magnets, beam, method="kernel")
             torch.cuda.synchronize()
         launched[B] = counts(ft)
+        table_runs = fused.particle_moment_plan.table_runs - table_runs
         route = "B6" if B >= ft._PACK_SETTINGS else "B5"
         other = "B5" if route == "B6" else "B6"
         print(f"path K: method='kernel' at B={B}, N={MOMENT_PARTICLES}: launches {launched[B]},"
-              f" plain versions on CUDA tensors {plain['count']}")
+              f" plan runs on the table algebra {table_runs}, plain versions on CUDA tensors"
+              f" {plain['count']}")
         if launched[B][route] != 1 or launched[B][other] != 0 or plain["count"] or plain["backward"]:
             raise AssertionError(f"path K at B={B} did not go through kernel {route}")
+        if launched[B]["B10"] != 1 or table_runs:
+            raise AssertionError(f"path K at B={B}: the plan did not fold in one B10 launch")
         moments = env.batched_particle_beam_parameters(magnets, beam, method="moments")
         error = column_error(torch, kernel, moments)
         print(f"path K: B={B} kernel against method='moments', max error {error:.2e} of each"
@@ -1834,7 +2089,8 @@ def path_env_kernel(torch, ft, hist, env, ParticleBeam, card):
               f" {rates[method]:.1f} env-steps/s (CUDA events, {iters} calls after warm-up);"
               f" device time {device:.4f} ms/call, busy share {device / ms:.4f} (torch.profiler,"
               f" 3 calls; card {card})")
-    return launched[ENV_KERNEL_BATCHES[1]]["B5"], launched[ENV_KERNEL_BATCHES[0]]["B6"]
+    return (launched[ENV_KERNEL_BATCHES[1]]["B5"], launched[ENV_KERNEL_BATCHES[0]]["B6"],
+            sum(launched[B]["B10"] for B in ENV_KERNEL_BATCHES))
 
 
 def path_aperture_sweep(torch, ltt, ft, hist, fused, functional, ParticleBeam, card):
@@ -5364,7 +5620,8 @@ def main():
     for load in (hist.window_histogram_library, ft.particle_apply_library,
                  ft.moment_sweep_library, ft.moment_sweep_bwd_library,
                  ft.particle_moment_sweep_library, ft.packed_gram_library,
-                 hist_ab.hist_ab_library, ft.particle_push_library, kde.kde_library):
+                 hist_ab.hist_ab_library, ft.particle_push_library, kde.kde_library,
+                 ft.map_fold_library):
         load()
     print(f"build: {', '.join(KERNEL_LIBRARIES)} (one nvcc each, in parallel) in"
           f" {time.perf_counter() - start:.2f} s")
@@ -5474,7 +5731,9 @@ def main():
     timing = time_kernels(torch, ft, fused, tbl, env, card)
 
     # -- 7. the particle moment sweep ------------------------------------------
-    walk_launches, env_gram_launches = path_env_kernel(torch, ft, hist, env, ParticleBeam, card)
+    fold_launches, timing["B10"] = path_map_fold(torch, ltt, ft, fused, envs, graphs, card)
+    walk_launches, env_gram_launches, env_fold_launches = path_env_kernel(
+        torch, ft, hist, fused, env, ParticleBeam, card)
     aperture_gram_launches = path_aperture_sweep(torch, ltt, ft, hist, fused, functional,
                                                  ParticleBeam, card)
     crossover(torch, ltt, ft, fused, ParticleBeam, card)
@@ -5612,6 +5871,8 @@ def main():
          hist_launches["twolevel"], hist_abs_err),
         ("particle_push", "B8", "particle_push.cu", "none: the dense route's PyTorch maps",
          random_launches["B8"], None),
+        ("map_fold", "B10", "map_fold.cu", "none: the particle moment plan's table algebra",
+         env_fold_launches + fold_launches, None),
     ):
         t = timing[label]
         kernels.append({

@@ -14,7 +14,8 @@ and the identity of Marker, BPM, Screen and Aperture (only an inactive
 cavity, BPM, screen or aperture is skippable).
 
 :func:`particle_moment_plan` builds the plan of the particle moment sweep
-(kernels B5 and B6, ``ops/fused_track.fused_particle_moment_sweep``).
+(kernels B5 and B6, ``ops/fused_track.fused_particle_moment_sweep``); on the
+card kernel B10 (``ops/fused_track.map_fold``) folds each run's maps.
 """
 
 from __future__ import annotations
@@ -47,7 +48,10 @@ from lynx_tpu_torch.ops.fused_track import (
     TAPE_SOLENOID,
     TAPE_UNDULATOR,
     TAPE_VCOR,
+    _compose_entries,
+    _fold_layout,
     _split_table,
+    map_fold,
 )
 from lynx_tpu_torch.ops.rmatrix import (
     base_rmatrix_entries,
@@ -219,6 +223,21 @@ def _flat_size(value) -> int:
 _IDENTITY_LAYOUT = [[1.0 if i == j else 0.0 for j in range(7)] for i in range(7)]
 
 
+def _fold_batch(values: List[Tensor], energy: Tensor) -> Optional[int]:
+    """The settings B where a run of ``(B,)`` values at the ``(B,)`` energy
+    takes kernel B10 (``ops/fused_track.map_fold``): the values and the
+    energy are CUDA tensors and none needs a gradient; else ``None``, the
+    table algebra."""
+    if not (energy.is_cuda and all(v.is_cuda for v in values)):
+        return None
+    if energy.dtype not in (torch.float32, torch.float64):
+        return None
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (energy, *values)):
+        return None
+    shape = torch.broadcast_shapes(energy.shape, *(v.shape for v in values))
+    return shape[0] if len(shape) == 1 else None
+
+
 def particle_moment_plan(elements: list, energy: Tensor, vec: Callable[[Tensor], Tensor]):
     """Build the plan of the particle moment sweep
     (``ops/fused_track.fused_particle_moment_sweep``): maximal runs of affine
@@ -227,6 +246,13 @@ def particle_moment_plan(elements: list, energy: Tensor, vec: Callable[[Tensor],
     per-particle, per-setting operation no moment algebra can absorb,
     becomes an ``("aperture", x_idx, y_idx, shape)`` entry.  An active BPM
     leaves the beam untouched and is passed over.
+
+    A run composes in one launch of kernel B10 (``ops/fused_track.map_fold``:
+    its scalars are rows of the kernel's output) where :func:`_fold_batch`
+    says so, else in the sparse table algebra (``ops/table.py``), an operation a
+    cell; both give the same layout.  ``particle_moment_plan.folded_runs``
+    and ``.table_runs`` count the runs composed each way (a run that
+    composes to the identity is dropped and counted in neither).
 
     Returns ``(entries, scalars)``, or ``None`` when an element needs
     anything else per particle (an active screen): such lattices take the
@@ -242,14 +268,25 @@ def particle_moment_plan(elements: list, energy: Tensor, vec: Callable[[Tensor],
     def flush_group() -> None:
         if not group:
             return
-        total = None
-        for params, fn in group:
-            T = fn([vec(p).to(dtype) for p in params], vec_energy)
-            total = T if total is None else tbl.compose(T, total)
+        run = tuple(("dyn", fn, len(params)) for params, fn in group)
+        values = [vec(p) for params, _ in group for p in params]
         group.clear()
-        layout, cells = _split_table(total)
+        B = _fold_batch(values, vec_energy)
+        if B is not None:
+            layout, mask = _fold_layout(run)
+            cells = ()
+            if mask:
+                run_energy = torch.broadcast_to(vec_energy, (B,)).contiguous()
+                cells = map_fold(run, values, run_energy).unbind(0)
+        else:
+            total = _compose_entries(run, [v.to(dtype) for v in values], vec_energy)
+            layout, cells = _split_table(total)
         if not cells and layout == _IDENTITY_LAYOUT:
             return
+        if B is not None:
+            particle_moment_plan.folded_runs += 1
+        else:
+            particle_moment_plan.table_runs += 1
         offset = len(scalars)
         scalars.extend(cells)
         entries.append((
@@ -279,6 +316,10 @@ def particle_moment_plan(elements: list, energy: Tensor, vec: Callable[[Tensor],
             return None
     flush_group()
     return tuple(entries), tuple(scalars)
+
+
+particle_moment_plan.folded_runs = 0
+particle_moment_plan.table_runs = 0
 
 
 def plan_run(

@@ -33,9 +33,15 @@ is autograd of the plain walk, as in the JAX package.
   parameters, and ``(B, N, 7)`` particles pushed through it, in one launch.
   It has no TPU counterpart: it replaces the dense route's per-element maps
   in PyTorch.  Plain version: :func:`particle_push_reference`.
+* **B10** (``csrc/map_fold.cu``, wrapper :func:`map_fold`): a run's 7x7
+  map built per setting on the card from B3's op tape, as B8 builds it,
+  written out as the composed layout's per-setting cells.  It has no TPU
+  counterpart: it replaces the particle moment plan's table algebra
+  (``accelerator/fused.particle_moment_plan``) on the card.  Plain
+  version: :func:`map_fold_reference`.
 
-A plan (``accelerator/fused.plan_run``) reaches B3, B4 and B8 as a small op
-tape: one entry per plan entry, ``(kind, offset, cell_start, cell_count)``
+A plan (``accelerator/fused.plan_run``) reaches B3, B4, B8 and B10 as a
+small op tape: one entry per plan entry, ``(kind, offset, cell_start, cell_count)``
 (:func:`_tape`).  A wrapper takes the plain version for CPU tensors and
 launches its kernel (or raises) for CUDA tensors; it never synchronises the
 host, and ``<wrapper>.launches`` counts its kernel launches.
@@ -860,6 +866,103 @@ def particle_push(entries, flat_values, energy: Tensor, particles: Tensor) -> Te
 
 
 particle_push.launches = 0
+
+
+# -- Kernel B10: a run's maps folded per setting on the card -------------------
+
+#: B10's composed layouts by plan structure (see :func:`_fold_layout`).
+_FOLD_LAYOUTS: dict = {}
+
+
+def _fold_layout(entries) -> Tuple[list, int]:
+    """``(layout, cells)``: the ``_split_table`` layout of an all-dynamic
+    plan's composed table and the mask of its non-literal cells (bit ``7 i +
+    j``), found once per structure by composing the builders' tables on
+    stand-in values on the CPU, as :func:`_push_masks` does: which cells are
+    literals depends on the structure alone."""
+    key = _tape_key(entries, "cpu")[0]
+    if key not in _FOLD_LAYOUTS:
+        stand_in = [torch.full((1,), 0.5, dtype=torch.float64)] * sum(c for _, _, c in entries)
+        total = _compose_entries(entries, stand_in, torch.full((1,), 1e8, dtype=torch.float64))
+        layout, _ = _split_table(total)
+        cells = sum(1 << (7 * i + j) for i in range(7) for j in range(7)
+                    if not isinstance(layout[i][j], float))
+        _FOLD_LAYOUTS[key] = layout, cells
+    return _FOLD_LAYOUTS[key]
+
+
+def map_fold_reference(entries, flat_values, energy: Tensor) -> Tensor:
+    """Plain PyTorch version of kernel B10: the plan's tables composed as
+    B3's plain version composes them (:func:`_compose_entries`), and the
+    composed table's non-literal cells, in ``_split_table``'s order, stacked
+    as ``(n_cells, B)`` for the ``(B,)`` energy's settings."""
+    total = _compose_entries(entries, flat_values, energy)
+    B, dtype, device = energy.shape[0], energy.dtype, energy.device
+    cells = [tbl.broadcast_cell(c, (B,), dtype, device)
+             for row in total for c in row if not tbl._is_literal(c)]
+    return torch.stack(cells) if cells else torch.empty((0, B), dtype=dtype, device=device)
+
+
+#: C signature of B10's entry point: is_double, full, tape, n_entries, params,
+#: consts, energy, out, batch, cell mask (64-bit), rest energy, electron mass,
+#: stream.
+_B10_SIGNATURE = {
+    "lynx_map_fold": (
+        ctypes.c_int,
+        [ctypes.c_int, ctypes.c_int, _P, ctypes.c_int] + [_P] * 4
+        + [ctypes.c_longlong, ctypes.c_ulonglong, ctypes.c_double, ctypes.c_double, _P],
+    )
+}
+
+
+def map_fold_library() -> ctypes.CDLL:
+    """Kernel B10's library, built with nvcc at first use."""
+    return load_library("map_fold", _B10_SIGNATURE)
+
+
+def _map_fold_cuda(entries, flat_values, energy: Tensor) -> Tensor:
+    """Launch kernel B10 on the current stream (no synchronisation)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (energy, *flat_values)):
+        raise ValueError("map_fold: the kernel has no backward; an input requires grad")
+    if energy.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"map_fold: the energy must be float32 or float64, got {energy.dtype}")
+    if not energy.is_cuda or energy.ndim != 1 or not energy.is_contiguous():
+        raise ValueError(f"map_fold: the energy must be a contiguous (B,) CUDA tensor, got"
+                         f" {tuple(energy.shape)} on {energy.device}")
+    B, dtype, device = energy.shape[0], energy.dtype, energy.device
+    tape = _tape(entries, device)
+    params, consts = _tape_operands(entries, flat_values, tape, dtype, B)
+    _, cells = _fold_layout(entries)
+    out = torch.empty((bin(cells).count("1"), B), dtype=dtype, device=device)
+    library = map_fold_library()
+    with torch.cuda.device(device):
+        code = library.lynx_map_fold(
+            int(dtype == torch.float64), int(tape.full), tape.rows.data_ptr(), tape.rows.shape[0],
+            params.data_ptr(), consts.data_ptr(), energy.data_ptr(), out.data_ptr(), B, cells,
+            REST_ENERGY_EV, ELECTRON_MASS_EV, torch.cuda.current_stream(device).cuda_stream,
+        )
+    check(library, code, "map_fold")
+    map_fold.launches += 1
+    return out
+
+
+def map_fold(entries, flat_values, energy: Tensor) -> Tensor:
+    """Kernel B10: a plan's composed map built per setting from the ``(B,)``
+    flat values (``entries`` and ``flat_values`` as :func:`moment_sweep`
+    takes them, every entry dynamic) at the ``(B,)`` energy, returned as the
+    composed layout's non-literal cells (:func:`_fold_layout`), ``(n_cells,
+    B)`` in ``_split_table``'s order.  Not differentiable: a plan that needs
+    a gradient takes the table algebra.
+
+    The kernel computes in the energy's dtype (float32 or float64); the flat
+    values are cast to it.  A CUDA energy launches the kernel (or raises); a
+    CPU energy takes the plain version, :func:`map_fold_reference`."""
+    if energy.device.type == "cpu":
+        return map_fold_reference(entries, [v.to(energy.dtype) for v in flat_values], energy)
+    return _map_fold_cuda(entries, flat_values, energy)
+
+
+map_fold.launches = 0
 
 
 # -- The particle moment sweep: kernels B5 and B6 ------------------------------

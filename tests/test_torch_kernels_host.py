@@ -1,4 +1,4 @@
-"""The CUDA sources of kernels B1-B8, run on the CPU.
+"""The CUDA sources of kernels B1-B8 and B10, run on the CPU.
 
 There is no nvcc here, so each ``csrc/*.cu`` is compiled as host C++ by gcc
 against a stand-in ``cuda_runtime.h``: ``__device__`` and friends are
@@ -28,9 +28,9 @@ itself (FMA contraction, memory, occupancy, registers): ``chip_smoke.py``
 does that on the card.
 
 Bounds, float64: B3, B2 and B8 within 1e-12 of their plain versions relative
-to each setting's largest entry (B8 in float within 1e-5: the builders'
-transcendentals come from the host's libm there and from PyTorch's in the
-plain version); B5 and B6 within 1e-12, second moments
+to each setting's largest entry, B10 to each row's of a setting's map (B8
+and B10 in float within 1e-5: the builders' transcendentals come from the
+host's libm there and from PyTorch's in the plain version); B5 and B6 within 1e-12, second moments
 relative to each setting's largest, first moments to ``sqrt(W max s2[r,
 r])``, weight sums exactly equal (``tests/test_torch_particle_moments.py``); B4 within 1e-12 relative to each cotangent's
 largest entry, except d/dk1 at settings where k1 is exactly 0.  There the
@@ -394,6 +394,7 @@ SIGNATURES = {
     "moment_sweep_bwd": fused_track._B4_SIGNATURE,
     "particle_apply": fused_track._B2_SIGNATURE,
     "particle_push": fused_track._B8_SIGNATURE,
+    "map_fold": fused_track._B10_SIGNATURE,
     "particle_moment_sweep": fused_track._B5_SIGNATURE,
     "packed_gram": fused_track._B6_SIGNATURE,
     "hist_ab": hist_ab._B7_SIGNATURE,
@@ -1255,6 +1256,79 @@ def test_particle_push_skips_structural_zeros(host_kernels):
     zero = torch.zeros_like(out)
     kept = (torch.where(finite, out, zero), torch.where(finite, expected, zero))
     assert per_setting_error(*kept) <= RTOL
+
+
+# -- B10: a run's maps folded per setting -------------------------------------------
+
+
+def run_fold(host_kernels, entries, values, energy):
+    """B10 on the host: the plan's composed non-literal cells, ``(n_cells,
+    B)``, every setting at the ``(B,)`` energy."""
+    B, dtype = energy.shape[0], energy.dtype
+    tape = fused_track._tape(entries, torch.device("cpu"))
+    params, consts = fused_track._tape_operands(entries, values, tape, dtype, B)
+    _, cells = fused_track._fold_layout(entries)
+    out = torch.full((bin(cells).count("1"), B), float("nan"), dtype=dtype)
+    code = host_kernels["map_fold"].lynx_map_fold(
+        int(dtype == torch.float64), int(tape.full), tape.rows.data_ptr(), tape.rows.shape[0],
+        params.data_ptr(), consts.data_ptr(), energy.data_ptr(), out.data_ptr(), B, cells,
+        REST_ENERGY_EV, ELECTRON_MASS_EV, None,
+    )
+    assert code == 0
+    return out
+
+
+def fold_error(entries, out, expected):
+    """``chip_smoke.fold_error`` of B10's cells on the plan's composed layout:
+    per setting and row, relative to the row's largest cell."""
+    import chip_smoke
+
+    return chip_smoke.fold_error(torch, fused_track._fold_layout(entries)[0], out, expected)
+
+
+@pytest.mark.parametrize(
+    "kind, B, dtype",
+    [
+        ("narrow", 3, torch.float64),
+        ("narrow", 130, torch.float64),  # three blocks of 64 settings, the last ragged
+        ("narrow", 5, torch.float32),
+        ("full", 4, torch.float64),  # the full instantiation's builders
+        ("full", 70, torch.float32),
+    ],
+)
+def test_map_fold_matches_plain(host_kernels, kind, B, dtype):
+    """B10 walks the tape for each setting in its own thread and writes the
+    composed layout's non-literal cells, one row a cell: against its plain
+    version (the tables composed, their cells stacked) over settings with
+    their own fields and energies, blocks that end past the batch and both
+    instantiations."""
+    elements = narrow_elements(B) if kind == "narrow" else new_kind_elements(B)
+    entries, values, energy = push_plan(elements, B, dtype)
+    assert fused_track._tape(entries, torch.device("cpu")).full == (kind == "full")
+    out = run_fold(host_kernels, entries, values, energy)
+    expected = fused_track.map_fold_reference(entries, values, energy)
+    assert out.shape == expected.shape
+    assert fold_error(entries, out, expected) <= (RTOL if dtype == torch.float64 else 1e-5)
+
+
+@pytest.mark.parametrize("seed", range(16))
+def test_map_fold_on_path_v_random_lattices(host_kernels, seed):
+    """B10 on path V's random element mixes (``chip_smoke.random_lattice``,
+    every field per setting, the cavities inactive), float64, against its
+    plain version, and its cells at the layout the table route gives."""
+    import chip_smoke
+
+    B = 9
+    lattice = chip_smoke.random_lattice(torch, ltt, seed, chip_smoke.random_length(seed),
+                                        device="cpu")
+    chip_smoke.apply_settings(lattice, chip_smoke.random_settings(torch, lattice, B, seed,
+                                                                  cavities=False))
+    entries, values, energy = push_plan(lattice.elements, B, torch.float64)
+    out = run_fold(host_kernels, entries, values, energy)
+    expected = fused_track.map_fold_reference(entries, values, energy)
+    assert fold_error(entries, out, expected) <= RTOL
+    total = fused_track._compose_entries(entries, values, energy)
+    assert fused_track._split_table(total)[0] == fused_track._fold_layout(entries)[0]
 
 
 def moment_inputs(B, n):
