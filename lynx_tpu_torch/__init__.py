@@ -1,6 +1,7 @@
 """lynx-tpu's PyTorch port, for NVIDIA Hopper GPUs.
 
-Ported so far: every element type of the full ARES lattice; the beams'
+Ported so far: every element type of the full ARES lattice, and a
+transverse deflecting cavity that the JAX package lacks; the beams'
 constructors (parameters, Twiss, ASTRA, Ocelot) and their Twiss and
 emittance diagnostics; the converters (LatticeJSON load and save, Bmad,
 Ocelot, NX Tables, ASTRA) and checkpoints (``checkpoint``); the ARES
@@ -34,6 +35,7 @@ from lynx_tpu_torch.accelerator import (  # noqa: F401
     Screen,
     Segment,
     Solenoid,
+    TransverseDeflectingCavity,
     Undulator,
     VerticalCorrector,
 )

@@ -14,6 +14,9 @@ from lynx_tpu_torch.accelerator.quadrupole import Quadrupole  # noqa: F401
 from lynx_tpu_torch.accelerator.screen import Screen  # noqa: F401
 from lynx_tpu_torch.accelerator.segment import Segment  # noqa: F401
 from lynx_tpu_torch.accelerator.solenoid import Solenoid  # noqa: F401
+from lynx_tpu_torch.accelerator.transverse_deflecting_cavity import (  # noqa: F401
+    TransverseDeflectingCavity,
+)
 from lynx_tpu_torch.accelerator.undulator import Undulator  # noqa: F401
 
 #: Element classes by name, for the converters.
@@ -21,6 +24,7 @@ ELEMENT_CLASSES = {
     cls.__name__: cls
     for cls in (
         Aperture, BPM, Cavity, CustomTransferMap, Dipole, Drift, HorizontalCorrector, Marker,
-        Quadrupole, RBend, Screen, Solenoid, Undulator, VerticalCorrector,
+        Quadrupole, RBend, Screen, Solenoid, TransverseDeflectingCavity, Undulator,
+        VerticalCorrector,
     )
 }

@@ -89,7 +89,9 @@ def _choose_route(run: List[Element], beam: Beam, builders: Optional[list],
     """The route of a run of skippable elements and the batch shape it runs
     at, ``(route, batch_shape)``; ``route`` is ``None`` for the dense fold.
     ``builders`` is the run's ``element_map_builder`` list, ``None`` where an
-    element has no builder (then only the dense fold applies).  The first
+    element has no builder (then only the dense fold applies: a run that
+    holds a ``TransverseDeflectingCavity``, which no kernel's tape builds,
+    folds densely, with or without a gradient).  The first
     route whose every condition holds is taken:
 
     1. the fused moment sweep, kernels B3/B4 (:func:`_sweep`): a

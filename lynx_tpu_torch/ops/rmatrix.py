@@ -387,3 +387,92 @@ def cavity_rmatrix_entries(length, voltage, phase, frequency, energy):
         (5, 5): r66,
     }
     return entries, batch_shape, dtype
+
+
+#: Terms of the series in :func:`tds_rmatrix_entries`: the first term left
+#: out is below float64's rounding while ``u = kappa^2 eta L^2`` stays
+#: under 1 (a PolariX streak at ARES's energy: u ~ 1e-3).
+_TDS_SERIES_TERMS = 5
+
+
+def tds_rmatrix(length, voltage, phase, frequency, tilt, energy) -> Tensor:
+    """Linear map of a transverse deflecting cavity (see
+    :func:`tds_rmatrix_entries`), rotated by ``tilt``."""
+    entries, batch_shape, dtype, tilt = tds_rmatrix_entries(
+        length, voltage, phase, frequency, tilt, energy)
+    R = build_rmatrix(entries, batch_shape, dtype, torch.as_tensor(length).device)
+    return sandwich(rotation_matrix(-tilt), R, rotation_matrix(tilt))
+
+
+def tds_rmatrix_entries(length, voltage, phase, frequency, tilt, energy):
+    r"""Entry dict of a vertically streaking transverse deflecting cavity
+    before its tilt: ``(entries, batch_shape, dtype, tilt)``.
+
+    A particle at ``s`` sees the phase ``phi - k s`` (the accelerating
+    cavity's convention), ``k = 2 pi f / c``, so the kick law per unit
+    length is ``y' += (V / (p0 c)) sin(phi - k s) / L`` and, by
+    Panofsky-Wenzel, ``p += kappa y / L`` with
+    ``kappa = k V cos(phi) / (p0 c)``.  With the drift's ``r56 = -eta L``
+    the generator ``G`` of ``(y, y', s, p)`` closes a cycle, ``G^4 =
+    (kappa / L)^2 eta``, so the thick map ``exp(G L)`` is the series
+    ``g_j(u) = sum_m u^m / (4m + j)!`` in ``u = kappa^2 eta L^2``:
+
+    * ``y  += L g1 y' - kappa L g2 s + kappa eta L^2 g3 p``
+    * ``y' += kappa^2 eta L g3 y - kappa g1 s + kappa eta L g2 p``
+    * ``s  += -eta kappa L g2 y - eta kappa L^2 g3 y' - eta L g1 p``
+    * ``p  += kappa g1 y + kappa L g2 y' - kappa^2 L g3 s``
+
+    and ``g0`` on the diagonal.  At ``eta = 0`` it is Emma, Frisch and
+    Krejcik's thick deflector (LCLS-TN-00-12), ``y += L y' - (kappa L / 2)
+    s``, ``y' -= kappa s``, ``p += kappa y + (kappa L / 2) y' - (kappa^2 L
+    / 6) s`` (``s`` counted as this package counts it: the accelerating
+    cavity's sign); the ``eta`` terms keep the map exactly symplectic.  The
+    constant kick ``A = V sin(phi) / (p0 c)`` fills the affine column
+    (``y' += A g1``, ``y += A L g2``, ``p += kappa A L g3``, ``s -= eta kappa
+    A L^2 g4``).  Phase in degrees, voltage in volts, ``p0 c`` from
+    ``energy`` (eV); no beam (``energy == 0``) gives the drift."""
+    length = torch.as_tensor(length)
+    dtype, device = length.dtype, length.device
+
+    def cast(value):
+        return torch.as_tensor(value, dtype=dtype, device=device)
+
+    voltage, phase, frequency, tilt, energy = (
+        cast(v) for v in (voltage, phase, frequency, tilt, energy))
+    batch_shape = torch.broadcast_shapes(length.shape, voltage.shape, phase.shape,
+                                         frequency.shape, tilt.shape, energy.shape)
+    length, voltage, phase, frequency, tilt, energy = (
+        torch.broadcast_to(a, batch_shape)
+        for a in (length, voltage, phase, frequency, tilt, energy))
+
+    igamma2 = igamma2_from_energy(energy, zero_value=0.0)
+    beta2 = 1.0 - igamma2
+    eta = _safe_div(igamma2, beta2, fallback=0.0)
+    p0c = energy * torch.sqrt(beta2)
+    phi = torch.deg2rad(phase)
+    kick = _safe_div(voltage, p0c, fallback=0.0)
+    kappa = 2.0 * math.pi * frequency / SPEED_OF_LIGHT * kick * torch.cos(phi)
+    A = kick * torch.sin(phi)
+
+    u = kappa**2 * eta * length**2
+    g = []
+    for j in range(5):
+        total = 0.0
+        for m in reversed(range(_TDS_SERIES_TERMS)):
+            total = total * u + 1.0 / math.factorial(4 * m + j)
+        g.append(total)
+    g0, g1, g2, g3, g4 = g
+    L = length
+    Y, YP, S, P = 2, 3, 4, 5
+    entries = {
+        (0, 1): L,
+        (Y, Y): g0, (Y, YP): L * g1, (Y, S): -kappa * L * g2, (Y, P): kappa * eta * L**2 * g3,
+        (YP, Y): kappa**2 * eta * L * g3, (YP, YP): g0, (YP, S): -kappa * g1,
+        (YP, P): kappa * eta * L * g2,
+        (S, Y): -eta * kappa * L * g2, (S, YP): -eta * kappa * L**2 * g3, (S, S): g0,
+        (S, P): -eta * L * g1,
+        (P, Y): kappa * g1, (P, YP): kappa * L * g2, (P, S): -kappa**2 * L * g3, (P, P): g0,
+        (YP, 6): A * g1, (Y, 6): A * L * g2, (P, 6): kappa * A * L * g3,
+        (S, 6): -eta * kappa * A * L**2 * g4,
+    }
+    return entries, batch_shape, dtype, tilt
